@@ -1,0 +1,19 @@
+"""pta_replicator_tpu_torch: the PyTorch/CUDA port of pta_replicator_tpu.
+
+Simulated pulsar-timing-array datasets on an NVIDIA GPU: the flagship
+realization path (white, ECORR, red and chromatic noise, a
+Hellings-Downs-correlated GW background, a CW catalog through a
+hand-written CUDA kernel, and the quadratic refit), batched over pulsars
+and realizations. The JAX package stays the reference; this package
+imports nothing of it, and nothing of JAX.
+
+Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
+"""
+from .batch import PulsarBatch, synthetic_batch
+from .models.batched import Recipe, deterministic_delays, realize
+from .scenarios.compile import flagship_workload
+
+__all__ = [
+    "PulsarBatch", "Recipe", "deterministic_delays", "flagship_workload",
+    "realize", "synthetic_batch",
+]

@@ -1,0 +1,153 @@
+"""PulsarBatch: the frozen, padded tensor form of a pulsar array.
+
+Counterpart of ``pta_replicator_tpu/batch.py``: the same fields and static
+metadata. Times are seconds relative to ``tref_mjd`` so that float32
+keeps sub-millisecond resolution; data-dependent structure (ECORR epochs,
+backend flags, ragged TOA counts) is resolved into int64 index tensors,
+the index type ``torch.gather`` takes.
+"""
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+from typing import Optional
+
+import numpy as np
+import torch
+
+from .constants import DAY_IN_SEC
+from .device import resolve_device
+
+
+def _map_tensors(obj, fn):
+    """Copy of a frozen dataclass with ``fn`` applied to every tensor field."""
+    changes = {
+        f.name: fn(getattr(obj, f.name))
+        for f in dataclasses.fields(obj)
+        if isinstance(getattr(obj, f.name), torch.Tensor)
+    }
+    return dataclasses.replace(obj, **changes)
+
+
+@dataclass(frozen=True)
+class PulsarBatch:
+    """Padded/masked tensors describing Np pulsars with up to Nt TOAs."""
+
+    #: (Np, Nt) TOA epochs [s relative to tref_mjd]
+    toas_s: torch.Tensor
+    #: (Np, Nt) TOA uncertainties [s] (1.0 in padding)
+    errors_s: torch.Tensor
+    #: (Np, Nt) 1.0 for real TOAs, 0.0 for padding
+    mask: torch.Tensor
+    #: (Np, 3) pulsar direction unit vectors
+    phat: torch.Tensor
+    #: (Np, Nt) int64 ECORR epoch index (local per pulsar)
+    epoch_index: torch.Tensor
+    #: (Np, max_epochs) 1.0 for real epochs
+    epoch_mask: torch.Tensor
+    #: (Np, max_epochs) int64 backend index of each epoch
+    epoch_backend_index: torch.Tensor
+    #: (Np, Nt) int64 backend/flag-group index
+    backend_index: torch.Tensor
+    #: (Np,) observation span [s] of each pulsar
+    tspan_s: torch.Tensor
+    #: (Np,) int64 number of valid TOAs
+    ntoas: torch.Tensor
+    #: (Np, Nt) observing radio frequency [MHz]; None when unknown
+    freqs_mhz: Optional[torch.Tensor] = None
+
+    # static metadata
+    tref_mjd: float = 0.0
+    names: tuple = ()
+    backend_names: tuple = ()
+    start_s: float = 0.0
+    stop_s: float = 0.0
+
+    @property
+    def npsr(self) -> int:
+        return self.toas_s.shape[0]
+
+    @property
+    def ntoa_max(self) -> int:
+        return self.toas_s.shape[1]
+
+    @property
+    def max_epochs(self) -> int:
+        return self.epoch_mask.shape[1]
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.toas_s.dtype
+
+    @property
+    def device(self) -> torch.device:
+        return self.toas_s.device
+
+    def astype(self, dtype) -> "PulsarBatch":
+        """Cast the floating tensors (times stay in their relative frame)."""
+        return _map_tensors(
+            self, lambda x: x.to(dtype) if x.is_floating_point() else x
+        )
+
+    def to(self, device) -> "PulsarBatch":
+        """Move every tensor to ``device``."""
+        return _map_tensors(self, lambda x: x.to(device))
+
+
+def synthetic_batch(npsr: int = 68, ntoa: int = 7758, nbackend: int = 4,
+                    span_days: float = 365.25 * 16, toaerr_s: float = 0.5e-6,
+                    epoch_days: float = 14.0, seed: int = 0,
+                    dtype=torch.float32, device="cuda") -> PulsarBatch:
+    """NG15-scale synthetic PulsarBatch (random sky positions, ~epoch_days
+    cadence with several TOAs per epoch across nbackend backends). The
+    numpy RNG call order is the JAX package's, so the arrays are bitwise
+    equal to its ``synthetic_batch`` at the same dtype."""
+    device = resolve_device(device)
+    rng = np.random.default_rng(seed)
+    nepoch = max(1, int(span_days / epoch_days))
+    per_epoch = max(1, ntoa // nepoch)
+    nepoch = (ntoa + per_epoch - 1) // per_epoch
+
+    epoch_times = np.sort(rng.uniform(0.0, span_days, size=(npsr, nepoch)), axis=1)
+    offsets = rng.uniform(0.0, 0.2, size=(npsr, nepoch, per_epoch))
+    toas_d = (epoch_times[:, :, None] + offsets).reshape(npsr, -1)[:, :ntoa]
+    toas_d = np.sort(toas_d, axis=1)
+    toas_s = (toas_d - span_days / 2.0) * DAY_IN_SEC
+
+    epoch_idx = (np.arange(ntoa) // per_epoch)[None, :].repeat(npsr, axis=0)
+    nep = int(epoch_idx.max()) + 1
+    epoch_mask = np.ones((npsr, nep))
+    epoch_backend = rng.integers(0, nbackend, size=(npsr, nep))
+    backend_idx = np.take_along_axis(epoch_backend, epoch_idx, axis=1)
+
+    costheta = rng.uniform(-1, 1, npsr)
+    phi = rng.uniform(0, 2 * np.pi, npsr)
+    sintheta = np.sqrt(1 - costheta**2)
+    phat = np.stack(
+        [sintheta * np.cos(phi), sintheta * np.sin(phi), costheta], axis=1
+    )
+
+    # per-backend observing bands with a little per-TOA bandwidth scatter
+    band_centers = np.linspace(430.0, 2300.0, nbackend)
+    freqs = band_centers[backend_idx] * rng.uniform(0.9, 1.1, size=backend_idx.shape)
+
+    real = lambda a: torch.as_tensor(a).to(device=device, dtype=dtype)
+    index = lambda a: torch.as_tensor(a, dtype=torch.int64).to(device)
+    return PulsarBatch(
+        toas_s=real(toas_s),
+        errors_s=torch.full((npsr, ntoa), toaerr_s, dtype=dtype, device=device),
+        mask=torch.ones((npsr, ntoa), dtype=dtype, device=device),
+        phat=real(phat),
+        epoch_index=index(epoch_idx),
+        epoch_mask=real(epoch_mask),
+        epoch_backend_index=index(epoch_backend),
+        backend_index=index(backend_idx),
+        tspan_s=real(toas_s.max(axis=1) - toas_s.min(axis=1)),
+        ntoas=torch.full((npsr,), ntoa, dtype=torch.int64, device=device),
+        freqs_mhz=real(freqs),
+        tref_mjd=55000.0,
+        names=tuple(f"SYN{i:04d}" for i in range(npsr)),
+        backend_names=tuple(f"backend{i}" for i in range(nbackend)),
+        start_s=float(toas_s.min() - DAY_IN_SEC),
+        stop_s=float(toas_s.max() + DAY_IN_SEC),
+    )

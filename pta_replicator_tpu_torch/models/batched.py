@@ -1,0 +1,718 @@
+"""Batched realization engine: every injection as a torch function.
+
+Counterpart of ``pta_replicator_tpu/models/batched.py`` for the flagship
+realization path. Each family maps ``(batch, params, draws) -> delays``
+of shape (..., Np, Nt); the leading axes of the draws are realization
+axes, written out in place of ``vmap``. A realization is the sum of the
+families a :class:`Recipe` enables plus the realization-independent
+:func:`deterministic_delays`, then a fit (:func:`finalize_residuals`).
+
+Random numbers come from an explicit ``torch.Generator``, or are handed
+in: every stochastic family takes its standard-normal tensor ``eps``, and
+:func:`realize` takes a dict of per-family draws, so tests can feed the
+port the JAX package's draws and compare element by element.
+
+Per-backend parameters are (Np, n_backends) tables gathered per TOA or
+epoch through the batch's int64 index tensors.
+"""
+from __future__ import annotations
+
+import functools
+import math
+from dataclasses import dataclass
+from typing import Optional
+
+import numpy as np
+import torch
+
+from ..batch import PulsarBatch, _map_tensors
+from ..device import resolve_device
+from ..ops.cw import cw_catalog_planes, cw_catalog_response
+from ..ops.fourier import fourier_basis, fourier_frequencies, powerlaw_prior
+from .gwb import (
+    characteristic_strain,
+    dft_synthesis_matrices,
+    gwb_grid,
+    residual_psd_coeff,
+)
+
+
+def _as(x, batch: PulsarBatch, dtype=None):
+    """``x`` (number, array or tensor) as a tensor on the batch's device,
+    in ``dtype`` (default: the batch's working dtype)."""
+    return torch.as_tensor(x, dtype=dtype or batch.dtype, device=batch.device)
+
+
+def _normal(generator, shape, batch: PulsarBatch):
+    if generator is None:
+        raise ValueError(
+            "no explicit draws were given and no torch.Generator to draw them"
+        )
+    return torch.randn(
+        shape, generator=generator, dtype=batch.dtype, device=batch.device
+    )
+
+
+def _check_backend_table(params, batch: PulsarBatch, name: str):
+    """Fail loudly when a per-backend table is narrower than the batch's
+    backend vocabulary (the gather would read past the table)."""
+    nb = len(batch.backend_names)
+    if params.ndim == 2 and nb and params.shape[1] < nb:
+        raise ValueError(
+            f"{name} table has {params.shape[1]} backend column(s) but "
+            f"the batch carries {nb} backends ({batch.backend_names}); "
+            "size per-backend tables to PulsarBatch.backend_names"
+        )
+    return params
+
+
+def _per_toa(params, index, mask):
+    """Gather per-backend parameters onto TOAs: (Np, NB) -> (Np, Nt)."""
+    if params.ndim == 1:
+        return params[:, None] * mask
+    return torch.gather(params, 1, index) * mask
+
+
+def _gather_last(values, index):
+    """``values[..., index]`` per row: (..., Np, M) gathered by the
+    (Np, N) ``index`` into (..., Np, N)."""
+    return torch.gather(
+        values, -1, index.expand(values.shape[:-1] + index.shape[-1:])
+    )
+
+
+# ------------------------------------------------------------- injection ops
+
+def white_noise_delays(generator, batch: PulsarBatch, efac=1.0,
+                       log10_equad=None, tnequad: bool = False, eps=None):
+    """EFAC/EQUAD white noise: one normal per TOA at the combined per-TOA
+    standard deviation. ``efac``/``log10_equad`` are scalars, (Np,)
+    vectors or (Np, n_backends) tables; ``eps`` (..., Np, Nt) defaults to
+    one draw from ``generator``."""
+    if eps is None:
+        eps = _normal(generator, batch.toas_s.shape, batch)
+    ef = _check_backend_table(_as(efac, batch), batch, "efac")
+    ef = ef.expand(batch.npsr) if ef.ndim == 0 else ef
+    efac_t = _per_toa(ef, batch.backend_index, batch.mask)
+    var = (efac_t * batch.errors_s) ** 2
+    if log10_equad is not None:
+        eq = 10.0 ** _check_backend_table(_as(log10_equad, batch), batch, "log10_equad")
+        eq = eq.expand(batch.npsr) if eq.ndim == 0 else eq
+        equad_t = _per_toa(eq, batch.backend_index, batch.mask)
+        if not tnequad:
+            equad_t = efac_t * equad_t
+        var = var + equad_t**2
+    return torch.sqrt(var) * eps * batch.mask
+
+
+def jitter_delays(generator, batch: PulsarBatch, log10_ecorr, eps=None):
+    """ECORR jitter: one draw per (pulsar, epoch), scaled per epoch and
+    gathered onto TOAs. ``log10_ecorr``: scalar, (Np,) or (Np, NB);
+    ``eps`` (..., Np, max_epochs)."""
+    if eps is None:
+        eps = _normal(generator, (batch.npsr, batch.max_epochs), batch)
+    ec = 10.0 ** _check_backend_table(_as(log10_ecorr, batch), batch, "log10_ecorr")
+    if ec.ndim == 0:
+        per_epoch = ec * batch.epoch_mask
+    elif ec.ndim == 1:
+        per_epoch = ec[:, None] * batch.epoch_mask
+    else:
+        per_epoch = torch.gather(ec, 1, batch.epoch_backend_index) * batch.epoch_mask
+    return _gather_last(per_epoch * eps, batch.epoch_index) * batch.mask
+
+
+def red_noise_basis_prior(batch: PulsarBatch, log10_amplitude, gamma,
+                          nmodes: int = 30, modes=None, logf: bool = False,
+                          fmin=None, fmax=None, phase_shift=None,
+                          libstempo_convention: bool = False, tspan_s=None):
+    """Per-pulsar Fourier basis and power-law prior: ``(F (..., Np, Nt, 2K),
+    prior (Np, 2K))`` with sin/cos columns interleaved per frequency. A
+    ``phase_shift`` with leading realization axes gives F those axes."""
+    npsr = batch.npsr
+    log10_amplitude = _as(log10_amplitude, batch).expand(npsr)
+    gamma = _as(gamma, batch).expand(npsr)
+    T = batch.tspan_s if tspan_s is None else _as(tspan_s, batch).expand(npsr)
+    freqs = fourier_frequencies(
+        T, nmodes=nmodes, logf=logf, fmin=fmin, fmax=fmax, modes=modes
+    )
+    freqs = freqs.expand(npsr, freqs.shape[-1])
+    shift = None
+    if phase_shift is not None:
+        shift = _as(phase_shift, batch)
+        shift = shift.expand(shift.shape[:-2] + freqs.shape)
+    F = fourier_basis(
+        batch.toas_s, freqs, phase_shift=shift,
+        libstempo_convention=libstempo_convention,
+    )
+    prior2 = powerlaw_prior(
+        torch.repeat_interleave(freqs, 2, dim=-1), log10_amplitude, gamma, T
+    )
+    return F, prior2
+
+
+def red_noise_delays(generator, batch: PulsarBatch, log10_amplitude, gamma,
+                     nmodes: int = 30, modes=None, logf: bool = False,
+                     fmin=None, fmax=None, pshift: bool = False,
+                     phase_shift=None, libstempo_convention: bool = False,
+                     tspan_s=None, eps=None):
+    """Per-pulsar power-law red noise on the rank-reduced Fourier basis.
+
+    ``eps`` (..., Np, 2K) is the coefficient draw; ``pshift`` draws random
+    per-mode phase shifts, uniform on [0, 2 pi), from ``generator`` before
+    the coefficients (or takes an explicit ``phase_shift`` (..., Np, K)).
+    Per-realization shifts give every realization its own (Np, Nt, 2K)
+    basis, so memory grows with the realization count in that mode."""
+    if pshift and phase_shift is None:
+        nm = nmodes if modes is None else len(modes)
+        if generator is None:
+            raise ValueError("pshift needs explicit phase_shift or a generator")
+        phase_shift = 2.0 * math.pi * torch.rand(
+            (batch.npsr, nm), generator=generator, dtype=batch.dtype,
+            device=batch.device,
+        )
+    F, prior2 = red_noise_basis_prior(
+        batch, log10_amplitude, gamma, nmodes=nmodes, modes=modes, logf=logf,
+        fmin=fmin, fmax=fmax, phase_shift=phase_shift,
+        libstempo_convention=libstempo_convention, tspan_s=tspan_s,
+    )
+    if eps is None:
+        eps = _normal(generator, prior2.shape, batch)
+    coeff = torch.sqrt(prior2) * eps
+    return torch.einsum("...pnk,...pk->...pn", F, coeff) * batch.mask
+
+
+def chromatic_noise_delays(generator, batch: PulsarBatch, log10_amplitude,
+                           gamma, chromatic_index=2.0, nmodes: int = 30,
+                           ref_freq_mhz: float = 1400.0, tspan_s=None,
+                           eps=None):
+    """Chromatic power-law red noise: the achromatic process scaled per
+    TOA by ``(ref_freq/freq)^chromatic_index`` (2: dispersion measure,
+    4: scattering). A frequency <= 0 marks an infinite-frequency TOA,
+    whose chromatic delay is exactly zero."""
+    if batch.freqs_mhz is None:
+        raise ValueError(
+            "chromatic noise needs batch.freqs_mhz (observing frequencies)"
+        )
+    idx = _as(chromatic_index, batch)
+    if idx.ndim >= 1:  # per-pulsar exponent broadcasts over the TOA axis
+        idx = idx[..., None]
+    positive = batch.freqs_mhz > 0.0
+    # 1.0 (not a tiny epsilon) in the untaken branch: ref/eps overflows f32
+    safe = torch.where(positive, batch.freqs_mhz, 1.0)
+    scale = torch.where(positive, (ref_freq_mhz / safe) ** idx, 0.0)
+    return scale * red_noise_delays(
+        generator, batch, log10_amplitude, gamma, nmodes=nmodes,
+        tspan_s=tspan_s, eps=eps,
+    )
+
+
+def uniform_grid_interp(t, start, stop, series):
+    """Linear interpolation of (..., Np, npts) series sampled on a uniform
+    grid [start, stop] onto (Np, Nt) query times, by direct index
+    arithmetic (the grid spacing is known)."""
+    npts = series.shape[-1]
+    pos = (t - start) / (stop - start) * (npts - 1)
+    idx = torch.clamp(torch.floor(pos).to(torch.int64), 0, npts - 2)
+    frac = torch.clamp(pos - idx, 0.0, 1.0)
+    lo = _gather_last(series, idx)
+    hi = _gather_last(series, idx + 1)
+    return lo + frac * (hi - lo)
+
+
+@functools.lru_cache(maxsize=8)
+def _device_grid(start_s: float, stop_s: float, npts: int, howml: float,
+                 dtype, device):
+    """The GWB time and frequency grids on the device, built once per span:
+    float64 on the host, cast last. Cached, so a chunked sweep copies
+    nothing to the card per chunk; callers must not write into them."""
+    ut, dt_grid, f = gwb_grid(start_s, stop_s, npts, howml)
+    return (torch.as_tensor(ut, dtype=dtype, device=device),
+            torch.as_tensor(f, dtype=dtype, device=device), dt_grid)
+
+
+@functools.lru_cache(maxsize=8)
+def _synthesis_tensors(nf: int, npts: int, dtype, device):
+    """The DFT synthesis matrices on the device, built once per shape:
+    float64 on the host, cast last."""
+    cos_m, sin_m = dft_synthesis_matrices(nf, npts)
+    return (torch.as_tensor(cos_m, dtype=dtype, device=device),
+            torch.as_tensor(sin_m, dtype=dtype, device=device))
+
+
+def gwb_delays(generator, batch: PulsarBatch, log10_amplitude, gamma,
+               orf_cholesky, npts: int = 600, howml: float = 10,
+               turnover: bool = False, f0: float = 1e-9, beta: float = 1.0,
+               power: float = 1.0, synthesis: str = "auto", eps=None):
+    """Correlated GWB across the array: the one cross-pulsar op.
+
+    ``eps`` (..., 2, Ncol, nf) holds the real and imaginary standard
+    normals of the per-pulsar spectra, Ncol the ORF factor's column count.
+    The complex mix with the real Cholesky factor is two real matmuls; the
+    hermitian synthesis is a dense (nf x npts) matmul evaluating only the
+    used samples (``"matmul"``, the default whenever it is smaller than the
+    full inverse FFT) or ``torch.fft.irfft`` (``"fft"``)."""
+    dtype = batch.dtype
+    ut, f, dt_grid = _device_grid(batch.start_s, batch.stop_s, npts, howml,
+                                  dtype, batch.device)
+    nf = f.shape[0]
+    dur = batch.stop_s - batch.start_s
+    M = _as(orf_cholesky, batch)
+    if eps is None:
+        eps = _normal(generator, (2, M.shape[1], nf), batch)
+
+    hcf = characteristic_strain(
+        f, _as(log10_amplitude, batch), _as(gamma, batch),
+        turnover=turnover, f0=f0, beta=beta, power=power,
+    )
+    # sqrt(C) with the DC and Nyquist bins zeroed (a 0/1 mask, so folding
+    # it into the scale changes no value)
+    weight = torch.sqrt(residual_psd_coeff(hcf, f, dur, howml))
+    weight[0] = 0.0
+    weight[-1] = 0.0
+    res_re = torch.matmul(M, eps[..., 0, :, :]) * weight
+    res_im = torch.matmul(M, eps[..., 1, :, :]) * weight
+    if synthesis == "auto":
+        synthesis = "matmul" if npts + 10 < 2 * nf - 2 else "fft"
+    if synthesis == "matmul":
+        cos_m, sin_m = _synthesis_tensors(nf, npts, dtype, batch.device)
+        grid_series = (res_re @ cos_m - res_im @ sin_m) * (2.0 / ((2 * nf - 2) * dt_grid))
+    elif synthesis == "fft":
+        res_t = torch.fft.irfft(
+            torch.complex(res_re, res_im), n=2 * nf - 2, dim=-1
+        ) / dt_grid
+        grid_series = res_t[..., 10:npts + 10]
+    else:
+        raise ValueError(f"unknown GWB synthesis {synthesis!r}")
+    return uniform_grid_interp(batch.toas_s, ut[0], ut[-1], grid_series) * batch.mask
+
+
+def cw_catalog_planes_for(batch: PulsarBatch, gwtheta, gwphi, mc, dist, fgw,
+                          phase0, psi, inc, pdist=1.0, pphase=None,
+                          evolve: bool = True, phase_approx: bool = False,
+                          tref_s: float = 0.0):
+    """Epoch-folded CW coefficient planes for this batch: ``(src (NC_SRC,
+    Ns), psr (NC_PSR, Np, Ns), evolve)`` on the batch's device in its
+    dtype, built in float64 on the host and cast last. The returned
+    ``evolve`` is the flag the response must branch on."""
+    host = lambda x: np.asarray(
+        x.detach().cpu() if isinstance(x, torch.Tensor) else x, np.float64
+    )
+    params = (gwtheta, gwphi, mc, dist, fgw, phase0, psi, inc)
+    t_fold = batch.tref_mjd * 86400.0 - tref_s + batch.start_s
+    src, psr = cw_catalog_planes(
+        host(batch.phat), *[np.atleast_1d(host(x)) for x in params],
+        pdist=host(pdist), pphase=None if pphase is None else host(pphase),
+        t_fold=t_fold, evolve=evolve, phase_approx=phase_approx,
+    )
+    return _as(src, batch), _as(psr, batch), evolve
+
+
+def cgw_catalog_delays_from_planes(batch: PulsarBatch, src, psr, evolve: bool,
+                                   psr_term: bool = True, chunk: int = 64):
+    """Summed CW-catalog response from precomputed planes: the kernel on
+    a CUDA batch, the plain version (``chunk`` sources per block) on a CPU
+    batch. ``evolve`` must be the flag the planes were built with."""
+    u = batch.toas_s - _as(batch.start_s, batch)
+    out = cw_catalog_response(u, src, psr, psr_term=psr_term, evolve=evolve,
+                              chunk=chunk)
+    return out * batch.mask
+
+
+def cgw_catalog_delays(batch: PulsarBatch, gwtheta, gwphi, mc, dist, fgw,
+                       phase0, psi, inc, pdist=1.0, pphase=None,
+                       psr_term: bool = True, evolve: bool = True,
+                       phase_approx: bool = False, tref_s: float = 0.0,
+                       chunk: int = 64):
+    """Summed response of a CW-source catalog: float64 host planes, then
+    :func:`cgw_catalog_delays_from_planes`. ``pdist`` (kpc) is a scalar,
+    (Ns,) or (Np, Ns); ``pphase`` ((Ns,) or (Np, Ns)) overrides it with
+    explicit pulsar-term phases. Deterministic: parameters are data."""
+    src, psr, evolve = cw_catalog_planes_for(
+        batch, gwtheta, gwphi, mc, dist, fgw, phase0, psi, inc, pdist=pdist,
+        pphase=pphase, evolve=evolve, phase_approx=phase_approx, tref_s=tref_s,
+    )
+    return cgw_catalog_delays_from_planes(
+        batch, src, psr, evolve=evolve, psr_term=psr_term, chunk=chunk
+    )
+
+
+# ------------------------------------------------------------------ recipes
+
+#: Recipe fields that hold arrays; they become tensors at construction
+ARRAY_FIELDS = (
+    "efac", "log10_equad", "log10_ecorr", "rn_log10_amplitude", "rn_gamma",
+    "rn_modes", "rn_fmin", "rn_fmax", "rn_tspan_s", "chrom_log10_amplitude",
+    "chrom_gamma", "chrom_index", "gwb_log10_amplitude", "gwb_gamma",
+    "orf_cholesky", "gwb_user_spectrum", "cgw_params", "cgw_pdist",
+    "cgw_pphase", "gwm_params", "burst_sky", "burst_hplus", "burst_hcross",
+    "burst_grid", "transient_waveform", "transient_grid", "cov_log10_sigma",
+    "fit_design",
+)
+
+#: fields of the JAX package's Recipe that this port does not run yet, and
+#: the ROADMAP.md item that brings each
+UNPORTED_FIELDS = {
+    "noise_cov": "A.10 (covariance)",
+    "cov_log10_sigma": "A.10 (covariance)",
+    "fit_design": "A.9 (design and GLS fits)",
+    "gwb_user_spectrum": "A.13 (user GWB spectra)",
+    "cgw_stream_chunk": "A.11 (streamed CW catalog)",
+    "gwm_params": "A.12 (bursts, memory, transients)",
+    "burst_sky": "A.12 (bursts, memory, transients)",
+    "burst_hplus": "A.12 (bursts, memory, transients)",
+    "burst_hcross": "A.12 (bursts, memory, transients)",
+    "burst_grid": "A.12 (bursts, memory, transients)",
+    "transient_waveform": "A.12 (bursts, memory, transients)",
+    "transient_grid": "A.12 (bursts, memory, transients)",
+}
+
+
+@dataclass(frozen=True)
+class Recipe:
+    """Which signals to inject, with their (possibly per-backend) params.
+
+    Array fields are tensors (array-likes are converted at construction)
+    and keep their own dtype: each op casts them to the batch's dtype at
+    use, and the CW parameters reach the host plane build in float64. The
+    fields in :data:`UNPORTED_FIELDS` exist so that a recipe carried over
+    from the JAX package keeps its meaning: setting one raises
+    ``NotImplementedError``.
+    """
+
+    efac: Optional[torch.Tensor] = None
+    log10_equad: Optional[torch.Tensor] = None
+    log10_ecorr: Optional[torch.Tensor] = None
+    rn_log10_amplitude: Optional[torch.Tensor] = None
+    rn_gamma: Optional[torch.Tensor] = None
+    #: explicit red-noise mode frequencies [Hz] (overrides rn_nmodes)
+    rn_modes: Optional[torch.Tensor] = None
+    #: red-noise frequency-grid bounds [Hz] (scalar or (Np,))
+    rn_fmin: Optional[torch.Tensor] = None
+    rn_fmax: Optional[torch.Tensor] = None
+    #: common red-noise Tspan override [s] (scalar or (Np,))
+    rn_tspan_s: Optional[torch.Tensor] = None
+    #: chromatic red noise: amplitude at chrom_ref_freq_mhz, scaled per
+    #: TOA by (ref/freq)^chrom_index (2.0 when unset)
+    chrom_log10_amplitude: Optional[torch.Tensor] = None
+    chrom_gamma: Optional[torch.Tensor] = None
+    chrom_index: Optional[torch.Tensor] = None
+    gwb_log10_amplitude: Optional[torch.Tensor] = None
+    gwb_gamma: Optional[torch.Tensor] = None
+    #: Cholesky factor of the ORF; None = uncorrelated common process
+    orf_cholesky: Optional[torch.Tensor] = None
+    gwb_user_spectrum: Optional[torch.Tensor] = None
+    #: turnover-spectrum shape (used when gwb_turnover is set)
+    gwb_f0: float = 1e-9
+    gwb_beta: float = 1.0
+    gwb_power: float = 1.0
+    #: (8, Ns) CW catalog (gwtheta, gwphi, mc, dist, fgw, phase0, psi, inc)
+    cgw_params: Optional[torch.Tensor] = None
+    #: CW-catalog pulsar distances [kpc]: scalar, (Ns,) or (Np, Ns)
+    cgw_pdist: Optional[torch.Tensor] = None
+    #: explicit CW-catalog pulsar-term phases ((Ns,) or (Np, Ns))
+    cgw_pphase: Optional[torch.Tensor] = None
+    gwm_params: Optional[torch.Tensor] = None
+    burst_sky: Optional[torch.Tensor] = None
+    burst_hplus: Optional[torch.Tensor] = None
+    burst_hcross: Optional[torch.Tensor] = None
+    burst_grid: Optional[torch.Tensor] = None
+    transient_waveform: Optional[torch.Tensor] = None
+    transient_grid: Optional[torch.Tensor] = None
+    noise_cov: Optional[object] = None
+    cov_log10_sigma: Optional[torch.Tensor] = None
+
+    tnequad: bool = False
+    gwb_turnover: bool = False
+    rn_nmodes: int = 30
+    rn_logf: bool = False
+    rn_pshift: bool = False
+    rn_libstempo: bool = False
+    chrom_nmodes: int = 30
+    chrom_ref_freq_mhz: float = 1400.0
+    gwb_npts: int = 600
+    gwb_howml: float = 10.0
+    cgw_tref_s: float = 0.0
+    #: sources per block of the plain CW response (CPU batches)
+    cgw_chunk: int = 512
+    cgw_stream_chunk: Optional[int] = None
+    cgw_psr_term: bool = True
+    cgw_evolve: bool = True
+    cgw_phase_approx: bool = False
+    fit_design: Optional[torch.Tensor] = None
+    fit_gls: bool = False
+
+    def __post_init__(self):
+        for name in ARRAY_FIELDS:
+            value = getattr(self, name)
+            if value is not None and not isinstance(value, torch.Tensor):
+                object.__setattr__(self, name, torch.as_tensor(np.array(value)))
+        _validate_recipe(self)
+
+    def to(self, device) -> "Recipe":
+        """Move every tensor to ``device``."""
+        return _map_tensors(self, lambda x: x.to(device))
+
+    def astype(self, dtype) -> "Recipe":
+        """Cast the floating tensors to ``dtype``."""
+        return _map_tensors(
+            self, lambda x: x.to(dtype) if x.is_floating_point() else x
+        )
+
+
+def _validate_recipe(r: Recipe):
+    """Reject unported and mutually inconsistent fields at construction,
+    with a message naming the field."""
+    for name, item in UNPORTED_FIELDS.items():
+        if getattr(r, name) is not None:
+            raise NotImplementedError(
+                f"Recipe.{name} is not ported to pta_replicator_tpu_torch yet "
+                f"(ROADMAP.md item {item})"
+            )
+    if r.fit_gls:
+        raise NotImplementedError(
+            "Recipe.fit_gls is not ported to pta_replicator_tpu_torch yet "
+            f"(ROADMAP.md item {UNPORTED_FIELDS['fit_design']})"
+        )
+
+    def need(cond: bool, msg: str):
+        if not cond:
+            raise ValueError(f"Recipe: {msg}")
+
+    need(
+        r.cgw_params is not None or (r.cgw_pdist is None and r.cgw_pphase is None),
+        "cgw_pdist/cgw_pphase describe the pulsar term of a CW catalog "
+        "— set cgw_params too (or drop them)",
+    )
+    need(
+        r.rn_gamma is not None or r.rn_log10_amplitude is None,
+        "red noise needs rn_gamma alongside rn_log10_amplitude",
+    )
+    need(
+        r.chrom_gamma is not None or r.chrom_log10_amplitude is None,
+        "chromatic noise needs chrom_gamma alongside chrom_log10_amplitude",
+    )
+    need(
+        r.gwb_log10_amplitude is None or r.gwb_gamma is not None,
+        "a power-law GWB needs gwb_gamma alongside gwb_log10_amplitude",
+    )
+    if r.cgw_params is not None:
+        shape = tuple(r.cgw_params.shape)
+        need(
+            len(shape) == 2 and shape[0] == 8,
+            "cgw_params must be the (8, Ns) stacked catalog (gwtheta, gwphi, "
+            f"mc, dist, fgw, phase0, psi, inc), got shape {shape}",
+        )
+        for name in ("cgw_pdist", "cgw_pphase"):
+            value = getattr(r, name)
+            if value is not None and value.ndim >= 1:
+                need(
+                    value.ndim <= 2 and value.shape[-1] == shape[1],
+                    f"{name} has shape {tuple(value.shape)} but the catalog "
+                    f"has {shape[1]} source(s); pass a scalar, (Ns,), or (Np, Ns)",
+                )
+
+
+# --------------------------------------------------------------- the engine
+
+def _red_nmodes(recipe: Recipe) -> int:
+    return recipe.rn_nmodes if recipe.rn_modes is None else len(recipe.rn_modes)
+
+
+def noise_shapes(batch: PulsarBatch, recipe: Recipe) -> dict:
+    """Shape of one realization's draw of each enabled stochastic family,
+    in the order :func:`draw_noise` draws them. ``red_phase`` (uniform on
+    [0, 2 pi)) exists only with ``rn_pshift``; every other entry is
+    standard normal."""
+    shapes = {}
+    if recipe.efac is not None or recipe.log10_equad is not None:
+        shapes["white"] = (batch.npsr, batch.ntoa_max)
+    if recipe.log10_ecorr is not None:
+        shapes["ecorr"] = (batch.npsr, batch.max_epochs)
+    if recipe.rn_log10_amplitude is not None:
+        if recipe.rn_pshift:
+            shapes["red_phase"] = (batch.npsr, _red_nmodes(recipe))
+        shapes["red"] = (batch.npsr, 2 * _red_nmodes(recipe))
+    if recipe.chrom_log10_amplitude is not None:
+        shapes["chromatic"] = (batch.npsr, 2 * recipe.chrom_nmodes)
+    if recipe.gwb_log10_amplitude is not None:
+        nf = gwb_grid(batch.start_s, batch.stop_s, recipe.gwb_npts, recipe.gwb_howml)[2].shape[0]
+        ncol = batch.npsr if recipe.orf_cholesky is None else recipe.orf_cholesky.shape[1]
+        shapes["gwb"] = (2, ncol, nf)
+    return shapes
+
+
+def draw_noise(generator, batch: PulsarBatch, recipe: Recipe, nreal: int,
+               noise=None) -> dict:
+    """Every enabled family's draws for ``nreal`` realizations, each with
+    a leading ``nreal`` axis (shapes: :func:`noise_shapes`).
+
+    A family present in ``noise`` is taken from it (cast to the batch's
+    dtype and device, shape-checked); the others are drawn from
+    ``generator``, one call per family, in this fixed order: white, ecorr,
+    red_phase, red, chromatic, gwb."""
+    noise = noise or {}
+    unknown = set(noise) - set(noise_shapes(batch, recipe))
+    if unknown:
+        raise ValueError(f"noise has draws for families the recipe does not enable: {sorted(unknown)}")
+    draws = {}
+    for name, shape in noise_shapes(batch, recipe).items():
+        shape = (nreal,) + shape
+        if name in noise:
+            draw = _as(noise[name], batch)
+            if tuple(draw.shape) != shape:
+                raise ValueError(f"noise[{name!r}] has shape {tuple(draw.shape)}, want {shape}")
+        elif name == "red_phase":
+            if generator is None:
+                raise ValueError("no red_phase draws were given and no torch.Generator")
+            draw = 2.0 * math.pi * torch.rand(
+                shape, generator=generator, dtype=batch.dtype, device=batch.device
+            )
+        else:
+            draw = _normal(generator, shape, batch)
+        draws[name] = draw
+    return draws
+
+
+def realization_delays(batch: PulsarBatch, recipe: Recipe, draws: dict):
+    """(..., Np, Nt) summed stochastic delays of the enabled families,
+    from explicit ``draws`` (:func:`draw_noise`), whose leading axes are
+    the realization axes."""
+    total = torch.zeros_like(batch.toas_s)
+    if recipe.efac is not None or recipe.log10_equad is not None:
+        total = total + white_noise_delays(
+            None, batch, efac=recipe.efac if recipe.efac is not None else 1.0,
+            log10_equad=recipe.log10_equad, tnequad=recipe.tnequad,
+            eps=draws["white"],
+        )
+    if recipe.log10_ecorr is not None:
+        total = total + jitter_delays(None, batch, recipe.log10_ecorr, eps=draws["ecorr"])
+    if recipe.rn_log10_amplitude is not None:
+        total = total + red_noise_delays(
+            None, batch, recipe.rn_log10_amplitude, recipe.rn_gamma,
+            nmodes=recipe.rn_nmodes, modes=recipe.rn_modes, logf=recipe.rn_logf,
+            fmin=recipe.rn_fmin, fmax=recipe.rn_fmax,
+            phase_shift=draws.get("red_phase"),
+            libstempo_convention=recipe.rn_libstempo,
+            tspan_s=recipe.rn_tspan_s, eps=draws["red"],
+        )
+    if recipe.chrom_log10_amplitude is not None:
+        total = total + chromatic_noise_delays(
+            None, batch, recipe.chrom_log10_amplitude, recipe.chrom_gamma,
+            chromatic_index=(recipe.chrom_index if recipe.chrom_index is not None else 2.0),
+            nmodes=recipe.chrom_nmodes, ref_freq_mhz=recipe.chrom_ref_freq_mhz,
+            eps=draws["chromatic"],
+        )
+    if recipe.gwb_log10_amplitude is not None:
+        if recipe.orf_cholesky is None:
+            # uncorrelated common process: ORF = 2 I
+            orf_chol = math.sqrt(2.0) * torch.eye(batch.npsr, dtype=batch.dtype, device=batch.device)
+        else:
+            orf_chol = recipe.orf_cholesky
+        total = total + gwb_delays(
+            None, batch, recipe.gwb_log10_amplitude, recipe.gwb_gamma, orf_chol,
+            npts=recipe.gwb_npts, howml=recipe.gwb_howml,
+            turnover=recipe.gwb_turnover, f0=recipe.gwb_f0,
+            beta=recipe.gwb_beta, power=recipe.gwb_power, eps=draws["gwb"],
+        )
+    return total
+
+
+def residualize(delays, batch: PulsarBatch):
+    """Delays -> residuals: subtract the per-pulsar error-weighted mean
+    over valid TOAs."""
+    w = batch.mask / batch.errors_s**2
+    mean = torch.sum(w * delays, dim=-1, keepdim=True) / torch.sum(w, dim=-1, keepdim=True)
+    return (delays - mean) * batch.mask
+
+
+def quadratic_fit_subtract(delays, batch: PulsarBatch):
+    """Project out the weighted best-fit quadratic in time per pulsar (the
+    batched analog of the post-injection F0/F1 refit).
+
+    The products run in IEEE float32 on a float32 batch: a reduced-precision
+    fit (TF32 here, bf16 on the TPU) leaves a visible un-projected mean
+    (:func:`realize` refuses TF32). The (Np, 3, 3) Gram matrix depends only
+    on the batch and is formed in float64, cast last: cuBLAS's float32
+    accumulation over 7,758 TOAs put ~6e-5 of relative error on it on an
+    H100, which the solve turned into a weighted residual mean of ~3e-3 of
+    the residual RMS. The solve does not check for a singular Gram matrix
+    (that would wait for the card); a pulsar with fewer than three TOAs
+    gets non-finite residuals, as in the reference."""
+    t = batch.toas_s / torch.clamp(batch.tspan_s[:, None], min=1.0)
+    M = torch.stack([torch.ones_like(t), t, t**2], dim=-1)  # (Np, Nt, 3)
+    w = batch.mask / batch.errors_s**2
+    Mw = M * w[..., None]
+    MtWM = torch.einsum("pni,pnj->pij", Mw.double(), M.double()).to(delays.dtype)
+    MtWr = torch.einsum("pni,...pn->...pi", Mw, delays)
+    coef = torch.linalg.solve_ex(MtWM, MtWr[..., None])[0][..., 0]
+    model = torch.einsum("pni,...pi->...pn", M, coef)
+    return (delays - model) * batch.mask
+
+
+def finalize_residuals(delays, batch: PulsarBatch, recipe: Recipe, fit: bool):
+    """The quadratic fit (``fit``), else the weighted-mean subtraction.
+    After the fit no mean subtraction is needed: the constant column
+    absorbs it."""
+    if not fit:
+        return residualize(delays, batch)
+    return quadratic_fit_subtract(delays, batch)
+
+
+def deterministic_delays(batch: PulsarBatch, recipe: Recipe, device="cuda"):
+    """Realization-independent delays (the CW catalog), computed once per
+    batch and shared by every realization: (Np, Nt) on ``device``."""
+    device = resolve_device(device)
+    batch, recipe = batch.to(device), recipe.to(device)
+    total = torch.zeros_like(batch.toas_s)
+    if recipe.cgw_params is not None:
+        total = total + cgw_catalog_delays(
+            batch, *recipe.cgw_params.cpu().unbind(0),
+            pdist=recipe.cgw_pdist if recipe.cgw_pdist is not None else 1.0,
+            pphase=recipe.cgw_pphase, psr_term=recipe.cgw_psr_term,
+            evolve=recipe.cgw_evolve, phase_approx=recipe.cgw_phase_approx,
+            tref_s=recipe.cgw_tref_s, chunk=recipe.cgw_chunk,
+        )
+    return total
+
+
+def realize_block(draws: dict, batch: PulsarBatch, recipe: Recipe, fit: bool,
+                  static, nreal: int):
+    """The per-block pipeline: ``realization_delays + static ->
+    finalize_residuals`` for ``nreal`` realizations of ``draws``."""
+    delays = realization_delays(batch, recipe, draws) + static
+    delays = delays.expand((nreal,) + batch.toas_s.shape)
+    return finalize_residuals(delays, batch, recipe, fit)
+
+
+def _require_ieee_float32(device: torch.device):
+    """The GWB mix and synthesis and the fit are float32 matmuls that must
+    run in IEEE float32 (the port runs no cuDNN op, so only cuBLAS's TF32
+    switch matters)."""
+    if device.type == "cuda" and torch.backends.cuda.matmul.allow_tf32:
+        raise RuntimeError(
+            "TF32 matmuls are enabled (torch.backends.cuda.matmul.allow_tf32): "
+            "the GWB synthesis and the fit need IEEE float32 products; set "
+            "the flag to False"
+        )
+
+
+def realize(generator, batch: PulsarBatch, recipe: Recipe, nreal: int,
+            fit: bool = False, static=None, noise=None, device="cuda"):
+    """Batch of independent realizations: (nreal, Np, Nt) residuals on
+    ``device``.
+
+    Draws come from ``noise`` (a dict of per-family draws with a leading
+    ``nreal`` axis, :func:`noise_shapes`) where given, else from
+    ``generator`` (a ``torch.Generator`` on ``device``) in the fixed order
+    of :func:`draw_noise`. ``static`` is a precomputed
+    :func:`deterministic_delays` result: a caller that realizes in chunks
+    computes it once and passes it to every chunk. Returns without
+    synchronizing; read the result back to wait for it."""
+    device = resolve_device(device)
+    _require_ieee_float32(device)
+    batch, recipe = batch.to(device), recipe.to(device)
+    if static is None:
+        static = deterministic_delays(batch, recipe, device=device)
+    draws = draw_noise(generator, batch, recipe, nreal, noise)
+    return realize_block(draws, batch, recipe, fit, static, nreal)
+

@@ -1,0 +1,76 @@
+"""Fourier basis and power-law prior for the rank-reduced red-noise basis.
+
+Torch counterpart of ``pta_replicator_tpu/ops/fourier.py``. Every function
+accepts an optional leading pulsar axis on its tensor arguments and runs
+in the dtype and on the device of its inputs.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from ..constants import YEAR_IN_SEC
+
+
+def fourier_frequencies(tspan_s, nmodes: int = 30, logf: bool = False,
+                        fmin=None, fmax=None, modes=None):
+    """Sampling frequencies for the rank-reduced basis, shape (..., K).
+
+    Default: f_k = k/T for k = 1..nmodes; optionally log/linear spacing
+    between fmin and fmax, or an explicit mode list. ``tspan_s`` is a
+    tensor (scalar or (Np,)); ``fmin``/``fmax`` are scalars or (Np,).
+    """
+    T = tspan_s
+    if modes is not None:
+        return torch.as_tensor(modes, dtype=T.dtype, device=T.device)
+    k = torch.arange(1, nmodes + 1, dtype=T.dtype, device=T.device)
+    if fmin is None and fmax is None and not logf:
+        return k / T[..., None]
+    as_t = lambda v: torch.as_tensor(v, dtype=T.dtype, device=T.device)
+    lo = 1.0 / T if fmin is None else as_t(fmin) + torch.zeros_like(T)
+    hi = nmodes / T if fmax is None else as_t(fmax) + torch.zeros_like(T)
+    x = (k - 1.0) / max(nmodes - 1, 1)
+    if logf:
+        return lo[..., None] * (hi / lo)[..., None] ** x
+    return lo[..., None] + (hi - lo)[..., None] * x
+
+
+def fourier_basis(toas_s, freqs, phase_shift=None,
+                  libstempo_convention: bool = False):
+    """Interleaved sin/cos design matrix F of shape (..., ntoa, 2*nmodes).
+
+    Column order is [sin, cos] per frequency; with
+    ``libstempo_convention=True`` it is [cos, sin] and times are referenced
+    to each pulsar's first TOA.
+    """
+    t = toas_s
+    f = freqs
+    shift = torch.zeros_like(f) if phase_shift is None else phase_shift
+    if libstempo_convention:
+        arg = (2 * math.pi * (t - t[..., :1])[..., :, None] * f[..., None, :]
+               + shift[..., None, :])
+        first, second = torch.cos(arg), torch.sin(arg)
+    else:
+        arg = 2 * math.pi * t[..., :, None] * f[..., None, :] + shift[..., None, :]
+        first, second = torch.sin(arg), torch.cos(arg)
+    return torch.stack([first, second], dim=-1).reshape(
+        arg.shape[:-1] + (2 * arg.shape[-1],)
+    )
+
+
+def powerlaw_prior(freqs_doubled, log10_amplitude, gamma, tspan_s):
+    """Per-coefficient variance of the power-law PSD prior, (..., 2K):
+    P = A^2 (f yr)^(-gamma) / (12 pi^2 Tspan) * yr^3.
+
+    Evaluated in log space: the direct product passes through ~1e-38 for
+    typical PTA amplitudes at high mode numbers, where float32 flushes to
+    zero and would truncate the injected spectrum."""
+    f = freqs_doubled
+    log_prior = (
+        2.0 * math.log(10.0) * log10_amplitude[..., None]
+        - gamma[..., None] * torch.log(f / (1.0 / YEAR_IN_SEC))
+        + 3.0 * math.log(YEAR_IN_SEC)
+        - torch.log(12.0 * math.pi**2 * tspan_s[..., None])
+    )
+    return torch.exp(log_prior)

@@ -1,0 +1,62 @@
+"""Shared helpers of the port-vs-JAX parity tests (tests/test_torch_*.py).
+
+The JAX package's random stream is public contract: ``realization_delays``
+splits each realization key five ways (white, ecorr, red, chromatic, gwb)
+and every family draws from its subkey at a documented shape. These
+helpers replay that contract to rebuild the exact draws, which the port
+then takes as explicit noise.
+"""
+import numpy as np
+
+
+def rel_rms(got, want) -> float:
+    """RMS of the difference over the RMS of the reference."""
+    got = np.asarray(got, np.float64)
+    want = np.asarray(want, np.float64)
+    return float(np.sqrt(np.mean((got - want) ** 2)) / np.sqrt(np.mean(want**2)))
+
+
+def jax_realization_draws(key, batch, recipe) -> dict:
+    """One realization's draws, keyed as the port's ``noise`` dict, rebuilt
+    from the JAX package's split (models/batched.py realization_delays)."""
+    import jax
+    import jax.numpy as jnp
+
+    from pta_replicator_tpu.models.gwb import gwb_grid
+
+    dtype = batch.toas_s.dtype
+    k_wn, k_ec, k_rn, k_chrom, k_gwb = jax.random.split(key, 5)
+    out = {}
+    if recipe.efac is not None or recipe.log10_equad is not None:
+        out["white"] = jax.random.normal(k_wn, batch.toas_s.shape, dtype)
+    if recipe.log10_ecorr is not None:
+        out["ecorr"] = jax.random.normal(k_ec, (batch.npsr, batch.max_epochs), dtype)
+    if recipe.rn_log10_amplitude is not None:
+        nm = recipe.rn_nmodes if recipe.rn_modes is None else len(recipe.rn_modes)
+        k_eps = k_rn
+        if recipe.rn_pshift:
+            k_eps, k_shift = jax.random.split(k_rn)
+            out["red_phase"] = jax.random.uniform(
+                k_shift, (batch.npsr, nm), dtype, 0.0, 2.0 * jnp.pi
+            )
+        out["red"] = jax.random.normal(k_eps, (batch.npsr, 2 * nm), dtype)
+    if recipe.chrom_log10_amplitude is not None:
+        out["chromatic"] = jax.random.normal(
+            k_chrom, (batch.npsr, 2 * recipe.chrom_nmodes), dtype
+        )
+    if recipe.gwb_log10_amplitude is not None:
+        nf = gwb_grid(batch.start_s, batch.stop_s, recipe.gwb_npts,
+                      recipe.gwb_howml)[2].shape[0]
+        ncol = batch.npsr if recipe.orf_cholesky is None else recipe.orf_cholesky.shape[1]
+        out["gwb"] = jax.random.normal(k_gwb, (2, ncol, nf), dtype)
+    return {name: np.asarray(v) for name, v in out.items()}
+
+
+def jax_realize_draws(key, batch, recipe, nreal: int) -> dict:
+    """The draws of JAX ``realize(key, batch, recipe, nreal)``, each with a
+    leading realization axis."""
+    import jax
+
+    per = [jax_realization_draws(k, batch, recipe)
+           for k in jax.random.split(key, nreal)]
+    return {name: np.stack([p[name] for p in per]) for name in per[0]}

@@ -1,0 +1,94 @@
+"""The port stands alone: it imports neither JAX nor the JAX package, and
+its entry points refuse to run on the CPU unless asked to."""
+import ast
+import os
+import pathlib
+import subprocess
+import sys
+
+import pytest
+
+torch = pytest.importorskip("torch")
+pytest.importorskip("jax")
+
+import pta_replicator_tpu_torch as port
+from pta_replicator_tpu_torch.models import batched as TB
+
+REPO = pathlib.Path(__file__).resolve().parent.parent
+FORBIDDEN = ("jax", "jaxlib", "pta_replicator_tpu")
+
+
+def _port_sources():
+    return sorted((REPO / "pta_replicator_tpu_torch").rglob("*.py")) + [
+        REPO / "chip_smoke.py"
+    ]
+
+
+def _forbidden(name: str) -> bool:
+    return any(name == f or name.startswith(f + ".") for f in FORBIDDEN)
+
+
+def test_no_module_of_the_port_imports_jax_or_the_jax_package():
+    offenders = []
+    for path in _port_sources():
+        for node in ast.walk(ast.parse(path.read_text(), str(path))):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module or ""]
+            else:
+                continue
+            offenders += [f"{path.relative_to(REPO)}: {n}" for n in names if _forbidden(n)]
+    assert len(_port_sources()) > 10
+    assert not offenders, offenders
+
+
+def test_importing_every_port_module_leaves_jax_out():
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import pta_replicator_tpu_torch as p\n"
+        "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'pta_replicator_tpu')]\n"
+        "assert not bad, bad\n"
+        "print('ok')\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
+def test_entry_points_raise_without_cuda_unless_asked_for_cpu(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        port.flagship_workload(npsr=2, ntoa=64, ncw=2)
+    batch, recipe = port.flagship_workload(npsr=2, ntoa=64, ncw=2, device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        port.deterministic_delays(batch, recipe)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        port.realize(torch.Generator(), batch, recipe, 1)
+    static = port.deterministic_delays(batch, recipe, device="cpu")
+    out = port.realize(torch.Generator().manual_seed(0), batch, recipe, 2,
+                       static=static, device="cpu")
+    assert out.shape == (2, 2, 64) and out.device.type == "cpu"
+
+
+def test_chip_smoke_refuses_without_a_card_and_alone(tmp_path):
+    """No card: exit non-zero and print no result. Alone in a directory
+    (the port absent): the same."""
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    alone = tmp_path / "chip_smoke.py"
+    alone.write_text((REPO / "chip_smoke.py").read_text())
+    for cwd, script in ((REPO, REPO / "chip_smoke.py"), (tmp_path, alone)):
+        out = subprocess.run([sys.executable, str(script)], cwd=cwd, env=env,
+                             capture_output=True, text=True, timeout=120)
+        assert out.returncode != 0
+        assert out.stdout == ""
+
+
+def test_tf32_is_refused_on_cuda(monkeypatch):
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
+    with pytest.raises(RuntimeError, match="TF32"):
+        TB._require_ieee_float32(torch.device("cuda"))
+    TB._require_ieee_float32(torch.device("cpu"))
