@@ -6,13 +6,17 @@ Run from the repository root on a machine with a CUDA card:
 
 It builds every CUDA kernel of the port from ``pta_replicator_tpu_torch/
 csrc/`` with nvcc, holds each kernel against its plain PyTorch version on
-the card at the flagship shape, drives the flagship realization path
-(68 pulsars x 7,758 TOAs, 100-source CW catalog, HD GWB, quadratic fit)
-through the port's entry points, checks the results, and prints one JSON
-line per phase. The line before the last is the kernels line, the last
-the result line. Without a CUDA device, or without the port beside it,
-it exits non-zero and prints no result; any failed check raises.
+the card at the flagship shape, drives the port's two paths through its
+entry points and checks the results: the flagship realization path (68
+pulsars x 7,758 TOAs, 100-source CW catalog, HD GWB, quadratic fit), then
+the likelihood path that prices its bank of 200 realizations in float64
+over an 8 x 8 GWB grid (the fused ReducedGP build, the grid evaluation
+and the request-batched server). It prints one JSON line per phase. The line
+before the last is the kernels line, the last the result line. Without a
+CUDA device, or without the port beside it, it exits non-zero and prints
+no result; any failed check raises.
 """
+import dataclasses
 import json
 import subprocess
 import sys
@@ -22,9 +26,13 @@ import numpy as np
 import torch
 
 from pta_replicator_tpu_torch import deterministic_delays, flagship_workload, realize
+from pta_replicator_tpu_torch import likelihood as lk
 from pta_replicator_tpu_torch.kernels import build, launches
+from pta_replicator_tpu_torch.likelihood import gp as lgp
+from pta_replicator_tpu_torch.likelihood.infer import _reduced_points, _theta_block
 from pta_replicator_tpu_torch.models import batched as B
 from pta_replicator_tpu_torch.ops import cw
+from pta_replicator_tpu_torch.ops import gp as ops_gp
 
 #: the flagship workload's full width (depth is not cut: it is 68 x 7,758)
 FLAGSHIP = dict(npsr=68, ntoa=7758, ncw=100)
@@ -46,6 +54,25 @@ TOL = {torch.float64: 1e-10, torch.float32: 3e-3}
 TOL_F32_VS_F64 = 3e-3
 TOL_TOTAL = 1e-3
 TOL_FIT_MEAN = 5e-4
+#: the fused Woodbury kernel's peak rates: FP32 outside the tensor cores,
+#: and FP64 on the tensor cores (DMMA can carry this product), both
+#: 67 TFLOP/s on the H100 SXM
+WOODBURY_PEAK_OPS = {torch.float32: 67e12, torch.float64: 67e12}
+#: kernel vs plain, max |error| over the largest |reference| entry of each
+#: output: both sum the same products in another order (float64), and
+#: float32 sums of ~7,758 terms carry ~sqrt(Nt) eps
+TOL_WOODBURY = {torch.float64: 1e-12, torch.float32: 1e-4}
+#: the likelihood path, float64, entry by entry relative: fused vs
+#: composed, server vs bank, card vs CPU (sums of ~1e6 in log L carry
+#: ~1e-13 of rounding; the Woodbury blocks differ at ~1e-15)
+TOL_LIKELIHOOD = 1e-10
+#: the hyperparameter grid of the likelihood path (8 x 8 points)
+LIKELIHOOD_GRID = {"gwb_log10_amplitude": np.linspace(-14.6, -13.4, 8),
+                   "gwb_gamma": np.linspace(3.5, 5.0, 8)}
+#: the server's requests and batch capacity
+SERVER_REQUESTS, SERVER_BATCH = 32, 8
+#: realizations of the small card-vs-CPU likelihood bank
+SMALL_BANK = 16
 
 
 def emit(phase, **fields):
@@ -223,7 +250,7 @@ def phase_main_path(shape):
     require(tuple(res.shape) == (CHUNK, shape["npsr"], shape["ntoa"]),
             f"residual shape {tuple(res.shape)}")
     require(fit_mean <= TOL_FIT_MEAN, f"fit leaves a weighted mean (TF32?): {fit_mean}")
-    return batch, recipe, static, generator, count
+    return batch, recipe, static, generator, count, res
 
 
 def phase_breakdown(batch, recipe, static, generator):
@@ -266,15 +293,241 @@ def phase_card_vs_cpu(shape):
             f"card float32 vs CPU float64: {row}")
 
 
+def _rel_max(got, want):
+    return float((got - want).abs().max() / want.abs().max())
+
+
+def _timed_ms(fn, reps=3):
+    """(result, median host milliseconds) of ``reps`` calls, each ending
+    synchronised."""
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return out, float(np.median(times))
+
+
+def _device_busy(fn):
+    """Share of one synchronised call's wall time during which the card
+    ran a kernel (torch.profiler's device time, one stream, so kernels do
+    not overlap), and the five kernels with the most device time; (None,
+    []) when the profiler records no device time."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        _, wall_ms = _timed_ms(fn, reps=1)
+    rows = [(e.key, e.self_device_time_total / 1e3) for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]  # kernels, not ops
+    device_ms = sum(ms for _, ms in rows)
+    top = sorted(rows, key=lambda kv: -kv[1])[:5]
+    return (device_ms / wall_ms if device_ms > 0 else None), [[k, ms] for k, ms in top]
+
+
+def woodbury_bound(npsr, ntoa, q, dtype):
+    """Least time for the fused Woodbury assembly on this card: its
+    operations (ops/gp.py::woodbury_operations) over the dtype's peak
+    rate, or its bytes (T, w, r read once, the three outputs written
+    once) over HBM bandwidth."""
+    size = torch.finfo(dtype).bits // 8
+    ops_ms = ops_gp.woodbury_operations(npsr, ntoa, q) / WOODBURY_PEAK_OPS[dtype] * 1e3
+    nbytes = size * (npsr * ntoa * q + 2 * npsr * ntoa + npsr * q * q + npsr * q + npsr)
+    bytes_ms = nbytes / PEAK_BYTES * 1e3
+    return max(ops_ms, bytes_ms), ("operations" if ops_ms >= bytes_ms else "bytes")
+
+
+def phase_woodbury_kernel(batch, recipe, design):
+    """Kernel vs plain at the likelihood path's own shape: the stacked
+    basis T (68 x 7,758 x 123) and white inverse variances of the float64
+    flagship, a tenth of the rows masked (w = 0), random residuals; Nt =
+    7,758 is no multiple of any tile. Both dtypes; two kernel runs must
+    give the same bits. Returns the float64 row (the path's dtype)."""
+    reduced, _ = lgp.ReducedGP.build_fused(batch, recipe, design=design)
+    winv = B.white_ecorr_parts(batch, reduced.sigma2, None, torch.float64)[0]
+    rng = np.random.default_rng(7)
+    keep = torch.as_tensor(rng.random(tuple(winv.shape)) > 0.1, device=winv.device)
+    r64 = torch.as_tensor(rng.standard_normal(tuple(winv.shape)) * 1e-6, device=winv.device)
+    operands64 = (reduced.T, winv * keep, r64)
+    del reduced
+    rows = {}
+    for dtype in (torch.float64, torch.float32):
+        T, w, r = (x.to(dtype).contiguous() for x in operands64)
+        run = lambda: ops_gp.fused_woodbury_update(T, w, r)
+        plain = lambda: ops_gp.fused_woodbury_plain(T, w, r)
+        got, again, want = run(), run(), plain()
+        torch.cuda.synchronize()
+        A = torch.cat([T, r[..., None]], dim=-1)  # [T | r], built before timing
+        WA = A * w[..., None]
+        At = A.transpose(1, 2)
+        library = lambda: torch.bmm(At, WA)
+        lib_out = library()
+        q = T.shape[-1]
+        errs = [_rel_max(g, x) for g, x in zip(got, want)]
+        bound, bound_by = woodbury_bound(*T.shape, dtype)
+        row = dict(
+            dtype=str(dtype), shape=list(T.shape), masked_rows=int((w == 0).sum()),
+            rel_err_tnt=errs[0], rel_err_d=errs[1], rel_err_rnr=errs[2], tol=TOL_WOODBURY[dtype],
+            max_abs_err=max(float((g - x).abs().max()) for g, x in zip(got, want)),
+            symmetric=bool(torch.equal(got[0], got[0].transpose(-1, -2))),
+            same_bits=all(bool(torch.equal(a, b)) for a, b in zip(got, again)),
+            finite=all(bool(torch.isfinite(g).all()) for g in got),
+            rel_err_library_tnt=_rel_max(lib_out[:, :q, :q], got[0]),
+            ms=cuda_ms(run, 20), plain_ms=cuda_ms(plain, 3), library_ms=cuda_ms(library, 20),
+            bound_ms=bound, bound_by=bound_by,
+        )
+        emit("woodbury_kernel_vs_plain", **row)
+        require(row["finite"] and max(errs) <= TOL_WOODBURY[dtype],
+                f"woodbury kernel vs plain {dtype}: {row}")
+        require(row["same_bits"] and row["symmetric"],
+                f"woodbury kernel not deterministic or not symmetric {dtype}: {row}")
+        rows[dtype] = row
+        del A, WA, At, got, again, want, lib_out
+    return rows[torch.float64]
+
+
+def phase_likelihood(bank, batch, recipe, design):
+    """The likelihood path on the main path's bank (200 realizations,
+    cast to float64): bank_loglikelihood(fused=True) over the 8 x 8 GWB
+    grid, then grid_loglikelihood(fused=True) on one realization, with
+    the launch counts cleared just before and read just after. Then the
+    same calls composed, for the check, and each stage timed alone."""
+    grid, shape = lk.grid_cartesian(LIKELIHOOD_GRID)
+    G, R = int(np.prod(shape)), bank.shape[0]
+    torch.cuda.reset_peak_memory_stats()
+    launches.clear()
+    t0 = time.perf_counter()
+    ll = lk.bank_loglikelihood(bank, batch, recipe, grid=grid, design=design, fused=True)
+    ll_host = ll.cpu()
+    first_s = time.perf_counter() - t0
+    ll_one = lk.grid_loglikelihood(bank[0], batch, recipe, grid, design=design, fused=True)
+    ll_one_host = ll_one.cpu()
+    count = launches["fused_woodbury_update"]
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+
+    ll_c = lk.bank_loglikelihood(bank, batch, recipe, grid=grid, design=design).cpu()
+    ll_one_c = lk.grid_loglikelihood(bank[0], batch, recipe, grid, design=design).cpu()
+    rel = float(((ll_host - ll_c).abs() / ll_c.abs()).max())
+    rel_one = float(((ll_one_host - ll_one_c).abs() / ll_one_c.abs()).max())
+    rel_row0 = float(((ll_one_host - ll_host[:, 0]).abs() / ll_host[:, 0].abs()).max())
+
+    call = lambda: lk.bank_loglikelihood(bank, batch, recipe, grid=grid, design=design, fused=True)
+    _, call_ms = _timed_ms(call)
+    reduced, build_ms = _timed_ms(lambda: lgp.ReducedGP.build(
+        batch, recipe, design=design, fused=True))
+    proj, project_ms = _timed_ms(lambda: reduced.project(bank, batch))
+    names, theta = _theta_block(grid, batch.dtype, batch.device)
+    _, grid_ms = _timed_ms(lambda: _reduced_points(theta, names, reduced, proj, batch, recipe))
+    phi, phi_ms = _timed_ms(lambda: torch.stack([
+        lgp.phi_for_recipe(batch, dataclasses.replace(recipe, **dict(zip(names, th))))
+        for th in theta]))
+    _, factor_solve_ms = _timed_ms(lambda: reduced.loglikelihood(proj, phi))
+    busy_share, top_kernels = _device_busy(call)
+    best = np.unravel_index(int(ll_host.mean(dim=1).argmax()), shape)
+    row = dict(
+        bank_shape=list(bank.shape), grid_shape=list(shape), basis_columns=int(reduced.TNT.shape[-1]),
+        evaluations=G * R, evals_per_s=G * R / (call_ms / 1e3),
+        evals_per_s_grid_only=G * R / (grid_ms / 1e3), first_call_s=first_s,
+        call_ms=call_ms, build_ms=build_ms, project_ms=project_ms, grid_ms=grid_ms,
+        grid_phi_ms=phi_ms, grid_factor_solve_ms=factor_solve_ms,
+        device_busy_share=busy_share, top_kernels_ms=top_kernels,
+        peak_memory_gib=peak_gib, woodbury_launches=count,
+        rel_fused_vs_composed=rel, rel_grid_fused_vs_composed=rel_one,
+        rel_grid_vs_bank_row=rel_row0, tol=TOL_LIKELIHOOD,
+        finite=bool(torch.isfinite(ll_host).all()), output_shape=list(ll_host.shape),
+        best_mean_point={k: float(LIKELIHOOD_GRID[k][i]) for k, i in zip(LIKELIHOOD_GRID, best)},
+    )
+    emit("likelihood", **row)
+    require(count > 0, "the likelihood path never launched the fused Woodbury kernel")
+    require(row["finite"] and tuple(ll_host.shape) == (G, R), f"likelihood output: {row}")
+    require(max(rel, rel_one, rel_row0) <= TOL_LIKELIHOOD, f"fused vs composed likelihood: {row}")
+    return count, ll_host
+
+
+def phase_likelihood_float32(bank, batch, recipe, ll):
+    """Measured, not gated: the same bank and grid through the fused
+    path in float32 (the main path's own batch). The Gram entries reach
+    Nt / sigma^2 ~ 1e16 against 1/phi on the diagonal, so a float32 S may
+    lose definiteness (its entries come out NaN)."""
+    grid, _ = lk.grid_cartesian(LIKELIHOOD_GRID)
+    call = lambda: lk.bank_loglikelihood(bank.float(), batch, recipe, grid=grid,
+                                         design=B.quadratic_design(batch), fused=True)
+    ll32, call_ms = _timed_ms(call)
+    ll32 = ll32.double().cpu()
+    finite = torch.isfinite(ll32)
+    rel = ((ll32 - ll).abs() / ll.abs())[finite]
+    emit("likelihood_float32", call_ms=call_ms, finite_share=float(finite.double().mean()),
+         rel_vs_float64_median=float(rel.median()) if rel.numel() else None,
+         rel_vs_float64_max=float(rel.max()) if rel.numel() else None)
+
+
+def phase_likelihood_server(bank, batch, recipe, design, ll):
+    """SERVER_REQUESTS requests through the LikelihoodServer, submitted
+    at once after a warm-up request; each answer row must equal the
+    bank_loglikelihood row of its grid point."""
+    grid, _ = lk.grid_cartesian(LIKELIHOOD_GRID)
+    axes = tuple(sorted(LIKELIHOOD_GRID))
+    point = lambda i: {k: float(grid[k][i]) for k in axes}
+    t0 = time.perf_counter()
+    server = lk.LikelihoodServer(lk.RealizationBank.from_array(bank), batch, recipe, axes,
+                                 design=design, max_batch=SERVER_BATCH)
+    setup_s = time.perf_counter() - t0
+    with server:
+        server.evaluate(**point(0))
+        server.reset_stats()
+        futures = [server.submit(**point(i)) for i in range(SERVER_REQUESTS)]
+        rows = [f.result(timeout=600) for f in futures]
+        stats = server.stats()
+    rel = max(float(np.max(np.abs(rows[i] - ll[i].numpy()) / np.abs(ll[i].numpy())))
+              for i in range(SERVER_REQUESTS))
+    row = dict(requests=SERVER_REQUESTS, max_batch=SERVER_BATCH, setup_s=setup_s,
+               rel_vs_bank=rel, tol=TOL_LIKELIHOOD, batches=stats["batches"],
+               coalesce_efficiency=stats["coalesce_efficiency"],
+               latency_p50_ms=stats["latency_s"]["p50"] * 1e3,
+               latency_p99_ms=stats["latency_s"]["p99"] * 1e3,
+               evals_per_s=stats["evals_per_s"], requests_per_s=stats["requests_per_s"])
+    emit("likelihood_server", **row)
+    require(rel <= TOL_LIKELIHOOD and stats["requests"] == SERVER_REQUESTS,
+            f"server answers vs bank_loglikelihood: {row}")
+
+
+def phase_likelihood_card_vs_cpu(shape):
+    """A small bank through the likelihood path on the card (kernel) and
+    on the CPU (plain version), both float64, on the same residuals."""
+    cb, cr = flagship_workload(**shape, dtype=torch.float64, device="cpu")
+    gb, gr = flagship_workload(**shape, dtype=torch.float64)
+    rng = np.random.default_rng(2)
+    noise = {k: rng.standard_normal((SMALL_BANK,) + s) for k, s in B.noise_shapes(cb, cr).items()}
+    bank = realize(None, cb, cr, SMALL_BANK, fit=True, noise=noise, device="cpu")
+    grid, _ = lk.grid_cartesian({k: v[::2] for k, v in LIKELIHOOD_GRID.items()})
+    ref = lk.bank_loglikelihood(bank, cb, cr, grid=grid, design=B.quadratic_design(cb),
+                                fused=True, device="cpu")
+    got = lk.bank_loglikelihood(bank, gb, gr, grid=grid, design=B.quadratic_design(gb),
+                                fused=True).cpu()
+    row = dict(shape=shape, nreal=SMALL_BANK, grid_points=int(ref.shape[0]),
+               rel_card_vs_cpu=float(((got - ref).abs() / ref.abs()).max()), tol=TOL_LIKELIHOOD)
+    emit("likelihood_card_vs_cpu", **row)
+    require(row["rel_card_vs_cpu"] <= TOL_LIKELIHOOD, f"likelihood card vs CPU: {row}")
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device is available")
     phase_device()
     phase_build()
     kernel_row = phase_kernels(FLAGSHIP)
-    batch, recipe, static, generator, count = phase_main_path(FLAGSHIP)
+    batch, recipe, static, generator, count, res = phase_main_path(FLAGSHIP)
     phase_breakdown(batch, recipe, static, generator)
     phase_card_vs_cpu(SMALL)
+    batch64, recipe64 = flagship_workload(**FLAGSHIP, dtype=torch.float64)
+    design = B.quadratic_design(batch64)
+    woodbury_row = phase_woodbury_kernel(batch64, recipe64, design)
+    bank = res.double()
+    del res, static
+    woodbury_count, ll = phase_likelihood(bank, batch64, recipe64, design)
+    phase_likelihood_float32(bank, batch, recipe, ll)
+    phase_likelihood_server(bank, batch64, recipe64, design, ll)
+    phase_likelihood_card_vs_cpu(SMALL)
     print(json.dumps({"kernels": [{
         "name": "cw_catalog_response", "route": "cuda",
         "source": "pta_replicator_tpu_torch/csrc/cw_catalog.cu",
@@ -283,6 +536,14 @@ def main():
         "ms": kernel_row["ms"], "plain_ms": kernel_row["plain_ms"],
         "bound_ms": kernel_row["bound_ms"], "bound_by": kernel_row["bound_by"],
         "library_ms": None,
+    }, {
+        "name": "fused_woodbury_update", "route": "cuda",
+        "source": "pta_replicator_tpu_torch/csrc/fused_woodbury.cu",
+        "replaces": "pta_replicator_tpu/ops/pallas_gp.py:160",
+        "launches": woodbury_count, "max_abs_err": woodbury_row["max_abs_err"],
+        "ms": woodbury_row["ms"], "plain_ms": woodbury_row["plain_ms"],
+        "bound_ms": woodbury_row["bound_ms"], "bound_by": woodbury_row["bound_by"],
+        "library_ms": woodbury_row["library_ms"],
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

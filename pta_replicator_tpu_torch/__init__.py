@@ -4,8 +4,11 @@ Simulated pulsar-timing-array datasets on an NVIDIA GPU: the flagship
 realization path (white, ECORR, red and chromatic noise, a
 Hellings-Downs-correlated GW background, a CW catalog through a
 hand-written CUDA kernel, and the quadratic refit), batched over pulsars
-and realizations. The JAX package stays the reference; this package
-imports nothing of it, and nothing of JAX.
+and realizations; and the rank-reduced GP likelihood that prices a bank
+of realizations over a hyperparameter grid or through a request-batched
+server (``likelihood/``), its Woodbury assembly a hand-written CUDA
+kernel. The JAX package stays the reference; this package imports
+nothing of it, and nothing of JAX.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
 """

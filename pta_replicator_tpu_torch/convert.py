@@ -23,11 +23,10 @@ _STATIC_FIELDS = ("tref_mjd", "names", "backend_names", "start_s", "stop_s")
 #: JAX-only Recipe knobs with no counterpart in the port: the CW backend
 #: choice and the synthesis precision (the port has one CW dispatch and
 #: always synthesizes in IEEE float32), the streamed pipeline's prefetch
-#: depth, the GLS weighting's GWB mode count and the transient's pulsar
-#: (both inert without their unported features)
+#: depth and the transient's pulsar (inert without its unported feature)
 JAX_ONLY_RECIPE_FIELDS = frozenset({
     "cgw_backend", "gwb_synthesis_precision", "cgw_prefetch_depth",
-    "gwb_gls_nmodes", "transient_psr",
+    "transient_psr",
 })
 
 

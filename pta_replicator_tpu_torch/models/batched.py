@@ -121,13 +121,11 @@ def jitter_delays(generator, batch: PulsarBatch, log10_ecorr, eps=None):
     return _gather_last(per_epoch * eps, batch.epoch_index) * batch.mask
 
 
-def red_noise_basis_prior(batch: PulsarBatch, log10_amplitude, gamma,
-                          nmodes: int = 30, modes=None, logf: bool = False,
-                          fmin=None, fmax=None, phase_shift=None,
-                          libstempo_convention: bool = False, tspan_s=None):
-    """Per-pulsar Fourier basis and power-law prior: ``(F (..., Np, Nt, 2K),
-    prior (Np, 2K))`` with sin/cos columns interleaved per frequency. A
-    ``phase_shift`` with leading realization axes gives F those axes."""
+def red_noise_prior(batch: PulsarBatch, log10_amplitude, gamma,
+                    nmodes: int = 30, modes=None, logf: bool = False,
+                    fmin=None, fmax=None, tspan_s=None):
+    """Mode frequencies and power-law prior of the rank-reduced red-noise
+    basis, without the basis: ``(freqs (Np, K), prior (Np, 2K))``."""
     npsr = batch.npsr
     log10_amplitude = _as(log10_amplitude, batch).expand(npsr)
     gamma = _as(gamma, batch).expand(npsr)
@@ -136,6 +134,23 @@ def red_noise_basis_prior(batch: PulsarBatch, log10_amplitude, gamma,
         T, nmodes=nmodes, logf=logf, fmin=fmin, fmax=fmax, modes=modes
     )
     freqs = freqs.expand(npsr, freqs.shape[-1])
+    prior2 = powerlaw_prior(
+        torch.repeat_interleave(freqs, 2, dim=-1), log10_amplitude, gamma, T
+    )
+    return freqs, prior2
+
+
+def red_noise_basis_prior(batch: PulsarBatch, log10_amplitude, gamma,
+                          nmodes: int = 30, modes=None, logf: bool = False,
+                          fmin=None, fmax=None, phase_shift=None,
+                          libstempo_convention: bool = False, tspan_s=None):
+    """Per-pulsar Fourier basis and power-law prior: ``(F (..., Np, Nt, 2K),
+    prior (Np, 2K))`` with sin/cos columns interleaved per frequency. A
+    ``phase_shift`` with leading realization axes gives F those axes."""
+    freqs, prior2 = red_noise_prior(
+        batch, log10_amplitude, gamma, nmodes=nmodes, modes=modes, logf=logf,
+        fmin=fmin, fmax=fmax, tspan_s=tspan_s,
+    )
     shift = None
     if phase_shift is not None:
         shift = _as(phase_shift, batch)
@@ -143,9 +158,6 @@ def red_noise_basis_prior(batch: PulsarBatch, log10_amplitude, gamma,
     F = fourier_basis(
         batch.toas_s, freqs, phase_shift=shift,
         libstempo_convention=libstempo_convention,
-    )
-    prior2 = powerlaw_prior(
-        torch.repeat_interleave(freqs, 2, dim=-1), log10_amplitude, gamma, T
     )
     return F, prior2
 
@@ -403,6 +415,10 @@ class Recipe:
     gwb_user_spectrum: Optional[torch.Tensor] = None
     #: turnover-spectrum shape (used when gwb_turnover is set)
     gwb_f0: float = 1e-9
+    #: Fourier modes of the GWB auto-term block of the GP noise model
+    #: (gls_noise_model): the injected GWB weighted like a red-noise
+    #: process with prior hc^2(f) / (12 pi^2 f^3 T)
+    gwb_gls_nmodes: int = 30
     gwb_beta: float = 1.0
     gwb_power: float = 1.0
     #: (8, Ns) CW catalog (gwtheta, gwphi, mc, dist, fgw, phase0, psi, inc)
@@ -625,6 +641,14 @@ def residualize(delays, batch: PulsarBatch):
     return (delays - mean) * batch.mask
 
 
+def quadratic_design(batch: PulsarBatch):
+    """(Np, Nt, 3) quadratic timing design [1, t/T, (t/T)^2] per pulsar:
+    the columns :func:`quadratic_fit_subtract` projects out, and the
+    design a likelihood of fitted residuals marginalizes."""
+    t = batch.toas_s / torch.clamp(batch.tspan_s[:, None], min=1.0)
+    return torch.stack([torch.ones_like(t), t, t**2], dim=-1)
+
+
 def quadratic_fit_subtract(delays, batch: PulsarBatch):
     """Project out the weighted best-fit quadratic in time per pulsar (the
     batched analog of the post-injection F0/F1 refit).
@@ -638,8 +662,7 @@ def quadratic_fit_subtract(delays, batch: PulsarBatch):
     the residual RMS. The solve does not check for a singular Gram matrix
     (that would wait for the card); a pulsar with fewer than three TOAs
     gets non-finite residuals, as in the reference."""
-    t = batch.toas_s / torch.clamp(batch.tspan_s[:, None], min=1.0)
-    M = torch.stack([torch.ones_like(t), t, t**2], dim=-1)  # (Np, Nt, 3)
+    M = quadratic_design(batch)
     w = batch.mask / batch.errors_s**2
     Mw = M * w[..., None]
     MtWM = torch.einsum("pni,pnj->pij", Mw.double(), M.double()).to(delays.dtype)
@@ -716,3 +739,207 @@ def realize(generator, batch: PulsarBatch, recipe: Recipe, nreal: int,
     draws = draw_noise(generator, batch, recipe, nreal, noise)
     return realize_block(draws, batch, recipe, fit, static, nreal)
 
+
+
+# ---------------------------------------------------- the GP noise model
+
+def _white_variance(batch: PulsarBatch, recipe: Recipe):
+    """(Np, Nt) white per-TOA variance (EFAC sigma)^2 + EQUAD^2, with the
+    recipe's t2equad/tnequad convention: what white_noise_delays injects."""
+    if recipe.efac is not None:
+        ef = _check_backend_table(_as(recipe.efac, batch), batch, "efac")
+        ef = ef.expand(batch.npsr) if ef.ndim == 0 else ef
+        efac_t = _per_toa(ef, batch.backend_index, batch.mask)
+    else:
+        efac_t = batch.mask
+    sigma2 = (efac_t * batch.errors_s) ** 2
+    if recipe.log10_equad is not None:
+        eq = 10.0 ** _check_backend_table(_as(recipe.log10_equad, batch), batch, "log10_equad")
+        eq = eq.expand(batch.npsr) if eq.ndim == 0 else eq
+        equad_t = _per_toa(eq, batch.backend_index, batch.mask)
+        if not recipe.tnequad:
+            equad_t = efac_t * equad_t
+        sigma2 = sigma2 + equad_t**2
+    return sigma2
+
+
+def _ecorr_variance(batch: PulsarBatch, recipe: Recipe):
+    """(Np, E) per-epoch ECORR variance, or None without ECORR."""
+    if recipe.log10_ecorr is None:
+        return None
+    ec = 10.0 ** _check_backend_table(_as(recipe.log10_ecorr, batch), batch, "log10_ecorr")
+    if ec.ndim == 0:
+        return ec**2 * batch.epoch_mask
+    if ec.ndim == 1:
+        return ec[:, None] ** 2 * batch.epoch_mask
+    return torch.gather(ec, 1, batch.epoch_backend_index) ** 2 * batch.epoch_mask
+
+
+def _gp_blocks(batch: PulsarBatch, recipe: Recipe) -> list:
+    """The recipe's low-rank GP blocks in column order (red, chromatic,
+    GWB auto-term), each ``(freqs (Np, K), prior (Np, 2K), libstempo,
+    row_scale (Np, Nt) or None)``. The priors need no basis, so a
+    hyperparameter point prices them in O(Np K)."""
+    blocks = []
+    if recipe.rn_log10_amplitude is not None:
+        freqs, prior = red_noise_prior(
+            batch, recipe.rn_log10_amplitude, recipe.rn_gamma,
+            nmodes=recipe.rn_nmodes, modes=recipe.rn_modes, logf=recipe.rn_logf,
+            fmin=recipe.rn_fmin, fmax=recipe.rn_fmax, tspan_s=recipe.rn_tspan_s,
+        )
+        blocks.append((freqs, prior, recipe.rn_libstempo, None))
+    if recipe.chrom_log10_amplitude is not None:
+        if batch.freqs_mhz is None:
+            raise ValueError("chromatic noise needs batch.freqs_mhz (observing frequencies)")
+        freqs, prior = red_noise_prior(
+            batch, recipe.chrom_log10_amplitude, recipe.chrom_gamma,
+            nmodes=recipe.chrom_nmodes,
+        )
+        idx = _as(recipe.chrom_index if recipe.chrom_index is not None else 2.0, batch)
+        if idx.ndim >= 1:
+            idx = idx[..., None]
+        positive = batch.freqs_mhz > 0.0
+        safe = torch.where(positive, batch.freqs_mhz, 1.0)
+        scale = torch.where(positive, (recipe.chrom_ref_freq_mhz / safe) ** idx, 0.0)
+        blocks.append((freqs, prior, False, scale))
+    if recipe.gwb_log10_amplitude is not None:
+        # The injected GWB's per-pulsar auto-covariance, weighted like a
+        # red-noise process: phi = hc^2(f) / (12 pi^2 f^3 T) per sin/cos
+        # coefficient. Cross-pulsar correlations are not modelled.
+        T = batch.tspan_s
+        fg = fourier_frequencies(T, nmodes=recipe.gwb_gls_nmodes)
+        ga, gg = _as(recipe.gwb_log10_amplitude, batch), _as(recipe.gwb_gamma, batch)
+        if ga.ndim >= 1:  # per-pulsar (Np,) -> (Np, 1)
+            ga = ga[..., None]
+        if gg.ndim >= 1:
+            gg = gg[..., None]
+        hc = characteristic_strain(
+            fg, ga, gg, turnover=recipe.gwb_turnover, f0=recipe.gwb_f0,
+            beta=recipe.gwb_beta, power=recipe.gwb_power,
+        )
+        phig = hc**2 / (12.0 * math.pi**2 * fg**3 * T[:, None])
+        blocks.append((fg, torch.repeat_interleave(phig, 2, dim=-1), False, None))
+    return blocks
+
+
+def gls_prior(batch: PulsarBatch, recipe: Recipe):
+    """The stacked GP prior variances phi (Np, R) of the recipe's noise
+    model (None without a GP block): the ``phi`` of
+    :func:`gls_noise_model`, without building its (Np, Nt, R) basis."""
+    blocks = _gp_blocks(batch, recipe)
+    return torch.cat([b[1] for b in blocks], dim=-1) if blocks else None
+
+
+def gls_noise_model(batch: PulsarBatch, recipe: Recipe):
+    """Rank-reduced per-pulsar noise model ``(sigma2, ecorr2, U, phi)``:
+
+    - ``sigma2`` (Np, Nt): white per-TOA variance;
+    - ``ecorr2`` (Np, E) or None: per-epoch ECORR variance (the epoch
+      indicator block is applied analytically, :func:`white_ecorr_parts`);
+    - ``U`` (Np, Nt, R) / ``phi`` (Np, R), or (None, None): the stacked
+      low-rank Fourier blocks (red noise; chromatic noise, the basis
+      row-scaled by (ref/f)^idx; the GWB auto-term) and their prior
+      variances.
+
+    C = N + U_ec diag(ecorr2) U_ec^T + U diag(phi) U^T."""
+    sigma2 = _white_variance(batch, recipe)
+    ecorr2 = _ecorr_variance(batch, recipe)
+    blocks = _gp_blocks(batch, recipe)
+    if not blocks:
+        return sigma2, ecorr2, None, None
+    bases = []
+    for freqs, _prior, libstempo, scale in blocks:
+        rows = batch.mask if scale is None else scale * batch.mask
+        F = fourier_basis(batch.toas_s, freqs, libstempo_convention=libstempo)
+        bases.append(F * rows[..., None])
+    U = torch.cat(bases, dim=-1)
+    phi = torch.cat([b[1] for b in blocks], dim=-1)
+    return sigma2, ecorr2, U, phi
+
+
+def _epoch_table(batch: PulsarBatch):
+    """(Np, E, K) int64 TOA indices of each epoch's members in TOA order,
+    padded with Nt (the index of an appended zero row); K is the largest
+    epoch. Built on the host from ``batch.epoch_index``."""
+    index = batch.epoch_index.cpu().numpy()
+    npsr, ntoa = index.shape
+    order = np.argsort(index, axis=1, kind="stable")
+    members = np.take_along_axis(index, order, axis=1)
+    counts = np.zeros((npsr, batch.max_epochs), np.int64)
+    np.add.at(counts, (np.arange(npsr)[:, None], index), 1)
+    start = np.cumsum(counts, axis=1) - counts
+    rank = np.arange(ntoa)[None, :] - np.take_along_axis(start, members, axis=1)
+    table = np.full((npsr, batch.max_epochs, max(int(counts.max()), 1)), ntoa, np.int64)
+    table[np.arange(npsr)[:, None], members, rank] = order
+    return torch.as_tensor(table, device=batch.device)
+
+
+def white_ecorr_parts(batch: PulsarBatch, sigma2, ecorr2, dtype):
+    """The analytic white+ECORR pieces ``(winv, seg_sum, gain,
+    logdet_c0)``: the masked N^-1 diagonal (Np, Nt), the epoch segment
+    sum ``(..., Np, Nt, Q) -> (..., Np, E, Q)``, the per-epoch Woodbury
+    gain (Np, E) (None without ECORR) and the (Np,) log det C0 over valid
+    TOAs. Shared by :func:`white_ecorr_solver` and the fused Woodbury
+    assembly, so the two price the same C0.
+
+    The segment sum gathers each epoch's members through a fixed table
+    and sums them in TOA order: the same bits on every run and device
+    (a scatter-add would take the card's atomics in a varying order)."""
+    sigma2 = sigma2.to(dtype)
+    mask = batch.mask.to(dtype)
+    winv = torch.where(mask > 0, 1.0 / sigma2, 0.0)
+    table = _epoch_table(batch)
+    rows = torch.arange(batch.npsr, device=batch.device)[:, None, None]
+
+    def seg_sum(x):
+        """Per-pulsar epoch segment sum over TOAs, (..., Np, Nt, Q) ->
+        (..., Np, E, Q)."""
+        x = torch.nn.functional.pad(x * mask[..., None], (0, 0, 0, 1))
+        return x[..., rows, table, :].sum(dim=-2)
+
+    safe_sigma2 = torch.where(mask > 0, sigma2, 1.0)
+    logdet_c0 = torch.sum(torch.log(safe_sigma2) * mask, dim=-1)
+    gain = None
+    if ecorr2 is not None:
+        ecorr2 = ecorr2.to(dtype)
+        s_e = seg_sum(winv[..., None])[..., 0]  # U_ec^T N^-1 U_ec diagonal
+        gain = ecorr2 / (1.0 + ecorr2 * s_e)  # k / (1 + k s), 0 at k = 0
+        # ecorr2 is 0 at padded epochs, so their log1p terms vanish
+        logdet_c0 = logdet_c0 + torch.sum(
+            torch.log1p(ecorr2 * s_e) * batch.epoch_mask.to(dtype), dim=-1
+        )
+    return winv, seg_sum, gain, logdet_c0
+
+
+def pick_epochs(values, batch: PulsarBatch):
+    """Per-epoch ``values`` (..., Np, E, Q) gathered onto TOAs: (..., Np,
+    Nt, Q)."""
+    index = batch.epoch_index[..., None]
+    index = index.reshape((1,) * (values.ndim - 3) + index.shape)
+    return torch.take_along_dim(values, index, dim=-2)
+
+
+def white_ecorr_solver(batch: PulsarBatch, sigma2, ecorr2, dtype,
+                       extra=None, extra_s2=None):
+    """C0 = N + U_ec diag(ecorr2) U_ec^T as ``(winv, c0inv_mat,
+    logdet_c0)``: the masked N^-1 diagonal, a map ``(..., Np, Nt, Q) ->
+    (..., Np, Nt, Q)`` applying C0^-1 by the per-epoch Woodbury identity
+    (epochs are disjoint, so no (Nt, E) one-hot is formed), and the (Np,)
+    log det C0 over valid TOAs. A structured ``extra`` block (a Recipe's
+    ``noise_cov``) is not ported."""
+    if extra is not None or extra_s2 is not None:
+        raise NotImplementedError(
+            "a structured noise_cov block in C0 is not ported to "
+            f"pta_replicator_tpu_torch yet (ROADMAP.md item {UNPORTED_FIELDS['noise_cov']})"
+        )
+    winv, seg_sum, gain, logdet_c0 = white_ecorr_parts(batch, sigma2, ecorr2, dtype)
+
+    def c0inv_mat(X):
+        """(N + ECORR)^-1 X, per-epoch Woodbury."""
+        y = winv[..., None] * X
+        if gain is None:
+            return y
+        picked = pick_epochs(gain[..., None] * seg_sum(y), batch)
+        return y - winv[..., None] * picked
+
+    return winv, c0inv_mat, logdet_c0

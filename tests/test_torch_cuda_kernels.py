@@ -12,6 +12,7 @@ torch = pytest.importorskip("torch")
 
 from pta_replicator_tpu_torch.kernels import launches
 from pta_replicator_tpu_torch.ops import cw as tcw
+from pta_replicator_tpu_torch.ops import gp as tgp
 
 pytestmark = pytest.mark.cuda
 
@@ -21,7 +22,7 @@ MODES = [(True, True), (True, False), (False, True), (False, False)]
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: the CW kernel has no CPU mode")
+        pytest.skip("needs a CUDA device: the CUDA kernels have no CPU mode")
     return torch.device("cuda")
 
 
@@ -65,3 +66,65 @@ def test_kernel_is_deterministic_and_checks_shapes(cuda_device):
     torch.testing.assert_close(a, b, rtol=0, atol=0)
     with pytest.raises(ValueError, match="do not fit"):
         tcw.cw_catalog_response(args[0][:2], args[1], args[2])
+
+
+def _woodbury(npsr, ntoa, q, dtype, device, seed=0):
+    """Operands with a tenth of the rows masked (w = 0) and w at the
+    likelihood's scale (1/sigma^2 ~ 1e12)."""
+    rng = np.random.default_rng(seed)
+    T = rng.standard_normal((npsr, ntoa, q))
+    w = rng.uniform(0.5, 2.0, (npsr, ntoa)) * 1e12 * (rng.random((npsr, ntoa)) > 0.1)
+    r = rng.standard_normal((npsr, ntoa)) * 1e-6
+    return [torch.as_tensor(a, dtype=dtype, device=device) for a in (T, w, r)]
+
+
+def _rel_max(got, want):
+    return float((got - want).abs().max() / want.abs().max())
+
+
+#: ragged Nt throughout (no multiple of the kernel's 64-row tile); 175 is
+#: the widest basis the kernel takes
+WOODBURY_SHAPES = [(3, 100, 7), (4, 997, 123), (2, 300, 175)]
+
+
+@pytest.mark.parametrize("shape", WOODBURY_SHAPES)
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12), (torch.float32, 1e-4)])
+def test_woodbury_kernel_matches_plain(cuda_device, shape, dtype, tol):
+    T, w, r = _woodbury(*shape, dtype, cuda_device)
+    launches.clear()
+    got = tgp.fused_woodbury_update(T, w, r)
+    torch.cuda.synchronize()
+    assert launches["fused_woodbury_update"] == 1
+    want = tgp.fused_woodbury_plain(T, w, r)
+    for g, x in zip(got, want):
+        assert g.shape == x.shape and g.dtype == dtype
+        assert bool(torch.all(torch.isfinite(g)))
+        assert _rel_max(g, x) <= tol
+    assert torch.equal(got[0], got[0].transpose(-1, -2))
+
+
+def test_woodbury_kernel_is_deterministic(cuda_device):
+    T, w, r = _woodbury(4, 997, 123, torch.float64, cuda_device)
+    a = tgp.fused_woodbury_update(T, w, r)
+    b = tgp.fused_woodbury_update(T, w, r)
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+
+
+def test_woodbury_kernel_refuses_bad_operands(cuda_device):
+    T, w, r = _woodbury(3, 100, 7, torch.float64, cuda_device)
+    with pytest.raises(ValueError, match="do not fit"):
+        tgp.fused_woodbury_update(T, w[:, :50], r)
+    with pytest.raises(TypeError, match="neither"):
+        tgp.fused_woodbury_update(T.half(), w.half(), r.half())
+    with pytest.raises(TypeError, match="share"):
+        tgp.fused_woodbury_update(T, w.float(), r)
+    with pytest.raises(TypeError, match="share"):
+        tgp.fused_woodbury_update(T, w.cpu(), r)
+    with pytest.raises(ValueError, match="contiguous"):
+        tgp.fused_woodbury_update(T.transpose(0, 1).contiguous().transpose(0, 1), w, r)
+    wide = torch.zeros((1, 10, tgp.MAX_COLUMNS + 1), dtype=T.dtype, device=cuda_device)
+    with pytest.raises(ValueError, match="columns"):
+        tgp.fused_woodbury_update(wide, w[:1, :10], r[:1, :10])
+    with pytest.raises(NotImplementedError, match="B.3"):
+        tgp.fused_woodbury_update(T, w, r, precision="bf16")

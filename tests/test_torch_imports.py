@@ -12,6 +12,7 @@ torch = pytest.importorskip("torch")
 pytest.importorskip("jax")
 
 import pta_replicator_tpu_torch as port
+from pta_replicator_tpu_torch import likelihood as lk
 from pta_replicator_tpu_torch.models import batched as TB
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
@@ -72,6 +73,18 @@ def test_entry_points_raise_without_cuda_unless_asked_for_cpu(monkeypatch):
     out = port.realize(torch.Generator().manual_seed(0), batch, recipe, 2,
                        static=static, device="cpu")
     assert out.shape == (2, 2, 64) and out.device.type == "cpu"
+
+    grid = {"gwb_gamma": [4.0, 4.5]}
+    bank = lk.RealizationBank.from_array(out)
+    for call in (lambda **d: lk.bank_loglikelihood(out, batch, recipe, grid=grid, **d),
+                 lambda **d: lk.grid_loglikelihood(out[0], batch, recipe, grid, **d),
+                 lambda **d: lk.LikelihoodServer(bank, batch, recipe, ("gwb_gamma",), **d)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+    ll = lk.bank_loglikelihood(out, batch, recipe, grid=grid, fused=True, device="cpu")
+    assert ll.shape == (2, 2) and ll.device.type == "cpu"
+    assert lk.grid_loglikelihood(out[0], batch, recipe, grid, device="cpu").shape == (2,)
+    assert lk.LikelihoodServer(bank, batch, recipe, ("gwb_gamma",), device="cpu").nreal == 2
 
 
 def test_chip_smoke_refuses_without_a_card_and_alone(tmp_path):
