@@ -6,15 +6,19 @@ Run from the repository root on a machine with a CUDA card:
 
 It builds every CUDA kernel of the port from ``pta_replicator_tpu_torch/
 csrc/`` with nvcc, holds each kernel against its plain PyTorch version on
-the card at the flagship shape, drives the port's two paths through its
-entry points and checks the results: the flagship realization path (68
-pulsars x 7,758 TOAs, 100-source CW catalog, HD GWB, quadratic fit), then
-the likelihood path that prices its bank of 200 realizations in float64
-over an 8 x 8 GWB grid (the fused ReducedGP build, the grid evaluation
-and the request-batched server). It prints one JSON line per phase. The line
-before the last is the kernels line, the last the result line. Without a
-CUDA device, or without the port beside it, it exits non-zero and prints
-no result; any failed check raises.
+the card at the shapes its path gives it, drives the port's paths through
+its entry points and checks the results: the flagship realization path (68
+pulsars x 7,758 TOAs, 100-source CW catalog, HD GWB, quadratic fit); the
+likelihood path that prices its bank of 200 realizations in float64 over
+an 8 x 8 GWB grid (the fused ReducedGP build, the grid evaluation and the
+request-batched server); and the structured noise covariance in two
+configurations: banded (block-tridiagonal) correlated noise at the
+flagship width, realized and priced on the block-tridiagonal kernels, and
+the solar-wind Kronecker covariance with ECORR at 68 x 2,048, priced on
+the dense rung's blocked Cholesky. It prints one JSON line per phase. The
+line before the last is the kernels line, the last the result line.
+Without a CUDA device, or without the port beside it, it exits non-zero
+and prints no result; any failed check raises.
 """
 import dataclasses
 import json
@@ -28,6 +32,9 @@ import torch
 from pta_replicator_tpu_torch import deterministic_delays, flagship_workload, realize
 from pta_replicator_tpu_torch import likelihood as lk
 from pta_replicator_tpu_torch.kernels import build, launches
+from pta_replicator_tpu_torch.covariance import banded_from_times, kron_time_channel, recipe_cov_s2
+from pta_replicator_tpu_torch.covariance import kernels as cov_kernels
+from pta_replicator_tpu_torch.covariance import structure as cov_structure
 from pta_replicator_tpu_torch.likelihood import gp as lgp
 from pta_replicator_tpu_torch.likelihood.infer import _reduced_points, _theta_block
 from pta_replicator_tpu_torch.models import batched as B
@@ -73,6 +80,35 @@ LIKELIHOOD_GRID = {"gwb_log10_amplitude": np.linspace(-14.6, -13.4, 8),
 SERVER_REQUESTS, SERVER_BATCH = 32, 8
 #: realizations of the small card-vs-CPU likelihood bank
 SMALL_BANK = 16
+#: config B: the scenario compiler's banded defaults over the flagship
+#: recipe without ECORR (banded + ECORR takes the dense rung)
+DAY_S = 86400.0
+BANDED = dict(rho=0.5, corr_s=30 * DAY_S, block=16)
+BANDED_LOG10_SIGMA = -6.4
+#: config D: the compiler's solar_wind preset (Kronecker time (x) 4
+#: channels, with ECORR) at 68 x 2,048: a dense flagship C0 would be 32.7
+#: GB per copy
+DENSE_SHAPE = dict(npsr=68, ntoa=2048, ncw=100)
+KRON = dict(channels=4, time_ell_s=20 * DAY_S, chan_rho=0.9, nugget=0.05)
+KRON_LOG10_SIGMA = -6.6
+#: config D's realizations, GWB grid (4 x 4) and covariance-amplitude grids
+DENSE_BANK = 32
+DENSE_GRID = {k: v[::2] for k, v in LIKELIHOOD_GRID.items()}
+COV_SIGMA_GRID_B = np.linspace(-6.8, -6.0, 8)
+COV_SIGMA_GRID_D = np.linspace(-7.0, -6.2, 4)
+#: the dense rung's block and the covariance kernels' peak rates: FP64 on
+#: the tensor cores (DMMA can carry both) and FP32 outside them, both 67
+#: TFLOP/s on the H100 SXM
+DENSE_BLOCK = 128
+COV_PEAK_OPS = {torch.float64: 67e12, torch.float32: 67e12}
+#: covariance kernel vs plain, max |error| over the largest |entry| of each
+#: output: float64 sums the same products in another order; float32
+#: carries ~sqrt(b) eps through 485 dependent block columns
+TOL_COV = {torch.float64: 1e-12, torch.float32: 1e-4}
+#: the blocked factor against the library Cholesky of the same C0 (f64)
+TOL_BLOCKED = 1e-10
+#: the launch counters of the covariance kernels
+COV_KERNELS = ("cov_syrk_update", "tridiag_factor_solve_fwd", "tridiag_factor_solve_bwd")
 
 
 def emit(phase, **fields):
@@ -510,6 +546,332 @@ def phase_likelihood_card_vs_cpu(shape):
     require(row["rel_card_vs_cpu"] <= TOL_LIKELIHOOD, f"likelihood card vs CPU: {row}")
 
 
+def _once_ms(fn):
+    """(result, device milliseconds) of one call, CUDA events, no warm-up:
+    for a plain version, whose many small launches make a repeat costly."""
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def _kernel_row(run, plain, dtype, bound):
+    """Kernel vs plain on the same inputs: the largest |error| over the
+    largest |reference entry| of each output, two kernel runs bitwise
+    equal, finite outputs, the plain version's time (its one call) and the
+    bound. The caller times the kernel."""
+    want, plain_ms = _once_ms(plain)
+    got, again = run(), run()
+    torch.cuda.synchronize()
+    got, again, want = (x if isinstance(x, tuple) else (x,) for x in (got, again, want))
+    errs = [_rel_max(g, w) for g, w in zip(got, want)]
+    row = dict(
+        dtype=str(dtype), rel_err=max(errs), tol=TOL_COV[dtype],
+        max_abs_err=max(float((g - w).abs().max()) for g, w in zip(got, want)),
+        same_bits=all(bool(torch.equal(a, b)) for a, b in zip(got, again)),
+        finite=all(bool(torch.isfinite(g).all()) for g in got),
+        bound_ms=bound[0], bound_by=bound[1], plain_ms=plain_ms,
+    )
+    del got, again, want
+    return row
+
+
+def _bound(ops, nbytes, dtype):
+    ops_ms = ops / COV_PEAK_OPS[dtype] * 1e3
+    bytes_ms = nbytes / PEAK_BYTES * 1e3
+    return max(ops_ms, bytes_ms), ("operations" if ops_ms >= bytes_ms else "bytes")
+
+
+def _safe_sigma2(batch, recipe):
+    sigma2, ecorr2, _, _ = B.gls_noise_model(batch, recipe)
+    return torch.where(batch.mask > 0, sigma2, 1.0), ecorr2
+
+
+def _config_b(batch, recipe, dtype):
+    """Config B: the flagship recipe without ECORR plus the compiler's
+    banded covariance, built in ``dtype`` from the host-f64 builder."""
+    op = banded_from_times(batch.toas_s, batch.mask, dtype=dtype, device=batch.device, **BANDED)
+    return dataclasses.replace(recipe, log10_ecorr=None, noise_cov=op,
+                               cov_log10_sigma=BANDED_LOG10_SIGMA)
+
+
+def _config_d(batch, recipe):
+    """Config D: the flagship recipe plus the solar-wind Kronecker
+    covariance, built in the batch's dtype."""
+    op = kron_time_channel(batch.toas_s, mask=batch.mask, dtype=batch.dtype,
+                           device=batch.device, **KRON)
+    return dataclasses.replace(recipe, noise_cov=op, cov_log10_sigma=KRON_LOG10_SIGMA)
+
+
+def phase_cov_kernels():
+    """The covariance kernels against their plain versions at their paths'
+    shapes, float64 and float32. B.2: the first trailing update of config
+    D's dense C0 (68 x 1,920 x 1,920, panel 128), then the blocked factor
+    against the library Cholesky. B.4/B.5: config B's C0 blocks (68 x 485
+    x 16 x 16) with 123 right-hand sides, in the factor sweep, the
+    substitution-only sweep and the backward sweep."""
+    f64 = torch.float64
+    rows = {}
+    # ---- B.2, config D's C0
+    batch, recipe = flagship_workload(**DENSE_SHAPE, dtype=f64)
+    recipe = _config_d(batch, recipe)
+    safe, ecorr2 = _safe_sigma2(batch, recipe)
+    C0 = cov_structure.dense_c0(batch, safe, ecorr2, recipe.noise_cov,
+                                recipe_cov_s2(recipe, f64), f64)
+    Lkk = torch.linalg.cholesky(C0[:, :DENSE_BLOCK, :DENSE_BLOCK])
+    P64 = torch.linalg.solve_triangular(Lkk.mT, C0[:, DENSE_BLOCK:, :DENSE_BLOCK],
+                                        upper=True, left=False).contiguous()
+    T64 = C0[:, DENSE_BLOCK:, DENSE_BLOCK:].contiguous()
+    npsr, m, b = P64.shape
+    for dtype in (f64, torch.float32):
+        C, P = T64.to(dtype), P64.to(dtype)
+        size = torch.finfo(dtype).bits // 8
+        lower = (m // DENSE_BLOCK) * (m // DENSE_BLOCK + 1) // 2 * DENSE_BLOCK**2
+        bound = _bound(cw.cov_syrk_operations(npsr, m, b, DENSE_BLOCK),
+                       size * npsr * (2 * lower + m * b), dtype)
+        # the kernel updates in place: compared on copies, timed on one
+        # working copy (the values drift over the repeats, the work does not)
+        row = _kernel_row(lambda: cw.cov_syrk_update(C.clone(), P, DENSE_BLOCK),
+                          lambda: cw.cov_syrk_plain(C, P, DENSE_BLOCK), dtype, bound)
+        work = C.clone()
+        row.update(shape=[npsr, m, b], tile=DENSE_BLOCK,
+                   ms=cuda_ms(lambda: cw.cov_syrk_update(work, P, DENSE_BLOCK), 10),
+                   library_ms=cuda_ms(lambda: torch.baddbmm(C, P, P.mT, alpha=-1), 10))
+        del work
+        emit("cov_kernels", kernel="cov_syrk_update", **row)
+        require(row["finite"] and row["rel_err"] <= TOL_COV[dtype] and row["same_bits"],
+                f"cov_syrk kernel vs plain {dtype}: {row}")
+        rows["cov_syrk_update", dtype] = row
+    del T64, P64, C, P
+    L_blk, blocked_ms = _timed_ms(lambda: cov_kernels.blocked_cholesky(C0, DENSE_BLOCK))
+    L_lib, library_ms = _timed_ms(lambda: torch.linalg.cholesky(C0))
+    rel = _rel_max(L_blk, L_lib)
+    emit("cov_kernels", kernel="blocked_cholesky", shape=list(C0.shape), block=DENSE_BLOCK,
+         rel_err_vs_library=rel, tol=TOL_BLOCKED, blocked_ms=blocked_ms, library_ms=library_ms)
+    require(rel <= TOL_BLOCKED, f"blocked Cholesky vs library: {rel}")
+    del C0, L_blk, L_lib
+
+    # ---- B.4 / B.5, config B's C0 blocks
+    batch, recipe = flagship_workload(**FLAGSHIP, dtype=f64)
+    recipe = _config_b(batch, recipe, f64)
+    safe, _ = _safe_sigma2(batch, recipe)
+    D64, E64 = cov_structure.banded_c0_blocks(recipe.noise_cov, safe,
+                                              recipe_cov_s2(recipe, f64), f64)
+    npsr, nb, b, _ = D64.shape
+    q = 3 + int(lgp.phi_for_recipe(batch, recipe).shape[-1])  # the design + GP columns
+    X64 = torch.as_tensor(np.random.default_rng(8).standard_normal((npsr, nb, b, q)),
+                          device=D64.device)
+    for dtype in (f64, torch.float32):
+        D, E, X = D64.to(dtype), E64.to(dtype), X64.to(dtype)
+        size = torch.finfo(dtype).bits // 8
+        bb, bq = npsr * nb * b * b, npsr * nb * b * q
+        Ld, M, Y = ops_gp.tridiag_forward(D, E, X)  # the inputs of the later sweeps
+        # bytes: the factor sweep reads D, E, X and writes Ld, M, Y; the
+        # substitution sweeps read Ld, M and one (Np, nb, b, Q) operand and
+        # write another
+        cases = {
+            "factor": (lambda: ops_gp.tridiag_forward(D, E, X),
+                       lambda: ops_gp.tridiag_forward_plain(D, E, X),
+                       ops_gp.tridiag_operations(npsr, nb, b, q, True), size * (4 * bb + 2 * bq)),
+            "solve": (lambda: ops_gp.tridiag_forward_solve(Ld, M, X),
+                      lambda: ops_gp.tridiag_forward_solve_plain(Ld, M, X),
+                      ops_gp.tridiag_operations(npsr, nb, b, q, False), size * (2 * bb + 2 * bq)),
+            "backward": (lambda: ops_gp.tridiag_backward(Ld, M, Y),
+                         lambda: ops_gp.tridiag_backward_plain(Ld, M, Y),
+                         ops_gp.tridiag_operations(npsr, nb, b, q, False), size * (2 * bb + 2 * bq)),
+        }
+        for mode, (run, plain, ops, nbytes) in cases.items():
+            row = _kernel_row(run, plain, dtype, _bound(ops, nbytes, dtype))
+            row.update(mode=mode, shape=[npsr, nb, b, q], ms=cuda_ms(run, 5), library_ms=None)
+            emit("cov_kernels", kernel=("tridiag_factor_solve_bwd" if mode == "backward"
+                                        else "tridiag_factor_solve_fwd"), **row)
+            require(row["finite"] and row["rel_err"] <= TOL_COV[dtype] and row["same_bits"],
+                    f"block-tridiagonal kernel vs plain {mode} {dtype}: {row}")
+            rows[mode, dtype] = row
+        del D, E, X, Ld, M, Y
+    return rows
+
+
+def _time_split(bank, batch, recipe, design, grid):
+    """Host milliseconds (median of 3, synchronised) of the likelihood
+    stages of one bank call: the C0 factorization, the C0^-1 T solve, the
+    projection of the bank (which refactors C0, as the reference's
+    project does) and the grid evaluation."""
+    f64 = torch.float64
+    sigma2, ecorr2, U, _ = B.gls_noise_model(batch, recipe)
+    (_, c0inv, _), factor_ms = _timed_ms(lambda: B.white_ecorr_solver(
+        batch, sigma2, ecorr2, f64, extra=recipe.noise_cov, extra_s2=recipe_cov_s2(recipe, f64)))
+    T = lgp._stack_columns(batch, design, U, f64)[0]
+    _, tsolve_ms = _timed_ms(lambda: c0inv(T))
+    del T, U
+    reduced = lgp.ReducedGP.build(batch, recipe, design=design)
+    proj, project_ms = _timed_ms(lambda: reduced.project(bank, batch))
+    names, theta = _theta_block(grid, f64, batch.device)
+    _, grid_ms = _timed_ms(lambda: _reduced_points(theta, names, reduced, proj, batch, recipe))
+    return dict(factor_ms=factor_ms, t_solve_ms=tsolve_ms, project_ms=project_ms,
+                grid_ms=grid_ms, basis_columns=int(reduced.TNT.shape[-1]))
+
+
+def _serve(bank, batch, recipe, design, grid, ll):
+    """SERVER_REQUESTS requests over the phi axes; each answer must equal
+    its bank_loglikelihood row."""
+    axes = tuple(sorted(grid))
+    point = lambda i: {k: float(grid[k][i % len(grid[k])]) for k in axes}
+    with lk.LikelihoodServer(lk.RealizationBank.from_array(bank), batch, recipe, axes,
+                             design=design, max_batch=SERVER_BATCH) as server:
+        server.evaluate(**point(0))
+        server.reset_stats()
+        rows = [f.result(timeout=600) for f in
+                [server.submit(**point(i)) for i in range(SERVER_REQUESTS)]]
+        stats = server.stats()
+    n = len(grid[axes[0]])
+    rel = max(float(np.max(np.abs(rows[i] - ll[i % n].numpy()) / np.abs(ll[i % n].numpy())))
+              for i in range(SERVER_REQUESTS))
+    return dict(server_rel_vs_bank=rel, server_p50_ms=stats["latency_s"]["p50"] * 1e3,
+                server_p99_ms=stats["latency_s"]["p99"] * 1e3, server_batches=stats["batches"])
+
+
+def phase_covariance_banded(batch32, recipe32, static, generator):
+    """Config B through the entry points, with the launch counts cleared
+    just before and read just after: realize 200 with the banded draw
+    (f32), then in f64 the bank priced over the 8 x 8 GWB grid
+    (fused=False: the block-tridiagonal factor and solves), a grid of 8
+    points over cov_log10_sigma on one realization (the direct route, one
+    factorization each), and the server."""
+    f64 = torch.float64
+    recipe_r = _config_b(batch32, recipe32, torch.float32)
+    batch, recipe = flagship_workload(**FLAGSHIP, dtype=f64)
+    recipe = _config_b(batch, recipe, f64)
+    design = B.quadratic_design(batch)
+    grid, shape = lk.grid_cartesian(LIKELIHOOD_GRID)
+    sig_grid = {"cov_log10_sigma": COV_SIGMA_GRID_B}
+    torch.cuda.reset_peak_memory_stats()
+    launches.clear()
+    res = realize(generator, batch32, recipe_r, CHUNK, fit=True, static=static)
+    rms = torch.sqrt((res**2 * batch32.mask).sum(-1) / batch32.mask.sum(-1)).cpu()
+    _, realize_ms = _timed_ms(lambda: realize(generator, batch32, recipe_r, CHUNK, fit=True,
+                                              static=static), reps=2)
+    bank = res.double()
+    del res
+    t0 = time.perf_counter()
+    ll = lk.bank_loglikelihood(bank, batch, recipe, grid=grid, design=design).cpu()
+    bank_first_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ll_sig = lk.grid_loglikelihood(bank[0], batch, recipe, sig_grid, design=design).cpu()
+    sig_s = time.perf_counter() - t0
+    served = _serve(bank, batch, recipe, design, grid, ll)
+    counts = {k: launches[k] for k in COV_KERNELS}
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+
+    call = lambda: lk.bank_loglikelihood(bank, batch, recipe, grid=grid, design=design)
+    _, call_ms = _timed_ms(call)
+    busy, top = _device_busy(call)
+    G, R = int(np.prod(shape)), bank.shape[0]
+    row = dict(
+        shape=FLAGSHIP, block=BANDED["block"], chunk=CHUNK,
+        realizations_per_s=CHUNK / (realize_ms / 1e3), realize_ms=realize_ms,
+        median_rms_s=float(rms.median()), bank_call_ms=call_ms, bank_first_call_s=bank_first_s,
+        evals_per_s=G * R / (call_ms / 1e3), cov_sigma_points=len(COV_SIGMA_GRID_B),
+        cov_sigma_grid_s=sig_s, cov_sigma_evals_per_s=len(COV_SIGMA_GRID_B) / sig_s,
+        best_cov_log10_sigma=float(COV_SIGMA_GRID_B[int(ll_sig.argmax())]),
+        **_time_split(bank, batch, recipe, design, grid), **served,
+        peak_memory_gib=peak_gib, device_busy_share=busy, top_kernels_ms=top,
+        launches=counts, tol=TOL_LIKELIHOOD,
+        finite=bool(torch.isfinite(ll).all() and torch.isfinite(ll_sig).all()),
+    )
+    emit("covariance_banded", **row)
+    require(counts["tridiag_factor_solve_fwd"] and counts["tridiag_factor_solve_bwd"],
+            f"config B never launched a block-tridiagonal kernel: {counts}")
+    require(row["finite"] and tuple(ll.shape) == (G, R), f"config B likelihood: {row}")
+    require(served["server_rel_vs_bank"] <= TOL_LIKELIHOOD, f"config B server vs bank: {row}")
+    return counts
+
+
+def _card_vs_cpu(phase, make_recipe, nreal):
+    """A small bank realized and priced on the card (kernels) and on the
+    CPU (plain and library routes) from the same explicit noise, float64."""
+    cb, cr = flagship_workload(**SMALL, dtype=torch.float64, device="cpu")
+    gb, gr = flagship_workload(**SMALL, dtype=torch.float64)
+    cr, gr = make_recipe(cb, cr), make_recipe(gb, gr)
+    rng = np.random.default_rng(3)
+    noise = {k: rng.standard_normal((nreal,) + s) for k, s in B.noise_shapes(cb, cr).items()}
+    grid, _ = lk.grid_cartesian(DENSE_GRID)
+    ref_bank = realize(None, cb, cr, nreal, fit=True, noise=noise, device="cpu")
+    got_bank = realize(None, gb, gr, nreal, fit=True, noise=noise)
+    ref = lk.bank_loglikelihood(ref_bank, cb, cr, grid=grid, design=B.quadratic_design(cb),
+                                device="cpu")
+    got = lk.bank_loglikelihood(got_bank, gb, gr, grid=grid, design=B.quadratic_design(gb)).cpu()
+    row = dict(shape=SMALL, nreal=nreal, rel_rms_bank=rel_rms(got_bank.cpu(), ref_bank),
+               rel_card_vs_cpu=float(((got - ref).abs() / ref.abs()).max()), tol=TOL_LIKELIHOOD)
+    emit(phase, **row)
+    require(row["rel_card_vs_cpu"] <= TOL_LIKELIHOOD, f"{phase}: {row}")
+
+
+def phase_covariance_dense():
+    """Config D through the entry points, counts cleared just before and
+    read just after: realize 32 with the Kronecker draw, price the bank
+    over the 4 x 4 GWB grid (fused=False: the dense C0 and its blocked
+    Cholesky), then a grid of 4 points over cov_log10_sigma (one dense
+    factorization each). All float64."""
+    batch, recipe = flagship_workload(**DENSE_SHAPE, dtype=torch.float64)
+    recipe = _config_d(batch, recipe)
+    design = B.quadratic_design(batch)
+    grid, shape = lk.grid_cartesian(DENSE_GRID)
+    sig_grid = {"cov_log10_sigma": COV_SIGMA_GRID_D}
+    generator = torch.Generator(device=batch.device).manual_seed(1)
+    torch.cuda.reset_peak_memory_stats()
+    launches.clear()
+    bank, realize_ms = _timed_ms(lambda: realize(generator, batch, recipe, DENSE_BANK, fit=True),
+                                 reps=1)
+    t0 = time.perf_counter()
+    ll = lk.bank_loglikelihood(bank, batch, recipe, grid=grid, design=design).cpu()
+    bank_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ll_sig = lk.grid_loglikelihood(bank[0], batch, recipe, sig_grid, design=design).cpu()
+    sig_s = time.perf_counter() - t0
+    counts = {k: launches[k] for k in COV_KERNELS}
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+
+    call = lambda: lk.bank_loglikelihood(bank, batch, recipe, grid=grid, design=design)
+    _, call_ms = _timed_ms(call)
+    busy, top = _device_busy(call)
+    G, R = int(np.prod(shape)), bank.shape[0]
+    row = dict(
+        shape=DENSE_SHAPE, channels=KRON["channels"], nreal=DENSE_BANK, realize_ms=realize_ms,
+        realizations_per_s=DENSE_BANK / (realize_ms / 1e3), bank_call_ms=call_ms,
+        bank_first_call_s=bank_s, evals_per_s=G * R / (call_ms / 1e3),
+        cov_sigma_points=len(COV_SIGMA_GRID_D),
+        cov_sigma_grid_s=sig_s, cov_sigma_evals_per_s=len(COV_SIGMA_GRID_D) / sig_s,
+        best_cov_log10_sigma=float(COV_SIGMA_GRID_D[int(ll_sig.argmax())]),
+        **_time_split(bank, batch, recipe, design, grid),
+        peak_memory_gib=peak_gib, device_busy_share=busy, top_kernels_ms=top,
+        launches=counts,
+        finite=bool(torch.isfinite(ll).all() and torch.isfinite(ll_sig).all()),
+    )
+    emit("covariance_dense", **row)
+    require(counts["cov_syrk_update"] > 0, f"config D never launched the SYRK kernel: {counts}")
+    require(row["finite"] and tuple(ll.shape) == (G, R), f"config D likelihood: {row}")
+    return counts["cov_syrk_update"]
+
+
+#: the kernels line's reason where no single PyTorch call computes a kernel
+NO_LIBRARY = "none: no single PyTorch call computes it"
+
+
+def _cov_kernel_entry(name, source, replaces, launches_, row):
+    entry = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+             "launches": launches_, "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+             "bound_by": row["bound_by"], "library_ms": row["library_ms"]}
+    if row["library_ms"] is None:
+        entry["library"] = NO_LIBRARY
+    return entry
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device is available")
@@ -523,11 +885,19 @@ def main():
     design = B.quadratic_design(batch64)
     woodbury_row = phase_woodbury_kernel(batch64, recipe64, design)
     bank = res.double()
-    del res, static
+    del res
     woodbury_count, ll = phase_likelihood(bank, batch64, recipe64, design)
     phase_likelihood_float32(bank, batch, recipe, ll)
     phase_likelihood_server(bank, batch64, recipe64, design, ll)
     phase_likelihood_card_vs_cpu(SMALL)
+    del bank, batch64, recipe64, design
+    cov_rows = phase_cov_kernels()
+    tridiag_counts = phase_covariance_banded(batch, recipe, static, generator)
+    _card_vs_cpu("covariance_banded_card_vs_cpu",
+                 lambda b, r: _config_b(b, r, torch.float64), SMALL_BANK)
+    syrk_count = phase_covariance_dense()
+    _card_vs_cpu("covariance_dense_card_vs_cpu", _config_d, SMALL_BANK)
+    f64 = torch.float64
     print(json.dumps({"kernels": [{
         "name": "cw_catalog_response", "route": "cuda",
         "source": "pta_replicator_tpu_torch/csrc/cw_catalog.cu",
@@ -535,7 +905,7 @@ def main():
         "launches": count, "max_abs_err": kernel_row["max_abs_err"],
         "ms": kernel_row["ms"], "plain_ms": kernel_row["plain_ms"],
         "bound_ms": kernel_row["bound_ms"], "bound_by": kernel_row["bound_by"],
-        "library_ms": None,
+        "library_ms": None, "library": NO_LIBRARY,
     }, {
         "name": "fused_woodbury_update", "route": "cuda",
         "source": "pta_replicator_tpu_torch/csrc/fused_woodbury.cu",
@@ -544,7 +914,17 @@ def main():
         "ms": woodbury_row["ms"], "plain_ms": woodbury_row["plain_ms"],
         "bound_ms": woodbury_row["bound_ms"], "bound_by": woodbury_row["bound_by"],
         "library_ms": woodbury_row["library_ms"],
-    }]}), flush=True)
+    },
+        _cov_kernel_entry("cov_syrk_update", "pta_replicator_tpu_torch/csrc/cov_syrk.cu",
+                          "pta_replicator_tpu/ops/pallas_cw.py:484", syrk_count,
+                          cov_rows["cov_syrk_update", f64]),
+        _cov_kernel_entry("tridiag_factor_solve_fwd", "pta_replicator_tpu_torch/csrc/block_tridiag.cu",
+                          "pta_replicator_tpu/ops/pallas_gp.py:428",
+                          tridiag_counts["tridiag_factor_solve_fwd"], cov_rows["factor", f64]),
+        _cov_kernel_entry("tridiag_factor_solve_bwd", "pta_replicator_tpu_torch/csrc/block_tridiag.cu",
+                          "pta_replicator_tpu/ops/pallas_gp.py:458",
+                          tridiag_counts["tridiag_factor_solve_bwd"], cov_rows["backward", f64]),
+    ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

@@ -7,7 +7,10 @@ hand-written CUDA kernel, and the quadratic refit), batched over pulsars
 and realizations; and the rank-reduced GP likelihood that prices a bank
 of realizations over a hyperparameter grid or through a request-batched
 server (``likelihood/``), its Woodbury assembly a hand-written CUDA
-kernel. The JAX package stays the reference; this package imports
+kernel; and structured noise covariances (``covariance/``: banded,
+dense, Kronecker, low rank) that ``realize`` samples and the likelihood
+prices inside C0, on hand-written block-tridiagonal and blocked-Cholesky
+kernels. The JAX package stays the reference; this package imports
 nothing of it, and nothing of JAX.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.

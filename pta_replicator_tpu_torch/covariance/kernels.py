@@ -1,13 +1,238 @@
-"""Covariance kernels: the helpers the likelihood needs so far.
+"""Structured-covariance solve kernels: blocked Cholesky, block-
+tridiagonal (banded) Cholesky, and Kronecker solves.
 
-Counterpart of ``pta_replicator_tpu/covariance/kernels.py``. The blocked
-and block-tridiagonal Cholesky kernels arrive with ROADMAP.md item A.10.
+Counterpart of ``pta_replicator_tpu/covariance/kernels.py``. The solver
+ladder (cheapest structure that fits wins):
+
+=====================  ==============================  ===================
+structure              factorization                   cost per pulsar
+=====================  ==============================  ===================
+diagonal (+ECORR)      analytic Woodbury               O(Nt)
+                       (``white_ecorr_solver``)
+block-tridiagonal      :func:`block_tridiag_cholesky`  O(Nt b^2)
+Kronecker time (x)     :func:`kron_cholesky`           O(ne^3 + nc^3
+channel                                                + Nt (ne + nc))
+dense                  :func:`blocked_cholesky`        O(Nt^3)
+=====================  ==============================  ===================
+
+The tensor's device picks the route. On a CUDA tensor the blocked
+Cholesky's trailing update is the kernel of ``csrc/cov_syrk.cu``
+(``ops/cw.py::cov_syrk_update``), and the three block-tridiagonal
+factor/solve functions run the two kernels of ``csrc/block_tridiag.cu``
+(``ops/gp.py``); a kernel that fails to build or launch raises. On a CPU
+tensor the dense rung takes the library Cholesky, and the block-
+tridiagonal functions the composed library algebra (per-step Cholesky and
+triangular solves), as the reference does off the TPU.
+
+A failed factorization gives NaN entries, as the reference's does, not an
+exception (``torch.linalg.cholesky_ex``, no host synchronisation).
 """
 from __future__ import annotations
 
 import torch
 
+from ..ops import cw as ops_cw
+from ..ops import gp as ops_gp
+
 
 def _chol_logdet(L):
     """log det from a (batched) Cholesky factor: 2 sum log diag."""
     return 2.0 * torch.sum(torch.log(torch.diagonal(L, dim1=-2, dim2=-1)), dim=-1)
+
+
+def _cholesky(S):
+    """Lower library Cholesky factor of S, NaN where S is not positive
+    definite (as the reference's factor is), without the host
+    synchronisation of ``torch.linalg.cholesky``'s error check."""
+    L, info = torch.linalg.cholesky_ex(S)
+    return torch.where((info == 0)[..., None, None], L, torch.nan)
+
+
+def _lower_solve_right(L, B):
+    """``B L^-T`` for a lower factor L: the panel solve."""
+    return torch.linalg.solve_triangular(L.transpose(-1, -2), B, upper=True, left=False)
+
+
+# ------------------------------------------------------ blocked dense
+
+def blocked_cholesky(A, block: int = 128):
+    """Lower Cholesky factor of a batched SPD matrix ``A`` (Np, n, n) by
+    the right-looking blocked algorithm: per block column, the library
+    Cholesky of the diagonal block, the triangular panel solve, and the
+    trailing update ``ops/cw.py::cov_syrk_update`` (the kernel on a CUDA
+    tensor, the plain tiled loop on a CPU one).
+
+    ``n`` is padded up to a multiple of ``block`` with identity rows
+    (decoupled: they factor to a unit diagonal and touch nothing), so any
+    n works. The factorization runs in one working copy of ``A``, which it
+    overwrites with the factor; ``A`` itself is left as it is."""
+    npsr, n, _ = A.shape
+    nb = -(-n // block)
+    npad = nb * block - n
+    W = torch.nn.functional.pad(A, (0, npad, 0, npad)) if npad else A.clone()
+    if npad:
+        idx = torch.arange(n, nb * block, device=A.device)
+        W[:, idx, idx] = 1.0
+    for k in range(nb):
+        k0, k1 = k * block, (k + 1) * block
+        Lkk = _cholesky(W[:, k0:k1, k0:k1])
+        W[:, k0:k1, k0:k1] = Lkk
+        if k1 < nb * block:
+            P = _lower_solve_right(Lkk, W[:, k1:, k0:k1]).contiguous()
+            W[:, k1:, k0:k1] = P
+            trail = W[:, k1:, k1:]
+            updated = ops_cw.cov_syrk_update(trail, P, tile=block)
+            if updated is not trail:  # the plain version returns a new tensor
+                trail.copy_(updated)
+    return W.tril_()[:, :n, :n]
+
+
+def dense_cholesky(A, block: int = 128, method: str = "auto"):
+    """Batched lower Cholesky of (Np, n, n): ``method='library'`` is the
+    library Cholesky, ``'blocked'`` :func:`blocked_cholesky`, ``'auto'``
+    picks blocked on a CUDA tensor and the library on the CPU."""
+    if method == "auto":
+        method = "blocked" if A.device.type == "cuda" else "library"
+    if method == "library":
+        return _cholesky(A)
+    if method != "blocked":
+        raise ValueError(f"unknown dense Cholesky method {method!r}: expected "
+                         "'auto', 'library' or 'blocked'")
+    return blocked_cholesky(A, block=block)
+
+
+def cholesky_solve(L, X):
+    """Solve ``(L L^T) Z = X`` for (Np, n, n) factor and (Np, n, Q)
+    right-hand sides via two batched triangular solves."""
+    Y = torch.linalg.solve_triangular(L, X, upper=False)
+    return torch.linalg.solve_triangular(L.transpose(-1, -2), Y, upper=True)
+
+
+def dense_solve(A, X, method: str = "auto", block: int = 128):
+    """Factor + solve a batched dense SPD system. Returns ``(Z, logdet)``."""
+    L = dense_cholesky(A, block=block, method=method)
+    return cholesky_solve(L, X), _chol_logdet(L)
+
+
+# ----------------------------------------------- block-tridiagonal
+
+def _composed_cholesky(D, E):
+    """The block-tridiagonal factor by the library: per block column one
+    triangular solve for M_k and one Cholesky of the Schur complement."""
+    npsr, nb, b, _ = D.shape
+    prev = torch.eye(b, dtype=D.dtype, device=D.device).expand(npsr, b, b)
+    Ld, M = [], []
+    for k in range(nb):
+        Mk = _lower_solve_right(prev, E[:, k - 1]) if k else D.new_zeros((npsr, b, b))
+        prev = _cholesky(D[:, k] - Mk @ Mk.transpose(-1, -2))
+        Ld.append(prev)
+        M.append(Mk)
+    return torch.stack(Ld, 1), torch.stack(M, 1)
+
+
+def _composed_solve(Ld, M, X):
+    npsr, nb, b, q = X.shape
+    y = X.new_zeros((npsr, b, q))
+    Y = []
+    for k in range(nb):
+        y = torch.linalg.solve_triangular(Ld[:, k], X[:, k] - M[:, k] @ y, upper=False)
+        Y.append(y)
+    z = X.new_zeros((npsr, b, q))
+    Z = [None] * nb
+    for k in reversed(range(nb)):
+        rhs = Y[k] - (M[:, k + 1].transpose(-1, -2) @ z if k + 1 < nb else 0.0)
+        z = torch.linalg.solve_triangular(Ld[:, k].transpose(-1, -2), rhs, upper=True)
+        Z[k] = z
+    return torch.stack(Z, 1)
+
+
+def block_tridiag_cholesky(D, E):
+    """Cholesky of a symmetric positive-definite block-tridiagonal matrix:
+    ``D`` (Np, nb, b, b) diagonal blocks, ``E`` (Np, nb-1, b, b) sub-
+    diagonal blocks (``E[k]`` is the (k+1, k) block). Returns ``(Ld, M)``:
+    the diagonal Cholesky blocks and the sub-diagonal factor blocks
+    (``M[0]`` is zero). O(Nt b^2) instead of the dense O(Nt^3); on a CUDA
+    tensor the forward kernel's factor sweep."""
+    if D.device.type == "cuda":
+        Ld, M, _ = ops_gp.tridiag_forward(D, E)
+        return Ld, M
+    return _composed_cholesky(D, E)
+
+
+def block_tridiag_logdet(Ld):
+    """log det from the block-tridiagonal factor's diagonal blocks."""
+    return 2.0 * torch.sum(torch.log(torch.diagonal(Ld, dim1=-2, dim2=-1)), dim=(-2, -1))
+
+
+def block_tridiag_solve(Ld, M, X):
+    """Solve ``(L L^T) Z = X`` for the factor of
+    :func:`block_tridiag_cholesky`; ``X`` is (Np, nb, b, Q). Forward then
+    backward substitution; on a CUDA tensor the forward kernel's
+    substitution-only sweep, then the backward kernel."""
+    if Ld.device.type == "cuda":
+        return ops_gp.tridiag_backward(Ld, M, ops_gp.tridiag_forward_solve(Ld, M, X))
+    return _composed_solve(Ld, M, X)
+
+
+def block_tridiag_factor_solve(D, E, X):
+    """Fused factor + solve of a block-tridiagonal SPD system: ``(Ld, M,
+    Z)``, the factor of :func:`block_tridiag_cholesky` and the solution of
+    ``(L L^T) Z = X``. On a CUDA tensor the forward kernel factors and
+    forward-substitutes in one sweep, then the backward kernel; on the CPU
+    the composed pair."""
+    if D.device.type == "cuda":
+        return ops_gp.tridiag_factor_solve(D, E, X)
+    Ld, M = _composed_cholesky(D, E)
+    return Ld, M, _composed_solve(Ld, M, X)
+
+
+def block_tridiag_matvec(D, E, X):
+    """``C X`` for the block-tridiagonal (D, E) representation and (Np,
+    nb, b, Q) operands."""
+    out = torch.einsum("pkij,pkjq->pkiq", D, X)
+    out[:, 1:] += torch.einsum("pkij,pkjq->pkiq", E, X[:, :-1])
+    out[:, :-1] += torch.einsum("pkji,pkjq->pkiq", E, X[:, 1:])
+    return out
+
+
+def block_tridiag_matmul_factor(Ld, M, Z):
+    """``L Z`` for the block-tridiagonal factor: the sampling map (``L z``
+    has covariance ``L L^T``); ``Z`` is (..., Np, nb, b), leading axes
+    being realizations."""
+    out = torch.einsum("pkij,...pkj->...pki", Ld, Z)
+    out[..., 1:, :] += torch.einsum("pkij,...pkj->...pki", M[:, 1:], Z[..., :-1, :])
+    return out
+
+
+# ------------------------------------------------------- Kronecker
+
+def kron_cholesky(Ct, Cf):
+    """Per-factor Cholesky of a Kronecker covariance ``Ct (x) Cf`` ((Np,
+    ne, ne) epoch-level temporal factor, (Np, nc, nc) channel factor): the
+    Kronecker product of the lower factors is the dense factor under the
+    epoch-major TOA ordering."""
+    return _cholesky(Ct), _cholesky(Cf)
+
+
+def kron_solve(Lt, Lf, X):
+    """Solve ``(Ct (x) Cf) Z = X`` from the per-factor Cholesky factors:
+    X (Np, ne*nc, Q) on the (ne, nc) grid, ``Ct^-1`` along epochs and
+    ``Cf^-1`` along channels."""
+    npsr, nt, q = X.shape
+    ne, nc = Lt.shape[-1], Lf.shape[-1]
+    Y = cholesky_solve(Lt, X.reshape(npsr, ne, nc * q)).reshape(npsr, ne, nc, q)
+    Yc = Y.transpose(1, 2).reshape(npsr, nc, ne * q)
+    Z = cholesky_solve(Lf, Yc).reshape(npsr, nc, ne, q)
+    return Z.transpose(1, 2).reshape(npsr, nt, q)
+
+
+def kron_logdet(Lt, Lf):
+    """log det of ``Ct (x) Cf`` from the factor Cholesky diagonals."""
+    return Lf.shape[-1] * _chol_logdet(Lt) + Lt.shape[-1] * _chol_logdet(Lf)
+
+
+def kron_sample_map(Lt, Lf, Z):
+    """``(Lt (x) Lf) z`` for a (..., Np, ne, nc) standard-normal grid: the
+    sampling map ``Lt Z Lf^T`` (epoch-major vec convention)."""
+    Y = torch.einsum("pij,...pjc->...pic", Lt, Z)
+    return torch.einsum("...pic,pkc->...pik", Y, Lf)

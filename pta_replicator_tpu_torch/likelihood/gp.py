@@ -3,7 +3,7 @@
 Counterpart of ``pta_replicator_tpu/likelihood/gp.py``. The residuals'
 covariance is the rank-reduced model of ``models.batched.gls_noise_model``,
 
-    C = N + U_ec diag(ecorr2) U_ec^T + U diag(phi) U^T,
+    C = N + U_ec diag(ecorr2) U_ec^T + s2 X + U diag(phi) U^T,
 
 priced through the Woodbury identity with the timing model marginalized
 exactly (flat prior):
@@ -12,6 +12,9 @@ exactly (flat prior):
                    + (n - k) log 2pi ],   A = M^T C^-1 M,  b = M^T C^-1 r
 
 with M the column-normalized design and k its non-padding column count.
+C0 = N + U_ec diag(ecorr2) U_ec^T + s2 X is the white/ECORR block plus
+the recipe's structured ``noise_cov`` X, scaled by s2 = 10^(2
+cov_log10_sigma) (``models.batched.white_ecorr_solver``).
 
 * :func:`loglikelihood` evaluates one residual vector directly.
 * :class:`ReducedGP` is the serving path: with the white/ECORR noise held
@@ -35,7 +38,8 @@ from typing import Optional
 import torch
 
 from ..batch import PulsarBatch
-from ..covariance.kernels import _chol_logdet
+from ..covariance.kernels import _chol_logdet, _cholesky
+from ..covariance.structure import recipe_cov_s2
 from ..models.batched import (
     Recipe,
     gls_noise_model,
@@ -47,6 +51,16 @@ from ..models.batched import (
 from ..ops import gp as ops_gp
 
 _LOG_2PI = math.log(2.0 * math.pi)
+
+#: Recipe fields that change the white/ECORR/correlated-noise block C0: a
+#: :class:`ReducedGP` precompute is only valid while these are fixed, so
+#: grids over any of them take the direct route (likelihood/infer.py).
+#: ``cov_log10_sigma`` scales the structured ``noise_cov`` block, which
+#: lives inside C0.
+WHITE_NOISE_FIELDS = frozenset(
+    {"efac", "log10_equad", "log10_ecorr", "tnequad", "cov_log10_sigma"}
+)
+
 
 def require_precision_ready(precision) -> str:
     """Validate a ``precision=`` policy: ``"highest"`` (or None) passes.
@@ -113,14 +127,6 @@ def _tm_columns(batch: PulsarBatch, design, dtype):
     return M / norms[:, None, :], zero_col
 
 
-def _cholesky(S):
-    """Lower Cholesky factor of S, NaN where S is not positive definite
-    (as the reference's factor is), without the host synchronisation of
-    ``torch.linalg.cholesky``'s error check."""
-    L, info = torch.linalg.cholesky_ex(S)
-    return torch.where((info == 0)[..., None, None], L, torch.nan)
-
-
 def _cho_solve(L, B):
     """S^-1 B from the lower Cholesky factor L of S."""
     return torch.cholesky_solve(B, L, upper=False)
@@ -138,7 +144,9 @@ def loglikelihood(residuals, batch: PulsarBatch, recipe: Recipe, design=None,
     residuals = torch.as_tensor(residuals)
     dtype = residuals.dtype
     sigma2, ecorr2, U, phi = gls_noise_model(batch, recipe)
-    _winv, c0inv, logdet = white_ecorr_solver(batch, sigma2, ecorr2, dtype)
+    _winv, c0inv, logdet = white_ecorr_solver(
+        batch, sigma2, ecorr2, dtype,
+        extra=recipe.noise_cov, extra_s2=recipe_cov_s2(recipe, dtype))
     r = residuals.to(batch.device) * batch.mask
     x0 = c0inv(r[..., None])[..., 0]  # C0^-1 r
     quad = torch.einsum("pn,pn->p", r, x0)
@@ -227,6 +235,11 @@ class ReducedGP:
     ktm: int = 0
     #: built by :meth:`build_fused`
     fused: bool = False
+    #: the recipe's structured ``noise_cov`` and its frozen amplitude
+    #: 10^(2 cov_log10_sigma): part of C0, kept so :meth:`project` rebuilds
+    #: the same solver (grids over cov_log10_sigma take the direct route)
+    extra: Optional[object] = None
+    extra_s2: Optional[torch.Tensor] = None
 
     @classmethod
     def build(cls, batch: PulsarBatch, recipe: Recipe, design=None, dtype=None,
@@ -241,14 +254,16 @@ class ReducedGP:
                                    precision=precision, tile=tile)[0]
         dtype = dtype or batch.dtype
         sigma2, ecorr2, U, _phi = gls_noise_model(batch, recipe)
-        _winv, c0inv, logdet_c0 = white_ecorr_solver(batch, sigma2, ecorr2, dtype)
+        extra, extra_s2 = recipe.noise_cov, recipe_cov_s2(recipe, dtype)
+        _winv, c0inv, logdet_c0 = white_ecorr_solver(
+            batch, sigma2, ecorr2, dtype, extra=extra, extra_s2=extra_s2)
         T, zero_col, ktm, ndof = _stack_columns(batch, design, U, dtype)
         CiT = c0inv(T)
         TNT = torch.einsum("pnq,pns->pqs", T, CiT)
         return cls(
             TNT=TNT, CiT=CiT, logdet_c0=logdet_c0, sigma2=sigma2.to(dtype),
             ecorr2=None if ecorr2 is None else ecorr2.to(dtype),
-            zero_col=zero_col, ndof=ndof, ktm=ktm,
+            zero_col=zero_col, ndof=ndof, ktm=ktm, extra=extra, extra_s2=extra_s2,
         )
 
     @classmethod
@@ -259,7 +274,15 @@ class ReducedGP:
         ``T^T C0^-1 T`` and, when ``residuals`` (Np, Nt) is given, its
         projection in the same pass, without the (Np, Nt, Q) ``C0^-1 T``.
         Returns ``(ReducedGP, GPProjection or None)``. ``tile=None`` is
-        the reference's untuned default."""
+        the reference's untuned default. Only the analytic white/ECORR C0
+        is fusable: a recipe with a structured ``noise_cov`` raises (the
+        composed :meth:`build` prices it)."""
+        if recipe.noise_cov is not None:
+            raise ValueError(
+                "the fused Woodbury rung prices the analytic white/"
+                "ECORR C0 only; a recipe with a structured noise_cov "
+                "block must use the composed ReducedGP.build"
+            )
         require_precision_ready(precision)
         dtype = dtype or batch.dtype
         tile = ops_gp.DEFAULT_WOODBURY_TILE if tile is None else int(tile)
@@ -299,7 +322,8 @@ class ReducedGP:
                 y = y - winv * pick_epochs(gain[..., None] * s_r, batch)[..., 0]
             return GPProjection(rNr=torch.einsum("...pn,...pn->...p", r, y),
                                 d=torch.einsum("pnq,...pn->...pq", self.T, y))
-        _winv, c0inv, _ld = white_ecorr_solver(batch, self.sigma2, self.ecorr2, dtype)
+        _winv, c0inv, _ld = white_ecorr_solver(batch, self.sigma2, self.ecorr2, dtype,
+                                               extra=self.extra, extra_s2=self.extra_s2)
         y = c0inv(r[..., None])[..., 0]
         # C0^-1 is symmetric: T^T C0^-1 r == (C0^-1 T)^T r
         return GPProjection(rNr=torch.einsum("...pn,...pn->...p", r, y),

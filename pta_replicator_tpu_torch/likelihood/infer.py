@@ -62,13 +62,24 @@ def grid_cartesian(axes: Dict[str, object]) -> Tuple[dict, tuple]:
 def _reducible(names: Tuple[str, ...], recipe: Recipe) -> bool:
     """True when the grid can ride the ReducedGP fast path: every moving
     field feeds only the priors phi of a block the recipe enables (a
-    moving amplitude of a disabled block would change the basis)."""
-    if not set(names) <= PHI_FIELDS:
+    moving amplitude of a disabled block would change the basis). A C0
+    axis (``gp.WHITE_NOISE_FIELDS``, ``cov_log10_sigma`` among them) is
+    never reducible: each point refactors C0 on the direct route."""
+    if set(names) & gp.WHITE_NOISE_FIELDS or not set(names) <= PHI_FIELDS:
         return False
     if any(getattr(recipe, name) is None for name in names):
         return False
     return any(getattr(recipe, name) is not None for name in (
         "rn_log10_amplitude", "chrom_log10_amplitude", "gwb_log10_amplitude"))
+
+
+def _refuse_fused_cov(fused: bool, recipe: Recipe):
+    if fused and recipe.noise_cov is not None:
+        raise ValueError(
+            "fused=True prices the analytic white/ECORR C0 only; a "
+            "recipe with a structured noise_cov block must use the "
+            "composed path (fused=False)"
+        )
 
 
 def _theta_block(grid: Dict[str, object], dtype, device) -> Tuple[tuple, torch.Tensor]:
@@ -115,6 +126,7 @@ def grid_loglikelihood(residuals, batch: PulsarBatch, recipe: Recipe,
     residuals = torch.as_tensor(residuals).to(device)
     dtype = residuals.dtype
     gp.require_precision_ready(precision)
+    _refuse_fused_cov(fused, recipe)
     names, theta = _theta_block(grid, dtype, device)
     reducible = _reducible(names, recipe)
     if fused and not reducible:
@@ -162,6 +174,7 @@ def bank_loglikelihood(bank, batch: PulsarBatch, recipe: Recipe,
     device = resolve_device(device)
     batch, recipe = batch.to(device), recipe.to(device)
     gp.require_precision_ready(precision)
+    _refuse_fused_cov(fused, recipe)
     if grid is not None:
         names, theta = _theta_block(grid, batch.dtype, device)
         if not _reducible(names, recipe):

@@ -17,6 +17,7 @@ epoch through the batch's int64 index tensors.
 """
 from __future__ import annotations
 
+import dataclasses
 import functools
 import math
 from dataclasses import dataclass
@@ -26,6 +27,13 @@ import numpy as np
 import torch
 
 from ..batch import PulsarBatch, _map_tensors
+from ..covariance.structure import (
+    BandedCov,
+    CovOp,
+    banded_combined_solver,
+    dense_combined_solver,
+    recipe_cov_s2,
+)
 from ..device import resolve_device
 from ..ops.cw import cw_catalog_planes, cw_catalog_response
 from ..ops.fourier import fourier_basis, fourier_frequencies, powerlaw_prior
@@ -364,8 +372,6 @@ ARRAY_FIELDS = (
 #: fields of the JAX package's Recipe that this port does not run yet, and
 #: the ROADMAP.md item that brings each
 UNPORTED_FIELDS = {
-    "noise_cov": "A.10 (covariance)",
-    "cov_log10_sigma": "A.10 (covariance)",
     "fit_design": "A.9 (design and GLS fits)",
     "gwb_user_spectrum": "A.13 (user GWB spectra)",
     "cgw_stream_chunk": "A.11 (streamed CW catalog)",
@@ -465,14 +471,21 @@ class Recipe:
         _validate_recipe(self)
 
     def to(self, device) -> "Recipe":
-        """Move every tensor to ``device``."""
-        return _map_tensors(self, lambda x: x.to(device))
+        """Move every tensor, the ``noise_cov`` op's too, to ``device``."""
+        out = _map_tensors(self, lambda x: x.to(device))
+        if self.noise_cov is None:
+            return out
+        return dataclasses.replace(out, noise_cov=self.noise_cov.to(device))
 
     def astype(self, dtype) -> "Recipe":
-        """Cast the floating tensors to ``dtype``."""
-        return _map_tensors(
+        """Cast the floating tensors, the ``noise_cov`` op's too, to
+        ``dtype``."""
+        out = _map_tensors(
             self, lambda x: x.to(dtype) if x.is_floating_point() else x
         )
+        if self.noise_cov is None:
+            return out
+        return dataclasses.replace(out, noise_cov=self.noise_cov.astype(dtype))
 
 
 def _validate_recipe(r: Recipe):
@@ -510,6 +523,17 @@ def _validate_recipe(r: Recipe):
     need(
         r.gwb_log10_amplitude is None or r.gwb_gamma is not None,
         "a power-law GWB needs gwb_gamma alongside gwb_log10_amplitude",
+    )
+    need(
+        r.cov_log10_sigma is None or r.noise_cov is not None,
+        "cov_log10_sigma scales the correlated-noise block — set "
+        "noise_cov too (covariance.structure builders), or drop it",
+    )
+    need(
+        r.noise_cov is None or isinstance(r.noise_cov, CovOp),
+        "noise_cov must be a pta_replicator_tpu_torch.covariance CovOp (carry "
+        "one across from the JAX package with convert.covop_from_arrays), "
+        f"got {type(r.noise_cov).__name__}",
     )
     if r.cgw_params is not None:
         shape = tuple(r.cgw_params.shape)
@@ -554,6 +578,15 @@ def noise_shapes(batch: PulsarBatch, recipe: Recipe) -> dict:
         nf = gwb_grid(batch.start_s, batch.stop_s, recipe.gwb_npts, recipe.gwb_howml)[2].shape[0]
         ncol = batch.npsr if recipe.orf_cholesky is None else recipe.orf_cholesky.shape[1]
         shapes["gwb"] = (2, ncol, nf)
+    if recipe.noise_cov is not None:
+        # drawn last, so that every other family's stream is unchanged
+        op = recipe.noise_cov
+        if (op.npsr, op.ntoa) != (batch.npsr, batch.ntoa_max):
+            raise ValueError(
+                f"noise_cov covers {op.npsr} pulsars x {op.ntoa} TOAs but the batch "
+                f"is {batch.npsr} x {batch.ntoa_max}"
+            )
+        shapes.update(op.draw_shapes())
     return shapes
 
 
@@ -565,7 +598,7 @@ def draw_noise(generator, batch: PulsarBatch, recipe: Recipe, nreal: int,
     A family present in ``noise`` is taken from it (cast to the batch's
     dtype and device, shape-checked); the others are drawn from
     ``generator``, one call per family, in this fixed order: white, ecorr,
-    red_phase, red, chromatic, gwb."""
+    red_phase, red, chromatic, gwb, cov, cov_lowrank."""
     noise = noise or {}
     unknown = set(noise) - set(noise_shapes(batch, recipe))
     if unknown:
@@ -630,6 +663,9 @@ def realization_delays(batch: PulsarBatch, recipe: Recipe, draws: dict):
             turnover=recipe.gwb_turnover, f0=recipe.gwb_f0,
             beta=recipe.gwb_beta, power=recipe.gwb_power, eps=draws["gwb"],
         )
+    if recipe.noise_cov is not None:
+        sample = recipe.noise_cov.sample(draws, s2=recipe_cov_s2(recipe, batch.dtype))
+        total = total + sample.to(batch.dtype) * batch.mask
     return total
 
 
@@ -925,13 +961,26 @@ def white_ecorr_solver(batch: PulsarBatch, sigma2, ecorr2, dtype,
     logdet_c0)``: the masked N^-1 diagonal, a map ``(..., Np, Nt, Q) ->
     (..., Np, Nt, Q)`` applying C0^-1 by the per-epoch Woodbury identity
     (epochs are disjoint, so no (Nt, E) one-hot is formed), and the (Np,)
-    log det C0 over valid TOAs. A structured ``extra`` block (a Recipe's
-    ``noise_cov``) is not ported."""
-    if extra is not None or extra_s2 is not None:
-        raise NotImplementedError(
-            "a structured noise_cov block in C0 is not ported to "
-            f"pta_replicator_tpu_torch yet (ROADMAP.md item {UNPORTED_FIELDS['noise_cov']})"
-        )
+    log det C0 over valid TOAs.
+
+    ``extra`` generalizes C0 beyond the diagonal: a structured CovOp (a
+    Recipe's ``noise_cov``) scaled by ``extra_s2`` joins the block, C0 = N
+    + ECORR + s2 X. A :class:`BandedCov` without ECORR folds the white
+    diagonal into its block-tridiagonal factor (O(Nt b^2)); every other
+    combination (Kronecker, dense or low-rank extras, or banded + ECORR)
+    materializes C0 and pays one blocked dense Cholesky. ``winv`` stays
+    the white diagonal's inverse even then."""
+    if extra is not None:
+        if not isinstance(extra, CovOp):
+            raise TypeError(f"extra must be a covariance CovOp, got {type(extra).__name__}")
+        winv = torch.where(batch.mask > 0, 1.0 / sigma2, 0.0).to(dtype)
+        safe_sigma2 = torch.where(batch.mask > 0, sigma2, 1.0)
+        if isinstance(extra, BandedCov) and ecorr2 is None:
+            c0inv_mat, logdet_c0 = banded_combined_solver(extra, safe_sigma2, extra_s2, dtype)
+        else:
+            c0inv_mat, logdet_c0 = dense_combined_solver(
+                batch, safe_sigma2, ecorr2, extra, extra_s2, dtype)
+        return winv, c0inv_mat, logdet_c0
     winv, seg_sum, gain, logdet_c0 = white_ecorr_parts(batch, sigma2, ecorr2, dtype)
 
     def c0inv_mat(X):

@@ -1,7 +1,10 @@
-"""CW-catalog response: host plane build, plain version and CUDA kernel.
+"""CW-catalog response and the blocked-Cholesky trailing update: host
+plane build, plain versions and CUDA kernels.
 
 Counterpart of ``pta_replicator_tpu/ops/pallas_cw.py``: the (Nsrc x Ntoa)
-continuous-wave response sum of a source catalog.
+continuous-wave response sum of a source catalog, and (at the end of the
+module) the SYRK trailing update of ``covariance/kernels.py::
+blocked_cholesky``, whose CUDA kernel is ``csrc/cov_syrk.cu``.
 
 * :func:`cw_catalog_planes` builds the epoch-folded coefficient planes in
   float64 numpy on the host; the caller casts them last. The fold keeps
@@ -293,3 +296,106 @@ def cw_catalog_response(toas_rel, src, psr, psr_term: bool = True,
     if toas_rel.device.type == "cpu":
         return cw_catalog_response_plain(toas_rel, src, psr, psr_term, evolve, chunk)
     return cw_catalog_response_cuda(toas_rel, src, psr, psr_term, evolve)
+
+
+# --------------------------------------------------------------------
+# Blocked-Cholesky trailing update (covariance/kernels.py::blocked_cholesky)
+#
+# The O(n^3) bulk of a blocked Cholesky factorization is the SYRK trailing
+# update C <- C - L L^T after each panel factorization. Counterpart of the
+# reference's ``cov_tile_update`` / ``cov_syrk_update``: only lower tiles
+# are updated; strictly-upper tiles pass through (only the lower triangle
+# is consumed downstream).
+
+def cov_syrk_operations(npsr: int, m: int, b: int, tile: int) -> int:
+    """Floating-point operations of one trailing update: 2 b per entry of
+    the lower tiles (a multiply and an add per contraction column)."""
+    nt = m // tile
+    return npsr * (nt * (nt + 1) // 2) * tile * tile * 2 * b
+
+
+def cov_tile_update(c, li, lj):
+    """One trailing-update tile: ``c - li @ lj^T`` over the panel's
+    contraction axis, batched over the leading pulsar axis."""
+    return c - torch.einsum("pik,pjk->pij", li, lj)
+
+
+def _check_syrk(C, L, tile: int):
+    if C.ndim != 3 or C.shape[1] != C.shape[2] or L.ndim != 3 or L.shape[:2] != C.shape[:2]:
+        raise ValueError(
+            f"cov_syrk_update: C {tuple(C.shape)} and L {tuple(L.shape)} do not fit "
+            "(want (Np, m, m) and (Np, m, b))"
+        )
+    m = C.shape[-1]
+    if tile < 1 or m % tile:
+        raise ValueError(f"trailing dim {m} not a multiple of tile {tile}")
+    if C.dtype not in _DTYPE_CODES:
+        raise TypeError(f"cov_syrk_update: dtype {C.dtype} is neither float32 nor float64")
+    if L.dtype != C.dtype or L.device != C.device:
+        raise TypeError("cov_syrk_update: C and L must share dtype and device")
+
+
+def cov_syrk_plain(C, L, tile: int = 128):
+    """``C - L L^T`` on the lower (tile x tile) tiles in plain PyTorch,
+    looped over the static tile grid; strictly-upper tiles pass through.
+    Returns a new tensor."""
+    _check_syrk(C, L, tile)
+    nt = C.shape[-1] // tile
+    rows = []
+    for i in range(nt):
+        li = L[:, i * tile:(i + 1) * tile, :]
+        rows.append(torch.cat([
+            cov_tile_update(C[:, i * tile:(i + 1) * tile, j * tile:(j + 1) * tile],
+                            li, L[:, j * tile:(j + 1) * tile, :])
+            if j <= i else C[:, i * tile:(i + 1) * tile, j * tile:(j + 1) * tile]
+            for j in range(nt)
+        ], dim=-1))
+    return torch.cat(rows, dim=-2)
+
+
+def _bind_syrk(lib):
+    lib.cov_syrk_launch.argtypes = (
+        [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p]
+        + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    )
+    lib.cov_syrk_launch.restype = ctypes.c_int
+    lib.cov_syrk_error_string.argtypes = [ctypes.c_int]
+    lib.cov_syrk_error_string.restype = ctypes.c_char_p
+
+
+def cov_syrk_cuda(C, L, tile: int = 128):
+    """``C - L L^T`` on the lower tiles from the CUDA kernel
+    (``csrc/cov_syrk.cu``), IN PLACE: C may be a view whose last axis is
+    contiguous (a trailing block of a larger matrix), and is returned.
+    Raises on a malformed input, a failed build or a refused launch."""
+    _check_syrk(C, L, tile)
+    if C.device.type != "cuda":
+        raise ValueError(f"cov_syrk_cuda needs CUDA tensors, got {C.device}")
+    npsr, m, b = L.shape
+    if C.stride(2) != 1 or C.stride(1) < m or not 1 <= npsr <= 65535:
+        raise ValueError(
+            "cov_syrk_update: C needs contiguous rows (stride 1 along the last "
+            f"axis, rows at least m apart) and 1..65535 pulsars; got strides "
+            f"{C.stride()} for shape {tuple(C.shape)}"
+        )
+    L = L.contiguous()
+    lib = build.load("cov_syrk", _bind_syrk)
+    with torch.cuda.device(C.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.cov_syrk_launch(C.data_ptr(), C.stride(0), C.stride(1), L.data_ptr(),
+                                 npsr, m, b, tile, _DTYPE_CODES[C.dtype], stream)
+    if rc != 0:
+        raise RuntimeError(f"cov_syrk kernel launch failed: {lib.cov_syrk_error_string(rc).decode()}")
+    launches["cov_syrk_update"] += 1
+    return C
+
+
+def cov_syrk_update(C, L, tile: int = 128):
+    """SYRK trailing update ``C - L L^T`` on the lower (tile x tile) tiles
+    of ``C`` (Np, m, m) for the panel ``L`` (Np, m, b); ``m`` must be a
+    multiple of ``tile``. CPU tensors run the plain version and get a new
+    tensor; CUDA tensors run the kernel, which updates ``C`` in place (and
+    returns it) or raises."""
+    if C.device.type == "cpu":
+        return cov_syrk_plain(C, L, tile)
+    return cov_syrk_cuda(C, L, tile)

@@ -1,4 +1,11 @@
-"""Fused Woodbury assembly: plain version and CUDA kernel.
+"""Fused Woodbury assembly and block-tridiagonal factor/solve: plain
+versions and CUDA kernels.
+
+The block-tridiagonal half (at the end of the module) is the counterpart
+of the reference's ``tridiag_factor_solve``: the forward factor sweep,
+the substitution-only forward sweep and the backward sweep, whose CUDA
+kernels are in ``csrc/block_tridiag.cu``. The rest of this docstring is
+about the Woodbury half.
 
 Counterpart of the fused Woodbury half of
 ``pta_replicator_tpu/ops/pallas_gp.py``: for a stacked column basis T
@@ -167,3 +174,246 @@ def fused_woodbury_update(T, w, r, tile: int = DEFAULT_WOODBURY_TILE,
     if T.device.type == "cpu":
         return fused_woodbury_plain(T, w, r, tile)
     return fused_woodbury_cuda(T, w, r)
+
+
+# ------------------------------------- block-tridiagonal factor/solve
+#
+# Counterpart of the block-tridiagonal half of the reference module: the
+# per-tile algebra of ``chol_tile``, ``tri_solve_tile``,
+# ``tridiag_tile_factor_fwd`` and ``tridiag_tile_solve_bwd``, the two
+# sweeps of ``tridiag_factor_solve_xla`` as the plain version, and the
+# kernels of ``csrc/block_tridiag.cu``. Blocks are (Np, nb, b, b) diagonal
+# ``D``, (Np, nb - 1, b, b) sub-diagonal ``E`` (``E[k]`` is the (k+1, k)
+# block) and (Np, nb, b, Q) right-hand sides.
+
+def chol_tile(a):
+    """Batched (..., b, b) Cholesky as b right-looking rank-1 steps: column
+    j of the factor is the working column j scaled by 1/sqrt of its pivot
+    (rows >= j), then subtracted out as a rank-1 update. Exactly lower
+    triangular; the caller guarantees positive definiteness."""
+    n = a.shape[-1]
+    below = torch.arange(n, device=a.device)
+    l = torch.zeros_like(a)
+    for j in range(n):
+        colj = a[..., :, j]
+        lcol = colj * (1.0 / torch.sqrt(colj[..., j]))[..., None] * (below >= j).to(a.dtype)
+        l[..., :, j] = lcol
+        a = a - lcol[..., :, None] * lcol[..., None, :]
+    return l
+
+
+def tri_solve_tile(l, b, trans: bool = False):
+    """Triangular substitution against the (..., n, n) factor ``l`` for
+    (..., n, Q) right-hand sides: ``L y = b``, or ``L^T z = b`` with
+    ``trans=True``. Each step solves one row and eliminates it from the
+    rows still to come."""
+    n = l.shape[-1]
+    rows = torch.arange(n, device=l.device)
+    y = b.clone()
+    for j in (reversed(range(n)) if trans else range(n)):
+        xj = y[..., j, :] / l[..., j, j][..., None]
+        colj = l[..., j, :] if trans else l[..., :, j]
+        keep = (rows < j) if trans else (rows > j)
+        y = y - (colj * keep.to(l.dtype))[..., :, None] * xj[..., None, :]
+        y[..., j, :] = xj
+    return y
+
+
+def tridiag_tile_factor_fwd(d_k, e_k, x_k, l_prev, y_prev):
+    """One forward block-column step: ``M_k = E_k L_prev^-T``, ``L_k =
+    chol(D_k - M_k M_k^T)`` and ``y_k = L_k^-1 (x_k - M_k y_prev)``."""
+    m = tri_solve_tile(l_prev, e_k.transpose(-1, -2)).transpose(-1, -2)
+    s = d_k - m @ m.transpose(-1, -2)
+    l = chol_tile(s)
+    y = tri_solve_tile(l, x_k - m @ y_prev)
+    return l, m, y
+
+
+def tridiag_tile_solve_bwd(l_k, m_next, y_k, z_next):
+    """One backward block-column step: ``z_k = L_k^-T (y_k - M_{k+1}^T
+    z_next)``."""
+    return tri_solve_tile(l_k, y_k - m_next.transpose(-1, -2) @ z_next, trans=True)
+
+
+def _check_tridiag(name, blocks, rhs=None):
+    """Shape, dtype and device checks: ``blocks`` are (Np, nb, b, b)
+    tensors (the first may have nb - 1 blocks when it is E), ``rhs`` an
+    (Np, nb, b, Q) tensor or None."""
+    first = blocks[0]
+    if first.ndim != 4 or first.shape[-1] != first.shape[-2]:
+        raise ValueError(f"{name}: blocks {tuple(first.shape)} are not (Np, nb, b, b)")
+    npsr, nb, b, _ = first.shape
+    if first.dtype not in _DTYPE_CODES:
+        raise TypeError(f"{name}: dtype {first.dtype} is neither float32 nor float64")
+    for x in list(blocks[1:]) + ([] if rhs is None else [rhs]):
+        if x.dtype != first.dtype or x.device != first.device:
+            raise TypeError(f"{name}: operands must share dtype and device")
+    if rhs is not None and (rhs.ndim != 4 or tuple(rhs.shape[:3]) != (npsr, nb, b)):
+        raise ValueError(f"{name}: right-hand sides {tuple(rhs.shape)} do not fit {(npsr, nb, b)}")
+    return npsr, nb, b
+
+
+def tridiag_forward_plain(D, E, X=None):
+    """The forward factor sweep in plain PyTorch: ``(Ld, M, Y)``; ``Y`` is
+    None when ``X`` is. The carry starts at the identity factor and a zero
+    partial (``E_0`` is the zero pad, so ``M_0`` is exactly zero)."""
+    npsr, nb, b = _check_tridiag("tridiag_forward", (D,), X)
+    q = 0 if X is None else X.shape[-1]
+    Epad = torch.cat([D.new_zeros((npsr, 1, b, b)), E], dim=1)
+    xs = D.new_zeros((npsr, nb, b, q)) if X is None else X
+    l_prev = torch.eye(b, dtype=D.dtype, device=D.device).expand(npsr, b, b)
+    y_prev = D.new_zeros((npsr, b, q))
+    Ld, M, Y = [], [], []
+    for k in range(nb):
+        l_prev, m, y_prev = tridiag_tile_factor_fwd(D[:, k], Epad[:, k], xs[:, k], l_prev, y_prev)
+        Ld.append(l_prev)
+        M.append(m)
+        Y.append(y_prev)
+    return torch.stack(Ld, 1), torch.stack(M, 1), (None if X is None else torch.stack(Y, 1))
+
+
+def tridiag_forward_solve_plain(Ld, M, X):
+    """The substitution-only forward sweep in plain PyTorch: ``Y`` with
+    ``y_k = L_k^-1 (x_k - M_k y_{k-1})`` from a given factor."""
+    npsr, nb, b = _check_tridiag("tridiag_forward_solve", (Ld, M), X)
+    y = X.new_zeros((npsr, b, X.shape[-1]))
+    Y = []
+    for k in range(nb):
+        y = tri_solve_tile(Ld[:, k], X[:, k] - M[:, k] @ y)
+        Y.append(y)
+    return torch.stack(Y, 1)
+
+
+def tridiag_backward_plain(Ld, M, Y):
+    """The backward sweep in plain PyTorch: ``Z`` with ``z_k = L_k^-T (y_k
+    - M_{k+1}^T z_{k+1})`` over reversed block columns."""
+    npsr, nb, b = _check_tridiag("tridiag_backward", (Ld, M), Y)
+    Mnext = torch.cat([M[:, 1:], M.new_zeros((npsr, 1, b, b))], dim=1)
+    z = Y.new_zeros((npsr, b, Y.shape[-1]))
+    Z = [None] * nb
+    for k in reversed(range(nb)):
+        z = tridiag_tile_solve_bwd(Ld[:, k], Mnext[:, k], Y[:, k], z)
+        Z[k] = z
+    return torch.stack(Z, 1)
+
+
+def tridiag_factor_solve_plain(D, E, X):
+    """Fused factor + solve in plain PyTorch: ``(Ld, M, Z)`` with ``(L
+    L^T) Z = X``, the two sweeps of the reference's tiled fallback."""
+    Ld, M, Y = tridiag_forward_plain(D, E, X)
+    return Ld, M, tridiag_backward_plain(Ld, M, Y)
+
+
+def tridiag_operations(npsr: int, nb: int, b: int, q: int, factor: bool) -> int:
+    """Floating-point operations of one forward sweep (``factor``: with the
+    factor) or of one backward sweep (``factor=False``), per block column:
+    the solve for M_k (b^3), the Schur complement (b^3), the Cholesky
+    (b^3 / 3) and, per right-hand side, the M product (2 b^2) and the
+    triangular solve (b^2)."""
+    per = 3 * q * b * b
+    if factor:
+        per += 2 * b**3 + b**3 // 3
+    return npsr * nb * per
+
+
+def _bind_tridiag(lib):
+    lib.tridiag_factor_fwd_launch.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    lib.tridiag_factor_fwd_launch.restype = ctypes.c_int
+    for fn in (lib.tridiag_solve_fwd_launch, lib.tridiag_bwd_launch):
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    lib.block_tridiag_error_string.argtypes = [ctypes.c_int]
+    lib.block_tridiag_error_string.restype = ctypes.c_char_p
+
+
+#: the block sizes the kernels take (the reference accepts 2..256)
+MAX_TRIDIAG_BLOCK = 256
+
+
+def _tridiag_launch(fn_name, device, tensors, ints, launch_name):
+    """Launch one block_tridiag entry on the current stream of ``device``
+    with the tensors' pointers (None: a null pointer) and the int
+    arguments; raise when the launch is refused."""
+    if device.type != "cuda":
+        raise ValueError(f"the block-tridiagonal kernels need CUDA tensors, got {device}")
+    lib = build.load("block_tridiag", _bind_tridiag)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = getattr(lib, fn_name)(*[None if t is None else t.data_ptr() for t in tensors],
+                                   *ints, stream)
+    if rc != 0:
+        raise RuntimeError(
+            f"block_tridiag kernel launch failed: {lib.block_tridiag_error_string(rc).decode()}"
+        )
+    launches[launch_name] += 1
+
+
+def _check_kernel_shape(npsr, b):
+    if not 1 <= b <= MAX_TRIDIAG_BLOCK or not 1 <= npsr <= 65535:
+        raise ValueError(
+            f"the block-tridiagonal kernels take blocks of 1..{MAX_TRIDIAG_BLOCK} and "
+            f"1..65535 pulsars, got b = {b}, Np = {npsr}"
+        )
+
+
+def tridiag_forward(D, E, X=None):
+    """The forward factor sweep ``(Ld, M, Y)`` (``Y`` None without ``X``):
+    CPU tensors run the plain version, CUDA tensors the FACTOR kernel of
+    ``csrc/block_tridiag.cu``, which launches or raises."""
+    if D.device.type == "cpu":
+        return tridiag_forward_plain(D, E, X)
+    npsr, nb, b = _check_tridiag("tridiag_forward", (D, E), X)
+    if tuple(E.shape) != (npsr, nb - 1, b, b):
+        raise ValueError(f"tridiag_forward: E {tuple(E.shape)} does not fit D {tuple(D.shape)}")
+    _check_kernel_shape(npsr, b)
+    D, E = D.contiguous(), E.contiguous()
+    X = None if X is None else X.contiguous()
+    q = 0 if X is None else X.shape[-1]
+    Ld, M = torch.empty_like(D), torch.empty_like(D)
+    Y = None if X is None else torch.empty_like(X)
+    _tridiag_launch("tridiag_factor_fwd_launch", D.device, (D, E, X, Ld, M, Y),
+                    (npsr, nb, b, q, _DTYPE_CODES[D.dtype]), "tridiag_factor_solve_fwd")
+    return Ld, M, Y
+
+
+def tridiag_forward_solve(Ld, M, X):
+    """The substitution-only forward sweep ``Y`` from a given factor: CPU
+    tensors run the plain version, CUDA tensors the kernel (FACTOR =
+    false), which launches or raises."""
+    if Ld.device.type == "cpu":
+        return tridiag_forward_solve_plain(Ld, M, X)
+    npsr, nb, b = _check_tridiag("tridiag_forward_solve", (Ld, M), X)
+    _check_kernel_shape(npsr, b)
+    Ld, M, X = Ld.contiguous(), M.contiguous(), X.contiguous()
+    Y = torch.empty_like(X)
+    if X.shape[-1]:
+        _tridiag_launch("tridiag_solve_fwd_launch", Ld.device, (Ld, M, X, Y),
+                        (npsr, nb, b, X.shape[-1], _DTYPE_CODES[Ld.dtype]),
+                        "tridiag_factor_solve_fwd")
+    return Y
+
+
+def tridiag_backward(Ld, M, Y):
+    """The backward sweep ``Z``: CPU tensors run the plain version, CUDA
+    tensors the kernel, which launches or raises."""
+    if Ld.device.type == "cpu":
+        return tridiag_backward_plain(Ld, M, Y)
+    npsr, nb, b = _check_tridiag("tridiag_backward", (Ld, M), Y)
+    _check_kernel_shape(npsr, b)
+    Ld, M, Y = Ld.contiguous(), M.contiguous(), Y.contiguous()
+    Z = torch.empty_like(Y)
+    if Y.shape[-1]:
+        _tridiag_launch("tridiag_bwd_launch", Ld.device, (Ld, M, Y, Z),
+                        (npsr, nb, b, Y.shape[-1], _DTYPE_CODES[Ld.dtype]),
+                        "tridiag_factor_solve_bwd")
+    return Z
+
+
+def tridiag_factor_solve(D, E, X):
+    """Fused batched block-tridiagonal factor + solve: ``(Ld, M, Z)`` with
+    ``(L L^T) Z = X``. The forward sweep factors and forward-substitutes
+    (each block column read once), the backward sweep runs the reversed
+    columns. CPU tensors run the plain version; CUDA tensors the two
+    kernels."""
+    Ld, M, Y = tridiag_forward(D, E, X)
+    return Ld, M, tridiag_backward(Ld, M, Y)

@@ -2,7 +2,9 @@
 
 The JAX package's random stream is public contract: ``realization_delays``
 splits each realization key five ways (white, ecorr, red, chromatic, gwb)
-and every family draws from its subkey at a documented shape. These
+and every family draws from its subkey at a documented shape; a
+correlated-noise ``noise_cov`` draws from ``fold_in(key, COV_STREAM_FOLD)``
+(a low-rank op first splits that key in two: base, low rank). These
 helpers replay that contract to rebuild the exact draws, which the port
 then takes as explicit noise.
 """
@@ -49,7 +51,25 @@ def jax_realization_draws(key, batch, recipe) -> dict:
                       recipe.gwb_howml)[2].shape[0]
         ncol = batch.npsr if recipe.orf_cholesky is None else recipe.orf_cholesky.shape[1]
         out["gwb"] = jax.random.normal(k_gwb, (2, ncol, nf), dtype)
+    op = getattr(recipe, "noise_cov", None)
+    if op is not None:
+        from pta_replicator_tpu.covariance.structure import COV_STREAM_FOLD, LowRankCov
+
+        k_cov = jax.random.fold_in(key, COV_STREAM_FOLD)
+        if isinstance(op, LowRankCov):
+            k_cov, k_lr = jax.random.split(k_cov, 2)
+            out["cov_lowrank"] = jax.random.normal(k_lr, op.phi.shape, op.U.dtype)
+            op = op.base
+        out["cov"] = jax.random.normal(k_cov, batch.toas_s.shape, _op_dtype(op))
     return {name: np.asarray(v) for name, v in out.items()}
+
+
+def _op_dtype(op):
+    """The dtype a JAX covariance op draws its normals in: its factor's."""
+    for name in ("Ld", "L", "Lt"):
+        if hasattr(op, name):
+            return getattr(op, name).dtype
+    raise TypeError(f"unknown covariance op {type(op).__name__}")
 
 
 def jax_realize_draws(key, batch, recipe, nreal: int) -> dict:

@@ -10,6 +10,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from pta_replicator_tpu_torch.covariance import kernels as tk
 from pta_replicator_tpu_torch.kernels import launches
 from pta_replicator_tpu_torch.ops import cw as tcw
 from pta_replicator_tpu_torch.ops import gp as tgp
@@ -128,3 +129,103 @@ def test_woodbury_kernel_refuses_bad_operands(cuda_device):
         tgp.fused_woodbury_update(wide, w[:1, :10], r[:1, :10])
     with pytest.raises(NotImplementedError, match="B.3"):
         tgp.fused_woodbury_update(T, w, r, precision="bf16")
+
+
+# ------------------------------------------------- covariance kernels
+
+def _rel_max_t(got, want):
+    return float((got.double() - want.double()).abs().max() / want.double().abs().max())
+
+
+#: kernel vs plain, max |error| over the largest |entry|
+COV_TOL = [(torch.float64, 1e-12), (torch.float32, 1e-4)]
+
+
+@pytest.mark.parametrize("tile", [32, 128])
+@pytest.mark.parametrize("dtype,tol", COV_TOL)
+def test_syrk_kernel_matches_plain(cuda_device, dtype, tol, tile):
+    rng = np.random.default_rng(1)
+    m = 3 * tile
+    C = torch.as_tensor(rng.standard_normal((3, m, m)), dtype=dtype, device=cuda_device)
+    L = torch.as_tensor(rng.standard_normal((3, m, 128)), dtype=dtype, device=cuda_device)
+    want = tcw.cov_syrk_plain(C, L, tile)
+    launches.clear()
+    got = tcw.cov_syrk_update(C.clone(), L, tile)
+    again = tcw.cov_syrk_update(C.clone(), L, tile)
+    torch.cuda.synchronize()
+    assert launches["cov_syrk_update"] == 2
+    assert torch.equal(got, again)
+    assert _rel_max_t(got, want) <= tol
+    assert torch.equal(got[:, :tile, tile:], C[:, :tile, tile:])  # upper tiles untouched
+
+
+def test_syrk_kernel_updates_a_view_in_place(cuda_device):
+    rng = np.random.default_rng(2)
+    W = torch.as_tensor(rng.standard_normal((2, 96, 96)), device=cuda_device)
+    P = torch.as_tensor(rng.standard_normal((2, 64, 16)), device=cuda_device)
+    want = W.clone()
+    want[:, 32:, 32:] = tcw.cov_syrk_plain(W[:, 32:, 32:].contiguous(), P, 32)
+    out = tcw.cov_syrk_update(W[:, 32:, 32:], P, 32)
+    assert out.data_ptr() == W[:, 32:, 32:].data_ptr()
+    assert _rel_max_t(W, want) <= 1e-12
+    with pytest.raises(ValueError, match="not a multiple"):
+        tcw.cov_syrk_update(W[:, 32:, 32:], P, 40)
+
+
+@pytest.mark.parametrize("n", [256, 300])
+def test_blocked_cholesky_on_the_card(cuda_device, n):
+    """A ragged n is identity-padded to the block grid."""
+    rng = np.random.default_rng(3)
+    A = rng.standard_normal((2, n, n))
+    A = torch.as_tensor(A @ np.swapaxes(A, -1, -2) + n * np.eye(n), device=cuda_device)
+    launches.clear()
+    L = tk.dense_cholesky(A)  # blocked on a CUDA tensor
+    torch.cuda.synchronize()
+    assert launches["cov_syrk_update"] == -(-n // 128) - 1
+    assert _rel_max_t(L, torch.linalg.cholesky(A)) <= 1e-10
+
+
+def _tridiag(npsr, nb, b, q, dtype, device, ragged=0, seed=4):
+    """Diagonally dominant blocks; ``ragged`` padding rows of the last
+    block are identity rows (decoupled), as the banded builder pads."""
+    rng = np.random.default_rng(seed)
+    A = rng.standard_normal((npsr, nb, b, b)) / np.sqrt(b)
+    D = A @ np.swapaxes(A, -1, -2) + 3.0 * np.eye(b)
+    E = 0.3 * rng.standard_normal((npsr, nb - 1, b, b)) / np.sqrt(b)
+    if ragged:
+        D[:, -1, b - ragged:, :] = 0.0
+        D[:, -1, :, b - ragged:] = 0.0
+        D[:, -1, b - ragged:, b - ragged:] = np.eye(ragged)
+        E[:, -1, b - ragged:, :] = 0.0
+    X = rng.standard_normal((npsr, nb, b, q))
+    return [torch.as_tensor(a, dtype=dtype, device=device) for a in (D, E, X)]
+
+
+@pytest.mark.parametrize("b,nb,ragged", [(16, 9, 5), (128, 3, 40)])
+@pytest.mark.parametrize("dtype,tol", COV_TOL)
+def test_tridiag_kernels_match_plain(cuda_device, dtype, tol, b, nb, ragged):
+    D, E, X = _tridiag(3, nb, b, 7, dtype, cuda_device, ragged)
+    launches.clear()
+    Ld, M, Y = tgp.tridiag_forward(D, E, X)
+    Y2 = tgp.tridiag_forward_solve(Ld, M, X)
+    Z = tgp.tridiag_backward(Ld, M, Y)
+    torch.cuda.synchronize()
+    assert launches["tridiag_factor_solve_fwd"] == 2 and launches["tridiag_factor_solve_bwd"] == 1
+    pLd, pM, pY = tgp.tridiag_forward_plain(D, E, X)
+    assert _rel_max_t(Ld, pLd) <= tol and _rel_max_t(M, pM) <= tol and _rel_max_t(Y, pY) <= tol
+    assert _rel_max_t(Y2, tgp.tridiag_forward_solve_plain(pLd, pM, X)) <= tol
+    assert _rel_max_t(Z, tgp.tridiag_backward_plain(pLd, pM, pY)) <= tol
+    assert torch.equal(Ld, torch.tril(Ld))
+    # two runs give the same bits
+    for a, c in zip((Ld, M, Y, Z), (*tgp.tridiag_forward(D, E, X), tgp.tridiag_backward(Ld, M, Y))):
+        assert torch.equal(a, c)
+
+
+def test_tridiag_factor_alone_and_the_composed_route(cuda_device):
+    D, E, X = _tridiag(2, 6, 16, 5, torch.float64, cuda_device)
+    Ld, M = tk.block_tridiag_cholesky(D, E)  # the factor sweep with Q = 0
+    Ld0, M0 = tk._composed_cholesky(D, E)
+    assert _rel_max_t(Ld, Ld0) <= 1e-12 and _rel_max_t(M, M0) <= 1e-12
+    Z = tk.block_tridiag_solve(Ld, M, X)
+    assert _rel_max_t(Z, tk._composed_solve(Ld0, M0, X)) <= 1e-12
+    assert _rel_max_t(tk.block_tridiag_factor_solve(D, E, X)[2], Z) <= 1e-12

@@ -25,6 +25,13 @@ def _port_sources():
     ]
 
 
+def test_the_scan_covers_the_covariance_modules():
+    names = {p.relative_to(REPO).as_posix() for p in _port_sources()}
+    for module in ("covariance/__init__.py", "covariance/kernels.py",
+                   "covariance/structure.py", "convert.py", "ops/cw.py", "ops/gp.py"):
+        assert f"pta_replicator_tpu_torch/{module}" in names
+
+
 def _forbidden(name: str) -> bool:
     return any(name == f or name.startswith(f + ".") for f in FORBIDDEN)
 

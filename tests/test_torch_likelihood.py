@@ -146,9 +146,11 @@ def test_white_ecorr_parts_and_solver_match_jax(case):
 
 
 def test_white_ecorr_solver_refuses_a_structured_block(base):
+    """A structured block in C0 must be one of the port's covariance ops
+    (tests/test_torch_covariance.py prices those)."""
     _, _, _, (tb, tr) = base
     ts2, te2, _, _ = TB.gls_noise_model(tb, tr)
-    with pytest.raises(NotImplementedError, match="A.10"):
+    with pytest.raises(TypeError, match="CovOp"):
         TB.white_ecorr_solver(tb, ts2, te2, torch.float64, extra=object())
 
 

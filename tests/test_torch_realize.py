@@ -136,7 +136,7 @@ def test_noise_is_validated(port_workload):
 
 
 @pytest.mark.parametrize("field,value", [
-    ("noise_cov", object()),
+    ("burst_hcross", np.zeros(4)),
     ("fit_design", np.zeros((4, 1024, 3))),
     ("gwb_user_spectrum", np.ones((5, 2))),
     ("cgw_stream_chunk", 64),
