@@ -107,8 +107,15 @@ COV_PEAK_OPS = {torch.float64: 67e12, torch.float32: 67e12}
 TOL_COV = {torch.float64: 1e-12, torch.float32: 1e-4}
 #: the blocked factor against the library Cholesky of the same C0 (f64)
 TOL_BLOCKED = 1e-10
-#: the launch counters of the covariance kernels
-COV_KERNELS = ("cov_syrk_update", "tridiag_factor_solve_fwd", "tridiag_factor_solve_bwd")
+#: the launch counters of the covariance kernels: the SYRK update, the
+#: forward sweep that factors (with or without right-hand sides), the
+#: substitution-only forward sweep and the backward sweep
+COV_KERNELS = ("cov_syrk_update", "tridiag_factor_solve_fwd", "tridiag_solve_fwd",
+               "tridiag_factor_solve_bwd")
+
+#: the counter of each block-tridiagonal sweep checked in cov_kernels
+TRIDIAG_COUNTER = {"factor": "tridiag_factor_solve_fwd", "factor_solve": "tridiag_factor_solve_fwd",
+                   "solve": "tridiag_solve_fwd", "backward": "tridiag_factor_solve_bwd"}
 
 
 def emit(phase, **fields):
@@ -612,8 +619,11 @@ def phase_cov_kernels():
     shapes, float64 and float32. B.2: the first trailing update of config
     D's dense C0 (68 x 1,920 x 1,920, panel 128), then the blocked factor
     against the library Cholesky. B.4/B.5: config B's C0 blocks (68 x 485
-    x 16 x 16) with 123 right-hand sides, in the factor sweep, the
-    substitution-only sweep and the backward sweep."""
+    x 16 x 16) in the sweeps the banded solver runs: the factor sweep
+    without right-hand sides, then, with the 123 columns of the GP basis,
+    the substitution-only forward sweep and the backward sweep; and the
+    fused factor + forward sweep with those 123 columns, which no path
+    runs, checked only."""
     f64 = torch.float64
     rows = {}
     # ---- B.2, config D's C0
@@ -669,14 +679,19 @@ def phase_cov_kernels():
         D, E, X = D64.to(dtype), E64.to(dtype), X64.to(dtype)
         size = torch.finfo(dtype).bits // 8
         bb, bq = npsr * nb * b * b, npsr * nb * b * q
+        be = npsr * (nb - 1) * b * b
         Ld, M, Y = ops_gp.tridiag_forward(D, E, X)  # the inputs of the later sweeps
-        # bytes: the factor sweep reads D, E, X and writes Ld, M, Y; the
-        # substitution sweeps read Ld, M and one (Np, nb, b, Q) operand and
-        # write another
+        # bytes: the factor sweep reads D, E (and X) and writes Ld, M (and
+        # Y); the substitution sweeps read Ld, M and one (Np, nb, b, Q)
+        # operand and write another
         cases = {
-            "factor": (lambda: ops_gp.tridiag_forward(D, E, X),
-                       lambda: ops_gp.tridiag_forward_plain(D, E, X),
-                       ops_gp.tridiag_operations(npsr, nb, b, q, True), size * (4 * bb + 2 * bq)),
+            "factor": (lambda: ops_gp.tridiag_forward(D, E)[:2],
+                       lambda: ops_gp.tridiag_forward_plain(D, E)[:2],
+                       ops_gp.tridiag_operations(npsr, nb, b, 0, True), size * (3 * bb + be)),
+            "factor_solve": (lambda: ops_gp.tridiag_forward(D, E, X),
+                             lambda: ops_gp.tridiag_forward_plain(D, E, X),
+                             ops_gp.tridiag_operations(npsr, nb, b, q, True),
+                             size * (3 * bb + be + 2 * bq)),
             "solve": (lambda: ops_gp.tridiag_forward_solve(Ld, M, X),
                       lambda: ops_gp.tridiag_forward_solve_plain(Ld, M, X),
                       ops_gp.tridiag_operations(npsr, nb, b, q, False), size * (2 * bb + 2 * bq)),
@@ -686,9 +701,9 @@ def phase_cov_kernels():
         }
         for mode, (run, plain, ops, nbytes) in cases.items():
             row = _kernel_row(run, plain, dtype, _bound(ops, nbytes, dtype))
-            row.update(mode=mode, shape=[npsr, nb, b, q], ms=cuda_ms(run, 5), library_ms=None)
-            emit("cov_kernels", kernel=("tridiag_factor_solve_bwd" if mode == "backward"
-                                        else "tridiag_factor_solve_fwd"), **row)
+            row.update(mode=mode, shape=[npsr, nb, b, 0 if mode == "factor" else q],
+                       ms=cuda_ms(run, 5), library_ms=None)
+            emit("cov_kernels", kernel=TRIDIAG_COUNTER[mode], **row)
             require(row["finite"] and row["rel_err"] <= TOL_COV[dtype] and row["same_bits"],
                     f"block-tridiagonal kernel vs plain {mode} {dtype}: {row}")
             rows[mode, dtype] = row
@@ -784,8 +799,8 @@ def phase_covariance_banded(batch32, recipe32, static, generator):
         finite=bool(torch.isfinite(ll).all() and torch.isfinite(ll_sig).all()),
     )
     emit("covariance_banded", **row)
-    require(counts["tridiag_factor_solve_fwd"] and counts["tridiag_factor_solve_bwd"],
-            f"config B never launched a block-tridiagonal kernel: {counts}")
+    require(all(counts[k] for k in COV_KERNELS[1:]),
+            f"config B left a block-tridiagonal sweep unlaunched: {counts}")
     require(row["finite"] and tuple(ll.shape) == (G, R), f"config B likelihood: {row}")
     require(served["server_rel_vs_bank"] <= TOL_LIKELIHOOD, f"config B server vs bank: {row}")
     return counts
@@ -921,6 +936,9 @@ def main():
         _cov_kernel_entry("tridiag_factor_solve_fwd", "pta_replicator_tpu_torch/csrc/block_tridiag.cu",
                           "pta_replicator_tpu/ops/pallas_gp.py:428",
                           tridiag_counts["tridiag_factor_solve_fwd"], cov_rows["factor", f64]),
+        _cov_kernel_entry("tridiag_solve_fwd", "pta_replicator_tpu_torch/csrc/block_tridiag.cu",
+                          "pta_replicator_tpu/ops/pallas_gp.py:428",
+                          tridiag_counts["tridiag_solve_fwd"], cov_rows["solve", f64]),
         _cov_kernel_entry("tridiag_factor_solve_bwd", "pta_replicator_tpu_torch/csrc/block_tridiag.cu",
                           "pta_replicator_tpu/ops/pallas_gp.py:458",
                           tridiag_counts["tridiag_factor_solve_bwd"], cov_rows["backward", f64]),

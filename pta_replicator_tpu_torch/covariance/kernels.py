@@ -15,14 +15,14 @@ channel                                                + Nt (ne + nc))
 dense                  :func:`blocked_cholesky`        O(Nt^3)
 =====================  ==============================  ===================
 
-The tensor's device picks the route. On a CUDA tensor the blocked
-Cholesky's trailing update is the kernel of ``csrc/cov_syrk.cu``
-(``ops/cw.py::cov_syrk_update``), and the three block-tridiagonal
-factor/solve functions run the two kernels of ``csrc/block_tridiag.cu``
-(``ops/gp.py``); a kernel that fails to build or launch raises. On a CPU
-tensor the dense rung takes the library Cholesky, and the block-
-tridiagonal functions the composed library algebra (per-step Cholesky and
-triangular solves), as the reference does off the TPU.
+The tensor's device picks the route. On a CUDA tensor the dense rung is
+the blocked Cholesky, whose trailing update is the kernel of
+``csrc/cov_syrk.cu`` (``ops/cw.py::cov_syrk_update``); on a CPU tensor it
+is the library Cholesky, as the reference's is off the TPU. The three
+block-tridiagonal factor/solve functions call the wrappers of
+``ops/gp.py``, which run the two kernels of ``csrc/block_tridiag.cu`` on
+a CUDA tensor and their plain versions on a CPU one. A kernel that fails
+to build or launch raises.
 
 A failed factorization gives NaN entries, as the reference's does, not an
 exception (``torch.linalg.cholesky_ex``, no host synchronisation).
@@ -87,18 +87,12 @@ def blocked_cholesky(A, block: int = 128):
     return W.tril_()[:, :n, :n]
 
 
-def dense_cholesky(A, block: int = 128, method: str = "auto"):
-    """Batched lower Cholesky of (Np, n, n): ``method='library'`` is the
-    library Cholesky, ``'blocked'`` :func:`blocked_cholesky`, ``'auto'``
-    picks blocked on a CUDA tensor and the library on the CPU."""
-    if method == "auto":
-        method = "blocked" if A.device.type == "cuda" else "library"
-    if method == "library":
-        return _cholesky(A)
-    if method != "blocked":
-        raise ValueError(f"unknown dense Cholesky method {method!r}: expected "
-                         "'auto', 'library' or 'blocked'")
-    return blocked_cholesky(A, block=block)
+def dense_cholesky(A, block: int = 128):
+    """Batched lower Cholesky of (Np, n, n): :func:`blocked_cholesky` on a
+    CUDA tensor, the library Cholesky on a CPU one."""
+    if A.device.type == "cuda":
+        return blocked_cholesky(A, block=block)
+    return _cholesky(A)
 
 
 def cholesky_solve(L, X):
@@ -108,55 +102,17 @@ def cholesky_solve(L, X):
     return torch.linalg.solve_triangular(L.transpose(-1, -2), Y, upper=True)
 
 
-def dense_solve(A, X, method: str = "auto", block: int = 128):
-    """Factor + solve a batched dense SPD system. Returns ``(Z, logdet)``."""
-    L = dense_cholesky(A, block=block, method=method)
-    return cholesky_solve(L, X), _chol_logdet(L)
-
-
 # ----------------------------------------------- block-tridiagonal
-
-def _composed_cholesky(D, E):
-    """The block-tridiagonal factor by the library: per block column one
-    triangular solve for M_k and one Cholesky of the Schur complement."""
-    npsr, nb, b, _ = D.shape
-    prev = torch.eye(b, dtype=D.dtype, device=D.device).expand(npsr, b, b)
-    Ld, M = [], []
-    for k in range(nb):
-        Mk = _lower_solve_right(prev, E[:, k - 1]) if k else D.new_zeros((npsr, b, b))
-        prev = _cholesky(D[:, k] - Mk @ Mk.transpose(-1, -2))
-        Ld.append(prev)
-        M.append(Mk)
-    return torch.stack(Ld, 1), torch.stack(M, 1)
-
-
-def _composed_solve(Ld, M, X):
-    npsr, nb, b, q = X.shape
-    y = X.new_zeros((npsr, b, q))
-    Y = []
-    for k in range(nb):
-        y = torch.linalg.solve_triangular(Ld[:, k], X[:, k] - M[:, k] @ y, upper=False)
-        Y.append(y)
-    z = X.new_zeros((npsr, b, q))
-    Z = [None] * nb
-    for k in reversed(range(nb)):
-        rhs = Y[k] - (M[:, k + 1].transpose(-1, -2) @ z if k + 1 < nb else 0.0)
-        z = torch.linalg.solve_triangular(Ld[:, k].transpose(-1, -2), rhs, upper=True)
-        Z[k] = z
-    return torch.stack(Z, 1)
-
 
 def block_tridiag_cholesky(D, E):
     """Cholesky of a symmetric positive-definite block-tridiagonal matrix:
     ``D`` (Np, nb, b, b) diagonal blocks, ``E`` (Np, nb-1, b, b) sub-
     diagonal blocks (``E[k]`` is the (k+1, k) block). Returns ``(Ld, M)``:
     the diagonal Cholesky blocks and the sub-diagonal factor blocks
-    (``M[0]`` is zero). O(Nt b^2) instead of the dense O(Nt^3); on a CUDA
-    tensor the forward kernel's factor sweep."""
-    if D.device.type == "cuda":
-        Ld, M, _ = ops_gp.tridiag_forward(D, E)
-        return Ld, M
-    return _composed_cholesky(D, E)
+    (``M[0]`` is zero). O(Nt b^2) instead of the dense O(Nt^3): the
+    forward factor sweep without right-hand sides."""
+    Ld, M, _ = ops_gp.tridiag_forward(D, E)
+    return Ld, M
 
 
 def block_tridiag_logdet(Ld):
@@ -166,24 +122,17 @@ def block_tridiag_logdet(Ld):
 
 def block_tridiag_solve(Ld, M, X):
     """Solve ``(L L^T) Z = X`` for the factor of
-    :func:`block_tridiag_cholesky`; ``X`` is (Np, nb, b, Q). Forward then
-    backward substitution; on a CUDA tensor the forward kernel's
-    substitution-only sweep, then the backward kernel."""
-    if Ld.device.type == "cuda":
-        return ops_gp.tridiag_backward(Ld, M, ops_gp.tridiag_forward_solve(Ld, M, X))
-    return _composed_solve(Ld, M, X)
+    :func:`block_tridiag_cholesky`; ``X`` is (Np, nb, b, Q). The
+    substitution-only forward sweep, then the backward sweep."""
+    return ops_gp.tridiag_backward(Ld, M, ops_gp.tridiag_forward_solve(Ld, M, X))
 
 
 def block_tridiag_factor_solve(D, E, X):
     """Fused factor + solve of a block-tridiagonal SPD system: ``(Ld, M,
     Z)``, the factor of :func:`block_tridiag_cholesky` and the solution of
-    ``(L L^T) Z = X``. On a CUDA tensor the forward kernel factors and
-    forward-substitutes in one sweep, then the backward kernel; on the CPU
-    the composed pair."""
-    if D.device.type == "cuda":
-        return ops_gp.tridiag_factor_solve(D, E, X)
-    Ld, M = _composed_cholesky(D, E)
-    return Ld, M, _composed_solve(Ld, M, X)
+    ``(L L^T) Z = X``: one forward sweep factors and forward-substitutes,
+    then the backward sweep."""
+    return ops_gp.tridiag_factor_solve(D, E, X)
 
 
 def block_tridiag_matvec(D, E, X):

@@ -73,15 +73,6 @@ def _reducible(names: Tuple[str, ...], recipe: Recipe) -> bool:
         "rn_log10_amplitude", "chrom_log10_amplitude", "gwb_log10_amplitude"))
 
 
-def _refuse_fused_cov(fused: bool, recipe: Recipe):
-    if fused and recipe.noise_cov is not None:
-        raise ValueError(
-            "fused=True prices the analytic white/ECORR C0 only; a "
-            "recipe with a structured noise_cov block must use the "
-            "composed path (fused=False)"
-        )
-
-
 def _theta_block(grid: Dict[str, object], dtype, device) -> Tuple[tuple, torch.Tensor]:
     """Sorted axis names and the aligned (G, P) point block."""
     names = tuple(sorted(grid))
@@ -126,7 +117,6 @@ def grid_loglikelihood(residuals, batch: PulsarBatch, recipe: Recipe,
     residuals = torch.as_tensor(residuals).to(device)
     dtype = residuals.dtype
     gp.require_precision_ready(precision)
-    _refuse_fused_cov(fused, recipe)
     names, theta = _theta_block(grid, dtype, device)
     reducible = _reducible(names, recipe)
     if fused and not reducible:
@@ -174,7 +164,6 @@ def bank_loglikelihood(bank, batch: PulsarBatch, recipe: Recipe,
     device = resolve_device(device)
     batch, recipe = batch.to(device), recipe.to(device)
     gp.require_precision_ready(precision)
-    _refuse_fused_cov(fused, recipe)
     if grid is not None:
         names, theta = _theta_block(grid, batch.dtype, device)
         if not _reducible(names, recipe):

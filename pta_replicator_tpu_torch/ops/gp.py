@@ -379,7 +379,7 @@ def tridiag_forward(D, E, X=None):
 def tridiag_forward_solve(Ld, M, X):
     """The substitution-only forward sweep ``Y`` from a given factor: CPU
     tensors run the plain version, CUDA tensors the kernel (FACTOR =
-    false), which launches or raises."""
+    false, counted as ``tridiag_solve_fwd``), which launches or raises."""
     if Ld.device.type == "cpu":
         return tridiag_forward_solve_plain(Ld, M, X)
     npsr, nb, b = _check_tridiag("tridiag_forward_solve", (Ld, M), X)
@@ -389,7 +389,7 @@ def tridiag_forward_solve(Ld, M, X):
     if X.shape[-1]:
         _tridiag_launch("tridiag_solve_fwd_launch", Ld.device, (Ld, M, X, Y),
                         (npsr, nb, b, X.shape[-1], _DTYPE_CODES[Ld.dtype]),
-                        "tridiag_factor_solve_fwd")
+                        "tridiag_solve_fwd")
     return Y
 
 

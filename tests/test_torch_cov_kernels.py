@@ -1,8 +1,8 @@
 """The covariance kernels' plain versions against the JAX package, on the
 CPU: the blocked-Cholesky trailing update (``ops/cw.py``) and the blocked
 factor, the block-tridiagonal factor/solve sweeps (``ops/gp.py``) and the
-composed library route of ``covariance/kernels.py``, and the Kronecker
-factor algebra. The JAX side runs its Pallas kernels in interpret mode, as
+composed pair of ``covariance/kernels.py`` that calls them, and the
+Kronecker factor algebra. The JAX side runs its Pallas kernels in interpret mode, as
 its own tests do."""
 import numpy as np
 import pytest
@@ -83,14 +83,15 @@ def test_blocked_cholesky_matches_jax_pallas_interpret(n, dtype):
 def test_dense_cholesky_routes_and_solves():
     A = torch.as_tensor(_spd(3, 70, 2))
     X = torch.as_tensor(np.random.default_rng(3).standard_normal((3, 70, 4)))
-    L_lib = TK.dense_cholesky(A)  # the library on the CPU
-    L_blk = TK.dense_cholesky(A, block=32, method="blocked")
+    launches.clear()
+    L_lib = TK.dense_cholesky(A)  # the library on a CPU tensor
+    assert torch.equal(L_lib, torch.linalg.cholesky(A)) and not launches
+    L_blk = TK.blocked_cholesky(A, block=32)
     assert _rel_max(L_blk, L_lib) <= 1e-12
-    Z, logdet = TK.dense_solve(A, X)
+    Z = TK.cholesky_solve(L_lib, X)
     np.testing.assert_allclose((A @ Z).numpy(), X.numpy(), rtol=1e-10, atol=1e-12)
-    np.testing.assert_allclose(logdet.numpy(), np.linalg.slogdet(A.numpy())[1], rtol=1e-12)
-    with pytest.raises(ValueError, match="method"):
-        TK.dense_cholesky(A, method="xla")
+    np.testing.assert_allclose(TK._chol_logdet(L_lib).numpy(), np.linalg.slogdet(A.numpy())[1],
+                               rtol=1e-12)
     bad = A.clone()
     bad[0, 5, 5] = -1.0
     assert bool(torch.isnan(TK.dense_cholesky(bad)[0]).all())
@@ -139,13 +140,16 @@ def test_tridiag_wrapper_runs_the_plain_version_on_the_cpu():
     Ld, M, Y = tgp.tridiag_forward(D, E, X)
     assert torch.equal(tgp.tridiag_forward_solve(Ld, M, X), Y)
     assert tgp.tridiag_forward(D, E)[2] is None
+    # the covariance module's functions go through the same wrappers
+    assert all(torch.equal(g, w) for g, w in zip(TK.block_tridiag_cholesky(D, E), (Ld, M)))
+    assert torch.equal(TK.block_tridiag_solve(Ld, M, X), tgp.tridiag_factor_solve_plain(D, E, X)[2])
     assert not launches  # no kernel on the CPU
 
 
 def test_composed_pair_matches_fused_entry_and_dense():
-    """The composed library route (block_tridiag_cholesky +
-    block_tridiag_solve) against the fused entry's plain sweeps (the
-    reference's own 1e-12), and C Z = X against a dense assembly."""
+    """The composed pair (block_tridiag_cholesky, then
+    block_tridiag_solve) against the fused entry (the reference's own
+    1e-12), and C Z = X against a dense assembly."""
     D, E, X = _tridiag_operands(np.float64)
     Dt, Et, Xt = (torch.as_tensor(a) for a in (D, E, X))
     Ld0, M0 = TK.block_tridiag_cholesky(Dt, Et)
