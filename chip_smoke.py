@@ -11,7 +11,9 @@ its entry points and checks the results: the flagship realization path (68
 pulsars x 7,758 TOAs, 100-source CW catalog, HD GWB, quadratic fit); the
 likelihood path that prices its bank of 200 realizations in float64 over
 an 8 x 8 GWB grid (the fused ReducedGP build, the grid evaluation and the
-request-batched server); and the structured noise covariance in two
+request-batched server), and a small bank of the flagship recipe with a
+30-mode chromatic block (a 183-column GP basis) through the fused and
+composed routes; and the structured noise covariance in two
 configurations: banded (block-tridiagonal) correlated noise at the
 flagship width, realized and priced on the block-tridiagonal kernels, and
 the solar-wind Kronecker covariance with ECORR at 68 x 2,048, priced on
@@ -69,6 +71,10 @@ WOODBURY_PEAK_OPS = {torch.float32: 67e12, torch.float64: 67e12}
 #: output: both sum the same products in another order (float64), and
 #: float32 sums of ~7,758 terms carry ~sqrt(Nt) eps
 TOL_WOODBURY = {torch.float64: 1e-12, torch.float32: 1e-4}
+#: a 30-mode chromatic (DM, index 2) block on the flagship recipe: the GP
+#: basis grows from Q = 123 to 183 columns, past the 175 the first
+#: Woodbury kernel took; per-pulsar amplitudes and slopes from this seed
+CHROM_SEED, CHROM_BANK = 9, 16
 #: the likelihood path, float64, entry by entry relative: fused vs
 #: composed, server vs bank, card vs CPU (sums of ~1e6 in log L carry
 #: ~1e-13 of rounding; the Woodbury blocks differ at ~1e-15)
@@ -380,12 +386,22 @@ def woodbury_bound(npsr, ntoa, q, dtype):
     return max(ops_ms, bytes_ms), ("operations" if ops_ms >= bytes_ms else "bytes")
 
 
-def phase_woodbury_kernel(batch, recipe, design):
-    """Kernel vs plain at the likelihood path's own shape: the stacked
-    basis T (68 x 7,758 x 123) and white inverse variances of the float64
+def chromatic_recipe(batch, recipe):
+    """The flagship recipe plus a 30-mode chromatic (index 2) block."""
+    rng = np.random.default_rng(CHROM_SEED)
+    return dataclasses.replace(
+        recipe, chrom_log10_amplitude=rng.uniform(-14.0, -13.2, batch.npsr),
+        chrom_gamma=rng.uniform(2.0, 4.0, batch.npsr), chrom_index=np.array(2.0),
+        chrom_nmodes=30).to(batch.device)
+
+
+def phase_woodbury_kernel(batch, recipe, design, basis):
+    """Kernel vs plain at a likelihood path's own shape: the stacked basis
+    T (68 x 7,758 x Q) and white inverse variances of the float64
     flagship, a tenth of the rows masked (w = 0), random residuals; Nt =
     7,758 is no multiple of any tile. Both dtypes; two kernel runs must
-    give the same bits. Returns the float64 row (the path's dtype)."""
+    give the same bits; the float64 call is also read by the profiler
+    (device time per kernel). Returns the float64 row (the path's dtype)."""
     reduced, _ = lgp.ReducedGP.build_fused(batch, recipe, design=design)
     winv = B.white_ecorr_parts(batch, reduced.sigma2, None, torch.float64)[0]
     rng = np.random.default_rng(7)
@@ -408,8 +424,11 @@ def phase_woodbury_kernel(batch, recipe, design):
         q = T.shape[-1]
         errs = [_rel_max(g, x) for g, x in zip(got, want)]
         bound, bound_by = woodbury_bound(*T.shape, dtype)
+        sms = torch.cuda.get_device_properties(T.device).multi_processor_count
         row = dict(
-            dtype=str(dtype), shape=list(T.shape), masked_rows=int((w == 0).sum()),
+            basis=basis, dtype=str(dtype), shape=list(T.shape), masked_rows=int((w == 0).sum()),
+            plan=dict(zip(("panels", "pairs", "nsplit", "workspace_entries"),
+                          ops_gp.woodbury_plan(*T.shape, sms))),
             rel_err_tnt=errs[0], rel_err_d=errs[1], rel_err_rnr=errs[2], tol=TOL_WOODBURY[dtype],
             max_abs_err=max(float((g - x).abs().max()) for g, x in zip(got, want)),
             symmetric=bool(torch.equal(got[0], got[0].transpose(-1, -2))),
@@ -419,6 +438,8 @@ def phase_woodbury_kernel(batch, recipe, design):
             ms=cuda_ms(run, 20), plain_ms=cuda_ms(plain, 3), library_ms=cuda_ms(library, 20),
             bound_ms=bound, bound_by=bound_by,
         )
+        if dtype == torch.float64:
+            row["profiler_kernels_ms"] = _device_busy(run)[1]
         emit("woodbury_kernel_vs_plain", **row)
         require(row["finite"] and max(errs) <= TOL_WOODBURY[dtype],
                 f"woodbury kernel vs plain {dtype}: {row}")
@@ -427,6 +448,28 @@ def phase_woodbury_kernel(batch, recipe, design):
         rows[dtype] = row
         del A, WA, At, got, again, want, lib_out
     return rows[torch.float64]
+
+
+def phase_likelihood_chromatic(batch, recipe, generator):
+    """A bank of CHROM_BANK float64 realizations with the chromatic block,
+    priced over the 4 x 4 GWB grid through the fused route (the Q = 183
+    Woodbury kernel; launches counted from zero around the call) and the
+    composed one."""
+    design = B.quadratic_design(batch)
+    bank = realize(generator, batch, recipe, CHROM_BANK, fit=True)
+    grid, shape = lk.grid_cartesian(DENSE_GRID)
+    launches.clear()
+    ll = lk.bank_loglikelihood(bank, batch, recipe, grid=grid, design=design, fused=True).cpu()
+    count = launches["fused_woodbury_update"]
+    ll_c = lk.bank_loglikelihood(bank, batch, recipe, grid=grid, design=design).cpu()
+    rel = float(((ll - ll_c).abs() / ll_c.abs()).max())
+    row = dict(bank_shape=list(bank.shape), grid_shape=list(shape),
+               basis_columns=3 + int(lgp.phi_for_recipe(batch, recipe).shape[-1]),
+               woodbury_launches=count, rel_fused_vs_composed=rel, tol=TOL_LIKELIHOOD,
+               finite=bool(torch.isfinite(ll).all()), output_shape=list(ll.shape))
+    emit("likelihood_chromatic", **row)
+    require(count == 1, f"the chromatic bank did not launch the Woodbury kernel once: {row}")
+    require(row["finite"] and rel <= TOL_LIKELIHOOD, f"chromatic fused vs composed: {row}")
 
 
 def phase_likelihood(bank, batch, recipe, design):
@@ -898,7 +941,11 @@ def main():
     phase_card_vs_cpu(SMALL)
     batch64, recipe64 = flagship_workload(**FLAGSHIP, dtype=torch.float64)
     design = B.quadratic_design(batch64)
-    woodbury_row = phase_woodbury_kernel(batch64, recipe64, design)
+    woodbury_row = phase_woodbury_kernel(batch64, recipe64, design, "flagship")
+    chrom64 = chromatic_recipe(batch64, recipe64)
+    phase_woodbury_kernel(batch64, chrom64, design, "flagship + chromatic")
+    phase_likelihood_chromatic(batch64, chrom64, torch.Generator(device=batch64.device).manual_seed(2))
+    del chrom64
     bank = res.double()
     del res
     woodbury_count, ll = phase_likelihood(bank, batch64, recipe64, design)

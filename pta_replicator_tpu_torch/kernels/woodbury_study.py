@@ -1,0 +1,111 @@
+"""What holds the fused Woodbury kernel back: a reading on the card.
+
+Run from the repository root on a machine with a CUDA card:
+
+    python -m pta_replicator_tpu_torch.kernels.woodbury_study
+
+It builds ``csrc/fused_woodbury.cu`` three ways with nvcc: as it is, with
+the products skipped (``staging_only``: the cp.async ring, the barriers
+and the epilogue) and with the copies skipped (``products_only``: the
+fragment loads and the DMMA / FFMA products on whatever the shared
+buffers hold). It times the three at 68 x 7,758 with Q = 123 and 183, in
+float64 and float32, on random operands, at the launch plan's split count
+and over a sweep of split counts, beside ``torch.bmm`` of the same Gram
+matrix. One JSON line per (Q, dtype) on stdout, then one with the card
+and the ptxas reports. The two partial builds compute nothing useful;
+only their times mean something.
+"""
+import ctypes
+import json
+import subprocess
+import sys
+from concurrent.futures import ThreadPoolExecutor
+
+import torch
+
+from . import build
+from ..ops import gp
+
+#: text replaced in the kernel's source for each partial build
+VARIANTS = {
+    "kernel": (),
+    "staging_only": (("    acc.step(As, ", "    if (nt < 0) acc.step(As, "),),
+    "products_only": (("    if (chunk + kStages - 1 < nchunks) stage_chunk(",
+                       "    if (nt < 0) stage_chunk("),
+                      ("    if (s < nchunks) stage_chunk(s);", "    if (nt < 0) stage_chunk(s);")),
+}
+SHAPE = (68, 7758)
+COLUMNS = (123, 183)
+SPLITS = (1, 2, 4, 6, 8, 10, 12, 16, 24)
+
+
+def _build(name, edits, out_dir):
+    source = (build.CSRC_DIR / "fused_woodbury.cu").read_text()
+    for old, new in edits:
+        if old not in source:
+            raise RuntimeError(f"woodbury_study: {name}: the kernel no longer has {old!r}")
+        source = source.replace(old, new)
+    src = out_dir / f"woodbury_{name}.cu"
+    src.write_text(source)
+    lib = out_dir / f"libwoodbury_{name}.so"
+    proc = subprocess.run([build.nvcc(), *build.NVCC_FLAGS, "-o", str(lib), str(src)],
+                          capture_output=True, text=True)
+    if proc.returncode:
+        raise RuntimeError(f"woodbury_study: nvcc failed on {name}:\n{proc.stderr}")
+    ptxas = [l.strip() for l in proc.stderr.splitlines()
+             if "entry function" in l or "Used" in l or "spill" in l]
+    return name, lib, ptxas
+
+
+def _ms(fn, reps=20):
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def main():
+    if not torch.cuda.is_available():
+        sys.exit("woodbury_study: no CUDA device is available")
+    out_dir = build.BUILD_DIR / "study"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    with ThreadPoolExecutor(len(VARIANTS)) as pool:
+        built = list(pool.map(lambda kv: _build(*kv, out_dir), VARIANTS.items()))
+    libs, ptxas = {}, {}
+    for name, path, report in built:
+        libs[name] = ctypes.CDLL(str(path))
+        gp._bind(libs[name])
+        ptxas[name] = report
+    smi = subprocess.run(["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True).stdout.strip()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    for q in COLUMNS:
+        shape = (*SHAPE, q)
+        T64 = torch.randn(shape, generator=gen, device="cuda", dtype=torch.float64)
+        u = torch.rand((2, *SHAPE), generator=gen, device="cuda", dtype=torch.float64)
+        w64 = (u[0] + 0.5) * 1e12 * (u[1] > 0.1)
+        r64 = torch.randn(SHAPE, generator=gen, device="cuda", dtype=torch.float64) * 1e-6
+        for dtype in (torch.float64, torch.float32):
+            T, w, r = (x.to(dtype).contiguous() for x in (T64, w64, r64))
+            nsplit = gp.woodbury_plan(*shape, sms)[2]
+            A = torch.cat([T, r[..., None]], dim=-1)
+            WA, At = A * w[..., None], A.transpose(1, 2)
+            row = dict(q=q, dtype=str(dtype), shape=list(shape), plan_nsplit=nsplit,
+                       bmm_ms=_ms(lambda: torch.bmm(At, WA)))
+            del A, WA, At
+            for name, lib in libs.items():
+                row[f"{name}_ms"] = _ms(lambda: gp._woodbury_launch(lib, T, w, r, nsplit))
+            row["kernel_ms_by_nsplit"] = {n: _ms(lambda: gp._woodbury_launch(libs["kernel"], T, w, r, n))
+                                          for n in SPLITS}
+            print(json.dumps(row), flush=True)
+    print(json.dumps({"device": smi, "sms": sms, "ptxas": ptxas}), flush=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -20,7 +20,9 @@ pass over the TOA axis without forming the (Np, Nt, Q) product W T.
   comparison holds the kernel against it.
 * :func:`fused_woodbury_update` dispatches: CPU tensors go to the plain
   version, CUDA tensors to the hand-written kernel in
-  ``csrc/fused_woodbury.cu``, which launches or raises. The kernel sums
+  ``csrc/fused_woodbury.cu``, which launches or raises. The kernel takes
+  any basis width: it tiles [T | r]'s Gram matrix over 64-column panel
+  pairs and splits the TOA axis as :func:`woodbury_plan` says. It sums
   in its own order (``tile`` sets only the plain version's), so the two
   agree to a tolerance, not bitwise.
 
@@ -41,9 +43,15 @@ DEFAULT_WOODBURY_TILE = 256
 #: the precision policies of the reference; "bf16" is not ported yet
 PRECISIONS = ("highest", "bf16")
 
-#: the widest basis the kernel takes: (Q + 1) augmented columns in 4 x 4
-#: register blocks, at most four blocks per thread of 256
-MAX_COLUMNS = 175
+#: the kernel's panel width and TOA rows per pipeline stage
+#: (``csrc/fused_woodbury.cu``: kPanel, kChunk)
+WOODBURY_PANEL = 64
+WOODBURY_CHUNK = 16
+#: blocks per streaming multiprocessor the launch plan aims at, at most:
+#: about four waves of the four float64 blocks an SM holds at once, which
+#: measured faster at 68 x 7,758 on the H100 than the 2-4 blocks per SM
+#: that fill the card once (kernels/woodbury_study.py's split sweep)
+WOODBURY_BLOCKS_PER_SM = 16
 
 
 def _check_precision(precision: str):
@@ -111,9 +119,41 @@ def fused_woodbury_plain(T, w, r, tile: int = DEFAULT_WOODBURY_TILE,
 _DTYPE_CODES = {torch.float32: 0, torch.float64: 1}
 
 
+def woodbury_pair(k: int):
+    """Panels ``(i, j)``, ``j <= i``, of the kernel's lower-triangle panel
+    pair ``k = i (i + 1) / 2 + j`` (``tri_pair`` in the kernel)."""
+    i = int(((8 * k + 1) ** 0.5 - 1) / 2)
+    while i * (i + 1) // 2 > k:
+        i -= 1
+    while (i + 1) * (i + 2) // 2 <= k:
+        i += 1
+    return i, k - i * (i + 1) // 2
+
+
+def woodbury_plan(npsr: int, ntoa: int, q: int, sms: int):
+    """The kernel's launch plan on a card with ``sms`` streaming
+    multiprocessors: ``(panels, pairs, nsplit, workspace_entries)``.
+
+    The Q + 1 augmented columns pad to ``panels`` panels of
+    ``WOODBURY_PANEL``; each of the ``pairs`` lower-triangle panel pairs of
+    each pulsar is one block per TOA split. ``nsplit`` is the most splits
+    that keep pairs x Np x nsplit within ``WOODBURY_BLOCKS_PER_SM`` blocks
+    per SM, with no more splits than ``WOODBURY_CHUNK``-row chunks and
+    none empty (the kernel gives each split ``ceil(Nt / nsplit)`` rows);
+    it falls as the pairs grow. ``workspace_entries`` counts the partial
+    sums the splits leave for the reduction, none with one split, so it
+    never exceeds ``WOODBURY_BLOCKS_PER_SM * sms`` tiles."""
+    panels = -(-(q + 1) // WOODBURY_PANEL)
+    pairs = panels * (panels + 1) // 2
+    nsplit = max(1, min(WOODBURY_BLOCKS_PER_SM * sms // (pairs * npsr), -(-ntoa // WOODBURY_CHUNK)))
+    nsplit = -(-ntoa // -(-ntoa // nsplit))
+    workspace = npsr * pairs * nsplit * WOODBURY_PANEL**2 if nsplit > 1 else 0
+    return panels, pairs, nsplit, workspace
+
+
 def _bind(lib):
-    lib.fused_woodbury_workspace.argtypes = [ctypes.c_int]
-    lib.fused_woodbury_workspace.restype = ctypes.c_int
+    lib.fused_woodbury_workspace.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.fused_woodbury_workspace.restype = ctypes.c_longlong
     lib.fused_woodbury_launch.argtypes = (
         [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     )
@@ -122,38 +162,20 @@ def _bind(lib):
     lib.fused_woodbury_error_string.restype = ctypes.c_char_p
 
 
-def _splits(device, npsr: int, ntoa: int) -> int:
-    """TOA ranges per pulsar: enough blocks for two per streaming
-    multiprocessor, each range at least 64 TOAs."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    return max(1, min(-(-ntoa // 64), -(-2 * sms // npsr)))
-
-
-def fused_woodbury_cuda(T, w, r):
-    """``(T^T W T, T^T W r, r^T W r)`` from the CUDA kernel
-    (``csrc/fused_woodbury.cu``), launched on the current stream. Raises
-    on a malformed input, a failed build or a refused launch."""
-    _check_operands(T, w, r)
-    if T.device.type != "cuda":
-        raise ValueError(f"fused_woodbury_cuda needs CUDA tensors, got {T.device}")
-    if not all(x.is_contiguous() for x in (T, w, r)):
-        raise ValueError("fused_woodbury_update: T, w and r must be contiguous")
+def _woodbury_launch(lib, T, w, r, nsplit: int):
+    """Launch ``lib``'s kernel (the build of ``csrc/fused_woodbury.cu``)
+    with ``nsplit`` TOA splits on the current stream; the outputs and the
+    workspace come from ``torch.empty``."""
     npsr, ntoa, q = T.shape
-    if not 1 <= q <= MAX_COLUMNS or ntoa < 1 or not 1 <= npsr <= 65535:
-        raise ValueError(
-            f"fused_woodbury_update: the kernel takes 1..{MAX_COLUMNS} columns, "
-            f"at least one TOA and 1..65535 pulsars, got {tuple(T.shape)}"
-        )
-    lib = build.load("fused_woodbury", _bind)
-    nsplit = _splits(T.device, npsr, ntoa)
-    workspace = T.new_empty((npsr, nsplit, lib.fused_woodbury_workspace(q)))
+    workspace = T.new_empty((npsr * lib.fused_woodbury_workspace(q, nsplit),))
     tnt = T.new_empty((npsr, q, q))
     d = T.new_empty((npsr, q))
     rnr = T.new_empty((npsr,))
     with torch.cuda.device(T.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.fused_woodbury_launch(
-            T.data_ptr(), w.data_ptr(), r.data_ptr(), workspace.data_ptr(),
+            T.data_ptr(), w.data_ptr(), r.data_ptr(),
+            workspace.data_ptr() if workspace.numel() else None,
             tnt.data_ptr(), d.data_ptr(), rnr.data_ptr(),
             npsr, ntoa, q, nsplit, _DTYPE_CODES[T.dtype], stream,
         )
@@ -163,6 +185,27 @@ def fused_woodbury_cuda(T, w, r):
         )
     launches["fused_woodbury_update"] += 1
     return tnt, d, rnr
+
+
+def fused_woodbury_cuda(T, w, r):
+    """``(T^T W T, T^T W r, r^T W r)`` from the CUDA kernel
+    (``csrc/fused_woodbury.cu``), launched on the current stream with
+    :func:`woodbury_plan`'s splits. Any basis width runs. Raises on a
+    malformed input, a failed build or a refused launch."""
+    _check_operands(T, w, r)
+    if T.device.type != "cuda":
+        raise ValueError(f"fused_woodbury_cuda needs CUDA tensors, got {T.device}")
+    if not all(x.is_contiguous() for x in (T, w, r)):
+        raise ValueError("fused_woodbury_update: T, w and r must be contiguous")
+    npsr, ntoa, q = T.shape
+    if q < 1 or ntoa < 1 or not 1 <= npsr <= 65535:
+        raise ValueError(
+            "fused_woodbury_update: the kernel takes at least one column, at least "
+            f"one TOA and 1..65535 pulsars, got {tuple(T.shape)}"
+        )
+    sms = torch.cuda.get_device_properties(T.device).multi_processor_count
+    return _woodbury_launch(build.load("fused_woodbury", _bind), T, w, r,
+                            woodbury_plan(npsr, ntoa, q, sms)[2])
 
 
 def fused_woodbury_update(T, w, r, tile: int = DEFAULT_WOODBURY_TILE,

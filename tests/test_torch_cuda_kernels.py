@@ -83,9 +83,11 @@ def _rel_max(got, want):
     return float((got - want).abs().max() / want.abs().max())
 
 
-#: ragged Nt throughout (no multiple of the kernel's 64-row tile); 175 is
-#: the widest basis the kernel takes
-WOODBURY_SHAPES = [(3, 100, 7), (4, 997, 123), (2, 300, 175)]
+#: ragged Nt throughout (no multiple of the kernel's 32-row chunk); Q + 1
+#: from one 64-column panel (one panel pair) to five (15 pairs), past the
+#: old kernel's 175-column cap; Nt = 5 is less than one chunk
+WOODBURY_SHAPES = [(3, 100, 7), (4, 997, 123), (2, 300, 175), (2, 300, 183), (1, 130, 300),
+                   (3, 5, 40)]
 
 
 @pytest.mark.parametrize("shape", WOODBURY_SHAPES)
@@ -102,6 +104,22 @@ def test_woodbury_kernel_matches_plain(cuda_device, shape, dtype, tol):
         assert bool(torch.all(torch.isfinite(g)))
         assert _rel_max(g, x) <= tol
     assert torch.equal(got[0], got[0].transpose(-1, -2))
+
+
+@pytest.mark.parametrize("nsplit", [1, 2, 7])
+def test_woodbury_kernel_any_split_count(cuda_device, nsplit):
+    """One split scatters straight from the tiles; several go through the
+    workspace and the fixed-order reduction. The wrapper sizes the
+    workspace from the kernel, which must agree with the plan."""
+    T, w, r = _woodbury(4, 997, 123, torch.float64, cuda_device)
+    lib = tgp.build.load("fused_woodbury", tgp._bind)
+    got = tgp._woodbury_launch(lib, T, w, r, nsplit)
+    want = tgp.fused_woodbury_plain(T, w, r)
+    for g, x in zip(got, want):
+        assert _rel_max(g, x) <= 1e-12
+    for q in (7, 123, 183, 300):
+        plan = tgp.woodbury_plan(68, 7758, q, 132)
+        assert 68 * lib.fused_woodbury_workspace(q, plan[2]) == plan[3]
 
 
 def test_woodbury_kernel_is_deterministic(cuda_device):
@@ -124,9 +142,6 @@ def test_woodbury_kernel_refuses_bad_operands(cuda_device):
         tgp.fused_woodbury_update(T, w.cpu(), r)
     with pytest.raises(ValueError, match="contiguous"):
         tgp.fused_woodbury_update(T.transpose(0, 1).contiguous().transpose(0, 1), w, r)
-    wide = torch.zeros((1, 10, tgp.MAX_COLUMNS + 1), dtype=T.dtype, device=cuda_device)
-    with pytest.raises(ValueError, match="columns"):
-        tgp.fused_woodbury_update(wide, w[:1, :10], r[:1, :10])
     with pytest.raises(NotImplementedError, match="B.3"):
         tgp.fused_woodbury_update(T, w, r, precision="bf16")
 

@@ -21,7 +21,7 @@ from pta_replicator_tpu_torch.likelihood import infer as tinfer
 from pta_replicator_tpu_torch.ops import gp as tgp
 
 #: (shape, tile): 100 and 384 are no multiple of their tile
-SHAPES = [((3, 100, 7), 32), ((4, 384, 23), 256)]
+SHAPES = [((3, 100, 7), 32), ((4, 384, 23), 256), ((2, 300, 183), 256), ((1, 130, 300), 64)]
 #: max |error| over the largest |reference| entry of each output: the
 #: port's einsum and XLA's dot sum each tile in their own order
 TOL = {np.float64: 1e-12, np.float32: 1e-5}
@@ -91,6 +91,45 @@ def test_operands_and_precision_are_checked():
         tgp.fused_woodbury_update(T, w, r, precision="fp8")
     with pytest.raises(ValueError, match="CUDA"):
         tgp.fused_woodbury_cuda(T, w, r)
+
+
+#: basis widths of the launch-plan sweep: Q + 1 from one panel to five
+PLAN_COLUMNS = (1, 63, 64, 123, 183, 300)
+
+
+@pytest.mark.parametrize("npsr", [1, 4, 68])
+def test_woodbury_plan_covers_the_gram_matrix(npsr):
+    """Every lower-triangle entry of the (Q + 1)-square Gram matrix lies in
+    exactly one panel pair; the splits are 1..Nt, none empty; the
+    workspace holds one tile per (pulsar, pair, split), none with one
+    split, and never more than the blocks the plan aims at."""
+    sms, ntoa, width = 132, 7758, tgp.WOODBURY_PANEL
+    for q in PLAN_COLUMNS:
+        panels, pairs, nsplit, workspace = tgp.woodbury_plan(npsr, ntoa, q, sms)
+        assert (panels - 1) * width < q + 1 <= panels * width
+        tiles = [tgp.woodbury_pair(k) for k in range(pairs)]
+        assert all(0 <= j <= i < panels for i, j in tiles)
+        a, b = np.tril_indices(q + 1)
+        count = sum(((a // width == i) & (b // width == j)).astype(int) for i, j in tiles)
+        assert np.all(count == 1)
+        assert 1 <= nsplit <= ntoa
+        assert (nsplit - 1) * -(-ntoa // nsplit) < ntoa  # the last split has rows
+        assert workspace == (npsr * pairs * nsplit * width**2 if nsplit > 1 else 0)
+        assert workspace <= tgp.WOODBURY_BLOCKS_PER_SM * sms * width**2
+
+
+@pytest.mark.parametrize("npsr", [32, 68])
+def test_woodbury_plan_workspace_shrinks_as_pairs_grow(npsr):
+    """Where the block target sets the splits (not the TOA count), wider
+    bases take fewer splits and no more workspace; once the pairs alone
+    fill the target, one split and no workspace."""
+    plans = [tgp.woodbury_plan(npsr, 7758, q, 132) for q in PLAN_COLUMNS]
+    splits = [p[2] for p in plans]
+    workspace = [p[3] for p in plans]
+    assert all(x >= y for x, y in zip(splits, splits[1:]))
+    assert all(x >= y for x, y in zip(workspace, workspace[1:]))
+    assert workspace[-1] < workspace[0]
+    assert tgp.woodbury_plan(npsr, 7758, 1000, 132)[2:] == (1, 0)
 
 
 def _recipe(batch, seed=0):
