@@ -362,16 +362,16 @@ def _timed_ms(fn, reps=3):
 def _device_busy(fn):
     """Share of one synchronised call's wall time during which the card
     ran a kernel (torch.profiler's device time, one stream, so kernels do
-    not overlap), and the five kernels with the most device time; (None,
-    []) when the profiler records no device time."""
+    not overlap), and every kernel's device milliseconds, the most first;
+    (None, []) when the profiler records no device time."""
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         _, wall_ms = _timed_ms(fn, reps=1)
     rows = [(e.key, e.self_device_time_total / 1e3) for e in prof.key_averages()
             if e.device_type == torch.autograd.DeviceType.CUDA]  # kernels, not ops
     device_ms = sum(ms for _, ms in rows)
-    top = sorted(rows, key=lambda kv: -kv[1])[:5]
-    return (device_ms / wall_ms if device_ms > 0 else None), [[k, ms] for k, ms in top]
+    rows = sorted(rows, key=lambda kv: -kv[1])
+    return (device_ms / wall_ms if device_ms > 0 else None), [[k, ms] for k, ms in rows]
 
 
 def woodbury_bound(npsr, ntoa, q, dtype):
@@ -439,7 +439,7 @@ def phase_woodbury_kernel(batch, recipe, design, basis):
             bound_ms=bound, bound_by=bound_by,
         )
         if dtype == torch.float64:
-            row["profiler_kernels_ms"] = _device_busy(run)[1]
+            row["profiler_kernels_ms"] = _device_busy(run)[1][:5]
         emit("woodbury_kernel_vs_plain", **row)
         require(row["finite"] and max(errs) <= TOL_WOODBURY[dtype],
                 f"woodbury kernel vs plain {dtype}: {row}")
@@ -516,7 +516,7 @@ def phase_likelihood(bank, batch, recipe, design):
         evals_per_s_grid_only=G * R / (grid_ms / 1e3), first_call_s=first_s,
         call_ms=call_ms, build_ms=build_ms, project_ms=project_ms, grid_ms=grid_ms,
         grid_phi_ms=phi_ms, grid_factor_solve_ms=factor_solve_ms,
-        device_busy_share=busy_share, top_kernels_ms=top_kernels,
+        device_busy_share=busy_share, top_kernels_ms=top_kernels[:5],
         peak_memory_gib=peak_gib, woodbury_launches=count,
         rel_fused_vs_composed=rel, rel_grid_fused_vs_composed=rel_one,
         rel_grid_vs_bank_row=rel_row0, tol=TOL_LIKELIHOOD,
@@ -657,11 +657,23 @@ def _config_d(batch, recipe):
     return dataclasses.replace(recipe, noise_cov=op, cov_log10_sigma=KRON_LOG10_SIGMA)
 
 
+def _syrk_bound(npsr, m, b, dtype):
+    """Least time of one trailing update at tile DENSE_BLOCK: ops/cw.py's
+    operations and bytes (C's lower tiles read and written once, L read
+    once) over the peak rates."""
+    size = torch.finfo(dtype).bits // 8
+    return _bound(cw.cov_syrk_operations(npsr, m, b, DENSE_BLOCK),
+                  cw.cov_syrk_bytes(npsr, m, b, DENSE_BLOCK, size), dtype)
+
+
 def phase_cov_kernels():
     """The covariance kernels against their plain versions at their paths'
-    shapes, float64 and float32. B.2: the first trailing update of config
-    D's dense C0 (68 x 1,920 x 1,920, panel 128), then the blocked factor
-    against the library Cholesky. B.4/B.5: config B's C0 blocks (68 x 485
+    shapes, float64 and float32. B.2: the first and the last trailing
+    update of config D's dense C0 (68 x 1,920 x 1,920 and 68 x 128 x 128,
+    panel 128), then the blocked factor against the library Cholesky, and
+    one profiled factorization: the SYRK kernel's device time over its 15
+    launches beside the sum of their bounds, and the rest of the factor's
+    device time by kernel. B.4/B.5: config B's C0 blocks (68 x 485
     x 16 x 16) in the sweeps the banded solver runs: the factor sweep
     without right-hand sides, then, with the 123 columns of the GP basis,
     the substitution-only forward sweep and the backward sweep; and the
@@ -679,34 +691,48 @@ def phase_cov_kernels():
     P64 = torch.linalg.solve_triangular(Lkk.mT, C0[:, DENSE_BLOCK:, :DENSE_BLOCK],
                                         upper=True, left=False).contiguous()
     T64 = C0[:, DENSE_BLOCK:, DENSE_BLOCK:].contiguous()
-    npsr, m, b = P64.shape
-    for dtype in (f64, torch.float32):
-        C, P = T64.to(dtype), P64.to(dtype)
-        size = torch.finfo(dtype).bits // 8
-        lower = (m // DENSE_BLOCK) * (m // DENSE_BLOCK + 1) // 2 * DENSE_BLOCK**2
-        bound = _bound(cw.cov_syrk_operations(npsr, m, b, DENSE_BLOCK),
-                       size * npsr * (2 * lower + m * b), dtype)
-        # the kernel updates in place: compared on copies, timed on one
-        # working copy (the values drift over the repeats, the work does not)
-        row = _kernel_row(lambda: cw.cov_syrk_update(C.clone(), P, DENSE_BLOCK),
-                          lambda: cw.cov_syrk_plain(C, P, DENSE_BLOCK), dtype, bound)
-        work = C.clone()
-        row.update(shape=[npsr, m, b], tile=DENSE_BLOCK,
-                   ms=cuda_ms(lambda: cw.cov_syrk_update(work, P, DENSE_BLOCK), 10),
-                   library_ms=cuda_ms(lambda: torch.baddbmm(C, P, P.mT, alpha=-1), 10))
-        del work
-        emit("cov_kernels", kernel="cov_syrk_update", **row)
-        require(row["finite"] and row["rel_err"] <= TOL_COV[dtype] and row["same_bits"],
-                f"cov_syrk kernel vs plain {dtype}: {row}")
-        rows["cov_syrk_update", dtype] = row
-    del T64, P64, C, P
+    # the factorization's first launch (its row goes on the kernels line)
+    # and its last, one tile pair per pulsar: a grid of about one block per SM
+    launches_at = {"first": (T64, P64),
+                   "last": (T64[:, -DENSE_BLOCK:, -DENSE_BLOCK:], P64[:, -DENSE_BLOCK:])}
+    for which, (C_, P_) in launches_at.items():
+        npsr, m, b = P_.shape
+        for dtype in (f64, torch.float32):
+            C, P = C_.to(dtype).contiguous(), P_.to(dtype).contiguous()
+            # the kernel updates in place: compared on copies, timed on one
+            # working copy (the values drift over the repeats, the work does not)
+            row = _kernel_row(lambda: cw.cov_syrk_update(C.clone(), P, DENSE_BLOCK),
+                              lambda: cw.cov_syrk_plain(C, P, DENSE_BLOCK), dtype,
+                              _syrk_bound(npsr, m, b, dtype))
+            work = C.clone()
+            row.update(launch=which, shape=[npsr, m, b], tile=DENSE_BLOCK,
+                       plan=dict(zip(("row_blocks", "col_blocks", "grid_x"),
+                                     cw.syrk_plan(m, DENSE_BLOCK))),
+                       ms=cuda_ms(lambda: cw.cov_syrk_update(work, P, DENSE_BLOCK), 10),
+                       library_ms=cuda_ms(lambda: torch.baddbmm(C, P, P.mT, alpha=-1), 10))
+            del work
+            emit("cov_kernels", kernel="cov_syrk_update", **row)
+            require(row["finite"] and row["rel_err"] <= TOL_COV[dtype] and row["same_bits"],
+                    f"cov_syrk kernel vs plain {which} {dtype}: {row}")
+            rows["cov_syrk_update" if which == "first" else "cov_syrk_update_last", dtype] = row
+            del C, P
+    del T64, P64, launches_at
     L_blk, blocked_ms = _timed_ms(lambda: cov_kernels.blocked_cholesky(C0, DENSE_BLOCK))
     L_lib, library_ms = _timed_ms(lambda: torch.linalg.cholesky(C0))
     rel = _rel_max(L_blk, L_lib)
+    del L_blk, L_lib
+    busy, kernels_ms = _device_busy(lambda: cov_kernels.blocked_cholesky(C0, DENSE_BLOCK))
+    syrk = [ms for name, ms in kernels_ms if "cov_syrk" in name]
+    n = C0.shape[-1]
+    trailing = range(-(-n // DENSE_BLOCK) * DENSE_BLOCK - DENSE_BLOCK, 0, -DENSE_BLOCK)
     emit("cov_kernels", kernel="blocked_cholesky", shape=list(C0.shape), block=DENSE_BLOCK,
-         rel_err_vs_library=rel, tol=TOL_BLOCKED, blocked_ms=blocked_ms, library_ms=library_ms)
+         rel_err_vs_library=rel, tol=TOL_BLOCKED, blocked_ms=blocked_ms, library_ms=library_ms,
+         syrk_launches=len(trailing), syrk_device_ms=sum(syrk) if syrk else None,
+         syrk_bound_ms=sum(_syrk_bound(C0.shape[0], m, DENSE_BLOCK, f64)[0] for m in trailing),
+         device_ms=sum(ms for _, ms in kernels_ms), device_busy_share=busy,
+         other_kernels_ms=[r for r in kernels_ms if "cov_syrk" not in r[0]][:5])
     require(rel <= TOL_BLOCKED, f"blocked Cholesky vs library: {rel}")
-    del C0, L_blk, L_lib
+    del C0
 
     # ---- B.4 / B.5, config B's C0 blocks
     batch, recipe = flagship_workload(**FLAGSHIP, dtype=f64)
@@ -837,7 +863,7 @@ def phase_covariance_banded(batch32, recipe32, static, generator):
         cov_sigma_grid_s=sig_s, cov_sigma_evals_per_s=len(COV_SIGMA_GRID_B) / sig_s,
         best_cov_log10_sigma=float(COV_SIGMA_GRID_B[int(ll_sig.argmax())]),
         **_time_split(bank, batch, recipe, design, grid), **served,
-        peak_memory_gib=peak_gib, device_busy_share=busy, top_kernels_ms=top,
+        peak_memory_gib=peak_gib, device_busy_share=busy, top_kernels_ms=top[:5],
         launches=counts, tol=TOL_LIKELIHOOD,
         finite=bool(torch.isfinite(ll).all() and torch.isfinite(ll_sig).all()),
     )
@@ -906,7 +932,7 @@ def phase_covariance_dense():
         cov_sigma_grid_s=sig_s, cov_sigma_evals_per_s=len(COV_SIGMA_GRID_D) / sig_s,
         best_cov_log10_sigma=float(COV_SIGMA_GRID_D[int(ll_sig.argmax())]),
         **_time_split(bank, batch, recipe, design, grid),
-        peak_memory_gib=peak_gib, device_busy_share=busy, top_kernels_ms=top,
+        peak_memory_gib=peak_gib, device_busy_share=busy, top_kernels_ms=top[:5],
         launches=counts,
         finite=bool(torch.isfinite(ll).all() and torch.isfinite(ll_sig).all()),
     )

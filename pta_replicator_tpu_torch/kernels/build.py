@@ -89,6 +89,27 @@ def build(name: str) -> Path:
     return target
 
 
+def build_variant(name: str, variant: str, edits, out_dir: Path):
+    """Build a copy of ``csrc/<name>.cu`` with each ``(old, new)`` of
+    ``edits`` replaced once, for a study that times a partial kernel, into
+    ``out_dir``; returns ``(library path, ptxas lines)``. Raises when the
+    source no longer holds an ``old`` text or nvcc fails."""
+    source = (CSRC_DIR / f"{name}.cu").read_text()
+    for old, new in edits:
+        if old not in source:
+            raise RuntimeError(f"{name} {variant}: the kernel no longer has {old!r}")
+        source = source.replace(old, new)
+    src = out_dir / f"{name}_{variant}.cu"
+    src.write_text(source)
+    lib = out_dir / f"lib{name}_{variant}.so"
+    proc = subprocess.run([nvcc(), *NVCC_FLAGS, "-o", str(lib), str(src)],
+                          capture_output=True, text=True)
+    if proc.returncode:
+        raise RuntimeError(f"nvcc failed on {name} {variant}:\n{proc.stderr}")
+    return lib, [l.strip() for l in proc.stderr.splitlines()
+                 if "entry function" in l or "Used" in l or "spill" in l]
+
+
 def build_all(names) -> None:
     """Build several sources at once, one ``nvcc`` each, all started
     together; raises the first failure."""

@@ -39,24 +39,6 @@ COLUMNS = (123, 183)
 SPLITS = (1, 2, 4, 6, 8, 10, 12, 16, 24)
 
 
-def _build(name, edits, out_dir):
-    source = (build.CSRC_DIR / "fused_woodbury.cu").read_text()
-    for old, new in edits:
-        if old not in source:
-            raise RuntimeError(f"woodbury_study: {name}: the kernel no longer has {old!r}")
-        source = source.replace(old, new)
-    src = out_dir / f"woodbury_{name}.cu"
-    src.write_text(source)
-    lib = out_dir / f"libwoodbury_{name}.so"
-    proc = subprocess.run([build.nvcc(), *build.NVCC_FLAGS, "-o", str(lib), str(src)],
-                          capture_output=True, text=True)
-    if proc.returncode:
-        raise RuntimeError(f"woodbury_study: nvcc failed on {name}:\n{proc.stderr}")
-    ptxas = [l.strip() for l in proc.stderr.splitlines()
-             if "entry function" in l or "Used" in l or "spill" in l]
-    return name, lib, ptxas
-
-
 def _ms(fn, reps=20):
     fn()
     torch.cuda.synchronize()
@@ -75,7 +57,9 @@ def main():
     out_dir = build.BUILD_DIR / "study"
     out_dir.mkdir(parents=True, exist_ok=True)
     with ThreadPoolExecutor(len(VARIANTS)) as pool:
-        built = list(pool.map(lambda kv: _build(*kv, out_dir), VARIANTS.items()))
+        built = list(pool.map(
+            lambda kv: (kv[0], *build.build_variant("fused_woodbury", *kv, out_dir)),
+            VARIANTS.items()))
     libs, ptxas = {}, {}
     for name, path, report in built:
         libs[name] = ctypes.CDLL(str(path))

@@ -314,6 +314,29 @@ def cov_syrk_operations(npsr: int, m: int, b: int, tile: int) -> int:
     return npsr * (nt * (nt + 1) // 2) * tile * tile * 2 * b
 
 
+def cov_syrk_bytes(npsr: int, m: int, b: int, tile: int, itemsize: int) -> int:
+    """Bytes one trailing update must move: the entries of C's lower tiles
+    read once and written once, and the panel L read once."""
+    nt = m // tile
+    return itemsize * npsr * (2 * (nt * (nt + 1) // 2) * tile * tile + m * b)
+
+
+#: the kernel's output block (``csrc/cov_syrk.cu``: kRowsA x kBlockCols)
+SYRK_BLOCK_ROWS = 128
+SYRK_BLOCK_COLS = 64
+
+
+def syrk_plan(m: int, tile: int):
+    """The kernel's grid along one pulsar, as ``csrc/cov_syrk.cu`` launches
+    it: ``(row_blocks, col_blocks, grid_x)``. Each lower tile pair is cut
+    into ``row_blocks`` x ``col_blocks`` blocks of ``SYRK_BLOCK_ROWS`` x
+    ``SYRK_BLOCK_COLS`` outputs (masked at the tile's edge); ``grid_x``
+    blocks per pulsar, pair-major."""
+    nt = m // tile
+    row_blocks, col_blocks = -(-tile // SYRK_BLOCK_ROWS), -(-tile // SYRK_BLOCK_COLS)
+    return row_blocks, col_blocks, nt * (nt + 1) // 2 * row_blocks * col_blocks
+
+
 def cov_tile_update(c, li, lj):
     """One trailing-update tile: ``c - li @ lj^T`` over the panel's
     contraction axis, batched over the leading pulsar axis."""
@@ -363,6 +386,20 @@ def _bind_syrk(lib):
     lib.cov_syrk_error_string.restype = ctypes.c_char_p
 
 
+def _syrk_launch(lib, C, L, tile: int):
+    """Launch ``lib``'s kernel (the build of ``csrc/cov_syrk.cu``) on the
+    current stream; raise when the launch is refused."""
+    npsr, m, b = L.shape
+    with torch.cuda.device(C.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.cov_syrk_launch(C.data_ptr(), C.stride(0), C.stride(1), L.data_ptr(),
+                                 npsr, m, b, tile, _DTYPE_CODES[C.dtype], stream)
+    if rc != 0:
+        raise RuntimeError(f"cov_syrk kernel launch failed: {lib.cov_syrk_error_string(rc).decode()}")
+    launches["cov_syrk_update"] += 1
+    return C
+
+
 def cov_syrk_cuda(C, L, tile: int = 128):
     """``C - L L^T`` on the lower tiles from the CUDA kernel
     (``csrc/cov_syrk.cu``), IN PLACE: C may be a view whose last axis is
@@ -378,16 +415,7 @@ def cov_syrk_cuda(C, L, tile: int = 128):
             f"axis, rows at least m apart) and 1..65535 pulsars; got strides "
             f"{C.stride()} for shape {tuple(C.shape)}"
         )
-    L = L.contiguous()
-    lib = build.load("cov_syrk", _bind_syrk)
-    with torch.cuda.device(C.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.cov_syrk_launch(C.data_ptr(), C.stride(0), C.stride(1), L.data_ptr(),
-                                 npsr, m, b, tile, _DTYPE_CODES[C.dtype], stream)
-    if rc != 0:
-        raise RuntimeError(f"cov_syrk kernel launch failed: {lib.cov_syrk_error_string(rc).decode()}")
-    launches["cov_syrk_update"] += 1
-    return C
+    return _syrk_launch(build.load("cov_syrk", _bind_syrk), C, L.contiguous(), tile)
 
 
 def cov_syrk_update(C, L, tile: int = 128):

@@ -66,6 +66,58 @@ def test_cov_syrk_operation_count():
     assert tcw.cov_syrk_operations(2, 96, 32, 32) == 2 * 6 * 32 * 32 * 2 * 32
 
 
+@pytest.mark.parametrize("itemsize", [8, 4])
+def test_cov_syrk_byte_count(itemsize):
+    # 3 x 3 tiles of 32: 6 lower tiles of C read and written, L (96 x 16) read
+    assert tcw.cov_syrk_bytes(2, 96, 16, 32, itemsize) == itemsize * 2 * (2 * 6 * 32 * 32 + 96 * 16)
+    # config D's 15 trailing updates: 13.2 GB in float64
+    total = sum(tcw.cov_syrk_bytes(68, m, 128, 128, 8) for m in range(128, 2048, 128))
+    assert total == 13_191_086_080
+
+
+def _syrk_coverage(m, tile):
+    """How often the plan's blocks (as the kernel maps blockIdx.x) cover
+    each entry of one pulsar's m x m matrix; every block non-empty."""
+    row_blocks, col_blocks, grid_x = tcw.syrk_plan(m, tile)
+    rows, cols = tcw.SYRK_BLOCK_ROWS, tcw.SYRK_BLOCK_COLS
+    count = np.zeros((m, m), dtype=int)
+    for x in range(grid_x):
+        pair, sub = divmod(x, row_blocks * col_blocks)
+        ti, tj = tgp.woodbury_pair(pair)
+        r0 = ti * tile + (sub // col_blocks) * rows
+        c0 = tj * tile + (sub % col_blocks) * cols
+        r1, c1 = min(r0 + rows, (ti + 1) * tile), min(c0 + cols, (tj + 1) * tile)
+        assert r0 < r1 and c0 < c1
+        count[r0:r1, c0:c1] += 1
+    return count
+
+
+#: (m, tile): config D's first and last launch, tiles narrower than a
+#: block, a tile of one entry, several tiles of 128, a tile of two blocks
+SYRK_PLAN_CASES = [(1920, 128), (128, 128), (27, 9), (96, 32), (5, 1), (640, 128), (300, 150),
+                   (512, 256)]
+
+
+@pytest.mark.parametrize("m,tile", SYRK_PLAN_CASES)
+def test_syrk_plan_covers_each_lower_tile_once(m, tile):
+    count = _syrk_coverage(m, tile)
+    t = np.arange(m) // tile
+    lower = t[:, None] >= t[None, :]  # lower tiles, diagonal tiles whole
+    assert (count[lower] == 1).all() and (count[~lower] == 0).all()
+    assert 1 <= tcw.syrk_plan(m, tile)[2] <= 2**31 - 1
+
+
+def test_syrk_plan_fills_the_card():
+    """Config D on an H100 (132 SMs): the first launch gives >= 2 blocks
+    per SM (two fit on an SM at once in float64); the last, one tile pair
+    per pulsar, about one."""
+    first, last = tcw.syrk_plan(1920, 128), tcw.syrk_plan(128, 128)
+    assert first == (1, 2, 240) and 68 * first[2] >= 2 * 132
+    assert last == (1, 2, 2) and 68 * last[2] >= 132
+    # the largest trailing matrix a pulsar's grid row takes at tile 128
+    assert tcw.syrk_plan(128 * 2000, 128)[2] <= 2**31 - 1
+
+
 @pytest.mark.parametrize("n,dtype", [(160, np.float64), (130, np.float64), (130, np.float32)])
 def test_blocked_cholesky_matches_jax_pallas_interpret(n, dtype):
     """n = 130 at block 32 is the reference's ragged case: identity-padded

@@ -156,13 +156,32 @@ def _rel_max_t(got, want):
 COV_TOL = [(torch.float64, 1e-12), (torch.float32, 1e-4)]
 
 
-@pytest.mark.parametrize("tile", [32, 128])
+def _upper_tiles(m, tile, device):
+    """Mask of the strictly-upper (tile x tile) tiles of an m x m matrix."""
+    t = torch.arange(m, device=device) // tile
+    return t[:, None] < t[None, :]
+
+
+def _syrk_case(npsr, m, b, dtype, device, seed=1):
+    rng = np.random.default_rng(seed)
+    C = torch.as_tensor(rng.standard_normal((npsr, m, m)), dtype=dtype, device=device)
+    L = torch.as_tensor(rng.standard_normal((npsr, m, b)), dtype=dtype, device=device)
+    return C, L
+
+
+#: (pulsars, tiles per side, tile): tiles of 9 and 32 mask most of a block;
+#: one tile of 128 over 3 pulsars is a grid far smaller than the card, 5 x 5
+#: tiles of 128 over 12 pulsars one that fills it; a tile of 200 takes two
+#: block rows and four block columns, the last of each masked
+SYRK_GRIDS = [(3, 3, 9), (3, 3, 32), (3, 1, 128), (12, 5, 128), (2, 2, 200)]
+
+
+@pytest.mark.parametrize("npsr,nt,tile", SYRK_GRIDS)
+@pytest.mark.parametrize("b", [13, 128])
 @pytest.mark.parametrize("dtype,tol", COV_TOL)
-def test_syrk_kernel_matches_plain(cuda_device, dtype, tol, tile):
-    rng = np.random.default_rng(1)
-    m = 3 * tile
-    C = torch.as_tensor(rng.standard_normal((3, m, m)), dtype=dtype, device=cuda_device)
-    L = torch.as_tensor(rng.standard_normal((3, m, 128)), dtype=dtype, device=cuda_device)
+def test_syrk_kernel_matches_plain(cuda_device, dtype, tol, b, npsr, nt, tile):
+    m = nt * tile
+    C, L = _syrk_case(npsr, m, b, dtype, cuda_device)
     want = tcw.cov_syrk_plain(C, L, tile)
     launches.clear()
     got = tcw.cov_syrk_update(C.clone(), L, tile)
@@ -171,20 +190,40 @@ def test_syrk_kernel_matches_plain(cuda_device, dtype, tol, tile):
     assert launches["cov_syrk_update"] == 2
     assert torch.equal(got, again)
     assert _rel_max_t(got, want) <= tol
-    assert torch.equal(got[:, :tile, tile:], C[:, :tile, tile:])  # upper tiles untouched
+    upper = _upper_tiles(m, tile, cuda_device)
+    assert torch.equal(got[:, upper], C[:, upper])  # upper tiles untouched
 
 
-def test_syrk_kernel_updates_a_view_in_place(cuda_device):
+#: (offset, tile, tiles per side, b): a view at offset 9 is only 8-byte
+#: aligned in float64; the panel then also sits 8 bytes off 16-byte
+#: alignment, so the kernel stages it by element copies
+SYRK_VIEWS = [(32, 32, 2, 16), (9, 9, 3, 13), (9, 9, 3, 16)]
+
+
+@pytest.mark.parametrize("offset,tile,nt,b", SYRK_VIEWS)
+@pytest.mark.parametrize("dtype,tol", COV_TOL)
+def test_syrk_kernel_updates_a_view_in_place(cuda_device, dtype, tol, offset, tile, nt, b):
     rng = np.random.default_rng(2)
-    W = torch.as_tensor(rng.standard_normal((2, 96, 96)), device=cuda_device)
-    P = torch.as_tensor(rng.standard_normal((2, 64, 16)), device=cuda_device)
+    m = nt * tile
+    W = torch.as_tensor(rng.standard_normal((2, offset + m, offset + m)), dtype=dtype,
+                        device=cuda_device)
+    flat = torch.as_tensor(rng.standard_normal(2 * m * b + 1), dtype=dtype, device=cuda_device)
+    P = flat[1:].view(2, m, b)  # contiguous, one element past the allocation's start
+    orig, W2 = W.clone(), W.clone()
     want = W.clone()
-    want[:, 32:, 32:] = tcw.cov_syrk_plain(W[:, 32:, 32:].contiguous(), P, 32)
-    out = tcw.cov_syrk_update(W[:, 32:, 32:], P, 32)
-    assert out.data_ptr() == W[:, 32:, 32:].data_ptr()
-    assert _rel_max_t(W, want) <= 1e-12
+    want[:, offset:, offset:] = tcw.cov_syrk_plain(W[:, offset:, offset:].contiguous(), P, tile)
+    out = tcw.cov_syrk_update(W[:, offset:, offset:], P, tile)
+    tcw.cov_syrk_update(W2[:, offset:, offset:], P, tile)
+    torch.cuda.synchronize()
+    assert out.data_ptr() == W[:, offset:, offset:].data_ptr()
+    assert torch.equal(W, W2)
+    assert _rel_max_t(W, want) <= tol
+    # the rows and columns outside the view, and the upper tiles, untouched
+    assert torch.equal(W[:, :offset], orig[:, :offset]) and torch.equal(W[:, :, :offset], orig[:, :, :offset])
+    upper = _upper_tiles(m, tile, cuda_device)
+    assert torch.equal(out[:, upper], orig[:, offset:, offset:][:, upper])
     with pytest.raises(ValueError, match="not a multiple"):
-        tcw.cov_syrk_update(W[:, 32:, 32:], P, 40)
+        tcw.cov_syrk_update(W[:, offset:, offset:], P, tile + 1)
 
 
 @pytest.mark.parametrize("n", [256, 300])
