@@ -119,6 +119,10 @@ TOL_BLOCKED = 1e-10
 COV_KERNELS = ("cov_syrk_update", "tridiag_factor_solve_fwd", "tridiag_solve_fwd",
                "tridiag_factor_solve_bwd")
 
+#: right-hand-side counts of the substitution sweeps timed beside the GP
+#: basis's: the direct route's single residual (the chain's latency) and a
+#: wider basis
+TRIDIAG_EXTRA_Q = (1, 200)
 #: the counter of each block-tridiagonal sweep checked in cov_kernels
 TRIDIAG_COUNTER = {"factor": "tridiag_factor_solve_fwd", "factor_solve": "tridiag_factor_solve_fwd",
                    "solve": "tridiag_solve_fwd", "backward": "tridiag_factor_solve_bwd"}
@@ -676,9 +680,10 @@ def phase_cov_kernels():
     device time by kernel. B.4/B.5: config B's C0 blocks (68 x 485
     x 16 x 16) in the sweeps the banded solver runs: the factor sweep
     without right-hand sides, then, with the 123 columns of the GP basis,
-    the substitution-only forward sweep and the backward sweep; and the
-    fused factor + forward sweep with those 123 columns, which no path
-    runs, checked only."""
+    the substitution-only forward sweep and the backward sweep (also at
+    Q = 1 and 200, each row with its launch plan and its time per block
+    column); and the fused factor + forward sweep with those 123 columns,
+    which no path runs, checked only."""
     f64 = torch.float64
     rows = {}
     # ---- B.2, config D's C0
@@ -744,38 +749,44 @@ def phase_cov_kernels():
     q = 3 + int(lgp.phi_for_recipe(batch, recipe).shape[-1])  # the design + GP columns
     X64 = torch.as_tensor(np.random.default_rng(8).standard_normal((npsr, nb, b, q)),
                           device=D64.device)
+    rhs64 = {qq: torch.as_tensor(np.random.default_rng(8 + qq).standard_normal((npsr, nb, b, qq)),
+                                 device=D64.device) for qq in TRIDIAG_EXTRA_Q}
     for dtype in (f64, torch.float32):
         D, E, X = D64.to(dtype), E64.to(dtype), X64.to(dtype)
         size = torch.finfo(dtype).bits // 8
-        bb, bq = npsr * nb * b * b, npsr * nb * b * q
-        be = npsr * (nb - 1) * b * b
         Ld, M, Y = ops_gp.tridiag_forward(D, E, X)  # the inputs of the later sweeps
-        # bytes: the factor sweep reads D, E (and X) and writes Ld, M (and
-        # Y); the substitution sweeps read Ld, M and one (Np, nb, b, Q)
-        # operand and write another
-        cases = {
-            "factor": (lambda: ops_gp.tridiag_forward(D, E)[:2],
-                       lambda: ops_gp.tridiag_forward_plain(D, E)[:2],
-                       ops_gp.tridiag_operations(npsr, nb, b, 0, True), size * (3 * bb + be)),
-            "factor_solve": (lambda: ops_gp.tridiag_forward(D, E, X),
-                             lambda: ops_gp.tridiag_forward_plain(D, E, X),
-                             ops_gp.tridiag_operations(npsr, nb, b, q, True),
-                             size * (3 * bb + be + 2 * bq)),
-            "solve": (lambda: ops_gp.tridiag_forward_solve(Ld, M, X),
-                      lambda: ops_gp.tridiag_forward_solve_plain(Ld, M, X),
-                      ops_gp.tridiag_operations(npsr, nb, b, q, False), size * (2 * bb + 2 * bq)),
-            "backward": (lambda: ops_gp.tridiag_backward(Ld, M, Y),
-                         lambda: ops_gp.tridiag_backward_plain(Ld, M, Y),
-                         ops_gp.tridiag_operations(npsr, nb, b, q, False), size * (2 * bb + 2 * bq)),
-        }
-        for mode, (run, plain, ops, nbytes) in cases.items():
-            row = _kernel_row(run, plain, dtype, _bound(ops, nbytes, dtype))
-            row.update(mode=mode, shape=[npsr, nb, b, 0 if mode == "factor" else q],
-                       ms=cuda_ms(run, 5), library_ms=None)
+        cases = [
+            ("factor", 0, lambda: ops_gp.tridiag_forward(D, E)[:2],
+             lambda: ops_gp.tridiag_forward_plain(D, E)[:2]),
+            ("factor_solve", q, lambda: ops_gp.tridiag_forward(D, E, X),
+             lambda: ops_gp.tridiag_forward_plain(D, E, X)),
+        ]
+        # the substitution sweeps at the path's basis width (its rows go on
+        # the kernels line), then at one column and at 200
+        for qq in (q, *TRIDIAG_EXTRA_Q):
+            Xq = X if qq == q else rhs64[qq].to(dtype)
+            Yq = Y if qq == q else ops_gp.tridiag_forward_solve(Ld, M, Xq)
+            cases += [
+                ("solve", qq, lambda Xq=Xq: ops_gp.tridiag_forward_solve(Ld, M, Xq),
+                 lambda Xq=Xq: ops_gp.tridiag_forward_solve_plain(Ld, M, Xq)),
+                ("backward", qq, lambda Yq=Yq: ops_gp.tridiag_backward(Ld, M, Yq),
+                 lambda Yq=Yq: ops_gp.tridiag_backward_plain(Ld, M, Yq)),
+            ]
+        for mode, qq, run, plain in cases:
+            factor = mode.startswith("factor")
+            bound = _bound(ops_gp.tridiag_operations(npsr, nb, b, qq, factor),
+                           ops_gp.tridiag_bytes(npsr, nb, b, qq, factor, size), dtype)
+            row = _kernel_row(run, plain, dtype, bound)
+            plan = ops_gp.tridiag_plan(npsr, nb, b, qq, dtype, factor=factor,
+                                       sms=torch.cuda.get_device_properties(0).multi_processor_count)
+            row.update(mode=mode, shape=[npsr, nb, b, qq], ms=cuda_ms(run, 5), library_ms=None,
+                       plan=plan._asdict())
+            row["us_per_block_column"] = row["ms"] * 1e3 / nb
             emit("cov_kernels", kernel=TRIDIAG_COUNTER[mode], **row)
             require(row["finite"] and row["rel_err"] <= TOL_COV[dtype] and row["same_bits"],
-                    f"block-tridiagonal kernel vs plain {mode} {dtype}: {row}")
-            rows[mode, dtype] = row
+                    f"block-tridiagonal kernel vs plain {mode} Q = {qq} {dtype}: {row}")
+            if qq in (0, q):
+                rows[mode, dtype] = row
         del D, E, X, Ld, M, Y
     return rows
 
@@ -854,6 +865,7 @@ def phase_covariance_banded(batch32, recipe32, static, generator):
     call = lambda: lk.bank_loglikelihood(bank, batch, recipe, grid=grid, design=design)
     _, call_ms = _timed_ms(call)
     busy, top = _device_busy(call)
+    tridiag_ms = [[k, ms] for k, ms in top if "tridiag" in k]  # B.4 and B.5, every launch shape
     G, R = int(np.prod(shape)), bank.shape[0]
     row = dict(
         shape=FLAGSHIP, block=BANDED["block"], chunk=CHUNK,
@@ -864,6 +876,7 @@ def phase_covariance_banded(batch32, recipe32, static, generator):
         best_cov_log10_sigma=float(COV_SIGMA_GRID_B[int(ll_sig.argmax())]),
         **_time_split(bank, batch, recipe, design, grid), **served,
         peak_memory_gib=peak_gib, device_busy_share=busy, top_kernels_ms=top[:5],
+        tridiag_device_ms=sum(ms for _, ms in tridiag_ms), tridiag_kernels_ms=tridiag_ms,
         launches=counts, tol=TOL_LIKELIHOOD,
         finite=bool(torch.isfinite(ll).all() and torch.isfinite(ll_sig).all()),
     )

@@ -89,12 +89,13 @@ def build(name: str) -> Path:
     return target
 
 
-def build_variant(name: str, variant: str, edits, out_dir: Path):
-    """Build a copy of ``csrc/<name>.cu`` with each ``(old, new)`` of
-    ``edits`` replaced once, for a study that times a partial kernel, into
-    ``out_dir``; returns ``(library path, ptxas lines)``. Raises when the
-    source no longer holds an ``old`` text or nvcc fails."""
-    source = (CSRC_DIR / f"{name}.cu").read_text()
+def build_variant(name: str, variant: str, edits, out_dir: Path, source_path=None):
+    """Build a copy of ``csrc/<name>.cu`` (or of ``source_path``, another
+    version of it) with each ``(old, new)`` of ``edits`` replaced once, for
+    a study that times a partial or an earlier kernel, into ``out_dir``;
+    returns ``(library path, ptxas lines)``. Raises when the source no
+    longer holds an ``old`` text or nvcc fails."""
+    source = Path(source_path or CSRC_DIR / f"{name}.cu").read_text()
     for old, new in edits:
         if old not in source:
             raise RuntimeError(f"{name} {variant}: the kernel no longer has {old!r}")

@@ -32,6 +32,7 @@ numerics observatory that gates it (ROADMAP.md items B.3 and A.16).
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -359,11 +360,22 @@ def tridiag_operations(npsr: int, nb: int, b: int, q: int, factor: bool) -> int:
     return npsr * nb * per
 
 
+def tridiag_bytes(npsr: int, nb: int, b: int, q: int, factor: bool, itemsize: int) -> int:
+    """Bytes one sweep must move, each input read once and each output
+    written once: the factor sweep reads D and E (and X) and writes Ld and
+    M (and Y); a substitution sweep (``factor=False``) reads Ld, M and one
+    (Np, nb, b, Q) operand and writes another."""
+    blocks, rhs = npsr * nb * b * b, npsr * nb * b * q
+    if factor:
+        return itemsize * (3 * blocks + npsr * (nb - 1) * b * b + 2 * rhs)
+    return itemsize * (2 * blocks + 2 * rhs)
+
+
 def _bind_tridiag(lib):
-    lib.tridiag_factor_fwd_launch.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    lib.tridiag_factor_fwd_launch.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
     lib.tridiag_factor_fwd_launch.restype = ctypes.c_int
     for fn in (lib.tridiag_solve_fwd_launch, lib.tridiag_bwd_launch):
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     lib.block_tridiag_error_string.argtypes = [ctypes.c_int]
     lib.block_tridiag_error_string.restype = ctypes.c_char_p
@@ -371,6 +383,103 @@ def _bind_tridiag(lib):
 
 #: the block sizes the kernels take (the reference accepts 2..256)
 MAX_TRIDIAG_BLOCK = 256
+#: the staged routes' limits (``csrc/block_tridiag.cu``: kStagedMaxBlock,
+#: kSolveStages, kSolveMaxThreads, kSolveMaxRows, kFactorStages); the
+#: kernel checks every launch against them
+TRIDIAG_STAGED_MAX_BLOCK = 32
+TRIDIAG_SOLVE_STAGES = 4
+TRIDIAG_SOLVE_MAX_THREADS = 128
+TRIDIAG_SOLVE_MAX_ROWS = 16
+TRIDIAG_FACTOR_STAGES = 3
+#: the per-thread route's blocks and its shared-memory cap (kColumnThreads,
+#: kFactorThreads, kMaxSmem)
+TRIDIAG_COLUMN_THREADS = 128
+TRIDIAG_FACTOR_THREADS = 256
+TRIDIAG_MAX_SMEM = 200 * 1024
+#: threads per SM up to which a staged substitution sweep gives each column
+#: a lane per row; past it each column takes the fewest lanes. At config B
+#: that is a lane per row for Q = 1 and 7 and the fewest lanes for Q = 123
+#: and 200, which measured fastest on the H100 (kernels/tridiag_study.py)
+TRIDIAG_THREADS_PER_SM = 64
+#: an H100's streaming multiprocessors, the plan's default card
+H100_SMS = 132
+
+
+class TridiagPlan(NamedTuple):
+    """A block-tridiagonal sweep's launch, as ``csrc/block_tridiag.cu``
+    runs it; the kernel refuses a launch whose threads or shared bytes
+    differ from what it needs. ``route`` is ``"staged"`` (b <= 32) or
+    ``"per_thread"``. Substitution sweeps: ``lanes`` lanes carry each
+    right-hand-side column, ``columns`` columns share a block of
+    ``threads`` threads, and block (x, p) takes columns x * columns ... of
+    pulsar p. Factor sweep: the staged route is one warp (``lanes`` = 32)
+    per pulsar, block x = pulsar x; the per-thread route one block per
+    pulsar, block (0, p). ``shared_bytes`` is the block's dynamic shared
+    memory."""
+    route: str
+    lanes: int
+    columns: int
+    threads: int
+    grid: tuple
+    shared_bytes: int
+
+
+def _pow2_ceil(v: int) -> int:
+    return 1 << max(0, v - 1).bit_length()
+
+
+def tridiag_staged_solve_plan(npsr: int, b: int, q: int, dtype, lanes: int,
+                              columns: int) -> TridiagPlan:
+    """The staged substitution sweep's launch with ``lanes`` lanes per
+    column (b' or b' / min(b', 16), b' = b rounded up to a power of two)
+    and ``columns`` columns per block."""
+    size = torch.finfo(dtype).bits // 8
+    bp = _pow2_ceil(b)
+    tile = bp * (bp + 16 // size)  # a staged tile: rows of b' plus 16 bytes
+    slot = -(-(2 * tile + bp) * size // 16) * 16  # L, the M block and 1/L_ii, 16-byte aligned
+    threads = -(-columns * lanes // 32) * 32
+    return TridiagPlan("staged", lanes, columns, threads, (-(-q // columns), npsr),
+                       TRIDIAG_SOLVE_STAGES * slot)
+
+
+def tridiag_plan(npsr: int, nb: int, b: int, q: int, dtype, factor: bool = False,
+                 sms: int = H100_SMS) -> TridiagPlan:
+    """The launch of one sweep over ``npsr`` pulsars of ``nb`` blocks of
+    ``b`` with ``q`` right-hand sides in ``dtype`` on a card of ``sms``
+    streaming multiprocessors: the factor sweep with ``factor`` (``q``
+    may be 0), else a substitution sweep (forward or backward, ``q`` >=
+    1). ``nb`` does not change the launch; it is checked with the rest.
+
+    Blocks of b <= 32 take the staged route, apart from the fused factor +
+    forward sweep (``factor`` with ``q`` > 0), which takes the per-thread
+    route. The staged substitution sweeps give each column a lane per row
+    while Np x Q x b' stays within ``TRIDIAG_THREADS_PER_SM`` threads per
+    SM, else the fewest lanes (each owning ``TRIDIAG_SOLVE_MAX_ROWS`` rows,
+    or all b'); and each block as many columns as four warps hold, or as
+    one warp holds where four-warp blocks would outnumber the SMs. Larger
+    blocks take the per-thread route."""
+    if npsr < 1 or nb < 1 or not 1 <= b <= MAX_TRIDIAG_BLOCK or q < (0 if factor else 1):
+        raise ValueError(f"tridiag_plan: no sweep of Np = {npsr}, nb = {nb}, b = {b}, Q = {q}")
+    size = torch.finfo(dtype).bits // 8
+    bp = _pow2_ceil(b)
+    staged = b <= TRIDIAG_STAGED_MAX_BLOCK
+    if factor:
+        if staged and q == 0:
+            tile = bp * (bp + 16 // size)
+            smem = size * ((2 * TRIDIAG_FACTOR_STAGES + 4) * tile + 2 * (tile // bp) + 2 * bp)
+            return TridiagPlan("staged", 32, 0, 32, (npsr, 1), smem)
+        smem = 3 * b * b * size
+        return TridiagPlan("per_thread", 1, q, TRIDIAG_FACTOR_THREADS, (1, npsr),
+                           smem if smem <= TRIDIAG_MAX_SMEM else 0)
+    if not staged:
+        return TridiagPlan("per_thread", 1, TRIDIAG_COLUMN_THREADS, TRIDIAG_COLUMN_THREADS,
+                           (-(-q // TRIDIAG_COLUMN_THREADS), npsr), 0)
+    few = npsr * q * bp <= TRIDIAG_THREADS_PER_SM * sms
+    lanes = bp if few else bp // min(bp, TRIDIAG_SOLVE_MAX_ROWS)
+    columns = min(q, TRIDIAG_SOLVE_MAX_THREADS // lanes)
+    if npsr * -(-q // columns) > sms:
+        columns = min(q, 32 // lanes)
+    return tridiag_staged_solve_plan(npsr, b, q, dtype, lanes, columns)
 
 
 def _tridiag_launch(fn_name, device, tensors, ints, launch_name):
@@ -399,10 +508,15 @@ def _check_kernel_shape(npsr, b):
         )
 
 
+def _sms(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def tridiag_forward(D, E, X=None):
     """The forward factor sweep ``(Ld, M, Y)`` (``Y`` None without ``X``):
-    CPU tensors run the plain version, CUDA tensors the FACTOR kernel of
-    ``csrc/block_tridiag.cu``, which launches or raises."""
+    CPU tensors run the plain version, CUDA tensors the factor kernel of
+    ``csrc/block_tridiag.cu`` (the route :func:`tridiag_plan` picks), which
+    launches or raises."""
     if D.device.type == "cpu":
         return tridiag_forward_plain(D, E, X)
     npsr, nb, b = _check_tridiag("tridiag_forward", (D, E), X)
@@ -412,44 +526,54 @@ def tridiag_forward(D, E, X=None):
     D, E = D.contiguous(), E.contiguous()
     X = None if X is None else X.contiguous()
     q = 0 if X is None else X.shape[-1]
+    plan = tridiag_plan(npsr, nb, b, q, D.dtype, factor=True)
     Ld, M = torch.empty_like(D), torch.empty_like(D)
     Y = None if X is None else torch.empty_like(X)
     _tridiag_launch("tridiag_factor_fwd_launch", D.device, (D, E, X, Ld, M, Y),
-                    (npsr, nb, b, q, _DTYPE_CODES[D.dtype]), "tridiag_factor_solve_fwd")
+                    (npsr, nb, b, q, int(plan.route == "staged"), plan.threads,
+                     plan.shared_bytes, _DTYPE_CODES[D.dtype]), "tridiag_factor_solve_fwd")
     return Ld, M, Y
+
+
+def _tridiag_solve_launch(fn_name, launch_name, Ld, M, R):
+    """One substitution sweep on the card from ``R`` with the launch
+    shape of :func:`tridiag_plan`."""
+    npsr, nb, b, q = R.shape
+    plan = tridiag_plan(npsr, nb, b, q, Ld.dtype, sms=_sms(Ld.device))
+    out = torch.empty_like(R)
+    lanes = plan.lanes if plan.route == "staged" else 0
+    _tridiag_launch(fn_name, Ld.device, (Ld, M, R, out),
+                    (npsr, nb, b, q, lanes, plan.columns, plan.threads, plan.shared_bytes,
+                     _DTYPE_CODES[Ld.dtype]), launch_name)
+    return out
 
 
 def tridiag_forward_solve(Ld, M, X):
     """The substitution-only forward sweep ``Y`` from a given factor: CPU
-    tensors run the plain version, CUDA tensors the kernel (FACTOR =
-    false, counted as ``tridiag_solve_fwd``), which launches or raises."""
+    tensors run the plain version, CUDA tensors the kernel (counted as
+    ``tridiag_solve_fwd``), which launches or raises."""
     if Ld.device.type == "cpu":
         return tridiag_forward_solve_plain(Ld, M, X)
     npsr, nb, b = _check_tridiag("tridiag_forward_solve", (Ld, M), X)
     _check_kernel_shape(npsr, b)
     Ld, M, X = Ld.contiguous(), M.contiguous(), X.contiguous()
-    Y = torch.empty_like(X)
-    if X.shape[-1]:
-        _tridiag_launch("tridiag_solve_fwd_launch", Ld.device, (Ld, M, X, Y),
-                        (npsr, nb, b, X.shape[-1], _DTYPE_CODES[Ld.dtype]),
-                        "tridiag_solve_fwd")
-    return Y
+    if not X.shape[-1]:
+        return torch.empty_like(X)
+    return _tridiag_solve_launch("tridiag_solve_fwd_launch", "tridiag_solve_fwd", Ld, M, X)
 
 
 def tridiag_backward(Ld, M, Y):
     """The backward sweep ``Z``: CPU tensors run the plain version, CUDA
-    tensors the kernel, which launches or raises."""
+    tensors the kernel (counted as ``tridiag_factor_solve_bwd``), which
+    launches or raises."""
     if Ld.device.type == "cpu":
         return tridiag_backward_plain(Ld, M, Y)
     npsr, nb, b = _check_tridiag("tridiag_backward", (Ld, M), Y)
     _check_kernel_shape(npsr, b)
     Ld, M, Y = Ld.contiguous(), M.contiguous(), Y.contiguous()
-    Z = torch.empty_like(Y)
-    if Y.shape[-1]:
-        _tridiag_launch("tridiag_bwd_launch", Ld.device, (Ld, M, Y, Z),
-                        (npsr, nb, b, Y.shape[-1], _DTYPE_CODES[Ld.dtype]),
-                        "tridiag_factor_solve_bwd")
-    return Z
+    if not Y.shape[-1]:
+        return torch.empty_like(Y)
+    return _tridiag_solve_launch("tridiag_bwd_launch", "tridiag_factor_solve_bwd", Ld, M, Y)
 
 
 def tridiag_factor_solve(D, E, X):

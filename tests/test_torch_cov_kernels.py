@@ -255,6 +255,94 @@ def test_tridiag_operation_count():
     assert tgp.tridiag_operations(2, 3, 3, 0, factor=True) == 6 * (2 * 27 + 9)
 
 
+@pytest.mark.parametrize("itemsize", [8, 4])
+def test_tridiag_byte_count(itemsize):
+    # 2 pulsars x 3 blocks of 2 (2 sub-diagonal blocks each), Q = 5: a
+    # substitution sweep reads Ld, M and one (2, 3, 2, 5) operand and writes
+    # another; the factor sweep reads D, E (and X), writes Ld, M (and Y)
+    blocks, sub, rhs = 2 * 3 * 4, 2 * 2 * 4, 2 * 3 * 2 * 5
+    assert tgp.tridiag_bytes(2, 3, 2, 5, False, itemsize) == itemsize * (2 * blocks + 2 * rhs)
+    assert tgp.tridiag_bytes(2, 3, 2, 0, True, itemsize) == itemsize * (3 * blocks + sub)
+    assert tgp.tridiag_bytes(2, 3, 2, 5, True, itemsize) == itemsize * (3 * blocks + sub + 2 * rhs)
+    # config B (68 x 485 x 16), f64: a substitution sweep at Q = 123 moves
+    # 1.17 GB, the factor sweep 0.27 GB
+    assert tgp.tridiag_bytes(68, 485, 16, 123, False, 8) == 1_173_560_320
+    assert tgp.tridiag_bytes(68, 485, 16, 0, True, 8) == 270_032_896
+
+
+#: block sizes around the staged route's edge (32) and the kernels' limit
+TRIDIAG_PLAN_BLOCKS = (1, 16, 31, 32, 33, 128, 256)
+TRIDIAG_PLAN_QS = (1, 7, 123, 200, 300)
+#: the shared memory a block may use on an H100 (227 KB)
+H100_SMEM = 232_448
+
+
+def _tridiag_coverage(plan, npsr, q):
+    """How often the plan's threads (as the kernel maps blockIdx and
+    threadIdx) own each (pulsar, column)."""
+    count = np.zeros((npsr, q), dtype=int)
+    for p in range(plan.grid[1]):
+        for x in range(plan.grid[0]):
+            for t in range(0, plan.threads, plan.lanes):  # the first lane of each group
+                group = t // plan.lanes
+                col = x * plan.columns + group
+                if group < plan.columns and col < q:
+                    count[p, col] += 1
+    return count
+
+
+@pytest.mark.parametrize("q", TRIDIAG_PLAN_QS)
+@pytest.mark.parametrize("b", TRIDIAG_PLAN_BLOCKS)
+def test_tridiag_plan_covers_each_column_once(b, q):
+    for dtype in (torch.float64, torch.float32):
+        plan = tgp.tridiag_plan(68, 485, b, q, dtype)
+        assert (_tridiag_coverage(plan, 68, q) == 1).all()
+        assert plan.threads % 32 == 0 and plan.threads <= 1024 and plan.shared_bytes <= H100_SMEM
+        if plan.route == "staged":
+            bp = 1 << (b - 1).bit_length()
+            assert b <= 32 and plan.lanes in (bp, bp // min(bp, tgp.TRIDIAG_SOLVE_MAX_ROWS))
+            assert plan.columns * plan.lanes <= plan.threads <= tgp.TRIDIAG_SOLVE_MAX_THREADS
+        else:
+            assert b > 32 and plan.lanes == 1 and plan.shared_bytes == 0
+        # with right-hand sides the factor sweep (the fused factor +
+        # forward sweep) takes the per-thread route, one block per pulsar
+        factor = tgp.tridiag_plan(68, 485, b, q, dtype, factor=True)
+        assert factor.route == "per_thread" and factor.grid == (1, 68)
+        assert factor.shared_bytes <= H100_SMEM and factor.threads <= 1024
+
+
+def test_tridiag_plan_routes():
+    """Config B's block (16) takes the staged route in every sweep, with
+    more lanes per column when there are few columns; blocks past 32 keep
+    the per-thread route, whose factor tiles leave shared memory past 200
+    KB (b = 128 and 256 in float64)."""
+    f64 = torch.float64
+    for q in (1, 123, 200):
+        assert tgp.tridiag_plan(68, 485, 16, q, f64).route == "staged"
+    assert tgp.tridiag_plan(68, 485, 16, 0, f64, factor=True) == tgp.TridiagPlan(
+        "staged", 32, 0, 32, (68, 1), 8 * (10 * 16 * 18 + 2 * 18 + 32))
+    assert tgp.tridiag_plan(68, 485, 16, 123, f64, factor=True).route == "per_thread"
+    # few columns: a lane per row; many: the fewest lanes (one at b = 16,
+    # two at b = 32), blocks of four warps while they fit the card's SMs
+    # once, of one warp beyond
+    assert tgp.tridiag_plan(68, 485, 16, 1, f64)[1:4] == (16, 1, 32)
+    assert tgp.tridiag_plan(68, 485, 16, 7, f64)[1:4] == (16, 7, 128)
+    assert tgp.tridiag_plan(68, 485, 16, 10, f64)[1:4] == (1, 10, 32)
+    assert tgp.tridiag_plan(68, 485, 16, 123, f64)[1:5] == (1, 123, 128, (1, 68))
+    assert tgp.tridiag_plan(68, 485, 16, 200, f64)[1:5] == (1, 32, 32, (7, 68))
+    assert tgp.tridiag_plan(68, 485, 32, 123, f64)[1:4] == (2, 16, 32)
+    assert tgp.tridiag_plan(68, 485, 16, 123, f64) == tgp.tridiag_staged_solve_plan(
+        68, 16, 123, f64, 1, 123)
+    assert tgp.tridiag_plan(68, 485, 33, 123, f64).route == "per_thread"
+    assert tgp.tridiag_plan(68, 485, 64, 0, f64, factor=True).shared_bytes == 3 * 64 * 64 * 8
+    assert tgp.tridiag_plan(68, 485, 128, 0, f64, factor=True).shared_bytes == 0
+    assert tgp.tridiag_plan(68, 485, 128, 0, torch.float32, factor=True).shared_bytes == 3 * 128 * 128 * 4
+    with pytest.raises(ValueError, match="no sweep"):
+        tgp.tridiag_plan(68, 485, 16, 0, f64)
+    with pytest.raises(ValueError, match="no sweep"):
+        tgp.tridiag_plan(68, 485, 257, 1, f64)
+
+
 # ------------------------------------------------------- Kronecker
 
 def test_kron_kernels_match_jax():

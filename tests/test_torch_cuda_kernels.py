@@ -250,30 +250,101 @@ def _tridiag(npsr, nb, b, q, dtype, device, ragged=0, seed=4):
         D[:, -1, b - ragged:, :] = 0.0
         D[:, -1, :, b - ragged:] = 0.0
         D[:, -1, b - ragged:, b - ragged:] = np.eye(ragged)
-        E[:, -1, b - ragged:, :] = 0.0
+        if nb > 1:
+            E[:, -1, b - ragged:, :] = 0.0
     X = rng.standard_normal((npsr, nb, b, q))
     return [torch.as_tensor(a, dtype=dtype, device=device) for a in (D, E, X)]
 
 
-@pytest.mark.parametrize("b,nb,ragged", [(16, 9, 5), (128, 3, 40)])
+#: right-hand-side counts of the banded solver's path: the direct route's
+#: single residual, a few, the GP basis (123) and a wider bank
+TRIDIAG_QS = (1, 7, 123, 200)
+
+
+@pytest.mark.parametrize("ragged", [False, True])
+@pytest.mark.parametrize("nb", [1, 2, 9])
+@pytest.mark.parametrize("b", [1, 16, 32, 33, 128])
 @pytest.mark.parametrize("dtype,tol", COV_TOL)
 def test_tridiag_kernels_match_plain(cuda_device, dtype, tol, b, nb, ragged):
-    D, E, X = _tridiag(3, nb, b, 7, dtype, cuda_device, ragged)
-    launches.clear()
-    Ld, M, Y = tgp.tridiag_forward(D, E, X)
-    Y2 = tgp.tridiag_forward_solve(Ld, M, X)
-    Z = tgp.tridiag_backward(Ld, M, Y)
+    """Every sweep on its route (staged for b <= 32, per-thread above; the
+    fused factor + forward sweep per-thread) against the plain sweeps,
+    one launch per sweep, the same bits twice."""
+    for q in TRIDIAG_QS:
+        D, E, X = _tridiag(3, nb, b, q, dtype, cuda_device, b // 3 if ragged else 0, seed=q)
+        launches.clear()
+        Ld, M, _ = tgp.tridiag_forward(D, E)  # the factor alone, as the path runs it
+        Y = tgp.tridiag_forward_solve(Ld, M, X)
+        Z = tgp.tridiag_backward(Ld, M, Y)
+        fLd, fM, fY = tgp.tridiag_forward(D, E, X)  # the fused factor + forward sweep
+        torch.cuda.synchronize()
+        assert (launches["tridiag_factor_solve_fwd"], launches["tridiag_solve_fwd"],
+                launches["tridiag_factor_solve_bwd"]) == (2, 1, 1)
+        pLd, pM, pY = tgp.tridiag_forward_plain(D, E, X)
+        for got, want in ((Ld, pLd), (fLd, pLd), (Y, pY), (fY, pY)):
+            assert _rel_max_t(got, want) <= tol
+        if nb > 1:
+            assert _rel_max_t(M, pM) <= tol and _rel_max_t(fM, pM) <= tol
+        assert _rel_max_t(Z, tgp.tridiag_backward_plain(pLd, pM, pY)) <= tol
+        assert torch.equal(Ld, torch.tril(Ld)) and torch.equal(fLd, torch.tril(fLd))
+        # two runs give the same bits
+        again = (*tgp.tridiag_forward(D, E)[:2], tgp.tridiag_forward_solve(Ld, M, X),
+                 tgp.tridiag_backward(Ld, M, Y), *tgp.tridiag_forward(D, E, X))
+        for a, c in zip((Ld, M, Y, Z, fLd, fM, fY), again):
+            assert torch.equal(a, c)
+
+
+@pytest.mark.parametrize("b", [1, 2, 3, 5, 8, 16, 17, 32])
+@pytest.mark.parametrize("dtype,tol", COV_TOL)
+def test_tridiag_staged_solve_every_instance(cuda_device, dtype, tol, b):
+    """Both staged lane counts of every block width (a lane per row, and
+    the fewest lanes), forward and backward, against the plain sweeps,
+    whichever the plan would pick."""
+    npsr, nb, q = 2, 5, 9
+    D, E, X = _tridiag(npsr, nb, b, q, dtype, cuda_device, seed=b)
+    Ld, M, _ = tgp.tridiag_forward_plain(D, E)
+    bp = 1 << (b - 1).bit_length()
+    for lanes in {bp, bp // min(bp, tgp.TRIDIAG_SOLVE_MAX_ROWS)}:
+        for cols in (1, min(q, tgp.TRIDIAG_SOLVE_MAX_THREADS // lanes)):
+            plan = tgp.tridiag_staged_solve_plan(npsr, b, q, dtype, lanes, cols)
+            for fn, plain in (("tridiag_solve_fwd_launch", tgp.tridiag_forward_solve_plain),
+                              ("tridiag_bwd_launch", tgp.tridiag_backward_plain)):
+                out = torch.empty_like(X)
+                tgp._tridiag_launch(fn, cuda_device, (Ld, M, X, out),
+                                    (npsr, nb, b, q, lanes, cols, plan.threads,
+                                     plan.shared_bytes, tgp._DTYPE_CODES[dtype]), "test")
+                assert _rel_max_t(out, plain(Ld, M, X)) <= tol, (fn, lanes, cols)
+
+
+def test_tridiag_launch_refuses_a_plan_that_differs(cuda_device):
+    """The kernel checks the plan's threads and shared bytes against its
+    own: a launch with either off raises, with nothing launched."""
+    D, E, X = _tridiag(2, 3, 16, 4, torch.float64, cuda_device)
+    Ld, M, _ = tgp.tridiag_forward_plain(D, E)
+    plan = tgp.tridiag_plan(2, 3, 16, 4, torch.float64)
+    code = tgp._DTYPE_CODES[torch.float64]
+    for threads, smem in ((plan.threads + 32, plan.shared_bytes), (plan.threads, plan.shared_bytes - 16)):
+        with pytest.raises(RuntimeError, match="launch failed"):
+            tgp._tridiag_launch("tridiag_solve_fwd_launch", cuda_device, (Ld, M, X, torch.empty_like(X)),
+                                (2, 3, 16, 4, plan.lanes, plan.columns, threads, smem, code), "test")
+    factor = tgp.tridiag_plan(2, 3, 16, 0, torch.float64, factor=True)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        tgp._tridiag_launch("tridiag_factor_fwd_launch", cuda_device,
+                            (D, E, None, torch.empty_like(D), torch.empty_like(D), None),
+                            (2, 3, 16, 0, 1, factor.threads, factor.shared_bytes + 8, code), "test")
+
+
+@pytest.mark.parametrize("b", [16, 33])
+def test_tridiag_factor_nonpositive_pivot_gives_nan(cuda_device, b):
+    """A block that is not positive definite gives NaN from its pivot on,
+    as the reference's route does; nothing raises, other pulsars stay
+    finite."""
+    D, E, _ = _tridiag(2, 4, b, 1, torch.float64, cuda_device)
+    D[0, 2, 5, 5] = -50.0
+    Ld, M, _ = tgp.tridiag_forward(D, E)
     torch.cuda.synchronize()
-    assert (launches["tridiag_factor_solve_fwd"], launches["tridiag_solve_fwd"],
-            launches["tridiag_factor_solve_bwd"]) == (1, 1, 1)
-    pLd, pM, pY = tgp.tridiag_forward_plain(D, E, X)
-    assert _rel_max_t(Ld, pLd) <= tol and _rel_max_t(M, pM) <= tol and _rel_max_t(Y, pY) <= tol
-    assert _rel_max_t(Y2, tgp.tridiag_forward_solve_plain(pLd, pM, X)) <= tol
-    assert _rel_max_t(Z, tgp.tridiag_backward_plain(pLd, pM, pY)) <= tol
-    assert torch.equal(Ld, torch.tril(Ld))
-    # two runs give the same bits
-    for a, c in zip((Ld, M, Y, Z), (*tgp.tridiag_forward(D, E, X), tgp.tridiag_backward(Ld, M, Y))):
-        assert torch.equal(a, c)
+    assert bool(torch.isnan(Ld[0, 2]).any())
+    assert bool(torch.isfinite(Ld[0, :2]).all() and torch.isfinite(Ld[1]).all())
+    assert bool(torch.isfinite(M[1]).all())
 
 
 def test_tridiag_factor_alone_and_the_composed_route(cuda_device):
