@@ -17,7 +17,10 @@ composed routes; and the structured noise covariance in two
 configurations: banded (block-tridiagonal) correlated noise at the
 flagship width, realized and priced on the block-tridiagonal kernels, and
 the solar-wind Kronecker covariance with ECORR at 68 x 2,048, priced on
-the dense rung's blocked Cholesky. It prints one JSON line per phase. The
+the dense rung's blocked Cholesky. The CW kernel is also held and timed at
+a population catalog of 10,000 sources at the flagship width, and the
+deterministic delays are driven there through the entry point. It prints
+one JSON line per phase. The
 line before the last is the kernels line, the last the result line.
 Without a CUDA device, or without the port beside it, it exits non-zero
 and prints no result; any failed check raises.
@@ -27,13 +30,14 @@ import json
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
 
 from pta_replicator_tpu_torch import deterministic_delays, flagship_workload, realize
 from pta_replicator_tpu_torch import likelihood as lk
-from pta_replicator_tpu_torch.kernels import build, launches
+from pta_replicator_tpu_torch.kernels import build, cw_study, launches
 from pta_replicator_tpu_torch.covariance import banded_from_times, kron_time_channel, recipe_cov_s2
 from pta_replicator_tpu_torch.covariance import kernels as cov_kernels
 from pta_replicator_tpu_torch.covariance import structure as cov_structure
@@ -45,6 +49,13 @@ from pta_replicator_tpu_torch.ops import gp as ops_gp
 
 #: the flagship workload's full width (depth is not cut: it is 68 x 7,758)
 FLAGSHIP = dict(npsr=68, ntoa=7758, ncw=100)
+#: a population catalog at the flagship width: flagship_workload's own
+#: catalog of 10,000 sources (kernel rows in the chirped pulsar-term mode,
+#: and phase cw_population)
+POPULATION = dict(npsr=68, ntoa=7758, ncw=10_000)
+#: kernel launches averaged per CW time: the flagship catalogs and the
+#: population catalog
+CW_REPS = {"flagship": 20, "stress": 20, "population": 3}
 #: realizations per realize() call, chunks timed after two warm-up chunks
 CHUNK, NCHUNKS = 200, 4
 #: the small shape of the card-vs-CPU comparison
@@ -184,12 +195,41 @@ def phase_device():
 
 
 def phase_build():
+    """Build every source at once; then the CW kernel's instruction account:
+    the SASS of each instance's loop over sources, by class, every path
+    once and each called routine at its call site (kernels/cw_study.py),
+    with the card's maximum SM clock. Returns
+    ``(counts, clock_mhz)``, or ``(None, None)`` where the toolkit has no
+    cuobjdump (the rows then say "not measured")."""
     t0 = time.perf_counter()
     names = build.sources()
     build.build_all(names)
     ptxas = {n: [l.strip() for l in build.ptxas_reports.get(n, "").splitlines()
                  if "Used" in l or "spill" in l] for n in names}
-    emit("build", sources=names, seconds=time.perf_counter() - t0, ptxas=ptxas)
+    seconds = time.perf_counter() - t0
+    sass = clock = None
+    if Path(cw_study.cuobjdump()).is_file():
+        sass = cw_study.sass_loop_counts(build.library_path("cw_catalog"))
+        clock = cw_study.sm_clock_mhz()["max"]
+    emit("build", sources=names, seconds=seconds, ptxas=ptxas, sm_clock_max_mhz=clock,
+         cw_sass_per_element=None if sass is None else {
+             "/".join(map(str, key)): cw_study.per_element(c) for key, c in sass.items()})
+    return sass, clock
+
+
+def _cw_account(sass, clock, dtype, psr_term, evolve, elements):
+    """instructions_per_element (every path of the loop once, each called
+    routine at its call site; instructions_called of them in called
+    routines) and issue_ms, their issue time: an upper estimate, since the
+    count includes code that no element takes. From the build's SASS count
+    for one CW launch of ``elements`` elements, or "not measured"."""
+    if sass is None:
+        return dict(instructions_per_element="not measured", issue_ms="not measured")
+    per = cw_study.per_element(sass[str(dtype).replace("torch.", ""), psr_term, evolve])
+    ms, pipe = cw_study.issue_ms(per, elements,
+                                 torch.cuda.get_device_properties(0).multi_processor_count, clock)
+    return dict(instructions_per_element=per["total"], instructions_called=per["called"],
+                issue_ms=ms, issue_pipe=pipe)
 
 
 def _catalog_planes(batch, params, evolve, tref_s):
@@ -197,11 +237,18 @@ def _catalog_planes(batch, params, evolve, tref_s):
                                    tref_s=tref_s)[:2]
 
 
-def phase_kernels(shape):
+def phase_kernels(shape, population_params, sass, clock):
     """Kernel vs plain at the flagship shape, both dtypes, both phase
     models, with and without the pulsar term, on the workload's own
     catalog and on a stress catalog whose sources merge inside the span
-    (the NaN guard) or before the fold (valid = 0)."""
+    (the NaN guard) or before the fold (valid = 0); and on the population
+    catalog (``population_params``: POPULATION's own 10,000 sources) in
+    the chirped pulsar-term mode. Each row: the wrapper's time (the fold kernel and the response
+    kernel, as the path calls them), each kernel alone, the plain version's
+    time, the bound and the instruction account; the fold's planes against
+    its plain version (cw_kernel_planes, bit for bit); float32 rows also
+    against the float64 kernel. Returns the rows by (dtype, catalog,
+    evolve, psr_term)."""
     rng = np.random.default_rng(6)
     n = shape["ncw"] // 2
     stress = np.stack([
@@ -210,6 +257,7 @@ def phase_kernels(shape):
         10 ** rng.uniform(-8.0, -7.0, n), rng.uniform(0, 2 * np.pi, n),
         rng.uniform(0, np.pi, n), np.arccos(rng.uniform(-1, 1, n)),
     ])
+    lib = build.load("cw_catalog", cw._bind)
     results, k64 = {}, {}
     for dtype in (torch.float64, torch.float32):
         batch, recipe = flagship_workload(**shape, dtype=dtype)
@@ -223,32 +271,98 @@ def phase_kernels(shape):
                     _catalog_planes(batch, stress, evolve, 53000 * 86400.0),
                     _catalog_planes(batch, stress, evolve, 0.0))],
             }
+            if evolve:
+                catalogs["population"] = _catalog_planes(batch, population_params, evolve, 0.0)
             for name, (src, psr) in catalogs.items():
                 for psr_term in (True, False):
+                    if name == "population" and not psr_term:
+                        continue
+                    key = (name, evolve, psr_term)
                     run = lambda: cw.cw_catalog_response(u, src, psr, psr_term, evolve)
                     plain = lambda: cw.cw_catalog_response_plain(u, src, psr, psr_term, evolve)
-                    got, want = run(), plain()
+                    if name == "population":  # ~2 s a call: timed once
+                        want, plain_ms = _once_ms(plain)
+                    else:
+                        want, plain_ms = plain(), cuda_ms(plain, 3)
+                    got, again = run(), run()
                     torch.cuda.synchronize()
                     err = rel_rms(got, want)
-                    key = (name, evolve, psr_term)
-                    bound, bound_by = cw_bound(*u.shape, src.shape[1], dtype, psr_term, evolve)
-                    row = dict(catalog=name, dtype=str(dtype), evolve=evolve,
-                               psr_term=psr_term, rel_rms=err, tol=TOL[dtype],
+                    nsrc = src.shape[1]
+                    bound, bound_by = cw_bound(*u.shape, nsrc, dtype, psr_term, evolve)
+                    planes = cw._cw_fold(lib, src, psr, psr_term, evolve)
+                    fold_exact = bool(torch.equal(planes, cw.cw_kernel_planes(src, psr, psr_term,
+                                                                              evolve)))
+                    reps = CW_REPS[name]
+                    row = dict(catalog=name, dtype=str(dtype), shape=[*u.shape, nsrc],
+                               evolve=evolve, psr_term=psr_term, rel_rms=err, tol=TOL[dtype],
                                max_abs_err=float((got - want).abs().max()),
                                finite=bool(torch.isfinite(got).all()),
-                               ms=cuda_ms(run, 20), plain_ms=cuda_ms(plain, 3),
-                               bound_ms=bound, bound_by=bound_by)
+                               same_bits=bool(torch.equal(got, again)),
+                               ms=cuda_ms(run, reps),
+                               kernel_ms=cuda_ms(lambda: cw._cw_launch(lib, u, planes, psr_term,
+                                                                       evolve), reps),
+                               fold_ms=cuda_ms(lambda: cw._cw_fold(lib, src, psr, psr_term, evolve),
+                                               reps),
+                               fold_equals_plain=fold_exact,
+                               plain_ms=plain_ms, bound_ms=bound, bound_by=bound_by,
+                               **_cw_account(sass, clock, dtype, psr_term, evolve,
+                                             u.numel() * nsrc))
+                    del want, again, planes
                     if dtype == torch.float64:
                         k64[key] = got
                     else:
-                        row["rel_rms_vs_float64_kernel"] = rel_rms(got, k64[key])
+                        row["rel_rms_vs_float64_kernel"] = rel_rms(got, k64.pop(key))
                         require(row["rel_rms_vs_float64_kernel"] <= TOL_F32_VS_F64,
                                 f"float32 kernel vs float64 kernel {key}: {row}")
                     emit("kernel_vs_plain", **row)
-                    require(row["finite"] and err <= TOL[dtype],
-                            f"kernel vs plain {key} {dtype}: {row}")
+                    require(row["finite"] and err <= TOL[dtype] and row["same_bits"]
+                            and fold_exact, f"kernel vs plain {key} {dtype}: {row}")
                     results[(str(dtype), *key)] = row
-    return results["torch.float32", "flagship", True, True]
+    torch.cuda.empty_cache()  # the population rows' large temporaries
+    return results
+
+
+def phase_cw_population(batch, recipe, sass, clock):
+    """deterministic_delays through the entry point on the population
+    workload (POPULATION: 68 x 7,758 x 10,000), float32, with the launch
+    counts cleared just before and read just after; then, apart, the host
+    plane build (float64 numpy and the copy to the card), the wrapper (the
+    fold and the response kernels) and each kernel alone."""
+    torch.cuda.synchronize()
+    launches.clear()
+    static = deterministic_delays(batch, recipe)
+    torch.cuda.synchronize()
+    count, fold_count = launches["cw_catalog_response"], launches["cw_fold_planes"]
+    _, static_ms = _timed_ms(lambda: deterministic_delays(batch, recipe))
+    params = recipe.cgw_params.cpu().unbind(0)
+    build_planes = lambda: B.cw_catalog_planes_for(
+        batch, *params, pdist=1.0, evolve=recipe.cgw_evolve,
+        phase_approx=recipe.cgw_phase_approx, tref_s=recipe.cgw_tref_s)
+    (src, psr, evolve), planes_build_ms = _timed_ms(build_planes)
+    u = batch.toas_s - torch.tensor(batch.start_s, dtype=batch.dtype, device=batch.device)
+    psr_term = recipe.cgw_psr_term
+    lib = build.load("cw_catalog", cw._bind)
+    planes = cw._cw_fold(lib, src, psr, psr_term, evolve)
+    elements = u.numel() * src.shape[1]
+    row = dict(shape=POPULATION, dtype=str(batch.dtype), psr_term=psr_term, evolve=evolve,
+               static_ms=static_ms, planes_build_ms=planes_build_ms,
+               response_ms=cuda_ms(lambda: cw.cw_catalog_response(u, src, psr, psr_term, evolve),
+                                   CW_REPS["population"]),
+               fold_ms=cuda_ms(lambda: cw._cw_fold(lib, src, psr, psr_term, evolve),
+                               CW_REPS["population"]),
+               kernel_ms=cuda_ms(lambda: cw._cw_launch(lib, u, planes, psr_term, evolve),
+                                 CW_REPS["population"]),
+               bound_ms=cw_bound(*u.shape, src.shape[1], batch.dtype, psr_term, evolve)[0],
+               **_cw_account(sass, clock, batch.dtype, psr_term, evolve, elements),
+               cw_launches=count, fold_launches=fold_count,
+               finite=bool(torch.isfinite(static).all()),
+               nonzero=bool(static.abs().max() > 0), output_shape=list(static.shape))
+    del static, src, psr, planes
+    torch.cuda.empty_cache()
+    emit("cw_population", **row)
+    require(count > 0 and fold_count > 0,
+            f"the population catalog never launched the CW kernels: {row}")
+    require(row["finite"] and row["nonzero"], f"population delays not finite or empty: {row}")
 
 
 def phase_main_path(shape):
@@ -281,7 +395,7 @@ def phase_main_path(shape):
     rms_host = rms.cpu()  # the readback waits for every queued chunk
     elapsed = time.perf_counter() - t0
     torch.cuda.synchronize()
-    count = launches["cw_catalog_response"]
+    count = launches["cw_catalog_response"], launches["cw_fold_planes"]
 
     w = batch.mask / batch.errors_s**2
     mean = (res * w).sum(-1) / w.sum(-1)
@@ -294,10 +408,10 @@ def phase_main_path(shape):
         residual_shape=list(res.shape), finite=bool(torch.isfinite(res).all()),
         static_finite=bool(torch.isfinite(static).all()),
         median_rms_s=float(rms_host.median()), fit_mean_over_rms=fit_mean,
-        cw_launches=count,
+        cw_launches=count[0], fold_launches=count[1],
     )
     emit("main_path", **row)
-    require(count > 0, "the main path never launched the CW kernel")
+    require(min(count) > 0, f"the main path never launched the CW kernels: {count}")
     require(row["finite"] and row["static_finite"] and bool(static.abs().max() > 0),
             f"main path output not finite or CW catalog empty: {row}")
     require(tuple(res.shape) == (CHUNK, shape["npsr"], shape["ntoa"]),
@@ -957,13 +1071,17 @@ def phase_covariance_dense():
 
 #: the kernels line's reason where no single PyTorch call computes a kernel
 NO_LIBRARY = "none: no single PyTorch call computes it"
+#: the instruction account is the CW kernel's (kernels/cw_study.py); the
+#: other kernels have none
+NO_ISSUE_ACCOUNT = {"issue_ms": "not measured", "instructions_per_element": "not measured"}
 
 
 def _cov_kernel_entry(name, source, replaces, launches_, row):
     entry = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
              "launches": launches_, "max_abs_err": row["max_abs_err"], "ms": row["ms"],
              "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
-             "bound_by": row["bound_by"], "library_ms": row["library_ms"]}
+             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+             **NO_ISSUE_ACCOUNT}
     if row["library_ms"] is None:
         entry["library"] = NO_LIBRARY
     return entry
@@ -973,9 +1091,13 @@ def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device is available")
     phase_device()
-    phase_build()
-    kernel_row = phase_kernels(FLAGSHIP)
-    batch, recipe, static, generator, count, res = phase_main_path(FLAGSHIP)
+    sass, clock = phase_build()
+    population = flagship_workload(**POPULATION)
+    cw_rows = phase_kernels(FLAGSHIP, population[1].cgw_params.cpu().numpy(), sass, clock)
+    kernel_row = cw_rows["torch.float32", "flagship", True, True]
+    batch, recipe, static, generator, (count, fold_count), res = phase_main_path(FLAGSHIP)
+    phase_cw_population(*population, sass, clock)
+    del population
     phase_breakdown(batch, recipe, static, generator)
     phase_card_vs_cpu(SMALL)
     batch64, recipe64 = flagship_workload(**FLAGSHIP, dtype=torch.float64)
@@ -1006,7 +1128,10 @@ def main():
         "launches": count, "max_abs_err": kernel_row["max_abs_err"],
         "ms": kernel_row["ms"], "plain_ms": kernel_row["plain_ms"],
         "bound_ms": kernel_row["bound_ms"], "bound_by": kernel_row["bound_by"],
-        "library_ms": None, "library": NO_LIBRARY,
+        "library_ms": None, "library": NO_LIBRARY, "kernel_ms": kernel_row["kernel_ms"],
+        "fold_launches": fold_count, "fold_ms": kernel_row["fold_ms"],
+        "issue_ms": kernel_row["issue_ms"],
+        "instructions_per_element": kernel_row["instructions_per_element"],
     }, {
         "name": "fused_woodbury_update", "route": "cuda",
         "source": "pta_replicator_tpu_torch/csrc/fused_woodbury.cu",
@@ -1014,7 +1139,7 @@ def main():
         "launches": woodbury_count, "max_abs_err": woodbury_row["max_abs_err"],
         "ms": woodbury_row["ms"], "plain_ms": woodbury_row["plain_ms"],
         "bound_ms": woodbury_row["bound_ms"], "bound_by": woodbury_row["bound_by"],
-        "library_ms": woodbury_row["library_ms"],
+        "library_ms": woodbury_row["library_ms"], **NO_ISSUE_ACCOUNT,
     },
         _cov_kernel_entry("cov_syrk_update", "pta_replicator_tpu_torch/csrc/cov_syrk.cu",
                           "pta_replicator_tpu/ops/pallas_cw.py:484", syrk_count,

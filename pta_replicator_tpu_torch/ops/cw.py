@@ -19,10 +19,15 @@ blocked_cholesky``, whose CUDA kernel is ``csrc/cov_syrk.cu``.
 * :func:`cw_catalog_response` dispatches: CPU tensors go to the plain
   version, CUDA tensors to the hand-written kernel in
   ``csrc/cw_catalog.cu``, which launches or raises.
+* :func:`cw_kernel_planes` folds the planes into the kernel's: the phase
+  words in half-turns and the polarization, antenna and valid products as
+  two coefficients per (pulsar, source) and term. It is the plain version
+  of the fold kernel that the CUDA wrapper launches before the response.
 """
 from __future__ import annotations
 
 import ctypes
+import math
 
 import numpy as np
 import torch
@@ -237,20 +242,144 @@ def cw_catalog_response_plain(toas_rel, src, psr, psr_term: bool = True,
 _DTYPE_CODES = {torch.float32: 0, torch.float64: 1}
 
 
+#: the kernel planes' rows are padded to this many words (16-byte copies)
+KERNEL_PLANE_ALIGN = 4
+#: half-turns of sin(2 phase) per radian of phase: the kernel's sincospi
+#: takes h = 2 phase / pi
+_HALF_TURNS = 2.0 / math.pi
+
+
+def kernel_plane_names(psr_term: bool, evolve: bool):
+    """Names of the kernel planes' words per (pulsar, source), in order:
+    for the earth term, then (with the pulsar term) the pulsar's, the
+    phase words (``phi0h`` the phase offset in half-turns; chirped:
+    ``rate`` the chirp rate in 1/s and ``pnh`` the chirp scale in
+    half-turns; else ``rateh`` the rate in half-turns per second), then the
+    coefficients ``q1`` and ``q2``."""
+    phase = ("phi0h", "rate", "pnh") if evolve else ("phi0h", "rateh")
+    return tuple(f"{name}_{term}" for term in ("e", "p")[:2 if psr_term else 1]
+                 for name in (*phase, "q1", "q2"))
+
+
+def kernel_plane_width(psr_term: bool, evolve: bool) -> int:
+    """Words per (pulsar, source) of the kernel planes, padding included."""
+    n = len(kernel_plane_names(psr_term, evolve))
+    return -(-n // KERNEL_PLANE_ALIGN) * KERNEL_PLANE_ALIGN
+
+
+def cw_kernel_planes(src, psr, psr_term: bool = True, evolve: bool = True):
+    """The kernel's planes, (Np, Ns, kernel_plane_width) in the dtype of
+    ``src``, computed in float64 from :func:`cw_catalog_planes`' planes
+    (cast to the working dtype): per term (earth ``e``, pulsar ``p``)
+
+    * the phase in half-turns, ``h = 2 phase / pi``: ``phi0h`` and, when
+      chirped, ``pnh`` scaled by 2/pi (``h = phi0h - pnh expm1(...)``, and
+      ``rate`` as it is for the log1p), else ``rateh`` (``h = phi0h +
+      rateh u``), so the kernel reduces ``sin(2 phase)`` exactly with
+      sincospi;
+    * ``q1 = valid amp inc1 (F+ cos2psi - Fx sin2psi)`` and ``q2 = valid
+      amp inc2 (F+ sin2psi + Fx cos2psi)``: one term's response is then
+      ``a (sin(pi h) q1 + cos(pi h) q2)`` with ``a = exp(l / 8)`` chirped,
+      else 1, and the element is the pulsar's minus the earth's (or minus
+      the earth's), NaN-guarded.
+
+    The padding words are zero. The CUDA wrapper computes the same
+    products in the same order in its fold kernel (``csrc/cw_catalog.cu::
+    cw_fold_planes_kernel``), so the two agree bit for bit."""
+    s, p = src.double(), psr.double()
+    sp = lambda name: s[SRC_PLANES.index(name)]  # (Ns,)
+    pp = lambda name: p[PSR_PLANES.index(name)]  # (Np, Ns)
+    fplus, fcross = pp("fplus"), pp("fcross")
+    s2p, c2p = sp("sin2psi"), sp("cos2psi")
+    valid = sp("valid")
+    p1 = sp("incfac1") * (fplus * c2p - fcross * s2p)
+    p2 = sp("incfac2") * (fplus * s2p + fcross * c2p)
+    terms = {"e": (sp("phi0_e"), sp("rate_e"), sp("pn_e"), sp("amp_e")),
+             "p": (pp("phi0_p"), pp("rate_p"), pp("pn_p"), pp("amp_p"))}
+    npsr, nsrc = fplus.shape
+    out = torch.zeros((npsr, nsrc, kernel_plane_width(psr_term, evolve)),
+                      dtype=torch.float64, device=src.device)
+    col = 0
+    for term in ("e", "p")[:2 if psr_term else 1]:
+        phi0, rate, pn, amp = terms[term]
+        amp = amp * valid
+        words = ((phi0 * _HALF_TURNS, rate, pn * _HALF_TURNS) if evolve
+                 else (phi0 * _HALF_TURNS, rate * _HALF_TURNS))
+        for word in (*words, amp * p1, amp * p2):
+            out[..., col] = word
+            col += 1
+    return out.to(src.dtype)
+
+
 def _bind(lib):
     lib.cw_catalog_launch.argtypes = (
-        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+        [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     )
     lib.cw_catalog_launch.restype = ctypes.c_int
+    lib.cw_fold_planes_launch.argtypes = (
+        [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    )
+    lib.cw_fold_planes_launch.restype = ctypes.c_int
+    lib.cw_kernel_plane_width.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.cw_kernel_plane_width.restype = ctypes.c_int
     lib.cw_error_string.argtypes = [ctypes.c_int]
     lib.cw_error_string.restype = ctypes.c_char_p
 
 
+def _check(lib, rc):
+    if rc != 0:
+        raise RuntimeError(
+            f"cw_catalog kernel launch failed: {lib.cw_error_string(rc).decode()}"
+        )
+
+
+def _cw_fold(lib, src, psr, psr_term: bool, evolve: bool):
+    """The kernel planes from ``lib``'s fold kernel (a build of
+    ``csrc/cw_catalog.cu``), launched on the current stream over contiguous
+    reference planes: :func:`cw_kernel_planes` on the card."""
+    npsr, nsrc = psr.shape[1:]
+    planes = torch.empty((npsr, nsrc, lib.cw_kernel_plane_width(int(psr_term), int(evolve))),
+                         dtype=src.dtype, device=src.device)
+    if planes.numel() == 0:  # an empty catalog: nothing to fold
+        return planes
+    with torch.cuda.device(src.device):
+        _check(lib, lib.cw_fold_planes_launch(
+            src.data_ptr(), psr.data_ptr(), planes.data_ptr(), npsr, nsrc,
+            _DTYPE_CODES[src.dtype], int(psr_term), int(evolve),
+            torch.cuda.current_stream().cuda_stream))
+    launches["cw_fold_planes"] += 1
+    return planes
+
+
+def _cw_launch(lib, toas_rel, planes, psr_term: bool, evolve: bool):
+    """Launch ``lib``'s response kernel (a build of ``csrc/cw_catalog.cu``)
+    on the current stream over the kernel planes ``planes`` and return the
+    (Np, Nt) sum; raise when the planes do not fit the mode or the launch
+    is refused."""
+    npsr, ntoa = toas_rel.shape
+    width = lib.cw_kernel_plane_width(int(psr_term), int(evolve))
+    if planes.shape != (npsr, planes.shape[1], width) or not planes.is_contiguous() \
+            or planes.data_ptr() % 16:
+        raise ValueError(
+            f"cw_catalog_response: kernel planes {tuple(planes.shape)} do not fit "
+            f"(want a contiguous, 16-byte aligned ({npsr}, Ns, {width}))"
+        )
+    out = torch.empty_like(toas_rel)
+    with torch.cuda.device(toas_rel.device):
+        _check(lib, lib.cw_catalog_launch(
+            toas_rel.data_ptr(), planes.data_ptr(), out.data_ptr(),
+            npsr, ntoa, planes.shape[1], _DTYPE_CODES[toas_rel.dtype], int(psr_term),
+            int(evolve), torch.cuda.current_stream().cuda_stream))
+    launches["cw_catalog_response"] += 1
+    return out
+
+
 def cw_catalog_response_cuda(toas_rel, src, psr, psr_term: bool = True,
                              evolve: bool = True):
-    """Summed CW response (Np, Nt) from the CUDA kernel
-    (``csrc/cw_catalog.cu``), launched on the current stream. Raises on a
-    malformed input, a failed build or a refused launch."""
+    """Summed CW response (Np, Nt) from the CUDA kernels
+    (``csrc/cw_catalog.cu``: the fold into the kernel planes, then the
+    response), launched on the current stream. Raises on a malformed input,
+    a failed build or a refused launch."""
     tensors = (toas_rel, src, psr)
     dtype = toas_rel.dtype
     if dtype not in _DTYPE_CODES:
@@ -268,24 +397,11 @@ def cw_catalog_response_cuda(toas_rel, src, psr, psr_term: bool = True,
         )
     if npsr > 65535:
         raise ValueError(f"cw_catalog_response: {npsr} pulsars exceed the grid's 65535 rows")
-    out = torch.empty_like(toas_rel)
-    if out.numel() == 0:
-        return out
-    toas_rel, src, psr = (x.contiguous() for x in tensors)
+    if toas_rel.numel() == 0:
+        return torch.empty_like(toas_rel)
     lib = build.load("cw_catalog", _bind)
-    with torch.cuda.device(toas_rel.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.cw_catalog_launch(
-            toas_rel.data_ptr(), src.data_ptr(), psr.data_ptr(), out.data_ptr(),
-            npsr, ntoa, nsrc, _DTYPE_CODES[dtype], int(psr_term), int(evolve),
-            stream,
-        )
-    if rc != 0:
-        raise RuntimeError(
-            f"cw_catalog kernel launch failed: {lib.cw_error_string(rc).decode()}"
-        )
-    launches["cw_catalog_response"] += 1
-    return out
+    planes = _cw_fold(lib, src.contiguous(), psr.contiguous(), psr_term, evolve)
+    return _cw_launch(lib, toas_rel.contiguous(), planes, psr_term, evolve)
 
 
 def cw_catalog_response(toas_rel, src, psr, psr_term: bool = True,

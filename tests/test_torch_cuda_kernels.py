@@ -69,6 +69,98 @@ def test_kernel_is_deterministic_and_checks_shapes(cuda_device):
         tcw.cw_catalog_response(args[0][:2], args[1], args[2])
 
 
+def _rel_rms(got, want):
+    got, want = got.double(), want.double()
+    return float(torch.sqrt(torch.mean((got - want) ** 2)) / torch.sqrt(torch.mean(want**2)))
+
+
+@pytest.mark.parametrize("ntoa", [1, 129, 701, 1030])
+@pytest.mark.parametrize("psr_term,evolve", MODES)
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-10), (torch.float32, 3e-3)])
+def test_kernel_ragged_edge(cuda_device, dtype, tol, psr_term, evolve, ntoa):
+    """Each instance against the plain version, at TOA counts that are no
+    multiple of the block's span; two launches give the same bits, and the
+    fold and the response each count their launches."""
+    u, src, psr = _inputs(npsr=3, ntoa=ntoa, nsrc=200, evolve=evolve, seed=ntoa)
+    u_t, src_t, psr_t = (torch.as_tensor(a, dtype=dtype, device=cuda_device) for a in (u, src, psr))
+    lib = tcw.build.load("cw_catalog", tcw._bind)
+    assert lib.cw_kernel_plane_width(int(psr_term), int(evolve)) == \
+        tcw.kernel_plane_width(psr_term, evolve)
+    launches.clear()
+    planes = tcw._cw_fold(lib, src_t, psr_t, psr_term, evolve)
+    got = tcw._cw_launch(lib, u_t, planes, psr_term, evolve)
+    again = tcw._cw_launch(lib, u_t, planes, psr_term, evolve)
+    assert launches["cw_fold_planes"] == 1 and launches["cw_catalog_response"] == 2
+    want = tcw.cw_catalog_response_plain(u_t, src_t, psr_t, psr_term, evolve)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got).all())
+    assert _rel_rms(got, want) <= tol
+    assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("psr_term,evolve", MODES)
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_fold_kernel_equals_kernel_planes(cuda_device, dtype, psr_term, evolve):
+    """The fold kernel computes cw_kernel_planes's products in its order:
+    the same bits, padding included, on a catalog with merged sources."""
+    u, src, psr = _inputs(npsr=4, ntoa=10, nsrc=300, evolve=evolve, seed=5)
+    src_t, psr_t = (torch.as_tensor(a, dtype=dtype, device=cuda_device) for a in (src, psr))
+    lib = tcw.build.load("cw_catalog", tcw._bind)
+    got = tcw._cw_fold(lib, src_t, psr_t, psr_term, evolve)
+    want = tcw.cw_kernel_planes(src_t, psr_t, psr_term, evolve)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == want.shape
+    assert torch.equal(got, want)
+
+
+def test_kernel_population_depth_float32_vs_float64(cuda_device):
+    """The population catalog's shape at a cut depth (3 pulsars x 2,000
+    TOAs x 2,000 sources, chirped with the pulsar term): each dtype against
+    the plain version, float32 against the float64 kernel, and the same
+    bits twice."""
+    u, src, psr = _inputs(npsr=3, ntoa=2000, nsrc=2000, seed=3)
+    out = {}
+    for dtype, tol in ((torch.float64, 1e-10), (torch.float32, 3e-3)):
+        args = [torch.as_tensor(a, dtype=dtype, device=cuda_device) for a in (u, src, psr)]
+        launches.clear()
+        got = tcw.cw_catalog_response(*args)
+        again = tcw.cw_catalog_response(*args)
+        torch.cuda.synchronize()
+        assert launches["cw_catalog_response"] == 2
+        want = tcw.cw_catalog_response_plain(*args)
+        assert bool(torch.isfinite(got).all()) and bool((got != 0).any())
+        assert _rel_rms(got, want) <= tol
+        assert torch.equal(got, again)
+        out[dtype] = got
+    assert _rel_rms(out[torch.float32], out[torch.float64]) <= 3e-3
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_kernel_empty_catalog_sums_to_zero(cuda_device, dtype):
+    u, src, psr = _inputs(npsr=2, ntoa=300, nsrc=5)
+    args = [torch.as_tensor(a, dtype=dtype, device=cuda_device) for a in (u, src[:, :0], psr[..., :0])]
+    launches.clear()
+    got = tcw.cw_catalog_response(*args)
+    torch.cuda.synchronize()
+    assert got.shape == (2, 300) and bool((got == 0).all())
+    assert launches["cw_fold_planes"] == 0  # nothing to fold
+
+
+def test_kernel_refuses_planes_that_do_not_fit(cuda_device):
+    u, src, psr = _inputs(npsr=2, ntoa=300, nsrc=20)
+    u_t, src_t, psr_t = (torch.as_tensor(a, device=cuda_device) for a in (u, src, psr))
+    lib = tcw.build.load("cw_catalog", tcw._bind)
+    planes = tcw.cw_kernel_planes(src_t, psr_t, True, True)
+    with pytest.raises(ValueError, match="do not fit"):
+        tcw._cw_launch(lib, u_t, planes, False, True)  # the earth-only width is 8
+    with pytest.raises(ValueError, match="do not fit"):
+        tcw._cw_launch(lib, u_t, planes[:, :, 1:], True, True)  # a view
+    shifted = torch.empty(planes.numel() + 1, dtype=planes.dtype, device=cuda_device)[1:]
+    shifted = shifted.view(planes.shape).copy_(planes)  # contiguous, 8 bytes off
+    with pytest.raises(ValueError, match="do not fit"):
+        tcw._cw_launch(lib, u_t, shifted, True, True)
+
+
 def _woodbury(npsr, ntoa, q, dtype, device, seed=0):
     """Operands with a tenth of the rows masked (w = 0) and w at the
     likelihood's scale (1/sigma^2 ~ 1e12)."""
