@@ -27,8 +27,10 @@ and prints no result; any failed check raises.
 """
 import dataclasses
 import json
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -46,6 +48,8 @@ from pta_replicator_tpu_torch.likelihood.infer import _reduced_points, _theta_bl
 from pta_replicator_tpu_torch.models import batched as B
 from pta_replicator_tpu_torch.ops import cw
 from pta_replicator_tpu_torch.ops import gp as ops_gp
+from pta_replicator_tpu_torch.utils import sweep as sweep_mod
+from pta_replicator_tpu_torch.utils.sweep import chunk_seed, sweep
 
 #: the flagship workload's full width (depth is not cut: it is 68 x 7,758)
 FLAGSHIP = dict(npsr=68, ntoa=7758, ncw=100)
@@ -129,6 +133,23 @@ TOL_BLOCKED = 1e-10
 #: substitution-only forward sweep and the backward sweep
 COV_KERNELS = ("cov_syrk_update", "tridiag_factor_solve_fwd", "tridiag_solve_fwd",
                "tridiag_factor_solve_bwd")
+
+#: the sweep phase: chunk, realizations (10 chunks), seed, runs of each
+#: mode, the chunk after which (b) aborts, and (c)'s full cubes (three
+#: 422 MB chunks); (d)'s bank vs the in-memory array, float64, entry by
+#: entry relative (the same residuals; ~1e-15 apart at most)
+SWEEP_CHUNK, SWEEP_NREAL, SWEEP_SEED, SWEEP_REPS = 200, 2000, 9, 2
+SWEEP_MODES = {"depth1": dict(pipeline_depth=1), "depth2": dict(pipeline_depth=2),
+               "fused": dict(pipeline_depth=2, fused_stream=True)}
+SWEEP_ABORT_AFTER = 4
+CUBE_NREAL = 600
+TOL_BANK = 1e-12
+#: the streamed catalog: sources per plane tile, calls timed per mode, and
+#: the large catalog (the reference's CW ladder runs to 1e5 sources)
+SOURCES_PER_TILE, CW_STREAM_REPS, CW_STREAM_LARGE = 1024, 5, 100_000
+#: the sources of one macro tile: cw_stream_response joins 8 plane tiles
+#: (its default tiles_per_step) for each fold and launch
+SOURCES_PER_MACRO = 8 * SOURCES_PER_TILE
 
 #: right-hand-side counts of the substitution sweeps timed beside the GP
 #: basis's: the direct route's single residual (the chain's latency) and a
@@ -1069,6 +1090,404 @@ def phase_covariance_dense():
     return counts["cov_syrk_update"]
 
 
+def _sweep_run(seed, batch, recipe, nreal, path, **kw):
+    """(result, wall seconds, stats) of one sweep through the entry point,
+    ending synchronised (the sweep returns host arrays)."""
+    stats = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = sweep(seed, batch, recipe, nreal, path, chunk=SWEEP_CHUNK, fit=True, stats=stats, **kw)
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, stats
+
+
+def _file_bytes(path):
+    with open(path, "rb") as fh:
+        return fh.read()
+
+
+def _profiled_busy(fn):
+    """Kernel busy share of one synchronised call's wall time and the
+    copies' device milliseconds, from torch.profiler (kernels on the
+    compute stream do not overlap; copies run beside them on a copy
+    stream); (None, None) when the profiler records no device time."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        _, wall_ms = _timed_ms(fn, reps=1)
+    rows = [(e.key, e.self_device_time_total / 1e3) for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    copy_ms = sum(ms for k, ms in rows if k.startswith(("Memcpy", "Memset")))
+    kernel_ms = sum(ms for k, ms in rows) - copy_ms
+    if kernel_ms <= 0:
+        return None, None
+    return kernel_ms / wall_ms, copy_ms
+
+
+def _writer_steps_ms(block, workdir):
+    """Host milliseconds of each step the sweep's writers take for one
+    full-cube chunk (``block``, on the host), once each: the chunk file
+    (``np.save``), the consolidated archive of that one chunk, the writer
+    thread's copy of a readback buffer (its pages touched for the first
+    time, then again), and pinning a readback buffer of the chunk's
+    size."""
+    out = np.empty_like(block)
+    steps = {
+        "np_save": lambda: np.save(workdir / "step_a.npy", block, allow_pickle=False),
+        "consolidate": lambda: sweep_mod._consolidate(str(workdir / "step_b.npz"), [block],
+                                                      durable=False),
+        "copy_first_touch": lambda: np.copyto(out, block),
+        "copy_again": lambda: np.copyto(out, block),
+        "pin_buffer": lambda: torch.empty(block.nbytes, dtype=torch.uint8, pin_memory=True),
+    }
+    times = {}
+    for name, fn in steps.items():
+        t0 = time.perf_counter()
+        fn()
+        times[name] = (time.perf_counter() - t0) * 1e3
+    for name in ("step_a.npy", "step_b.npz"):
+        (workdir / name).unlink()
+    return times
+
+
+def phase_sweep(batch, recipe, batch64, recipe64, workdir):
+    """The sweep through its entry point at the flagship width, float32:
+    (a) fit, the default RMS reduction, chunk 200, 2,000 realizations at
+    depth 1, depth 2 and fused_stream, twice each, beside realize() alone
+    over the same chunks with a readback; the three checkpoints
+    byte-identical, the arrays equal, and equal to realize() alone;
+    (b) an abort after chunk 4 and a resume, byte-identical; (c) full
+    cubes, 600 realizations (three 422 MB chunks), at depth 1 and 2,
+    without and with durable writes: rate, MB/s written, readback copy
+    per chunk, kernel busy share (torch.profiler, a second run), and each
+    writer step timed alone on one chunk; (d) the
+    bank from (c)'s checkpoint priced in float64 against the in-memory
+    array. The launch counts are cleared just before (a) and read just
+    after."""
+    msum = batch.mask.sum(-1)
+    runs, rates, pipeline_rates, raw = {}, {}, {}, {}
+    launches.clear()
+    for rep in range(SWEEP_REPS):
+        for name, kw in SWEEP_MODES.items():
+            path = str(workdir / f"rms_{name}_{rep}.npz")
+            out, wall, stats = _sweep_run(SWEEP_SEED, batch, recipe, SWEEP_NREAL, path, **kw)
+            rates.setdefault(name, []).append(SWEEP_NREAL / wall)
+            if "wall_s" in stats:  # the pipelined graph alone, without set-up
+                pipeline_rates.setdefault(name, []).append(SWEEP_NREAL / stats["wall_s"])
+            runs[name], raw[name] = out, _file_bytes(path)
+    counts = {k: launches[k] for k in ("cw_catalog_response", "cw_fold_planes")}
+
+    def yardstick():
+        rows = []
+        for i in range(SWEEP_NREAL // SWEEP_CHUNK):
+            gen = torch.Generator(device=batch.device).manual_seed(chunk_seed(SWEEP_SEED, i))
+            res = realize(gen, batch, recipe, SWEEP_CHUNK, fit=True, static=static)
+            rows.append(torch.sqrt((res**2 * batch.mask).sum(-1) / msum).cpu())
+        return torch.cat(rows).numpy()
+
+    static = deterministic_delays(batch, recipe)
+    realize_rates = []
+    for _ in range(SWEEP_REPS):
+        alone, ms = _timed_ms(yardstick, reps=1)
+        realize_rates.append(SWEEP_NREAL / (ms / 1e3))
+
+    class Abort(Exception):
+        """A progress callback's own error: fatal, never retried."""
+
+    def abort(done, total):
+        if done == SWEEP_ABORT_AFTER:
+            raise Abort
+
+    path = str(workdir / "abort.npz")
+    aborted = False
+    try:
+        _sweep_run(SWEEP_SEED, batch, recipe, SWEEP_NREAL, path, progress=abort)
+    except Abort:
+        aborted = True
+    done_after_abort = json.loads(_file_bytes(path + ".meta.json"))["done"]
+    calls = []
+    resumed, _, _ = _sweep_run(SWEEP_SEED, batch, recipe, SWEEP_NREAL, path,
+                               progress=lambda d, t: calls.append(d))
+    row = dict(
+        shape=FLAGSHIP, dtype=str(batch.dtype), chunk=SWEEP_CHUNK, nreal=SWEEP_NREAL,
+        realizations_per_s=rates, pipeline_realizations_per_s=pipeline_rates,
+        realize_alone_per_s=realize_rates,
+        depth2_over_realize=float(np.median(rates["depth2"]) / np.median(realize_rates)),
+        npz_identical=all(raw[k] == raw["depth1"] for k in raw),
+        arrays_equal=all(np.array_equal(runs[k], runs["depth1"]) for k in runs),
+        equals_realize_alone=bool(np.array_equal(runs["depth1"], alone)),
+        cw_launches=counts["cw_catalog_response"], fold_launches=counts["cw_fold_planes"],
+        aborted=aborted, done_after_abort=done_after_abort, resumed_chunks=calls,
+        resume_identical=_file_bytes(path) == raw["depth1"]
+        and bool(np.array_equal(resumed, runs["depth1"])),
+        finite=bool(np.isfinite(runs["depth1"]).all()), output_shape=list(runs["depth1"].shape),
+    )
+    emit("sweep", **row)
+    require(row["npz_identical"] and row["arrays_equal"] and row["equals_realize_alone"],
+            f"sweep depths disagree: {row}")
+    require(aborted and done_after_abort == SWEEP_ABORT_AFTER and row["resume_identical"]
+            and calls == list(range(SWEEP_ABORT_AFTER + 1, SWEEP_NREAL // SWEEP_CHUNK + 1)),
+            f"sweep abort and resume: {row}")
+    require(counts["cw_catalog_response"] > 0, f"the sweep never launched the CW kernels: {row}")
+    require(row["finite"], f"sweep output: {row}")
+    for p in workdir.glob("rms_*"):
+        p.unlink()
+
+    cube_rows, cube_raw, cube = [], None, None
+    for depth in (1, 2):
+        for durable in (False, True):
+            path = str(workdir / f"cube_{depth}_{int(durable)}.npz")
+            kw = dict(reduce_fn=None, pipeline_depth=depth, durable=durable)
+            out, wall, stats = _sweep_run(SWEEP_SEED, batch, recipe, CUBE_NREAL, path, **kw)
+            nbytes = out.nbytes * 2  # the chunk files, then the consolidated archive
+            data = _file_bytes(path)
+            Path(path).unlink()
+            Path(path + ".meta.json").unlink()
+            busy, copy_ms = _profiled_busy(
+                lambda: _sweep_run(SWEEP_SEED, batch, recipe, CUBE_NREAL, path, **kw))
+            if depth == 2 and not durable:
+                cube = out  # kept, with the profiled run's checkpoint, for (d)
+            else:
+                Path(path).unlink()
+                Path(path + ".meta.json").unlink()
+            cube_rows.append(dict(
+                depth=depth, durable=durable, realizations_per_s=CUBE_NREAL / wall,
+                wall_s=wall, mb_written=nbytes / 1e6, mb_per_s=nbytes / 1e6 / wall,
+                d2h_ms_per_chunk=stats.get("d2h_ms"), stage_busy_s=stats.get("stage_busy_s"),
+                kernel_busy_share=busy, profiled_copy_ms=copy_ms,
+                identical=cube_raw is None or data == cube_raw))
+            cube_raw = data if cube_raw is None else cube_raw
+            del out, data
+    emit("sweep_cubes", shape=FLAGSHIP, nreal=CUBE_NREAL, chunk=SWEEP_CHUNK,
+         chunk_mb=cube.nbytes / (CUBE_NREAL // SWEEP_CHUNK) / 1e6, runs=cube_rows,
+         writer_steps_ms=_writer_steps_ms(cube[:SWEEP_CHUNK], workdir))
+    require(all(r["identical"] for r in cube_rows), f"full-cube checkpoints differ: {cube_rows}")
+
+    path = str(workdir / "cube_2_0.npz")
+    bank = lk.RealizationBank.from_checkpoint(path)
+    grid, shape = lk.grid_cartesian(DENSE_GRID)
+    design = B.quadratic_design(batch64)
+    t0 = time.perf_counter()
+    ll_disk = lk.bank_loglikelihood(bank, batch64, recipe64, grid=grid, design=design,
+                                    fused=True).cpu()
+    disk_s = time.perf_counter() - t0
+    ll_mem = lk.bank_loglikelihood(torch.as_tensor(cube), batch64, recipe64, grid=grid,
+                                   design=design, fused=True).cpu()
+    rel = float(((ll_disk - ll_mem).abs() / ll_mem.abs()).max())
+    row = dict(bank_shape=list(bank.shape), bank_dtype=str(bank.dtype), grid_shape=list(shape),
+               rel_disk_vs_memory=rel, tol=TOL_BANK, bank_call_s=disk_s,
+               finite=bool(torch.isfinite(ll_disk).all()))
+    emit("sweep_bank", **row)
+    require(rel <= TOL_BANK and row["finite"] and bank.shape == cube.shape,
+            f"the bank from the checkpoint prices differently: {row}")
+    del bank, cube
+    torch.cuda.empty_cache()
+
+
+def _union_us(intervals):
+    """Sorted, disjoint union of (start, end) intervals."""
+    out = []
+    for a, b in sorted(intervals):
+        if out and a <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], b)
+        else:
+            out.append([a, b])
+    return out
+
+
+def _intersection_us(xs, ys):
+    """Length of the intersection of two unions of intervals."""
+    xs, ys, total, i, j = _union_us(xs), _union_us(ys), 0.0, 0, 0
+    while i < len(xs) and j < len(ys):
+        total += max(0.0, min(xs[i][1], ys[j][1]) - max(xs[i][0], ys[j][0]))
+        if xs[i][1] < ys[j][1]:
+            i += 1
+        else:
+            j += 1
+    return total
+
+
+def _traced_overlap(batch, recipe):
+    """How much of the streamed catalog's host tile build overlaps its
+    accumulating kernels, read from one torch.profiler trace of the
+    streamed response (prefetch depth 2): the kernels' device intervals
+    from the trace, the tile builds' intervals timed on the prefetch
+    worker with the host clock and put on the trace's clock by a span the
+    caller's thread closes at a known host time. Returns the build and
+    kernel milliseconds, their intersection, and its share of each; "not
+    measured" when the trace holds no kernel."""
+    builds = []
+
+    def timed(tiles):
+        it = iter(tiles)
+        while True:
+            t0 = time.perf_counter_ns()
+            try:
+                tile = next(it)
+            except StopIteration:
+                return
+            builds.append((t0, time.perf_counter_ns()))
+            yield tile
+
+    tiles = B.cw_catalog_plane_tiles_for(
+        batch, *recipe.cgw_params.cpu().unbind(0), pdist=1.0, evolve=recipe.cgw_evolve,
+        phase_approx=recipe.cgw_phase_approx, tref_s=recipe.cgw_tref_s, chunk=SOURCES_PER_TILE)
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        with torch.profiler.record_function("overlap_anchor"):
+            anchor_ns = time.perf_counter_ns()
+        B.cw_stream_response(batch, timed(tiles), evolve=recipe.cgw_evolve,
+                             psr_term=recipe.cgw_psr_term, prefetch_depth=2)
+        torch.cuda.synchronize()
+        end_ns = time.perf_counter_ns()
+    events = prof.events()
+    anchor = [e for e in events if e.name == "overlap_anchor"]
+    kernels = [(e.time_range.start, e.time_range.end) for e in events
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and "cw_catalog_kernel" in e.name]
+    if not anchor or not kernels:
+        return dict(traced_overlap="not measured")
+    # the span's end, a few microseconds after its last host reading (its
+    # start carries the profiler's first-call set-up)
+    offset_us = anchor[0].time_range.end - anchor_ns / 1e3
+    builds_us = [(a / 1e3 + offset_us, b / 1e3 + offset_us) for a, b in builds]
+    both = _intersection_us(builds_us, kernels)
+    build_us = sum(b - a for a, b in _union_us(builds_us))
+    kernel_us = sum(b - a for a, b in _union_us(kernels))
+    # the two clocks agree when every kernel lies inside the traced call
+    in_window = (min(a for a, _ in kernels) >= anchor[0].time_range.end
+                 and max(b for _, b in kernels) <= end_ns / 1e3 + offset_us)
+    return dict(traced_build_ms=build_us / 1e3, traced_kernel_ms=kernel_us / 1e3,
+                kernels_inside_the_call=in_window,
+                traced_overlap_ms=both / 1e3, traced_kernel_launches=len(kernels),
+                kernel_share_under_build=both / kernel_us, build_share_under_kernel=both / build_us)
+
+
+def phase_cw_stream(population32):
+    """deterministic_delays with cgw_stream_chunk (SOURCES_PER_TILE, prefetch
+    depth 2: tiled host planes staged by the prefetcher, one accumulating
+    launch per macro tile) against the monolithic call on the population
+    catalog, float32 and float64, bitwise; median of CW_STREAM_REPS calls
+    each, the host tile build (the prefetch worker's busy seconds) and
+    the peak device memory above what was allocated before. Then one
+    float32 call each at 100,000 sources; each row also times the kernels
+    over the whole catalog's planes, and reads from a torch.profiler trace
+    how much of the host tile build overlapped the accumulating kernels
+    (:func:`_traced_overlap`). The launch counts are cleared just before
+    the float32 population's streamed call and read just after. The
+    accumulating launch is held against its plain version (acc + the
+    plain response) at the population's macro and tail shapes, both
+    dtypes, and alone at the flagship catalog, timed."""
+    rows, accumulate, checks = [], None, []
+    for name, nsrc, dtype, reps in (("population", POPULATION["ncw"], torch.float32, CW_STREAM_REPS),
+                                    ("population", POPULATION["ncw"], torch.float64, CW_STREAM_REPS),
+                                    ("1e5", CW_STREAM_LARGE, torch.float32, 1)):
+        if name == "population" and dtype == torch.float32:
+            batch, recipe = population32
+        else:
+            batch, recipe = flagship_workload(**{**POPULATION, "ncw": nsrc}, dtype=dtype)
+        streamed = dataclasses.replace(recipe, cgw_stream_chunk=SOURCES_PER_TILE,
+                                       cgw_prefetch_depth=2)
+        row = dict(catalog=name, shape=[batch.npsr, batch.ntoa_max, nsrc], dtype=str(dtype),
+                   tile=SOURCES_PER_TILE, prefetch_depth=2)
+        results = {}
+        for mode, rec in (("monolithic", recipe), ("streamed", streamed)):
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            if mode == "streamed" and name == "population" and dtype == torch.float32:
+                launches.clear()
+                results[mode] = deterministic_delays(batch, rec)
+                torch.cuda.synchronize()
+                accumulate = dict(launches)
+            else:
+                results[mode] = deterministic_delays(batch, rec)
+                torch.cuda.synchronize()
+            row[f"{mode}_peak_extra_mib"] = (torch.cuda.max_memory_allocated() - base) / 2**20
+            times = [_timed_ms(lambda: deterministic_delays(batch, rec), reps=1)[1]
+                     for _ in range(reps)]
+            row[f"{mode}_ms"] = times
+            row[f"{mode}_median_ms"] = float(np.median(times))
+        stats = {}
+        B.cgw_catalog_delays_streamed(
+            batch, *streamed.cgw_params.cpu().unbind(0), pdist=1.0,
+            psr_term=streamed.cgw_psr_term, evolve=streamed.cgw_evolve,
+            phase_approx=streamed.cgw_phase_approx, tref_s=streamed.cgw_tref_s,
+            chunk=SOURCES_PER_TILE, prefetch_depth=2, stats=stats)
+        torch.cuda.synchronize()
+        params = recipe.cgw_params.cpu().unbind(0)
+        (src, psr, _), planes_build_ms = _timed_ms(lambda: B.cw_catalog_planes_for(
+            batch, *params, pdist=1.0, evolve=recipe.cgw_evolve,
+            phase_approx=recipe.cgw_phase_approx, tref_s=recipe.cgw_tref_s), reps=1)
+        u = batch.toas_s - torch.tensor(batch.start_s, dtype=dtype, device=batch.device)
+        kernel_ms = cuda_ms(lambda: cw.cw_catalog_response(u, src, psr), 3)
+        if name == "population":
+            checks.extend(_accumulate_vs_plain(u, src, psr, recipe, dtype))
+        del src, psr
+        build_s, wall_s = stats["stage_busy_s"]["cw_stream_stage"], stats["wall_s"]
+        row.update(bitwise_equal=bool(torch.equal(results["streamed"], results["monolithic"])),
+                   finite=bool(torch.isfinite(results["streamed"]).all()),
+                   host_tile_build_s=build_s, consumer_wait_s=stats["stall_s"],
+                   stream_wall_s=wall_s, macros=stats["items"],
+                   bytes_staged=stats["bytes_staged"], monolithic_planes_build_ms=planes_build_ms,
+                   kernel_ms_whole_catalog=kernel_ms,
+                   # an estimate beside the trace's reading: the worker's
+                   # busy seconds (its waits on copy events included) plus
+                   # the kernels' time alone, less the wall, over the
+                   # kernels' time; not clamped
+                   overlap_estimate=(build_s + kernel_ms / 1e3 - wall_s) / (kernel_ms / 1e3),
+                   **_traced_overlap(batch, streamed))
+        rows.append(row)
+        emit("cw_stream", **row)
+        require(row["bitwise_equal"] and row["finite"],
+                f"streamed catalog differs from the monolithic kernel: {row}")
+        del results, batch, recipe, streamed
+        torch.cuda.empty_cache()
+    require(accumulate.get("cw_catalog_accumulate", 0) > 0,
+            f"the streamed catalog never launched the accumulating kernel: {accumulate}")
+
+    batch, recipe = flagship_workload(**FLAGSHIP)
+    u = batch.toas_s - torch.tensor(batch.start_s, dtype=batch.dtype, device=batch.device)
+    src, psr = _catalog_planes(batch, recipe.cgw_params.cpu().numpy(), True, 0.0)
+    acc0 = cw.cw_catalog_response(u, src, psr) * 0.5
+    want, plain_ms = _once_ms(lambda: acc0 + cw.cw_catalog_response_plain(u, src, psr))
+    got = cw.cw_catalog_response(u, src, psr, out=acc0.clone())
+    torch.cuda.synchronize()
+    acc = acc0.clone()
+    ms = cuda_ms(lambda: cw.cw_catalog_response(u, src, psr, out=acc), CW_REPS["flagship"])
+    bound, bound_by = cw_bound(*u.shape, src.shape[1], batch.dtype, True, True)
+    check = dict(catalog="flagship", dtype=str(batch.dtype), shape=[*u.shape, src.shape[1]],
+                 rel_rms=rel_rms(got, want), tol=TOL[batch.dtype],
+                 max_abs_err=float((got - want).abs().max()), ms=ms, plain_ms=plain_ms,
+                 bound_ms=bound, bound_by=bound_by, finite=bool(torch.isfinite(got).all()))
+    for row in checks + [check]:
+        emit("cw_accumulate_vs_plain", **row)
+        require(row["finite"] and row["rel_rms"] <= row["tol"],
+                f"the accumulating launch vs plain: {row}")
+    return accumulate.get("cw_catalog_accumulate", 0), check
+
+
+def _accumulate_vs_plain(u, src, psr, recipe, dtype):
+    """The accumulating launch at the shapes the streamed population
+    catalog gives it, against its plain version on the same inputs: the
+    first macro tile (SOURCES_PER_MACRO sources) into a zero accumulator,
+    then the rest of the catalog (at 10,000 sources, the stream's last,
+    narrower macro) into that sum."""
+    kw = dict(psr_term=recipe.cgw_psr_term, evolve=recipe.cgw_evolve)
+    acc, rows = torch.zeros_like(u), []
+    for part, cols in (("macro", slice(0, SOURCES_PER_MACRO)),
+                       ("tail", slice(SOURCES_PER_MACRO, None))):
+        s, p = src[:, cols].contiguous(), psr[..., cols].contiguous()
+        want, plain_ms = _once_ms(lambda: acc + cw.cw_catalog_response_plain(u, s, p, **kw))
+        got = cw.cw_catalog_response(u, s, p, out=acc.clone(), **kw)
+        torch.cuda.synchronize()
+        rows.append(dict(catalog=f"population {part}", dtype=str(dtype),
+                         shape=[*u.shape, s.shape[1]], rel_rms=rel_rms(got, want),
+                         tol=TOL[dtype], max_abs_err=float((got - want).abs().max()),
+                         plain_ms=plain_ms, finite=bool(torch.isfinite(got).all())))
+        acc = got
+    return rows
+
+
 #: the kernels line's reason where no single PyTorch call computes a kernel
 NO_LIBRARY = "none: no single PyTorch call computes it"
 #: the instruction account is the CW kernel's (kernels/cw_study.py); the
@@ -1097,10 +1516,16 @@ def main():
     kernel_row = cw_rows["torch.float32", "flagship", True, True]
     batch, recipe, static, generator, (count, fold_count), res = phase_main_path(FLAGSHIP)
     phase_cw_population(*population, sass, clock)
+    accumulate_count, accumulate_row = phase_cw_stream(population)
     del population
     phase_breakdown(batch, recipe, static, generator)
     phase_card_vs_cpu(SMALL)
     batch64, recipe64 = flagship_workload(**FLAGSHIP, dtype=torch.float64)
+    workdir = Path(tempfile.mkdtemp(prefix="chip_smoke_sweep_"))
+    try:
+        phase_sweep(batch, recipe, batch64, recipe64, workdir)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
     design = B.quadratic_design(batch64)
     woodbury_row = phase_woodbury_kernel(batch64, recipe64, design, "flagship")
     chrom64 = chromatic_recipe(batch64, recipe64)
@@ -1130,6 +1555,9 @@ def main():
         "bound_ms": kernel_row["bound_ms"], "bound_by": kernel_row["bound_by"],
         "library_ms": None, "library": NO_LIBRARY, "kernel_ms": kernel_row["kernel_ms"],
         "fold_launches": fold_count, "fold_ms": kernel_row["fold_ms"],
+        "accumulate_launches": accumulate_count,
+        "accumulate_max_abs_err": accumulate_row["max_abs_err"],
+        "accumulate_ms": accumulate_row["ms"], "accumulate_plain_ms": accumulate_row["plain_ms"],
         "issue_ms": kernel_row["issue_ms"],
         "instructions_per_element": kernel_row["instructions_per_element"],
     }, {

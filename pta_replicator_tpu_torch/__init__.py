@@ -10,8 +10,12 @@ server (``likelihood/``), its Woodbury assembly a hand-written CUDA
 kernel; and structured noise covariances (``covariance/``: banded,
 dense, Kronecker, low rank) that ``realize`` samples and the likelihood
 prices inside C0, on hand-written block-tridiagonal and blocked-Cholesky
-kernels. The JAX package stays the reference; this package imports
-nothing of it, and nothing of JAX.
+kernels; and the resumable sweep that writes realizations in chunks to a
+checkpoint in the reference's format (``utils/sweep.py``), with the
+card's readback overlapped by a stage-graph executor (``parallel/``) and
+a CW catalog too large to build at once streamed in plane tiles onto the
+kernel's accumulating launch. The JAX package stays the reference; this
+package imports nothing of it, and nothing of JAX.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
 """

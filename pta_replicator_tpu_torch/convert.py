@@ -24,11 +24,10 @@ _STATIC_FIELDS = ("tref_mjd", "names", "backend_names", "start_s", "stop_s")
 
 #: JAX-only Recipe knobs with no counterpart in the port: the CW backend
 #: choice and the synthesis precision (the port has one CW dispatch and
-#: always synthesizes in IEEE float32), the streamed pipeline's prefetch
-#: depth and the transient's pulsar (inert without its unported feature)
+#: always synthesizes in IEEE float32) and the transient's pulsar (inert
+#: without its unported feature)
 JAX_ONLY_RECIPE_FIELDS = frozenset({
-    "cgw_backend", "gwb_synthesis_precision", "cgw_prefetch_depth",
-    "transient_psr",
+    "cgw_backend", "gwb_synthesis_precision", "transient_psr",
 })
 
 

@@ -69,6 +69,13 @@
 // * one TOA a thread (kToasPerThread): two or four, which read each staged
 //   word once for all of them, were slower in both dtypes;
 // * at most 64 registers a thread: no instance spills.
+// The accumulating launch (accumulate = 1; ops/cw.py's ``out=``) starts
+// each thread's sum from out[p, t] instead of zero, for the streamed
+// catalog (models/batched.py::cw_stream_response), which launches once per
+// tile of sources into one (Np, Nt) accumulator. The sum still runs source
+// by source in catalog order, and a value stored and reloaded is exact, so
+// a catalog streamed in tiles of any width gives the bits of one launch
+// over the whole catalog, in both dtypes.
 // A block of 128 threads covers 128 TOAs of one pulsar (grid
 // (ceil(Nt / 128), Np)) and stages its pulsar's kernel planes in shared
 // memory, 128 sources at a time, by 16-byte copies; every thread of a warp
@@ -250,7 +257,7 @@ cw_fold_planes_kernel(const T* __restrict__ src, const T* __restrict__ psr,
 template <typename T, bool PSR_TERM, bool EVOLVE>
 __global__ void __launch_bounds__(kThreads, 8)
 cw_catalog_kernel(const T* __restrict__ toas_rel, const T* __restrict__ planes,
-                  T* __restrict__ out, int nt, int ns) {
+                  T* __restrict__ out, int nt, int ns, int accumulate) {
   using L = Layout<PSR_TERM, EVOLVE>;
   constexpr int K = kToasPerThread;
   using V = typename Vec16<T>::type;
@@ -265,7 +272,7 @@ cw_catalog_kernel(const T* __restrict__ toas_rel, const T* __restrict__ planes,
   for (int k = 0; k < K; ++k) {
     const int t = t0 + k * kThreads;
     u[k] = t < nt ? toas_rel[(size_t)p * nt + t] : T(0);
-    acc[k] = T(0);
+    acc[k] = accumulate && t < nt ? out[(size_t)p * nt + t] : T(0);
   }
   const V* g = reinterpret_cast<const V*>(planes + (size_t)p * ns * W);
   V* sv = reinterpret_cast<V*>(s_w);
@@ -299,10 +306,10 @@ cw_catalog_kernel(const T* __restrict__ toas_rel, const T* __restrict__ planes,
 
 template <typename T, bool PSR_TERM, bool EVOLVE>
 int response_mode(const T* toas_rel, const T* planes, T* out, int np, int nt, int ns,
-                  cudaStream_t stream) {
+                  int accumulate, cudaStream_t stream) {
   constexpr int kSpan = kThreads * kToasPerThread;
-  cw_catalog_kernel<T, PSR_TERM, EVOLVE>
-      <<<dim3((nt + kSpan - 1) / kSpan, np), kThreads, 0, stream>>>(toas_rel, planes, out, nt, ns);
+  cw_catalog_kernel<T, PSR_TERM, EVOLVE><<<dim3((nt + kSpan - 1) / kSpan, np), kThreads, 0,
+                                           stream>>>(toas_rel, planes, out, nt, ns, accumulate);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -336,10 +343,10 @@ int dispatch(int dtype, bool psr_term, bool evolve, Args... args) {
 template <typename T, bool PSR_TERM, bool EVOLVE>
 struct Response {
   static int run(const void* toas_rel, const void* planes, void* out, int np, int nt, int ns,
-                 cudaStream_t stream) {
+                 int accumulate, cudaStream_t stream) {
     return response_mode<T, PSR_TERM, EVOLVE>(static_cast<const T*>(toas_rel),
                                               static_cast<const T*>(planes), static_cast<T*>(out),
-                                              np, nt, ns, stream);
+                                              np, nt, ns, accumulate, stream);
   }
 };
 
@@ -365,12 +372,13 @@ extern "C" int cw_fold_planes_launch(const void* src, const void* psr, void* pla
                         static_cast<cudaStream_t>(stream));
 }
 
-// The response: `planes` 16-byte aligned.
+// The response: `planes` 16-byte aligned; accumulate != 0 adds the sum to
+// `out` (the accumulating launch), else writes it.
 extern "C" int cw_catalog_launch(const void* toas_rel, const void* planes, void* out,
                                  int np, int nt, int ns, int dtype, int psr_term,
-                                 int evolve, void* stream) {
+                                 int evolve, int accumulate, void* stream) {
   return dispatch<Response>(dtype, psr_term, evolve, toas_rel, planes, out, np, nt, ns,
-                            static_cast<cudaStream_t>(stream));
+                            accumulate, static_cast<cudaStream_t>(stream));
 }
 
 // The kernel planes' words per (pulsar, source) in a mode.

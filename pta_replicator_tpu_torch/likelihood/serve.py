@@ -101,10 +101,23 @@ class RealizationBank:
 
     @classmethod
     def from_checkpoint(cls, checkpoint_path: str) -> "RealizationBank":
-        raise NotImplementedError(
-            "RealizationBank.from_checkpoint needs the sweep checkpoint, which is "
-            "not ported to pta_replicator_tpu_torch yet (ROADMAP.md item A.8)"
-        )
+        """A bank over a sweep checkpoint of either package (the
+        consolidated npz, or the chunk files of a sweep in progress): sized
+        from the chunks' headers alone, each chunk loaded when it is
+        read."""
+        from ..utils.sweep import iter_checkpoint_chunk_infos, load_checkpoint_chunk
+
+        probe = list(iter_checkpoint_chunk_infos(checkpoint_path))
+        if not probe:
+            raise FileNotFoundError(
+                f"no completed sweep chunks at {checkpoint_path} "
+                "(neither a consolidated archive nor chunk files)"
+            )
+        nreal = sum(shape[0] for _i, shape, _d in probe)
+        _, shape0, dtype0 = probe[0]
+        loaders = [(lambda i=i: load_checkpoint_chunk(checkpoint_path, i)) for i, _s, _d in probe]
+        return cls(loaders, (nreal,) + tuple(shape0[1:]), dtype0,
+                   lengths=[s[0] for _i, s, _d in probe])
 
     def iter_chunks(self):
         for load in self._chunks:

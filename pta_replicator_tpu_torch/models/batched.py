@@ -35,7 +35,7 @@ from ..covariance.structure import (
     recipe_cov_s2,
 )
 from ..device import resolve_device
-from ..ops.cw import cw_catalog_planes, cw_catalog_response
+from ..ops.cw import cw_catalog_plane_tiles, cw_catalog_planes, cw_catalog_response
 from ..ops.fourier import fourier_basis, fourier_frequencies, powerlaw_prior
 from .gwb import (
     characteristic_strain,
@@ -356,6 +356,117 @@ def cgw_catalog_delays(batch: PulsarBatch, gwtheta, gwphi, mc, dist, fgw,
     )
 
 
+def cw_catalog_plane_tiles_for(batch: PulsarBatch, gwtheta, gwphi, mc, dist, fgw,
+                               phase0, psi, inc, pdist=1.0, pphase=None,
+                               evolve: bool = True, phase_approx: bool = False,
+                               tref_s: float = 0.0, chunk: int = 65536):
+    """Streaming twin of :func:`cw_catalog_planes_for`: a generator of host
+    numpy plane tiles ``(src (NC_SRC, cs), psr (NC_PSR, Np, cs))`` of at
+    most ``chunk`` sources, float64 host math per tile, cast on the host to
+    the batch's dtype; each tile bit for bit the column slice of the whole
+    catalog's planes (``ops/cw.py::cw_catalog_plane_tiles``)."""
+    host = lambda x: np.asarray(
+        x.detach().cpu() if isinstance(x, torch.Tensor) else x, np.float64
+    )
+    params = (gwtheta, gwphi, mc, dist, fgw, phase0, psi, inc)
+    t_fold = batch.tref_mjd * 86400.0 - tref_s + batch.start_s
+    return cw_catalog_plane_tiles(
+        host(batch.phat), *[np.atleast_1d(host(x)) for x in params],
+        pdist=host(pdist), pphase=None if pphase is None else host(pphase),
+        t_fold=t_fold, evolve=evolve, phase_approx=phase_approx, chunk=chunk,
+        dtype=torch.empty((), dtype=batch.dtype).numpy().dtype,
+    )
+
+
+def cw_stream_response(batch: PulsarBatch, tiles, evolve: bool, psr_term: bool = True,
+                       prefetch_depth: int = 2, tiles_per_step: int = 8,
+                       stall_timeout_s=900.0, chunk: int = 64, stats=None):
+    """Summed CW response (Np, Nt) from a stream of host plane tiles,
+    staged ahead (``parallel/prefetch.py::prefetch_to_device``): the next
+    macro tile is built and copied to the card on a worker thread while
+    the current one is folded and launched into the (Np, Nt) accumulator
+    (the kernel's accumulating launch, ``ops/cw.py``'s ``out=``). No stage
+    holds more than ``prefetch_depth`` macro tiles, and the whole catalog's
+    planes never exist, on the host or the card.
+
+    ``tiles`` yields ``(src, psr)`` in catalog order
+    (:func:`cw_catalog_plane_tiles_for`, or the cache of
+    ``parallel/prefetch.py::load_plane_tiles``), all of one width except an
+    optionally narrower last tile: the reference's contract, so the same
+    inputs raise in both packages. ``tiles_per_step`` consecutive tiles
+    make one macro: their source windows joined, one fold and one launch.
+
+    On the card the result is bit for bit the monolithic kernel's, at any
+    tile width (each thread sums source by source in catalog order). On
+    the CPU the plain version sums ``chunk`` sources a block, from the
+    running sum: bit for bit the monolithic plain response when the tile
+    width is a multiple of ``chunk``. The reference computes this path
+    with its scan backend (``_cw_tile_response``); the port runs B.1,
+    which computes the same function. ``stats`` receives the prefetcher's
+    stats (the worker's build-and-stage seconds, the consumer's wait)."""
+    from ..parallel.prefetch import prefetch_to_device
+
+    if tiles_per_step < 1:
+        raise ValueError(f"tiles_per_step must be >= 1 (got {tiles_per_step})")
+    width = [None]  # set by the stream's first tile
+
+    def macros():
+        """Join ``tiles_per_step`` tiles per macro (on the prefetch worker,
+        so the copy overlaps the card)."""
+        buf_s, buf_p = [], []
+        tail_seen = False
+        for src, psr in tiles:
+            src, psr = np.asarray(src), np.asarray(psr)
+            if width[0] is None:
+                width[0] = src.shape[-1]
+            if tail_seen or src.shape[-1] > width[0]:
+                raise ValueError(
+                    f"plane tile of width {src.shape[-1]} after the stream established "
+                    f"width {width[0]}; tiles must be uniform with an optional narrower "
+                    "LAST tile"
+                )
+            tail_seen = src.shape[-1] < width[0]
+            buf_s.append(src)
+            buf_p.append(psr)
+            if len(buf_s) == tiles_per_step:
+                yield np.concatenate(buf_s, axis=-1), np.concatenate(buf_p, axis=-1)
+                buf_s, buf_p = [], []
+        if buf_s:
+            yield np.concatenate(buf_s, axis=-1), np.concatenate(buf_p, axis=-1)
+
+    u = batch.toas_s - _as(batch.start_s, batch)
+    acc = torch.zeros_like(batch.toas_s)
+    for src, psr in prefetch_to_device(macros(), depth=prefetch_depth, device=batch.device,
+                                       stall_timeout_s=stall_timeout_s, stats=stats):
+        acc = cw_catalog_response(u, src, psr, psr_term=psr_term, evolve=evolve,
+                                  chunk=chunk, out=acc)
+    return acc * batch.mask
+
+
+def cgw_catalog_delays_streamed(batch: PulsarBatch, gwtheta, gwphi, mc, dist, fgw,
+                                phase0, psi, inc, pdist=1.0, pphase=None,
+                                psr_term: bool = True, evolve: bool = True,
+                                phase_approx: bool = False, tref_s: float = 0.0,
+                                chunk: int = 65536, prefetch_depth: int = 2,
+                                tiles_per_step: int = 8, stall_timeout_s=900.0,
+                                plain_chunk: int = 64, stats=None):
+    """Summed CW-catalog response through the streamed pipeline: tiled
+    float64 host planes, prefetched to the card, accumulated by the
+    kernel; host and device memory O(Np x chunk x tiles_per_step). On the
+    card bit for bit :func:`cgw_catalog_delays`; on the CPU, when
+    ``chunk`` is a multiple of ``plain_chunk`` (the plain version's block
+    of sources)."""
+    tiles = cw_catalog_plane_tiles_for(
+        batch, gwtheta, gwphi, mc, dist, fgw, phase0, psi, inc, pdist=pdist,
+        pphase=pphase, evolve=evolve, phase_approx=phase_approx, tref_s=tref_s,
+        chunk=chunk,
+    )
+    return cw_stream_response(batch, tiles, evolve=evolve, psr_term=psr_term,
+                              prefetch_depth=prefetch_depth, tiles_per_step=tiles_per_step,
+                              stall_timeout_s=stall_timeout_s, chunk=plain_chunk,
+                              stats=stats)
+
+
 # ------------------------------------------------------------------ recipes
 
 #: Recipe fields that hold arrays; they become tensors at construction
@@ -374,7 +485,6 @@ ARRAY_FIELDS = (
 UNPORTED_FIELDS = {
     "fit_design": "A.9 (design and GLS fits)",
     "gwb_user_spectrum": "A.13 (user GWB spectra)",
-    "cgw_stream_chunk": "A.11 (streamed CW catalog)",
     "gwm_params": "A.12 (bursts, memory, transients)",
     "burst_sky": "A.12 (bursts, memory, transients)",
     "burst_hplus": "A.12 (bursts, memory, transients)",
@@ -456,7 +566,13 @@ class Recipe:
     cgw_tref_s: float = 0.0
     #: sources per block of the plain CW response (CPU batches)
     cgw_chunk: int = 512
+    #: sources per plane tile of the streamed CW catalog
+    #: (cgw_catalog_delays_streamed); None builds the whole catalog's
+    #: planes at once. On the card both give the same bits; on the CPU
+    #: when it is a multiple of cgw_chunk
     cgw_stream_chunk: Optional[int] = None
+    #: macro tiles the streamed catalog stages ahead (2: double buffering)
+    cgw_prefetch_depth: int = 2
     cgw_psr_term: bool = True
     cgw_evolve: bool = True
     cgw_phase_approx: bool = False
@@ -719,18 +835,31 @@ def finalize_residuals(delays, batch: PulsarBatch, recipe: Recipe, fit: bool):
 
 def deterministic_delays(batch: PulsarBatch, recipe: Recipe, device="cuda"):
     """Realization-independent delays (the CW catalog), computed once per
-    batch and shared by every realization: (Np, Nt) on ``device``."""
+    batch and shared by every realization: (Np, Nt) on ``device``. With
+    ``recipe.cgw_stream_chunk`` the catalog goes through the streamed
+    pipeline (:func:`cgw_catalog_delays_streamed`)."""
     device = resolve_device(device)
     batch, recipe = batch.to(device), recipe.to(device)
     total = torch.zeros_like(batch.toas_s)
     if recipe.cgw_params is not None:
-        total = total + cgw_catalog_delays(
-            batch, *recipe.cgw_params.cpu().unbind(0),
+        kwargs = dict(
             pdist=recipe.cgw_pdist if recipe.cgw_pdist is not None else 1.0,
             pphase=recipe.cgw_pphase, psr_term=recipe.cgw_psr_term,
             evolve=recipe.cgw_evolve, phase_approx=recipe.cgw_phase_approx,
-            tref_s=recipe.cgw_tref_s, chunk=recipe.cgw_chunk,
+            tref_s=recipe.cgw_tref_s,
         )
+        params = recipe.cgw_params.cpu().unbind(0)
+        if recipe.cgw_stream_chunk is not None:
+            # the streamed pipeline: tiled host planes, staged ahead, one
+            # accumulating launch per macro tile
+            total = total + cgw_catalog_delays_streamed(
+                batch, *params, chunk=recipe.cgw_stream_chunk,
+                prefetch_depth=recipe.cgw_prefetch_depth,
+                plain_chunk=recipe.cgw_chunk, **kwargs,
+            )
+        else:
+            total = total + cgw_catalog_delays(batch, *params, chunk=recipe.cgw_chunk,
+                                               **kwargs)
     return total
 
 

@@ -19,6 +19,13 @@ blocked_cholesky``, whose CUDA kernel is ``csrc/cov_syrk.cu``.
 * :func:`cw_catalog_response` dispatches: CPU tensors go to the plain
   version, CUDA tensors to the hand-written kernel in
   ``csrc/cw_catalog.cu``, which launches or raises.
+* :func:`cw_catalog_plane_tiles` is the generator form of the plane build:
+  host tiles of at most ``chunk`` sources, each bit for bit the column
+  slice of the whole catalog's planes, for the streamed catalog.
+* ``out=`` accumulates: the response of a tile of sources is added to a
+  running (Np, Nt) sum, by the kernel's accumulating launch on the card
+  and from that sum on, source by source in catalog order, so a catalog
+  streamed tile by tile gives the monolithic launch's bits.
 * :func:`cw_kernel_planes` folds the planes into the kernel's: the phase
   words in half-turns and the polarization, antenna and valid products as
   two coefficients per (pulsar, source) and term. It is the plain version
@@ -167,6 +174,43 @@ def cw_catalog_planes(phat, gwtheta, gwphi, mc, dist, fgw, phase0, psi, inc,
     return src, psr
 
 
+def cw_catalog_plane_tiles(phat, gwtheta, gwphi, mc, dist, fgw, phase0, psi, inc,
+                           pdist=1.0, pphase=None, t_fold: float = 0.0,
+                           evolve: bool = True, phase_approx: bool = False,
+                           chunk: int = 65536, dtype=None):
+    """Generator form of :func:`cw_catalog_planes`: host numpy tiles ``(src
+    (NC_SRC, cs), psr (NC_PSR, Np, cs))`` of at most ``chunk`` sources, in
+    catalog order.
+
+    Every plane value is computed per source (the one contraction, ``phat
+    @ m.T``, runs over the 3-vector axis), so each tile is bit for bit the
+    column slice of the whole catalog's planes: each source window goes
+    through :func:`cw_catalog_planes` with the sliced parameters. Host
+    memory is O(Np x chunk). ``dtype`` (numpy) casts each tile on the host,
+    rounding to nearest as the monolithic path's cast does. Counterpart of
+    ``pta_replicator_tpu/ops/pallas_cw.py::cw_catalog_plane_tiles``."""
+    params = [np.atleast_1d(np.asarray(x, np.float64))
+              for x in (gwtheta, gwphi, mc, dist, fgw, phase0, psi, inc)]
+    phat = np.asarray(phat, np.float64)
+    nsrc = max(p.shape[0] for p in params)
+    params = [np.broadcast_to(p, (nsrc,)) for p in params]
+    pdist = np.asarray(pdist, np.float64)
+    pphase = None if pphase is None else np.asarray(pphase, np.float64)
+    window = lambda v, lo, hi: v if v.ndim == 0 else v[..., lo:hi]
+    if chunk <= 0:
+        raise ValueError(f"chunk must be positive, got {chunk}")
+    for lo in range(0, nsrc, chunk):
+        hi = min(lo + chunk, nsrc)
+        src, psr = cw_catalog_planes(
+            phat, *[p[lo:hi] for p in params], pdist=window(pdist, lo, hi),
+            pphase=None if pphase is None else window(pphase, lo, hi),
+            t_fold=t_fold, evolve=evolve, phase_approx=phase_approx,
+        )
+        if dtype is not None:
+            src, psr = np.asarray(src, dtype), np.asarray(psr, dtype)
+        yield src, psr
+
+
 def _expm1_stable(z):
     """exp(z) - 1 as the reference computes it: an 8-term Horner series
     for z > -0.5 (the chirp domain), exp(z) - 1 below, where nothing is
@@ -205,15 +249,19 @@ def _polarized(phase, alpha, inc1, inc2, s2p, c2p):
 
 
 def cw_catalog_response_plain(toas_rel, src, psr, psr_term: bool = True,
-                              evolve: bool = True, chunk: int = 64):
+                              evolve: bool = True, chunk: int = 64, out=None):
     """Summed CW response (Np, Nt) in plain PyTorch, over (Np, S, Nt)
     blocks of ``chunk`` sources in catalog order.
 
     ``toas_rel``: (Np, Nt) seconds relative to the fold epoch of the
     planes; ``src`` (NC_SRC, Ns) and ``psr`` (NC_PSR, Np, Ns) from
-    :func:`cw_catalog_planes`, cast to the dtype of ``toas_rel``."""
+    :func:`cw_catalog_planes`, cast to the dtype of ``toas_rel``. ``out``
+    (Np, Nt), when given, is the running sum the blocks are added to (it
+    is not written; a new tensor is returned): tiles whose widths are
+    multiples of ``chunk`` then sum bit for bit as one call over the whole
+    catalog."""
     u = toas_rel[:, None, :]  # (Np, 1, Nt)
-    out = torch.zeros_like(toas_rel)
+    out = torch.zeros_like(toas_rel) if out is None else out
     for lo in range(0, src.shape[1], chunk):
         s_tile = src[:, lo:lo + chunk]
         p_tile = psr[:, :, lo:lo + chunk]
@@ -313,7 +361,7 @@ def cw_kernel_planes(src, psr, psr_term: bool = True, evolve: bool = True):
 
 def _bind(lib):
     lib.cw_catalog_launch.argtypes = (
-        [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+        [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
     )
     lib.cw_catalog_launch.restype = ctypes.c_int
     lib.cw_fold_planes_launch.argtypes = (
@@ -351,11 +399,13 @@ def _cw_fold(lib, src, psr, psr_term: bool, evolve: bool):
     return planes
 
 
-def _cw_launch(lib, toas_rel, planes, psr_term: bool, evolve: bool):
+def _cw_launch(lib, toas_rel, planes, psr_term: bool, evolve: bool, out=None):
     """Launch ``lib``'s response kernel (a build of ``csrc/cw_catalog.cu``)
     on the current stream over the kernel planes ``planes`` and return the
-    (Np, Nt) sum; raise when the planes do not fit the mode or the launch
-    is refused."""
+    (Np, Nt) sum; with ``out`` (a contiguous (Np, Nt) tensor of the same
+    dtype and device) the accumulating launch, which adds the sum to
+    ``out`` in place and returns it. Raise when the planes do not fit the
+    mode or the launch is refused."""
     npsr, ntoa = toas_rel.shape
     width = lib.cw_kernel_plane_width(int(psr_term), int(evolve))
     if planes.shape != (npsr, planes.shape[1], width) or not planes.is_contiguous() \
@@ -364,22 +414,35 @@ def _cw_launch(lib, toas_rel, planes, psr_term: bool, evolve: bool):
             f"cw_catalog_response: kernel planes {tuple(planes.shape)} do not fit "
             f"(want a contiguous, 16-byte aligned ({npsr}, Ns, {width}))"
         )
-    out = torch.empty_like(toas_rel)
+    accumulate = out is not None
+    if accumulate:
+        if (out.shape != toas_rel.shape or out.dtype != toas_rel.dtype
+                or out.device != toas_rel.device or not out.is_contiguous()):
+            raise ValueError(
+                f"cw_catalog_response: the accumulator {tuple(out.shape)} {out.dtype} "
+                f"does not fit (want a contiguous {tuple(toas_rel.shape)} {toas_rel.dtype} "
+                f"on {toas_rel.device})"
+            )
+    else:
+        out = torch.empty_like(toas_rel)
     with torch.cuda.device(toas_rel.device):
         _check(lib, lib.cw_catalog_launch(
             toas_rel.data_ptr(), planes.data_ptr(), out.data_ptr(),
             npsr, ntoa, planes.shape[1], _DTYPE_CODES[toas_rel.dtype], int(psr_term),
-            int(evolve), torch.cuda.current_stream().cuda_stream))
+            int(evolve), int(accumulate), torch.cuda.current_stream().cuda_stream))
     launches["cw_catalog_response"] += 1
+    if accumulate:
+        launches["cw_catalog_accumulate"] += 1
     return out
 
 
 def cw_catalog_response_cuda(toas_rel, src, psr, psr_term: bool = True,
-                             evolve: bool = True):
+                             evolve: bool = True, out=None):
     """Summed CW response (Np, Nt) from the CUDA kernels
     (``csrc/cw_catalog.cu``: the fold into the kernel planes, then the
-    response), launched on the current stream. Raises on a malformed input,
-    a failed build or a refused launch."""
+    response), launched on the current stream. With ``out`` the response's
+    accumulating launch adds the sum to ``out`` in place and returns it.
+    Raises on a malformed input, a failed build or a refused launch."""
     tensors = (toas_rel, src, psr)
     dtype = toas_rel.dtype
     if dtype not in _DTYPE_CODES:
@@ -398,20 +461,22 @@ def cw_catalog_response_cuda(toas_rel, src, psr, psr_term: bool = True,
     if npsr > 65535:
         raise ValueError(f"cw_catalog_response: {npsr} pulsars exceed the grid's 65535 rows")
     if toas_rel.numel() == 0:
-        return torch.empty_like(toas_rel)
+        return torch.empty_like(toas_rel) if out is None else out
     lib = build.load("cw_catalog", _bind)
     planes = _cw_fold(lib, src.contiguous(), psr.contiguous(), psr_term, evolve)
-    return _cw_launch(lib, toas_rel.contiguous(), planes, psr_term, evolve)
+    return _cw_launch(lib, toas_rel.contiguous(), planes, psr_term, evolve, out=out)
 
 
 def cw_catalog_response(toas_rel, src, psr, psr_term: bool = True,
-                        evolve: bool = True, chunk: int = 64):
-    """Summed CW response (Np, Nt) of the whole catalog. CPU tensors run
-    the plain version (``chunk`` sources per block); CUDA tensors run the
-    kernel, which launches or raises."""
+                        evolve: bool = True, chunk: int = 64, out=None):
+    """Summed CW response (Np, Nt) of the catalog, added to the running sum
+    ``out`` when given. CPU tensors run the plain version (``chunk``
+    sources per block; ``out`` is not written); CUDA tensors run the
+    kernel, which launches (accumulating into ``out`` in place) or
+    raises."""
     if toas_rel.device.type == "cpu":
-        return cw_catalog_response_plain(toas_rel, src, psr, psr_term, evolve, chunk)
-    return cw_catalog_response_cuda(toas_rel, src, psr, psr_term, evolve)
+        return cw_catalog_response_plain(toas_rel, src, psr, psr_term, evolve, chunk, out=out)
+    return cw_catalog_response_cuda(toas_rel, src, psr, psr_term, evolve, out=out)
 
 
 # --------------------------------------------------------------------

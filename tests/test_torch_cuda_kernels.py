@@ -452,3 +452,93 @@ def test_tridiag_factor_alone_and_the_composed_route(cuda_device):
     Z0 = tgp.tridiag_backward_plain(Ld0, M0, tgp.tridiag_forward_solve_plain(Ld0, M0, X))
     assert _rel_max_t(Z, Z0) <= 1e-12
     assert _rel_max_t(tk.block_tridiag_factor_solve(D, E, X)[2], Z) <= 1e-12
+
+
+# ------------------------------------------- B.1's accumulating launch (A.11)
+
+@pytest.mark.parametrize("nsrc", [8, 129, 150, 300])
+@pytest.mark.parametrize("psr_term,evolve", MODES)
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-10), (torch.float32, 3e-3)])
+def test_accumulate_matches_plain(cuda_device, dtype, tol, psr_term, evolve, nsrc):
+    """The accumulating launch against its plain version, acc + plain, at
+    ragged source counts."""
+    u, src, psr = _inputs(nsrc=nsrc, evolve=evolve)  # the first 7 merged (valid = 0)
+    args = [torch.as_tensor(a, dtype=dtype, device=cuda_device) for a in (u, src, psr)]
+    acc0 = tcw.cw_catalog_response(*args, psr_term=psr_term, evolve=evolve) * 0.5
+    launches.clear()
+    got = tcw.cw_catalog_response_cuda(*args, psr_term=psr_term, evolve=evolve,
+                                       out=acc0.clone())
+    torch.cuda.synchronize()
+    assert launches["cw_catalog_accumulate"] == 1 and launches["cw_catalog_response"] == 1
+    want = acc0 + tcw.cw_catalog_response_plain(*args, psr_term=psr_term, evolve=evolve)
+    assert bool(torch.all(torch.isfinite(got)))
+    assert _rel_rms(got, want) <= tol
+
+
+@pytest.mark.parametrize("width", [1, 37, 128, 1000])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_streamed_launches_equal_the_monolithic_bits(cuda_device, dtype, width):
+    """Tiles of any width accumulated source by source give the bits of one
+    launch over the whole catalog."""
+    u, src, psr = _inputs(nsrc=300)
+    u, src, psr = [torch.as_tensor(a, dtype=dtype, device=cuda_device) for a in (u, src, psr)]
+    mono = tcw.cw_catalog_response_cuda(u, src, psr)
+    acc = torch.zeros_like(u)
+    for lo in range(0, src.shape[1], width):
+        acc = tcw.cw_catalog_response_cuda(u, src[:, lo:lo + width].contiguous(),
+                                           psr[..., lo:lo + width].contiguous(), out=acc)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(acc, mono, rtol=0, atol=0)
+
+
+def test_accumulate_refuses_an_accumulator_that_does_not_fit(cuda_device):
+    u, src, psr = [torch.as_tensor(a, device=cuda_device) for a in _inputs()]
+    with pytest.raises(ValueError, match="accumulator"):
+        tcw.cw_catalog_response_cuda(u, src, psr, out=torch.zeros_like(u).float())
+    with pytest.raises(ValueError, match="accumulator"):
+        tcw.cw_catalog_response_cuda(u, src, psr, out=torch.zeros_like(u).t())
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_streamed_deterministic_delays_bitwise_on_the_card(cuda_device, dtype):
+    """deterministic_delays with cgw_stream_chunk (pinned staging on a copy
+    stream, the accumulating launch) equals the monolithic call bit for
+    bit, at prefetch depths 1 and 2."""
+    import dataclasses
+
+    from pta_replicator_tpu_torch import deterministic_delays, flagship_workload
+
+    batch, recipe = flagship_workload(npsr=5, ntoa=700, ncw=300, dtype=dtype)
+    mono = deterministic_delays(batch, recipe)
+    for depth in (1, 2):
+        streamed = dataclasses.replace(recipe, cgw_stream_chunk=64, cgw_prefetch_depth=depth)
+        launches.clear()
+        got = deterministic_delays(batch, streamed)
+        torch.cuda.synchronize()
+        assert launches["cw_catalog_accumulate"] == 1  # 300 sources: one macro of 8 x 64
+        torch.testing.assert_close(got, mono, rtol=0, atol=0)
+
+
+def test_sweep_on_the_card_byte_identical_across_depths(cuda_device, tmp_path):
+    """The sweep on the card: the pinned readback off the compute stream,
+    the fused graph's dispatch thread on the caller's stream; depth 1,
+    depth 2 and fused_stream give the same checkpoint bytes and arrays."""
+    from pta_replicator_tpu_torch import flagship_workload
+    from pta_replicator_tpu_torch.utils.sweep import sweep
+
+    batch, recipe = flagship_workload(npsr=6, ntoa=512, ncw=20)
+    results = {}
+    for name, kw in (("d1", dict(pipeline_depth=1)), ("d2", dict(pipeline_depth=2)),
+                     ("fused", dict(pipeline_depth=2, fused_stream=True))):
+        path = str(tmp_path / f"{name}.npz")
+        stats = {}
+        res = sweep(5, batch, recipe, 24, path, chunk=8, fit=True, reduce_fn=None,
+                    stats=stats, **kw)
+        with open(path, "rb") as fh:
+            results[name] = (res, fh.read())
+        if name != "d1":
+            assert len(stats["d2h_ms"]) == 3
+    for name, (res, raw) in results.items():
+        assert raw == results["d1"][1], name
+        np.testing.assert_array_equal(res, results["d1"][0])
+    assert np.all(np.isfinite(results["d1"][0]))

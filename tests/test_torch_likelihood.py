@@ -399,7 +399,7 @@ def test_server_expires_queued_requests(served, monkeypatch):
 
 # ----------------------------------------------------------- not ported
 
-def test_unported_parts_raise(base):
+def test_unported_parts_raise(base, tmp_path):
     _, _, res, (tb, tr) = base
     with pytest.raises(NotImplementedError, match="A.16"):
         lk.grid_loglikelihood(res, tb, tr, GRID, precision="bf16", device="cpu")
@@ -408,8 +408,9 @@ def test_unported_parts_raise(base):
     with pytest.raises(ValueError, match="precision"):
         tgp.require_precision_ready("fp8")
     assert tgp.require_precision_ready(None) == "highest"
-    with pytest.raises(NotImplementedError, match="A.8"):
-        lk.RealizationBank.from_checkpoint("bank.npz")
+    # the sweep checkpoint is ported (A.8): an empty path now names what it lacks
+    with pytest.raises(FileNotFoundError, match="no completed sweep chunks"):
+        lk.RealizationBank.from_checkpoint(str(tmp_path / "bank.npz"))
 
 
 def test_realization_bank_rows_and_chunks(base):

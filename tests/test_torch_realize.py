@@ -139,7 +139,7 @@ def test_noise_is_validated(port_workload):
     ("burst_hcross", np.zeros(4)),
     ("fit_design", np.zeros((4, 1024, 3))),
     ("gwb_user_spectrum", np.ones((5, 2))),
-    ("cgw_stream_chunk", 64),
+    ("burst_grid", np.zeros(4)),
     ("gwm_params", np.zeros(5)),
     ("burst_sky", np.zeros(3)),
     ("transient_grid", np.zeros(2)),
