@@ -19,8 +19,16 @@ flagship width, realized and priced on the block-tridiagonal kernels, and
 the solar-wind Kronecker covariance with ECORR at 68 x 2,048, priced on
 the dense rung's blocked Cholesky. The CW kernel is also held and timed at
 a population catalog of 10,000 sources at the flagship width, and the
-deterministic delays are driven there through the entry point. It prints
-one JSON line per phase. The
+deterministic delays are driven there through the entry point. The
+full-model refit of a 166-column design drawn on the card runs at the
+flagship width in three modes (quadratic, WLS, GLS; phase `full_fit`),
+with GLS weighted through config B's block-tridiagonal kernels
+(`full_fit_banded`) and config D's blocked Cholesky (`full_fit_dense`);
+the GLS-fitted float64 bank is priced with its own design, the Woodbury
+kernel at 286 columns (`full_fit_likelihood`); and the deterministic
+delays add a burst, a burst with memory and a transient, beside a realize
+with a user GWB spectrum (`deterministic_families`). It prints one JSON
+line per phase. The
 line before the last is the kernels line, the last the result line.
 Without a CUDA device, or without the port beside it, it exits non-zero
 and prints no result; any failed check raises.
@@ -48,6 +56,7 @@ from pta_replicator_tpu_torch.likelihood.infer import _reduced_points, _theta_bl
 from pta_replicator_tpu_torch.models import batched as B
 from pta_replicator_tpu_torch.ops import cw
 from pta_replicator_tpu_torch.ops import gp as ops_gp
+from pta_replicator_tpu_torch.scenarios.compile import deterministic_families
 from pta_replicator_tpu_torch.utils import sweep as sweep_mod
 from pta_replicator_tpu_torch.utils.sweep import chunk_seed, sweep
 
@@ -151,10 +160,44 @@ SOURCES_PER_TILE, CW_STREAM_REPS, CW_STREAM_LARGE = 1024, 5, 100_000
 #: (its default tiles_per_step) for each fold and launch
 SOURCES_PER_MACRO = 8 * SOURCES_PER_TILE
 
+#: the GLS refit's right-hand-side counts on config B: the GP basis alone,
+#: the design and a chunk of realizations
+FIT_WIDTHS = (120, 166, 200)
 #: right-hand-side counts of the substitution sweeps timed beside the GP
-#: basis's: the direct route's single residual (the chain's latency) and a
-#: wider basis
-TRIDIAG_EXTRA_Q = (1, 200)
+#: basis's: the direct route's single residual (the chain's latency), and
+#: the GLS refit's: the GP basis alone (120), the design (166) and a chunk
+#: of realizations (200)
+TRIDIAG_EXTRA_Q = (1, *FIT_WIDTHS)
+#: the full-model refit: the design's columns (bench.py's BENCH_FIT_K) and
+#: the seed of its draw on the card (standard normals, bench.py's shape)
+FIT_COLUMNS, FIT_SEED = 166, 3
+#: the projection gate at full width, float32: max over columns of
+#: |Mn_k^T W r| / |r|_W, W the white weights (WLS) or C^-1 (GLS, applied in
+#: float64), Mn the W-normalized design: the share of a fitted column left
+#: in the residual by the fit (before the weighted-mean subtraction). On
+#: the H100 at the flagship: WLS 2.6e-7 (its float32 products); GLS
+#: 2.4e-8-4.3e-8 (config B's too; config D, float64, 7.1e-12); the GLS fit
+#: with its C^-1 apply in float32, which the port rejects, 4.3e-6. The GLS
+#: limit sits between the last two, and phase full_fit reads that control
+#: and requires it above the limit
+TOL_PROJECTION = {"wls": 1e-5, "gls": 5e-7}
+#: the GLS gates' other half, float64: C z = r for z = C^-1 r, the fit's
+#: own operator applied to its output, with C applied forward from the
+#: noise model's parts (no inverse, no factor): max over realizations and
+#: pulsars of |C z - r| / |r|. The float64 solves read 4.6e-8 (flagship),
+#: 5.5e-8 (config B) and 2.5e-9 (config D) on the H100; a C^-1 without its
+#: GP Woodbury term reads 1e3-1e6 (on the CPU at 6 x 1,024)
+TOL_INVERSE = 1e-6
+#: card float64 vs CPU float64, the largest |error| over the largest
+#: |entry|: the fits (the same float64 products in another order) and the
+#: new deterministic families (burst, memory, transient)
+TOL_FIT_CARD_VS_CPU = 1e-10
+TOL_FAMILIES = 1e-12
+#: the user GWB spectrum of phase deterministic_families: (freq_hz, hc)
+#: nodes between 2 and 60 nHz, so the synthesis grid is clamped at both ends
+USER_SPECTRUM_F = np.geomspace(2e-9, 6e-8, 9)
+USER_SPECTRUM = np.stack([USER_SPECTRUM_F, 1e-15 * (USER_SPECTRUM_F / 1e-8) ** (-2.0 / 3.0)], axis=1)
+
 #: the counter of each block-tridiagonal sweep checked in cov_kernels
 TRIDIAG_COUNTER = {"factor": "tridiag_factor_solve_fwd", "factor_solve": "tridiag_factor_solve_fwd",
                    "solve": "tridiag_solve_fwd", "backward": "tridiag_factor_solve_bwd"}
@@ -922,6 +965,7 @@ def phase_cov_kernels():
                     f"block-tridiagonal kernel vs plain {mode} Q = {qq} {dtype}: {row}")
             if qq in (0, q):
                 rows[mode, dtype] = row
+            rows[mode, dtype, qq] = row
         del D, E, X, Ld, M, Y
     return rows
 
@@ -1489,10 +1533,371 @@ def _accumulate_vs_plain(u, src, psr, recipe, dtype):
 
 
 #: the kernels line's reason where no single PyTorch call computes a kernel
+# ------------------------------------------------- the full-model refit
+
+def _fit_design(batch):
+    """(Np, Nt, FIT_COLUMNS) standard normals drawn on the card from a fixed
+    generator (no 350 MB upload), masked: bench.py's BENCH_FIT design."""
+    g = torch.Generator(device=batch.device).manual_seed(FIT_SEED)
+    design = torch.randn((batch.npsr, batch.ntoa_max, FIT_COLUMNS), generator=g,
+                         dtype=batch.dtype, device=batch.device)
+    return design * batch.mask[..., None]
+
+
+def _projection(system, res, batch):
+    """The projection gate's value, float64: max over realizations,
+    pulsars and columns of |Mn_k^T W r| / |r|_W, W the white weights (WLS)
+    or C^-1 (GLS, the system's own float64 operator), for ``res`` the
+    fit's output (``system.subtract``). ``finalize_residuals`` then removes
+    the weighted mean, as the reference does (a design need not span a
+    constant), which moves a random column's projection to ~0.3 at the
+    flagship: that shift is not the fit's."""
+    r = res.double()
+    if system.gls:
+        Wr = system.cinv_mat(r[..., None])[..., 0]
+        p = torch.einsum("pnk,...pn->...pk", system.design, Wr) / system.norms
+    else:
+        w = (batch.mask / batch.errors_s).double()
+        Wr = r * w**2
+        p = torch.einsum("pnk,...pn->...pk", system.design.double(), r * w)
+    rnorm = torch.sqrt(torch.sum(r * Wr, dim=-1))
+    return float((p.abs() / rnorm[..., None]).max())
+
+
+def _c_matvec(batch, recipe, Y):
+    """C Y for Y (Np, Nt, Q), float64, C the recipe's GLS noise model
+    applied forward from its parts: the white diagonal, each epoch's ECORR
+    block (a scatter over the epoch index), U diag(phi) U^T and the
+    ``noise_cov`` block's own matvec, masked."""
+    f64 = torch.float64
+    b64, r64 = batch.astype(f64), dataclasses.replace(recipe, fit_design=None).astype(f64)
+    sigma2, ecorr2, U, phi = B.gls_noise_model(b64, r64)
+    mask = b64.mask[..., None]
+    Y = Y * mask
+    out = sigma2[..., None] * Y
+    if ecorr2 is not None:
+        idx = b64.epoch_index[..., None].expand(Y.shape)
+        sums = torch.zeros((Y.shape[0], ecorr2.shape[1], Y.shape[2]), dtype=f64,
+                           device=Y.device).scatter_add_(1, idx, Y)
+        out = out + torch.gather(ecorr2[..., None] * sums, 1, idx)
+    if U is not None:
+        out = out + torch.einsum("pnr,prq->pnq", U, phi[..., None] * torch.einsum("pnr,pnq->prq", U, Y))
+    if r64.noise_cov is not None:
+        out = out + r64.noise_cov.matvec(Y, s2=recipe_cov_s2(r64, f64))
+    return out * mask
+
+
+def _inverse_residual(system, res, batch, recipe):
+    """The GLS system's C^-1 held against C applied forward (TOL_INVERSE):
+    max over realizations and pulsars of |C z - r| / |r|, z = C^-1 r for
+    ``res`` (R, Np, Nt) the fit's output, float64."""
+    r = res.double().permute(1, 2, 0)
+    z = system.cinv_mat(r)
+    num = torch.linalg.vector_norm(_c_matvec(batch, recipe, z) - r * batch.mask[..., None], dim=1)
+    return float((num / torch.linalg.vector_norm(r, dim=1)).max())
+
+
+def _f32_apply_control(system, res_of, batch, recipe):
+    """The projection of the same GLS fit with its C^-1 apply in float32
+    (``gls_cinv(dtype=float32)``, the precision the port rejects): the
+    control that TOL_PROJECTION["gls"] must fail. ``res_of(system)`` fits."""
+    cinv32 = B.gls_cinv(batch, recipe, dtype=torch.float32)
+    control = dataclasses.replace(system, cinv_mat=lambda X: cinv32(X.float()).double())
+    return _projection(system, res_of(control), batch)
+
+
+def _chunk_delays(batch, recipe, static, generator, nreal):
+    """(nreal, Np, Nt) delays of one chunk before its fit."""
+    draws = B.draw_noise(generator, batch, recipe, nreal)
+    return (B.realization_delays(batch, recipe, draws) + static).expand(
+        (nreal,) + tuple(batch.toas_s.shape))
+
+
+def _rate(run):
+    """(realizations per second, the last result) of NCHUNKS chunks of
+    CHUNK after one warm-up chunk, synchronised."""
+    out = run()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(NCHUNKS):
+        out = run()
+    torch.cuda.synchronize()
+    return NCHUNKS * CHUNK / (time.perf_counter() - t0), out
+
+
+def _fit_card_vs_cpu(phase, make_recipe, nreal=SMALL_BANK):
+    """The same explicit noise realized with a FIT_COLUMNS-column design
+    fit on the card and on the CPU, float64: the largest |error| over the
+    largest |entry|. ``make_recipe(batch, recipe, design)``."""
+    out = {}
+    design = np.random.default_rng(4).standard_normal((SMALL["npsr"], SMALL["ntoa"], FIT_COLUMNS))
+    rng = np.random.default_rng(5)
+    noise = None
+    for device in ("cpu", "cuda"):
+        b, r = flagship_workload(**SMALL, dtype=torch.float64, device=device)
+        r = make_recipe(b, r, torch.as_tensor(design, device=device))
+        if noise is None:
+            noise = {k: rng.standard_normal((nreal,) + s) for k, s in B.noise_shapes(b, r).items()}
+        out[device] = realize(None, b, r, nreal, fit=True, noise=noise, device=device).cpu()
+    rel = _rel_max(out["cuda"], out["cpu"])
+    emit(phase, shape=SMALL, nreal=nreal, columns=FIT_COLUMNS, rel_card_vs_cpu=rel,
+         tol=TOL_FIT_CARD_VS_CPU)
+    require(rel <= TOL_FIT_CARD_VS_CPU, f"{phase}: card vs CPU {rel}")
+    return rel
+
+
+def phase_full_fit(batch, recipe, static, generator):
+    """The flagship chunk (f32, 200) with its three refits: the quadratic,
+    WLS and GLS (weighted by the recipe's own white, ECORR and 120-column
+    GP model) of a 166-column design drawn on the card. Realizations/s per
+    mode (the assembly built once, as a sweep does), the assembly's ms,
+    gls_fit_uncertainties' ms, each fit's device ms on one chunk, the
+    sidecar fingerprint's ms with the design, and the projection gate;
+    then card f64 vs CPU f64 at the small shape, both modes."""
+    design = _fit_design(batch)
+    recipes = {"quadratic": recipe,
+               "wls": dataclasses.replace(recipe, fit_design=design),
+               "gls": dataclasses.replace(recipe, fit_design=design, fit_gls=True)}
+    delays = _chunk_delays(batch, recipe, static, generator, CHUNK)
+    row = dict(shape=FLAGSHIP, chunk=CHUNK, columns=FIT_COLUMNS, tol_projection=TOL_PROJECTION,
+               tol_inverse=TOL_INVERSE, realizations_per_s={}, assembly_ms={}, fit_device_ms={},
+               projection={})
+    for mode, rec in recipes.items():
+        system = None
+        if mode != "quadratic":
+            system, row["assembly_ms"][mode] = _timed_ms(lambda: B.fit_system(batch, rec))
+        rate, res = _rate(lambda: realize(generator, batch, rec, CHUNK, fit=True, static=static,
+                                          system=system))
+        row["realizations_per_s"][mode] = rate
+        row["fit_device_ms"][mode] = cuda_ms(
+            lambda: B.finalize_residuals(delays, batch, rec, True, system=system), 5)
+        require(bool(torch.isfinite(res).all()), f"full_fit {mode}: non-finite residuals")
+        if system is not None:
+            fitted = system.subtract(delays)
+            row["projection"][mode] = _projection(system, fitted, batch)
+        if mode == "gls":
+            row["inverse_residual"] = _inverse_residual(system, fitted, batch, rec)
+            row["projection_f32_apply_control"] = _f32_apply_control(
+                system, lambda s: s.subtract(delays), batch, rec)
+        del res, system
+    sig, row["uncertainties_ms"] = _timed_ms(
+        lambda: B.gls_fit_uncertainties(batch, design, recipes["gls"]), reps=1)
+    row["uncertainties_finite"] = bool(torch.isfinite(sig).all() and (sig > 0).all())
+    _, row["fingerprint_ms"] = _timed_ms(lambda: sweep_mod._fingerprint(batch, recipe), reps=1)
+    _, row["fingerprint_ms_with_design"] = _timed_ms(
+        lambda: sweep_mod._fingerprint(batch, recipes["gls"]), reps=1)
+    row["design_mb"] = design.numel() * design.element_size() / 1e6
+    emit("full_fit", **row)
+    require(row["uncertainties_finite"], f"full_fit: gls_fit_uncertainties {row}")
+    require(all(v <= TOL_PROJECTION[m] for m, v in row["projection"].items()),
+            f"full_fit projection: {row}")
+    require(row["inverse_residual"] <= TOL_INVERSE, f"full_fit: C^-1 against C: {row}")
+    require(row["projection_f32_apply_control"] > TOL_PROJECTION["gls"],
+            f"full_fit: the projection limit passes the float32 apply it must fail: {row}")
+    del design, recipes, delays, fitted
+    torch.cuda.empty_cache()
+    _fit_card_vs_cpu("full_fit_card_vs_cpu_wls",
+                     lambda b, r, d: dataclasses.replace(r, fit_design=d))
+    _fit_card_vs_cpu("full_fit_card_vs_cpu_gls",
+                     lambda b, r, d: dataclasses.replace(r, fit_design=d, fit_gls=True))
+
+
+def phase_full_fit_banded(batch, recipe, static, generator):
+    """Config B with the GLS refit (f32 chunk of 200; the C^-1 apply in
+    f64): the assembly factors C0 once (B.4) and solves the GP basis (Q =
+    120) and the design (Q = 166) through B.4/B.5; each chunk's C0 solve
+    takes its 200 realizations as right-hand sides of one B.4/B.5 pair.
+    Launch counts cleared before and read after each stage; then card vs
+    CPU at the small shape."""
+    f64 = torch.float64
+    design = _fit_design(batch)
+    rec = dataclasses.replace(_config_b(batch, recipe, torch.float32), fit_design=design,
+                              fit_gls=True)
+    launches.clear()
+    system = B.fit_system(batch, rec)
+    torch.cuda.synchronize()
+    assembly_counts = {k: launches[k] for k in COV_KERNELS}
+    _, assembly_ms = _timed_ms(lambda: B.fit_system(batch, rec))
+    launches.clear()
+    run = lambda: realize(generator, batch, rec, CHUNK, fit=True, static=static, system=system)
+    res = run()
+    torch.cuda.synchronize()
+    chunk_counts = {k: launches[k] for k in COV_KERNELS}
+    rate, res = _rate(run)
+    busy, top = _device_busy(run)
+    safe, _ = _safe_sigma2(batch.astype(f64), rec)
+    D, E = cov_structure.banded_c0_blocks(rec.noise_cov, safe, recipe_cov_s2(rec, f64), f64)
+    _, factor_ms = _timed_ms(lambda: ops_gp.tridiag_forward(D, E))
+    row = dict(shape=FLAGSHIP, block=BANDED["block"], chunk=CHUNK, columns=FIT_COLUMNS,
+               realizations_per_s=rate, assembly_ms=assembly_ms, factor_ms=factor_ms,
+               assembly_launches=assembly_counts, chunk_launches=chunk_counts,
+               chunk_tridiag_device_ms=sum(ms for k, ms in top if "tridiag" in k),
+               chunk_tridiag_kernels_ms=[[k, ms] for k, ms in top if "tridiag" in k],
+               device_busy_share=busy, top_kernels_ms=top[:5],
+               tol_projection=TOL_PROJECTION["gls"], tol_inverse=TOL_INVERSE)
+    fitted = system.subtract(_chunk_delays(batch, rec, static, generator, CHUNK))
+    row["projection"] = _projection(system, fitted, batch)
+    row["inverse_residual"] = _inverse_residual(system, fitted, batch, rec)
+    emit("full_fit_banded", **row)
+    require(assembly_counts["tridiag_factor_solve_fwd"] >= 1
+            and assembly_counts["tridiag_solve_fwd"] >= 2
+            and chunk_counts["tridiag_solve_fwd"] == 1 and chunk_counts["tridiag_factor_solve_bwd"] == 1,
+            f"config B's GLS refit did not run B.4/B.5 as planned: {row}")
+    require(row["projection"] <= TOL_PROJECTION["gls"], f"full_fit_banded projection: {row}")
+    require(row["inverse_residual"] <= TOL_INVERSE, f"full_fit_banded: C^-1 against C: {row}")
+    del system, res, D, E, design, rec, fitted
+    torch.cuda.empty_cache()
+    _fit_card_vs_cpu("full_fit_banded_card_vs_cpu", lambda b, r, d: dataclasses.replace(
+        _config_b(b, r, torch.float64), fit_design=d, fit_gls=True))
+    return {k: assembly_counts[k] + chunk_counts[k] for k in COV_KERNELS}
+
+
+def phase_full_fit_dense():
+    """Config D (68 x 2,048, f64, the Kronecker op with ECORR) with the GLS
+    refit: the assembly materializes C0 and factors it once on the blocked
+    Cholesky (B.2); a bank of DENSE_BANK realizations then applies the
+    hoisted factor (no B.2 launch per chunk, where a rebuild would
+    refactor C0). Then card vs CPU at the small shape."""
+    batch, recipe = flagship_workload(**DENSE_SHAPE, dtype=torch.float64)
+    design = _fit_design(batch)
+    rec = dataclasses.replace(_config_d(batch, recipe), fit_design=design, fit_gls=True)
+    generator = torch.Generator(device=batch.device).manual_seed(4)
+    static = deterministic_delays(batch, rec)
+    launches.clear()
+    system = B.fit_system(batch, rec)
+    torch.cuda.synchronize()
+    assembly_syrk = launches["cov_syrk_update"]
+    _, assembly_ms = _timed_ms(lambda: B.fit_system(batch, rec))
+    busy_a, top_a = _device_busy(lambda: B.fit_system(batch, rec))
+    launches.clear()
+    run = lambda: realize(generator, batch, rec, DENSE_BANK, fit=True, static=static, system=system)
+    res, realize_ms = _timed_ms(run)
+    chunk_syrk = launches["cov_syrk_update"]
+    row = dict(shape=DENSE_SHAPE, nreal=DENSE_BANK, columns=FIT_COLUMNS,
+               realizations_per_s=DENSE_BANK / (realize_ms / 1e3), realize_ms=realize_ms,
+               assembly_ms=assembly_ms, assembly_syrk_launches=assembly_syrk,
+               assembly_syrk_device_ms=sum(ms for k, ms in top_a if "cov_syrk" in k),
+               assembly_device_busy_share=busy_a, assembly_top_kernels_ms=top_a[:5],
+               chunk_syrk_launches=chunk_syrk // 3,
+               tol_projection=TOL_PROJECTION["gls"], tol_inverse=TOL_INVERSE)
+    fitted = system.subtract(_chunk_delays(batch, rec, static, generator, DENSE_BANK))
+    row["projection"] = _projection(system, fitted, batch)
+    row["inverse_residual"] = _inverse_residual(system, fitted, batch, rec)
+    emit("full_fit_dense", **row)
+    require(assembly_syrk > 0 and chunk_syrk == 0,
+            f"config D's GLS refit: B.2 not once in the assembly alone: {row}")
+    require(row["projection"] <= TOL_PROJECTION["gls"], f"full_fit_dense projection: {row}")
+    require(row["inverse_residual"] <= TOL_INVERSE, f"full_fit_dense: C^-1 against C: {row}")
+    del system, res, design, rec, batch, fitted
+    torch.cuda.empty_cache()
+    _fit_card_vs_cpu("full_fit_dense_card_vs_cpu", lambda b, r, d: dataclasses.replace(
+        _config_d(b, r), fit_design=d, fit_gls=True))
+    return assembly_syrk
+
+
+def phase_full_fit_likelihood(batch, recipe, generator):
+    """The f64 GLS-fitted flagship bank (200) priced with its own design:
+    bank_loglikelihood(..., design=fit_design, fused=True) over the 4 x 4
+    GWB grid runs B.3 at Q = 166 + 120 = 286 (launches cleared just
+    before, read just after), cross-checked against fused=False; then the
+    B.3 row at Q = 286 against its plain version and torch.bmm."""
+    design = _fit_design(batch)
+    rec = dataclasses.replace(recipe, fit_design=design, fit_gls=True)
+    bank = realize(generator, batch, rec, CHUNK, fit=True)
+    grid, shape = lk.grid_cartesian(DENSE_GRID)
+    launches.clear()
+    ll = lk.bank_loglikelihood(bank, batch, rec, grid=grid, design=design, fused=True).cpu()
+    count = launches["fused_woodbury_update"]
+    ll_c = lk.bank_loglikelihood(bank, batch, rec, grid=grid, design=design).cpu()
+    rel = float(((ll - ll_c).abs() / ll_c.abs()).max())
+    _, call_ms = _timed_ms(lambda: lk.bank_loglikelihood(bank, batch, rec, grid=grid,
+                                                         design=design, fused=True))
+    G, R = int(np.prod(shape)), bank.shape[0]
+    out = dict(bank_shape=list(bank.shape), grid_shape=list(shape),
+               basis_columns=FIT_COLUMNS + int(lgp.phi_for_recipe(batch, rec).shape[-1]),
+               woodbury_launches=count, rel_fused_vs_composed=rel, tol=TOL_LIKELIHOOD,
+               call_ms=call_ms, evals_per_s=G * R / (call_ms / 1e3),
+               finite=bool(torch.isfinite(ll).all()))
+    emit("full_fit_likelihood", **out)
+    require(count == 1 and out["basis_columns"] == 286,
+            f"the GLS-fitted bank did not launch B.3 once at Q = 286: {out}")
+    require(out["finite"] and rel <= TOL_LIKELIHOOD, f"GLS-fitted bank fused vs composed: {out}")
+    del bank
+    torch.cuda.empty_cache()
+    row = phase_woodbury_kernel(batch, rec, design, "GLS-fitted bank: design 166 + GP 120")
+    return count, row
+
+
+def phase_deterministic_families(batch, recipe, generator):
+    """deterministic_delays at the flagship width (f32) with the CW catalog
+    plus one burst, one burst with memory and one transient, drawn as the
+    reference's scenario compiler draws them; then a realize chunk with a
+    user GWB spectrum in place of the power law. Gates, float64 card vs
+    CPU at the small shape: the three new families <= TOL_FAMILIES, the
+    sum with the CW catalog <= the CW kernel's TOL, the user-spectrum
+    realizations <= TOL_FIT_CARD_VS_CPU."""
+    def with_families(b, r):
+        fam = deterministic_families(b, seed=7, transient_psr=5)
+        return dataclasses.replace(
+            r, **{k: v if k == "transient_psr" else torch.as_tensor(v, device=b.device)
+                  for k, v in fam.items()})
+
+    def with_spectrum(b, r):
+        return dataclasses.replace(r, gwb_log10_amplitude=None, gwb_gamma=None,
+                                   gwb_user_spectrum=torch.as_tensor(USER_SPECTRUM, device=b.device))
+
+    rec = with_families(batch, recipe)
+    launches.clear()
+    static, static_ms = _timed_ms(lambda: deterministic_delays(batch, rec))
+    counts = {k: launches[k] // 3 for k in ("cw_catalog_response", "cw_fold_planes")}
+    _, cw_only_ms = _timed_ms(lambda: deterministic_delays(batch, recipe))
+    no_cw = dataclasses.replace(rec, cgw_params=None)
+    fam_only, families_ms = _timed_ms(lambda: deterministic_delays(batch, no_cw))
+    spec = with_spectrum(batch, rec)
+    spectrum_rate, _ = _rate(lambda: realize(generator, batch, spec, CHUNK, fit=True,
+                                             static=static))
+    power_law_rate, _ = _rate(lambda: realize(generator, batch, rec, CHUNK, fit=True,
+                                              static=static))
+    cb, cr = flagship_workload(**SMALL, dtype=torch.float64, device="cpu")
+    gb, gr = flagship_workload(**SMALL, dtype=torch.float64)
+    cr, gr = with_families(cb, cr), with_families(gb, gr)
+    gates = {}
+    for name, drop_cw, tol in (("families", True, TOL_FAMILIES),
+                               ("families_and_cw", False, TOL[torch.float64])):
+        pick = lambda r: dataclasses.replace(r, cgw_params=None) if drop_cw else r
+        ref = deterministic_delays(cb, pick(cr), device="cpu")
+        gates[name] = (_rel_max(deterministic_delays(gb, pick(gr)).cpu(), ref), tol)
+    rng = np.random.default_rng(6)
+    cr, gr = with_spectrum(cb, cr), with_spectrum(gb, gr)
+    noise = {k: rng.standard_normal((SMALL_BANK,) + s) for k, s in B.noise_shapes(cb, cr).items()}
+    ref = realize(None, cb, cr, SMALL_BANK, fit=True, noise=noise, device="cpu")
+    got = realize(None, gb, gr, SMALL_BANK, fit=True, noise=noise).cpu()
+    gates["user_spectrum_realize"] = (_rel_max(got, ref), TOL_FIT_CARD_VS_CPU)
+    row = dict(shape=FLAGSHIP, static_ms=static_ms, cw_only_ms=cw_only_ms,
+               families_only_ms=families_ms, chunk=CHUNK,
+               user_spectrum_realizations_per_s=spectrum_rate,
+               power_law_realizations_per_s=power_law_rate,
+               cw_launches=counts, transient_psr=rec.transient_psr,
+               finite=bool(torch.isfinite(static).all() and torch.isfinite(fam_only).all()),
+               nonzero_families=bool(fam_only.abs().max() > 0),
+               card_vs_cpu={k: {"rel": v, "tol": t} for k, (v, t) in gates.items()})
+    emit("deterministic_families", **row)
+    require(min(counts.values()) > 0, f"deterministic_families never launched B.1: {row}")
+    require(row["finite"] and row["nonzero_families"], f"deterministic_families output: {row}")
+    require(all(v <= t for v, t in gates.values()), f"deterministic_families card vs CPU: {row}")
+    return counts["cw_catalog_response"]
+
+
 NO_LIBRARY = "none: no single PyTorch call computes it"
 #: the instruction account is the CW kernel's (kernels/cw_study.py); the
 #: other kernels have none
 NO_ISSUE_ACCOUNT = {"issue_ms": "not measured", "instructions_per_element": "not measured"}
+
+
+def _width_row(row):
+    """A kernel row's numbers at one more launch shape, for the kernels line."""
+    return {k: row[k] for k in ("shape", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                                "library_ms")}
 
 
 def _cov_kernel_entry(name, source, replaces, launches_, row):
@@ -1520,6 +1925,8 @@ def main():
     del population
     phase_breakdown(batch, recipe, static, generator)
     phase_card_vs_cpu(SMALL)
+    phase_full_fit(batch, recipe, static, generator)
+    families_count = phase_deterministic_families(batch, recipe, generator)
     batch64, recipe64 = flagship_workload(**FLAGSHIP, dtype=torch.float64)
     workdir = Path(tempfile.mkdtemp(prefix="chip_smoke_sweep_"))
     try:
@@ -1538,13 +1945,19 @@ def main():
     phase_likelihood_float32(bank, batch, recipe, ll)
     phase_likelihood_server(bank, batch64, recipe64, design, ll)
     phase_likelihood_card_vs_cpu(SMALL)
-    del bank, batch64, recipe64, design
+    del bank
+    torch.cuda.empty_cache()
+    gls_bank_count, gls_bank_row = phase_full_fit_likelihood(
+        batch64, recipe64, torch.Generator(device=batch64.device).manual_seed(5))
+    del batch64, recipe64, design
     cov_rows = phase_cov_kernels()
     tridiag_counts = phase_covariance_banded(batch, recipe, static, generator)
     _card_vs_cpu("covariance_banded_card_vs_cpu",
                  lambda b, r: _config_b(b, r, torch.float64), SMALL_BANK)
+    fit_tridiag_counts = phase_full_fit_banded(batch, recipe, static, generator)
     syrk_count = phase_covariance_dense()
     _card_vs_cpu("covariance_dense_card_vs_cpu", _config_d, SMALL_BANK)
+    fit_syrk_count = phase_full_fit_dense()
     f64 = torch.float64
     print(json.dumps({"kernels": [{
         "name": "cw_catalog_response", "route": "cuda",
@@ -1560,6 +1973,7 @@ def main():
         "accumulate_ms": accumulate_row["ms"], "accumulate_plain_ms": accumulate_row["plain_ms"],
         "issue_ms": kernel_row["issue_ms"],
         "instructions_per_element": kernel_row["instructions_per_element"],
+        "families_launches": families_count,
     }, {
         "name": "fused_woodbury_update", "route": "cuda",
         "source": "pta_replicator_tpu_torch/csrc/fused_woodbury.cu",
@@ -1568,19 +1982,26 @@ def main():
         "ms": woodbury_row["ms"], "plain_ms": woodbury_row["plain_ms"],
         "bound_ms": woodbury_row["bound_ms"], "bound_by": woodbury_row["bound_by"],
         "library_ms": woodbury_row["library_ms"], **NO_ISSUE_ACCOUNT,
+        "gls_bank_launches": gls_bank_count, "gls_bank_q286": _width_row(gls_bank_row),
     },
-        _cov_kernel_entry("cov_syrk_update", "pta_replicator_tpu_torch/csrc/cov_syrk.cu",
-                          "pta_replicator_tpu/ops/pallas_cw.py:484", syrk_count,
-                          cov_rows["cov_syrk_update", f64]),
-        _cov_kernel_entry("tridiag_factor_solve_fwd", "pta_replicator_tpu_torch/csrc/block_tridiag.cu",
-                          "pta_replicator_tpu/ops/pallas_gp.py:428",
-                          tridiag_counts["tridiag_factor_solve_fwd"], cov_rows["factor", f64]),
-        _cov_kernel_entry("tridiag_solve_fwd", "pta_replicator_tpu_torch/csrc/block_tridiag.cu",
-                          "pta_replicator_tpu/ops/pallas_gp.py:428",
-                          tridiag_counts["tridiag_solve_fwd"], cov_rows["solve", f64]),
-        _cov_kernel_entry("tridiag_factor_solve_bwd", "pta_replicator_tpu_torch/csrc/block_tridiag.cu",
-                          "pta_replicator_tpu/ops/pallas_gp.py:458",
-                          tridiag_counts["tridiag_factor_solve_bwd"], cov_rows["backward", f64]),
+        {**_cov_kernel_entry("cov_syrk_update", "pta_replicator_tpu_torch/csrc/cov_syrk.cu",
+                             "pta_replicator_tpu/ops/pallas_cw.py:484", syrk_count,
+                             cov_rows["cov_syrk_update", f64]),
+         "gls_fit_launches": fit_syrk_count},
+        {**_cov_kernel_entry("tridiag_factor_solve_fwd", "pta_replicator_tpu_torch/csrc/block_tridiag.cu",
+                             "pta_replicator_tpu/ops/pallas_gp.py:428",
+                             tridiag_counts["tridiag_factor_solve_fwd"], cov_rows["factor", f64]),
+         "gls_fit_launches": fit_tridiag_counts["tridiag_factor_solve_fwd"]},
+        {**_cov_kernel_entry("tridiag_solve_fwd", "pta_replicator_tpu_torch/csrc/block_tridiag.cu",
+                             "pta_replicator_tpu/ops/pallas_gp.py:428",
+                             tridiag_counts["tridiag_solve_fwd"], cov_rows["solve", f64]),
+         "gls_fit_launches": fit_tridiag_counts["tridiag_solve_fwd"],
+         "fit_widths": {str(q): _width_row(cov_rows["solve", f64, q]) for q in FIT_WIDTHS}},
+        {**_cov_kernel_entry("tridiag_factor_solve_bwd", "pta_replicator_tpu_torch/csrc/block_tridiag.cu",
+                             "pta_replicator_tpu/ops/pallas_gp.py:458",
+                             tridiag_counts["tridiag_factor_solve_bwd"], cov_rows["backward", f64]),
+         "gls_fit_launches": fit_tridiag_counts["tridiag_factor_solve_bwd"],
+         "fit_widths": {str(q): _width_row(cov_rows["backward", f64, q]) for q in FIT_WIDTHS}},
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

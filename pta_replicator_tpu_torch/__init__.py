@@ -2,9 +2,11 @@
 
 Simulated pulsar-timing-array datasets on an NVIDIA GPU: the flagship
 realization path (white, ECORR, red and chromatic noise, a
-Hellings-Downs-correlated GW background, a CW catalog through a
-hand-written CUDA kernel, and the quadratic refit), batched over pulsars
-and realizations; and the rank-reduced GP likelihood that prices a bank
+Hellings-Downs-correlated GW background with a power-law or user
+spectrum, a CW catalog through a hand-written CUDA kernel, bursts, bursts
+with memory and transients, and the refit: the quadratic, or a full
+design by WLS or by GLS weighted by the recipe's own noise model),
+batched over pulsars and realizations; and the rank-reduced GP likelihood that prices a bank
 of realizations over a hyperparameter grid or through a request-batched
 server (``likelihood/``), its Woodbury assembly a hand-written CUDA
 kernel; and structured noise covariances (``covariance/``: banded,

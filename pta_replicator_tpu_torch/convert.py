@@ -24,11 +24,8 @@ _STATIC_FIELDS = ("tref_mjd", "names", "backend_names", "start_s", "stop_s")
 
 #: JAX-only Recipe knobs with no counterpart in the port: the CW backend
 #: choice and the synthesis precision (the port has one CW dispatch and
-#: always synthesizes in IEEE float32) and the transient's pulsar (inert
-#: without its unported feature)
-JAX_ONLY_RECIPE_FIELDS = frozenset({
-    "cgw_backend", "gwb_synthesis_precision", "transient_psr",
-})
+#: always synthesizes in IEEE float32)
+JAX_ONLY_RECIPE_FIELDS = frozenset({"cgw_backend", "gwb_synthesis_precision"})
 
 
 def _tensor(value, dtype=None) -> torch.Tensor:
@@ -82,10 +79,11 @@ def covop_from_arrays(fields, device="cuda") -> CovOp:
 
 def recipe_from_arrays(fields, device="cuda") -> Recipe:
     """The port's Recipe from a JAX Recipe's fields. JAX-only knobs
-    (:data:`JAX_ONLY_RECIPE_FIELDS`) are dropped; a ``noise_cov`` op is
-    carried across by :func:`covop_from_arrays`; an unported feature that
-    is set raises ``NotImplementedError``; an unknown field raises
-    ``TypeError``."""
+    (:data:`JAX_ONLY_RECIPE_FIELDS`) are dropped; every other field is
+    carried across (each array copied once to the host, then moved to
+    ``device``); a ``noise_cov`` op is carried across by
+    :func:`covop_from_arrays`, a nested low-rank op's bases too; an unknown
+    field raises ``TypeError``."""
     device = resolve_device(device)
     kwargs = {
         name: _tensor(value) if hasattr(value, "__array__") else value

@@ -25,7 +25,9 @@ structured product and never a factorization. Ops are unit-normalized
 Random draws: where the reference folds a key into the realization key,
 the port takes explicit standard normals (``draw_shapes`` names them):
 ``"cov"`` (..., Np, Nt) for the structure and, for :class:`LowRankCov`,
-``"cov_lowrank"`` (..., Np, R); leading axes are realizations.
+``"cov_lowrank"`` (..., Np, R); a low-rank op nested ``d`` levels down
+(a low-rank op's base that is itself low rank) names its draw
+``"cov_lowrank_d"``. Leading axes are realizations.
 
 Padding convention: stored structure blocks are zero on padding rows and
 columns; factors are of the structure plus identity at padding
@@ -149,6 +151,12 @@ class CovOp:
 
 def _draw(draws, name, like):
     return torch.as_tensor(draws[name]).to(dtype=like.dtype, device=like.device)
+
+
+def lowrank_draw_name(depth: int) -> str:
+    """The draw of the low-rank op ``depth`` levels down a nest of
+    :class:`LowRankCov` (0: the outermost)."""
+    return "cov_lowrank" if depth == 0 else f"cov_lowrank_{depth}"
 
 
 # ------------------------------------------------------------- dense
@@ -476,13 +484,14 @@ class LowRankCov(CovOp):
     def ntoa(self) -> int:
         return self.base.ntoa
 
-    def draw_shapes(self) -> dict:
-        if isinstance(self.base, LowRankCov):
-            raise NotImplementedError(
-                "sampling a LowRankCov over another LowRankCov is not ported "
-                "(its draws would need a second low-rank family)"
-            )
-        return {**self.base.draw_shapes(), "cov_lowrank": tuple(self.phi.shape)}
+    def draw_shapes(self, depth: int = 0) -> dict:
+        """The base's draws, then this op's own low-rank draw
+        (:func:`lowrank_draw_name`); a low-rank base names its draws one
+        level deeper. The reference splits the key (base, low rank) at
+        each level; the draws here are those two subkeys' normals."""
+        base = (self.base.draw_shapes(depth + 1) if isinstance(self.base, LowRankCov)
+                else self.base.draw_shapes())
+        return {**base, lowrank_draw_name(depth): tuple(self.phi.shape)}
 
     def matvec(self, x, s2=None):
         s2 = _s2_arr(s2, self.U)
@@ -517,10 +526,12 @@ class LowRankCov(CovOp):
         return (self.base.logdet() + K._chol_logdet(L) + torch.sum(torch.log(self.phi), dim=-1)
                 + self.nvalid * torch.log(_s2_arr(s2, self.U)))
 
-    def sample(self, draws, s2=None):
-        z = _draw(draws, "cov_lowrank", self.U)
+    def sample(self, draws, s2=None, depth: int = 0):
+        z = _draw(draws, lowrank_draw_name(depth), self.U)
         lr = torch.einsum("pnr,...pr->...pn", self.U, torch.sqrt(self.phi) * z)
-        return (self.base.sample(draws) + lr) * _bcol(torch.sqrt(_s2_arr(s2, self.U)), 1)
+        base = (self.base.sample(draws, depth=depth + 1) if isinstance(self.base, LowRankCov)
+                else self.base.sample(draws))
+        return (base + lr) * _bcol(torch.sqrt(_s2_arr(s2, self.U)), 1)
 
     def dense(self, pad_identity: bool = True) -> np.ndarray:
         U, phi = _as_np64(self.U), _as_np64(self.phi)

@@ -69,8 +69,10 @@ def _reducible(names: Tuple[str, ...], recipe: Recipe) -> bool:
         return False
     if any(getattr(recipe, name) is None for name in names):
         return False
+    # a GWB block is on with a power-law amplitude or a user spectrum
     return any(getattr(recipe, name) is not None for name in (
-        "rn_log10_amplitude", "chrom_log10_amplitude", "gwb_log10_amplitude"))
+        "rn_log10_amplitude", "chrom_log10_amplitude", "gwb_log10_amplitude",
+        "gwb_user_spectrum"))
 
 
 def _theta_block(grid: Dict[str, object], dtype, device) -> Tuple[tuple, torch.Tensor]:

@@ -37,6 +37,7 @@ from ..covariance.structure import (
 from ..device import resolve_device
 from ..ops.cw import cw_catalog_plane_tiles, cw_catalog_planes, cw_catalog_response
 from ..ops.fourier import fourier_basis, fourier_frequencies, powerlaw_prior
+from .cgw import principal_axes
 from .gwb import (
     characteristic_strain,
     dft_synthesis_matrices,
@@ -262,7 +263,8 @@ def _synthesis_tensors(nf: int, npts: int, dtype, device):
 def gwb_delays(generator, batch: PulsarBatch, log10_amplitude, gamma,
                orf_cholesky, npts: int = 600, howml: float = 10,
                turnover: bool = False, f0: float = 1e-9, beta: float = 1.0,
-               power: float = 1.0, synthesis: str = "auto", eps=None):
+               power: float = 1.0, user_spectrum=None, synthesis: str = "auto",
+               eps=None):
     """Correlated GWB across the array: the one cross-pulsar op.
 
     ``eps`` (..., 2, Ncol, nf) holds the real and imaginary standard
@@ -270,7 +272,9 @@ def gwb_delays(generator, batch: PulsarBatch, log10_amplitude, gamma,
     The complex mix with the real Cholesky factor is two real matmuls; the
     hermitian synthesis is a dense (nf x npts) matmul evaluating only the
     used samples (``"matmul"``, the default whenever it is smaller than the
-    full inverse FFT) or ``torch.fft.irfft`` (``"fft"``)."""
+    full inverse FFT) or ``torch.fft.irfft`` (``"fft"``). A
+    ``user_spectrum`` (F, 2) [freq_hz, hc] replaces the power law
+    (:func:`~.gwb.characteristic_strain`)."""
     dtype = batch.dtype
     ut, f, dt_grid = _device_grid(batch.start_s, batch.stop_s, npts, howml,
                                   dtype, batch.device)
@@ -280,9 +284,10 @@ def gwb_delays(generator, batch: PulsarBatch, log10_amplitude, gamma,
     if eps is None:
         eps = _normal(generator, (2, M.shape[1], nf), batch)
 
+    opt = lambda x: None if x is None else _as(x, batch)
     hcf = characteristic_strain(
-        f, _as(log10_amplitude, batch), _as(gamma, batch),
-        turnover=turnover, f0=f0, beta=beta, power=power,
+        f, opt(log10_amplitude), opt(gamma), turnover=turnover, f0=f0, beta=beta,
+        power=power, user_spectrum=opt(user_spectrum),
     )
     # sqrt(C) with the DC and Nyquist bins zeroed (a 0/1 mask, so folding
     # it into the scale changes no value)
@@ -467,6 +472,63 @@ def cgw_catalog_delays_streamed(batch: PulsarBatch, gwtheta, gwphi, mc, dist, fg
                               stats=stats)
 
 
+def _batch_antenna(gwtheta, gwphi, phat):
+    """F+, Fx of one source direction against every pulsar: (Np,) each,
+    from :func:`~.cgw.principal_axes` on tensors in ``phat``'s dtype."""
+    m, n, omhat = principal_axes(gwtheta, gwphi)
+    mp, np_, op = phat @ m, phat @ n, phat @ omhat
+    return 0.5 * (mp**2 - np_**2) / (1.0 + op), mp * np_ / (1.0 + op)
+
+
+def gw_memory_delays(batch: PulsarBatch, strain, gwtheta, gwphi, bwm_pol, t0_mjd):
+    """Burst with memory across the array: the polarization-projected
+    strain ramp from epoch ``t0_mjd``, one masked (Np, Nt) ramp (the
+    reference's per-TOA loop, written out)."""
+    fplus, fcross = _batch_antenna(_as(gwtheta, batch), _as(gwphi, batch), batch.phat)
+    pol = _as(bwm_pol, batch)
+    proj = torch.cos(2.0 * pol) * fplus + torch.sin(2.0 * pol) * fcross
+    t0_s = (_as(t0_mjd, batch) - batch.tref_mjd) * 86400.0
+    ramp = torch.clamp(batch.toas_s - t0_s, min=0.0)
+    return _as(strain, batch) * proj[:, None] * ramp * batch.mask
+
+
+def burst_delays(batch: PulsarBatch, gwtheta, gwphi, hplus_grid, hcross_grid,
+                 grid_start_s, grid_stop_s, psi=0.0):
+    """Elliptically polarized burst across the array. The waveforms arrive
+    pre-sampled on a uniform (G,) grid over [grid_start_s, grid_stop_s]
+    (seconds from the batch epoch), are rotated by ``psi``, projected on
+    each pulsar's antenna pattern and interpolated onto its TOAs
+    (:func:`uniform_grid_interp`); zero outside the window."""
+    hp, hc = _as(hplus_grid, batch), _as(hcross_grid, batch)
+    psi = _as(psi, batch)
+    c2, s2 = torch.cos(2.0 * psi), torch.sin(2.0 * psi)
+    rp, rc = hp * c2 - hc * s2, hp * s2 + hc * c2
+    fplus, fcross = _batch_antenna(_as(gwtheta, batch), _as(gwphi, batch), batch.phat)
+    series = -fplus[:, None] * rp[None, :] - fcross[:, None] * rc[None, :]
+    start, stop = _as(grid_start_s, batch), _as(grid_stop_s, batch)
+    out = uniform_grid_interp(batch.toas_s, start, stop, series)
+    inside = (batch.toas_s >= start) & (batch.toas_s <= stop)
+    return torch.where(inside, out, 0.0) * batch.mask
+
+
+def transient_delays(batch: PulsarBatch, psr_index: int, waveform_grid,
+                     grid_start_s, grid_stop_s):
+    """An un-projected transient in pulsar ``psr_index`` alone (glitch-like),
+    pre-sampled as in :func:`burst_delays`: (Np, Nt), zero in every other
+    row and outside the window."""
+    if not 0 <= psr_index < batch.npsr:
+        raise ValueError(
+            f"transient_psr={psr_index} is outside the batch's {batch.npsr} pulsars"
+        )
+    t = batch.toas_s[psr_index]
+    start, stop = _as(grid_start_s, batch), _as(grid_stop_s, batch)
+    row = uniform_grid_interp(t, start, stop, _as(waveform_grid, batch))
+    inside = (t >= start) & (t <= stop)
+    out = torch.zeros_like(batch.toas_s)
+    out[psr_index] = torch.where(inside, row, 0.0) * batch.mask[psr_index]
+    return out
+
+
 # ------------------------------------------------------------------ recipes
 
 #: Recipe fields that hold arrays; they become tensors at construction
@@ -480,31 +542,15 @@ ARRAY_FIELDS = (
     "fit_design",
 )
 
-#: fields of the JAX package's Recipe that this port does not run yet, and
-#: the ROADMAP.md item that brings each
-UNPORTED_FIELDS = {
-    "fit_design": "A.9 (design and GLS fits)",
-    "gwb_user_spectrum": "A.13 (user GWB spectra)",
-    "gwm_params": "A.12 (bursts, memory, transients)",
-    "burst_sky": "A.12 (bursts, memory, transients)",
-    "burst_hplus": "A.12 (bursts, memory, transients)",
-    "burst_hcross": "A.12 (bursts, memory, transients)",
-    "burst_grid": "A.12 (bursts, memory, transients)",
-    "transient_waveform": "A.12 (bursts, memory, transients)",
-    "transient_grid": "A.12 (bursts, memory, transients)",
-}
-
-
 @dataclass(frozen=True)
 class Recipe:
     """Which signals to inject, with their (possibly per-backend) params.
 
     Array fields are tensors (array-likes are converted at construction)
     and keep their own dtype: each op casts them to the batch's dtype at
-    use, and the CW parameters reach the host plane build in float64. The
-    fields in :data:`UNPORTED_FIELDS` exist so that a recipe carried over
-    from the JAX package keeps its meaning: setting one raises
-    ``NotImplementedError``.
+    use, and the CW parameters reach the host plane build in float64.
+    ``to()`` and ``astype()`` move and cast every one, ``fit_design``
+    included.
     """
 
     efac: Optional[torch.Tensor] = None
@@ -528,6 +574,8 @@ class Recipe:
     gwb_gamma: Optional[torch.Tensor] = None
     #: Cholesky factor of the ORF; None = uncorrelated common process
     orf_cholesky: Optional[torch.Tensor] = None
+    #: (F, 2) [freq_hz, hc] user characteristic-strain spectrum; overrides
+    #: the power law (gwb_log10_amplitude/gwb_gamma) when set
     gwb_user_spectrum: Optional[torch.Tensor] = None
     #: turnover-spectrum shape (used when gwb_turnover is set)
     gwb_f0: float = 1e-9
@@ -543,11 +591,16 @@ class Recipe:
     cgw_pdist: Optional[torch.Tensor] = None
     #: explicit CW-catalog pulsar-term phases ((Ns,) or (Np, Ns))
     cgw_pphase: Optional[torch.Tensor] = None
+    #: (5,) burst with memory (strain, gwtheta, gwphi, bwm_pol, t0_mjd)
     gwm_params: Optional[torch.Tensor] = None
+    #: (3,) burst sky/polarization (gwtheta, gwphi, psi), its (G,)
+    #: pre-sampled waveforms and the (2,) [start_s, stop_s] grid window
     burst_sky: Optional[torch.Tensor] = None
     burst_hplus: Optional[torch.Tensor] = None
     burst_hcross: Optional[torch.Tensor] = None
     burst_grid: Optional[torch.Tensor] = None
+    #: (G,) single-pulsar transient waveform on the (2,) grid window,
+    #: injected into pulsar ``transient_psr``
     transient_waveform: Optional[torch.Tensor] = None
     transient_grid: Optional[torch.Tensor] = None
     noise_cov: Optional[object] = None
@@ -576,8 +629,14 @@ class Recipe:
     cgw_psr_term: bool = True
     cgw_evolve: bool = True
     cgw_phase_approx: bool = False
+    #: (Np, Nt, K) full-model design of the per-realization refit, padded
+    #: with all-zero columns; None fits the quadratic
     fit_design: Optional[torch.Tensor] = None
+    #: weight the design refit by the recipe's own noise model (GLS,
+    #: gls_fit_subtract) instead of the white errors (WLS)
     fit_gls: bool = False
+    #: the pulsar the transient is injected into
+    transient_psr: int = 0
 
     def __post_init__(self):
         for name in ARRAY_FIELDS:
@@ -604,24 +663,32 @@ class Recipe:
         return dataclasses.replace(out, noise_cov=self.noise_cov.astype(dtype))
 
 
+#: the fields a burst needs together
+BURST_FIELDS = ("burst_sky", "burst_hplus", "burst_hcross", "burst_grid")
+
+
 def _validate_recipe(r: Recipe):
-    """Reject unported and mutually inconsistent fields at construction,
-    with a message naming the field."""
-    for name, item in UNPORTED_FIELDS.items():
-        if getattr(r, name) is not None:
-            raise NotImplementedError(
-                f"Recipe.{name} is not ported to pta_replicator_tpu_torch yet "
-                f"(ROADMAP.md item {item})"
-            )
-    if r.fit_gls:
-        raise NotImplementedError(
-            "Recipe.fit_gls is not ported to pta_replicator_tpu_torch yet "
-            f"(ROADMAP.md item {UNPORTED_FIELDS['fit_design']})"
-        )
+    """Reject mutually inconsistent fields at construction, with a message
+    naming the field: the reference's checks, on shapes only (no value is
+    read back from the card)."""
 
     def need(cond: bool, msg: str):
         if not cond:
             raise ValueError(f"Recipe: {msg}")
+
+    present = tuple(f for f in BURST_FIELDS if getattr(r, f) is not None)
+    need(
+        len(present) in (0, len(BURST_FIELDS)),
+        f"a burst needs all of {BURST_FIELDS}, got only {present} (the "
+        "sky/polarization triple, both pre-sampled waveforms, and the "
+        "[start_s, stop_s] grid window travel together)",
+    )
+    need(
+        (r.transient_waveform is None) == (r.transient_grid is None),
+        "transient_waveform and transient_grid travel together (the "
+        "pre-sampled waveform is meaningless without its [start_s, stop_s] "
+        "grid window, and vice versa)",
+    )
 
     need(
         r.cgw_params is not None or (r.cgw_pdist is None and r.cgw_pphase is None),
@@ -637,8 +704,10 @@ def _validate_recipe(r: Recipe):
         "chromatic noise needs chrom_gamma alongside chrom_log10_amplitude",
     )
     need(
-        r.gwb_log10_amplitude is None or r.gwb_gamma is not None,
-        "a power-law GWB needs gwb_gamma alongside gwb_log10_amplitude",
+        r.gwb_log10_amplitude is None or r.gwb_gamma is not None
+        or r.gwb_user_spectrum is not None,
+        "a power-law GWB needs gwb_gamma alongside gwb_log10_amplitude "
+        "(or a gwb_user_spectrum, which overrides the power law)",
     )
     need(
         r.cov_log10_sigma is None or r.noise_cov is not None,
@@ -666,12 +735,33 @@ def _validate_recipe(r: Recipe):
                     f"{name} has shape {tuple(value.shape)} but the catalog "
                     f"has {shape[1]} source(s); pass a scalar, (Ns,), or (Np, Ns)",
                 )
+    for name, want in (("gwm_params", (5,)), ("burst_sky", (3,)),
+                       ("burst_grid", (2,)), ("transient_grid", (2,))):
+        value = getattr(r, name)
+        if value is not None:
+            need(tuple(value.shape) == want,
+                 f"{name} must have shape {want}, got {tuple(value.shape)}")
+    if r.gwb_user_spectrum is not None:
+        shape = tuple(r.gwb_user_spectrum.shape)
+        need(len(shape) == 2 and shape[1] == 2 and shape[0] >= 2,
+             f"gwb_user_spectrum must be (F, 2) [freq_hz, hc] with F >= 2, got {shape}")
+    if r.fit_design is not None:
+        need(r.fit_design.ndim == 3,
+             f"fit_design must be the (Np, Nt, K) design, got shape {tuple(r.fit_design.shape)}")
+    need(isinstance(r.transient_psr, (int, np.integer)) and not isinstance(r.transient_psr, bool)
+         and r.transient_psr >= 0,
+         f"transient_psr must be an int >= 0, got {r.transient_psr!r}")
 
 
 # --------------------------------------------------------------- the engine
 
 def _red_nmodes(recipe: Recipe) -> int:
     return recipe.rn_nmodes if recipe.rn_modes is None else len(recipe.rn_modes)
+
+
+def _gwb_enabled(recipe: Recipe) -> bool:
+    """The GWB is on with a power-law amplitude or a user spectrum."""
+    return recipe.gwb_log10_amplitude is not None or recipe.gwb_user_spectrum is not None
 
 
 def noise_shapes(batch: PulsarBatch, recipe: Recipe) -> dict:
@@ -690,7 +780,7 @@ def noise_shapes(batch: PulsarBatch, recipe: Recipe) -> dict:
         shapes["red"] = (batch.npsr, 2 * _red_nmodes(recipe))
     if recipe.chrom_log10_amplitude is not None:
         shapes["chromatic"] = (batch.npsr, 2 * recipe.chrom_nmodes)
-    if recipe.gwb_log10_amplitude is not None:
+    if _gwb_enabled(recipe):
         nf = gwb_grid(batch.start_s, batch.stop_s, recipe.gwb_npts, recipe.gwb_howml)[2].shape[0]
         ncol = batch.npsr if recipe.orf_cholesky is None else recipe.orf_cholesky.shape[1]
         shapes["gwb"] = (2, ncol, nf)
@@ -767,7 +857,7 @@ def realization_delays(batch: PulsarBatch, recipe: Recipe, draws: dict):
             nmodes=recipe.chrom_nmodes, ref_freq_mhz=recipe.chrom_ref_freq_mhz,
             eps=draws["chromatic"],
         )
-    if recipe.gwb_log10_amplitude is not None:
+    if _gwb_enabled(recipe):
         if recipe.orf_cholesky is None:
             # uncorrelated common process: ORF = 2 I
             orf_chol = math.sqrt(2.0) * torch.eye(batch.npsr, dtype=batch.dtype, device=batch.device)
@@ -777,7 +867,8 @@ def realization_delays(batch: PulsarBatch, recipe: Recipe, draws: dict):
             None, batch, recipe.gwb_log10_amplitude, recipe.gwb_gamma, orf_chol,
             npts=recipe.gwb_npts, howml=recipe.gwb_howml,
             turnover=recipe.gwb_turnover, f0=recipe.gwb_f0,
-            beta=recipe.gwb_beta, power=recipe.gwb_power, eps=draws["gwb"],
+            beta=recipe.gwb_beta, power=recipe.gwb_power,
+            user_spectrum=recipe.gwb_user_spectrum, eps=draws["gwb"],
         )
     if recipe.noise_cov is not None:
         sample = recipe.noise_cov.sample(draws, s2=recipe_cov_s2(recipe, batch.dtype))
@@ -824,20 +915,36 @@ def quadratic_fit_subtract(delays, batch: PulsarBatch):
     return (delays - model) * batch.mask
 
 
-def finalize_residuals(delays, batch: PulsarBatch, recipe: Recipe, fit: bool):
-    """The quadratic fit (``fit``), else the weighted-mean subtraction.
-    After the fit no mean subtraction is needed: the constant column
-    absorbs it."""
+def finalize_residuals(delays, batch: PulsarBatch, recipe: Recipe, fit: bool,
+                       system=None):
+    """Fit (``fit``) and residualize: the shared tail of every realization.
+
+    With ``recipe.fit_design`` the fit is the design refit, WLS or, with
+    ``recipe.fit_gls``, GLS weighted by the recipe's own noise model, then
+    the weighted-mean subtraction (a design need not span a constant).
+    ``system`` is its assembled :class:`FitSystem` (:func:`fit_system`),
+    built here when not given, and refused when it was built for another
+    kind of fit or another design shape. Without a design it is the quadratic fit,
+    after which no mean subtraction is needed: the constant column absorbs
+    it. Leading axes of ``delays`` are realizations; the GLS fit's C0 solve
+    takes them as right-hand sides of one launch."""
     if not fit:
         return residualize(delays, batch)
+    if recipe.fit_design is not None:
+        if system is None:
+            system = fit_system(batch, recipe, dtype=delays.dtype)
+        else:
+            system.require_fits(recipe)
+        return residualize(system.subtract(delays), batch)
     return quadratic_fit_subtract(delays, batch)
 
 
 def deterministic_delays(batch: PulsarBatch, recipe: Recipe, device="cuda"):
-    """Realization-independent delays (the CW catalog), computed once per
-    batch and shared by every realization: (Np, Nt) on ``device``. With
-    ``recipe.cgw_stream_chunk`` the catalog goes through the streamed
-    pipeline (:func:`cgw_catalog_delays_streamed`)."""
+    """Realization-independent delays (the CW catalog, then a burst with
+    memory, a burst and a transient, in the reference's order), computed
+    once per batch and shared by every realization: (Np, Nt) on
+    ``device``. With ``recipe.cgw_stream_chunk`` the catalog goes through
+    the streamed pipeline (:func:`cgw_catalog_delays_streamed`)."""
     device = resolve_device(device)
     batch, recipe = batch.to(device), recipe.to(device)
     total = torch.zeros_like(batch.toas_s)
@@ -860,32 +967,44 @@ def deterministic_delays(batch: PulsarBatch, recipe: Recipe, device="cuda"):
         else:
             total = total + cgw_catalog_delays(batch, *params, chunk=recipe.cgw_chunk,
                                                **kwargs)
+    if recipe.gwm_params is not None:
+        total = total + gw_memory_delays(batch, *recipe.gwm_params.unbind(0))
+    if recipe.burst_sky is not None:
+        sky, grid = recipe.burst_sky, recipe.burst_grid
+        total = total + burst_delays(batch, sky[0], sky[1], recipe.burst_hplus,
+                                     recipe.burst_hcross, grid[0], grid[1], psi=sky[2])
+    if recipe.transient_waveform is not None:
+        grid = recipe.transient_grid
+        total = total + transient_delays(batch, int(recipe.transient_psr),
+                                         recipe.transient_waveform, grid[0], grid[1])
     return total
 
 
 def realize_block(draws: dict, batch: PulsarBatch, recipe: Recipe, fit: bool,
-                  static, nreal: int):
+                  static, nreal: int, system=None):
     """The per-block pipeline: ``realization_delays + static ->
-    finalize_residuals`` for ``nreal`` realizations of ``draws``."""
+    finalize_residuals`` for ``nreal`` realizations of ``draws``, the
+    realizations leading (``system``: the design refit's assembly)."""
     delays = realization_delays(batch, recipe, draws) + static
     delays = delays.expand((nreal,) + batch.toas_s.shape)
-    return finalize_residuals(delays, batch, recipe, fit)
+    return finalize_residuals(delays, batch, recipe, fit, system=system)
 
 
 def _require_ieee_float32(device: torch.device):
-    """The GWB mix and synthesis and the fit are float32 matmuls that must
-    run in IEEE float32 (the port runs no cuDNN op, so only cuBLAS's TF32
-    switch matters)."""
+    """The GWB mix and synthesis and the fits (quadratic, WLS and GLS) are
+    float32 matmuls that must run in IEEE float32 (the port runs no cuDNN
+    op, so only cuBLAS's TF32 switch matters)."""
     if device.type == "cuda" and torch.backends.cuda.matmul.allow_tf32:
         raise RuntimeError(
             "TF32 matmuls are enabled (torch.backends.cuda.matmul.allow_tf32): "
-            "the GWB synthesis and the fit need IEEE float32 products; set "
+            "the GWB synthesis and the fits need IEEE float32 products; set "
             "the flag to False"
         )
 
 
 def realize(generator, batch: PulsarBatch, recipe: Recipe, nreal: int,
-            fit: bool = False, static=None, noise=None, device="cuda"):
+            fit: bool = False, static=None, noise=None, device="cuda",
+            system=None):
     """Batch of independent realizations: (nreal, Np, Nt) residuals on
     ``device``.
 
@@ -893,8 +1012,10 @@ def realize(generator, batch: PulsarBatch, recipe: Recipe, nreal: int,
     ``nreal`` axis, :func:`noise_shapes`) where given, else from
     ``generator`` (a ``torch.Generator`` on ``device``) in the fixed order
     of :func:`draw_noise`. ``static`` is a precomputed
-    :func:`deterministic_delays` result: a caller that realizes in chunks
-    computes it once and passes it to every chunk. Returns without
+    :func:`deterministic_delays` result and ``system`` a precomputed
+    :func:`fit_system` (with ``fit`` and ``recipe.fit_design``): a caller
+    that realizes in chunks computes both once and passes them to every
+    chunk; without them each call builds its own, once. Returns without
     synchronizing; read the result back to wait for it."""
     device = resolve_device(device)
     _require_ieee_float32(device)
@@ -902,8 +1023,7 @@ def realize(generator, batch: PulsarBatch, recipe: Recipe, nreal: int,
     if static is None:
         static = deterministic_delays(batch, recipe, device=device)
     draws = draw_noise(generator, batch, recipe, nreal, noise)
-    return realize_block(draws, batch, recipe, fit, static, nreal)
-
+    return realize_block(draws, batch, recipe, fit, static, nreal, system=system)
 
 
 # ---------------------------------------------------- the GP noise model
@@ -967,20 +1087,25 @@ def _gp_blocks(batch: PulsarBatch, recipe: Recipe) -> list:
         safe = torch.where(positive, batch.freqs_mhz, 1.0)
         scale = torch.where(positive, (recipe.chrom_ref_freq_mhz / safe) ** idx, 0.0)
         blocks.append((freqs, prior, False, scale))
-    if recipe.gwb_log10_amplitude is not None:
+    if _gwb_enabled(recipe):
         # The injected GWB's per-pulsar auto-covariance, weighted like a
         # red-noise process: phi = hc^2(f) / (12 pi^2 f^3 T) per sin/cos
         # coefficient. Cross-pulsar correlations are not modelled.
         T = batch.tspan_s
         fg = fourier_frequencies(T, nmodes=recipe.gwb_gls_nmodes)
-        ga, gg = _as(recipe.gwb_log10_amplitude, batch), _as(recipe.gwb_gamma, batch)
-        if ga.ndim >= 1:  # per-pulsar (Np,) -> (Np, 1)
-            ga = ga[..., None]
-        if gg.ndim >= 1:
-            gg = gg[..., None]
+
+        def per_pulsar(x):
+            """A scalar, or an (Np,) value as (Np, 1); None stays None."""
+            if x is None:
+                return None
+            x = _as(x, batch)
+            return x[..., None] if x.ndim >= 1 else x
+
+        user = recipe.gwb_user_spectrum
         hc = characteristic_strain(
-            fg, ga, gg, turnover=recipe.gwb_turnover, f0=recipe.gwb_f0,
-            beta=recipe.gwb_beta, power=recipe.gwb_power,
+            fg, per_pulsar(recipe.gwb_log10_amplitude), per_pulsar(recipe.gwb_gamma),
+            turnover=recipe.gwb_turnover, f0=recipe.gwb_f0, beta=recipe.gwb_beta,
+            power=recipe.gwb_power, user_spectrum=None if user is None else _as(user, batch),
         )
         phig = hc**2 / (12.0 * math.pi**2 * fg**3 * T[:, None])
         blocks.append((fg, torch.repeat_interleave(phig, 2, dim=-1), False, None))
@@ -1121,3 +1246,237 @@ def white_ecorr_solver(batch: PulsarBatch, sigma2, ecorr2, dtype,
         return y - winv[..., None] * picked
 
     return winv, c0inv_mat, logdet_c0
+
+
+# ------------------------------------------------------ the design refit
+#
+# The full-model refit of an arbitrary (Np, Nt, K) design: WLS
+# (design_fit_subtract) or GLS weighted by the recipe's own noise model
+# (gls_fit_subtract). Its delay-independent half, the column-normalized
+# normal matrix A, its norms and padding columns, and the C^-1 operator
+# with C0's factor inside it, is a FitSystem: assembled once per realize
+# call (once per sweep by utils/sweep.py), and applied to every chunk. A and
+# the norms are formed in float64 and the (K, K) solve runs in float64
+# whatever the delays' dtype (on the card, cuBLAS's float32 accumulation
+# over 7,758 TOAs put ~6e-5 of relative error on a Gram matrix, ROADMAP
+# C.1). The WLS apply runs in the delays' dtype; the GLS apply in float64
+# up to the model (gls_cinv says why).
+
+_F64 = torch.float64
+#: the column-normalized normal equations' ridge (the reference's default)
+_RIDGE = 1e-10
+
+
+def _lu_solve(lu, pivots, B, vec: bool = False):
+    """``A^-1 B`` from ``A``'s (Np, n, n) LU factor for B (..., Np, n, Q),
+    or (..., Np, n) with ``vec``: the leading axes fold into the
+    right-hand sides, so the factor is never broadcast over them. Runs in
+    the factor's dtype; returns B's."""
+    X = B[..., None] if vec else B
+    lead, (npsr, n, q) = X.shape[:-3], X.shape[-3:]
+    Xf = X.reshape((-1, npsr, n, q)).permute(1, 2, 0, 3).reshape(npsr, n, -1)
+    Z = torch.linalg.lu_solve(lu, pivots, Xf.to(lu.dtype)).to(B.dtype)
+    Z = Z.reshape(npsr, n, -1, q).permute(2, 0, 1, 3).reshape(lead + (npsr, n, q))
+    return Z[..., 0] if vec else Z
+
+
+def _lu(A):
+    """LU factor and pivots of a batched square ``A``, with no host
+    synchronisation (a singular A gives non-finite solves, as the
+    reference's ``jnp.linalg.solve`` does)."""
+    lu, pivots, _info = torch.linalg.lu_factor_ex(A)
+    return lu, pivots
+
+
+def gls_cinv(batch: PulsarBatch, recipe: Recipe, dtype=_F64):
+    """C^-1 of the recipe's noise model, C = C0 + U diag(phi) U^T
+    (:func:`gls_noise_model`, C0 with the recipe's ``noise_cov`` through
+    :func:`white_ecorr_solver`), as a map over (..., Np, Nt, Q) of
+    ``dtype``: float64 for the fit; float32 only to measure what the
+    float64 apply buys.
+    C is never formed: C0^-1 is the analytic per-epoch Woodbury, the
+    block-tridiagonal solve (B.4/B.5) or the dense rung (B.2), and the
+    low-rank blocks go through the nested Woodbury identity over the (R, R)
+    system S = U^T C0^-1 U + Phi^-1, factored once. phi = 0 modes are made
+    exactly inert by zeroing their basis columns (the limit phi -> 0 is an
+    infinite 1/phi, not the unit variance phi_safe = 1 would give); the
+    unit diagonal then only keeps S nonsingular.
+
+    Float64 at every batch dtype: for residuals dominated by red noise,
+    C0^-1 r and its Woodbury correction cancel most of each other, and a
+    float32 apply left ~1e-4 of the residual's C^-1-norm un-projected by
+    the fit (4 x 256 on the CPU; float64: ~5e-10, the ridge's)."""
+    # the recipe without its design, which the assembly casts itself
+    bt = batch.astype(dtype)
+    sigma2, ecorr2, U, phi = gls_noise_model(
+        bt, dataclasses.replace(recipe, fit_design=None).astype(dtype))
+    _w, c0inv, _ld = white_ecorr_solver(bt, sigma2, ecorr2, dtype, extra=recipe.noise_cov,
+                                        extra_s2=recipe_cov_s2(recipe, dtype))
+    if U is None:
+        return c0inv
+    U = U * (phi > 0)[:, None, :].to(dtype)
+    G = c0inv(U)  # C0^-1 U, (Np, Nt, R)
+    phi_safe = torch.where(phi > 0, phi, 1.0)
+    lu, pivots = _lu(torch.einsum("pnr,pns->prs", U, G) + torch.diag_embed(1.0 / phi_safe))
+
+    def cinv_mat(X):
+        """C^-1 X, nested Woodbury: C0^-1 X - G S^-1 U^T C0^-1 X."""
+        X0 = c0inv(X)
+        inner = torch.einsum("pnr,...pnq->...prq", U, X0)
+        return X0 - torch.einsum("pnr,...prq->...pnq", G, _lu_solve(lu, pivots, inner))
+
+    return cinv_mat
+
+
+@dataclass(frozen=True)
+class FitSystem:
+    """The delay-independent half of a design refit (:func:`fit_system`):
+    apply it to any number of (..., Np, Nt) delays of ``dtype`` with
+    :meth:`subtract`. Built once, it gives the same bits as a rebuild."""
+
+    #: GLS (``cinv_mat`` set) or WLS
+    gls: bool
+    #: the delays' dtype it applies to
+    dtype: torch.dtype
+    #: WLS: the weighted, column-normalized design Mn = M w / norms in
+    #: ``dtype``; GLS: the masked design M in float64
+    design: torch.Tensor
+    #: (Np, K) float64 column norms (1 at padding columns)
+    norms: torch.Tensor
+    #: the LU factor of the (Np, K, K) float64 column-normalized normal
+    #: matrix A, with a unit row per padding column and the ridge
+    lu: torch.Tensor
+    pivots: torch.Tensor
+    #: (Np, Nt) valid-TOA mask in ``dtype``
+    mask: torch.Tensor
+    #: WLS: the square-root weights mask / errors (Np, Nt) in ``dtype``
+    w: Optional[torch.Tensor] = None
+    #: GLS: C^-1 over (..., Np, Nt, Q), float64 (:func:`gls_cinv`)
+    cinv_mat: Optional[object] = None
+
+    def require_fits(self, recipe: Recipe):
+        """Refuse a ``recipe`` whose design refit this system was not
+        assembled for: WLS for GLS or back, or another design shape."""
+        want = ("GLS" if recipe.fit_gls else "WLS", tuple(recipe.fit_design.shape))
+        have = ("GLS" if self.gls else "WLS", tuple(self.design.shape))
+        if have != want:
+            raise ValueError(f"the fit system was assembled for a {have[0]} fit of a {have[1]} "
+                             f"design; the recipe asks for a {want[0]} fit of a {want[1]} design")
+
+    def subtract(self, delays):
+        """``delays`` (..., Np, Nt) minus their best fit of the design,
+        masked; leading axes are realizations."""
+        if delays.dtype != self.dtype:
+            raise TypeError(
+                f"the fit system was assembled for {self.dtype} delays, got {delays.dtype}"
+            )
+        M = self.design
+        if self.gls:
+            # float64 up to the model (gls_cinv); the subtraction in dtype
+            Cir = self.cinv_mat(delays.to(_F64)[..., None])[..., 0]
+            b = torch.einsum("pnk,...pn->...pk", M, Cir) / self.norms
+            coef = _lu_solve(self.lu, self.pivots, b, vec=True) / self.norms
+            model = torch.einsum("pnk,...pk->...pn", M, coef).to(self.dtype)
+        else:
+            b = torch.einsum("pnk,...pn->...pk", M, delays * self.w)
+            coef = _lu_solve(self.lu, self.pivots, b, vec=True)
+            model = torch.einsum("pnk,...pk->...pn", M, coef) / torch.where(
+                self.w.abs() > 0, self.w, 1.0)
+        return (delays - model) * self.mask
+
+
+def _normal_matrix(gram, zero_col, ridge):
+    """A = gram + a unit diagonal at padding columns (their right-hand
+    side is zero, so they solve to exactly 0) + the ridge (columns are
+    unit-normalized, so it costs ~ridge relative; exactly duplicated
+    columns would otherwise make A singular and NaN the pulsar)."""
+    eye = torch.eye(gram.shape[-1], dtype=gram.dtype, device=gram.device)
+    return gram + eye * zero_col[:, None, :].to(gram.dtype) + ridge * eye
+
+
+def _wls_system(batch: PulsarBatch, design, ridge, dtype) -> FitSystem:
+    """The WLS refit's assembly: the design weighted by 1/errors and
+    column-normalized (all-zero padding columns neutralized), A = Mn^T Mn,
+    formed in float64."""
+    w = (batch.mask / batch.errors_s).to(_F64)
+    Mw = torch.as_tensor(design).to(device=batch.device, dtype=_F64) * w[..., None]
+    norms = torch.sqrt(torch.sum(Mw**2, dim=-2))
+    zero_col = norms == 0.0
+    norms = torch.where(zero_col, 1.0, norms)
+    Mn = Mw / norms[:, None, :]
+    del Mw
+    A = _normal_matrix(torch.einsum("pnk,pnl->pkl", Mn, Mn), zero_col, ridge)
+    lu, pivots = _lu(A)
+    return FitSystem(gls=False, dtype=dtype, design=Mn.to(dtype), norms=norms, lu=lu,
+                     pivots=pivots, mask=batch.mask.to(dtype), w=w.to(dtype))
+
+
+def _gls_design_system(batch: PulsarBatch, design, recipe: Recipe, ridge):
+    """The GLS refit's assembly ``(A, norms, zero_col, cinv_mat, design)``,
+    all float64: A = N^-1 (M^T C^-1 M) N^-1 with the column norms N =
+    sqrt(diag(M^T C^-1 M)) (plus padding-column unit rows and the ridge),
+    ``cinv_mat`` (:func:`gls_cinv`) and the masked design M. One assembly
+    serves :func:`gls_fit_subtract` and :func:`gls_fit_uncertainties`, so
+    the two price the same system."""
+    cinv = gls_cinv(batch, recipe)
+    M64 = torch.as_tensor(design).to(device=batch.device, dtype=_F64) * batch.mask.to(_F64)[..., None]
+    CiM = cinv(M64)
+    norms = torch.sqrt(torch.clamp(torch.einsum("pnk,pnk->pk", M64, CiM), min=0.0))
+    zero_col = norms == 0.0
+    norms = torch.where(zero_col, 1.0, norms)
+    gram = torch.einsum("pnk,pnl->pkl", M64, CiM) / norms[:, :, None] / norms[:, None, :]
+    del CiM
+    return _normal_matrix(gram, zero_col, ridge), norms, zero_col, cinv, M64
+
+
+def _gls_system(batch: PulsarBatch, design, recipe: Recipe, ridge, dtype) -> FitSystem:
+    A, norms, _zero_col, cinv, M = _gls_design_system(batch, design, recipe, ridge)
+    lu, pivots = _lu(A)
+    return FitSystem(gls=True, dtype=dtype, design=M, norms=norms, lu=lu, pivots=pivots,
+                     mask=batch.mask.to(dtype), cinv_mat=cinv)
+
+
+def fit_system(batch: PulsarBatch, recipe: Recipe, dtype=None):
+    """The assembled design refit of ``recipe.fit_design`` for delays of
+    ``dtype`` (default: the batch's): GLS with ``recipe.fit_gls``, else
+    WLS. It does not depend on the delays, so a caller that fits in chunks
+    builds it once and passes it to each (:func:`realize`'s ``system``)."""
+    if recipe.fit_design is None:
+        raise ValueError("fit_system needs a recipe with fit_design")
+    dtype = dtype or batch.dtype
+    if recipe.fit_gls:
+        return _gls_system(batch, recipe.fit_design, recipe, _RIDGE, dtype)
+    return _wls_system(batch, recipe.fit_design, _RIDGE, dtype)
+
+
+def design_fit_subtract(delays, batch: PulsarBatch, design, ridge=_RIDGE):
+    """Project out the weighted (1/errors^2) best fit of an arbitrary
+    (Np, Nt, K) design per pulsar: the full-model refit's WLS form.
+    Padding columns are all zero and neutralized; the column-normalized
+    normal equations carry a ``ridge``. No weighted-mean subtraction
+    (:func:`finalize_residuals` adds it)."""
+    return _wls_system(batch, design, ridge, delays.dtype).subtract(delays)
+
+
+def gls_fit_subtract(delays, batch: PulsarBatch, design, recipe: Recipe, ridge=_RIDGE):
+    """Subtract the C^-1-weighted best fit of the design columns, C the
+    recipe's own noise model (white, ECORR, the GP blocks and the
+    ``noise_cov`` block; :func:`gls_cinv`): the device form of the
+    reference's PINT GLS refit. C is never materialized."""
+    return _gls_system(batch, design, recipe, ridge, delays.dtype).subtract(delays)
+
+
+def gls_fit_uncertainties(batch: PulsarBatch, design, recipe: Recipe, ridge=_RIDGE,
+                          dtype=None):
+    """Per-parameter 1-sigma uncertainties of the GLS refit, sqrt(diag((M^T
+    C^-1 M)^-1)), (Np, K) in ``dtype``, 0 at padding columns. Independent
+    of the delays, so a sweep prices it once. ``dtype`` defaults to the
+    batch's, the dtype :func:`gls_fit_subtract` assembles at for
+    batch-dtype delays; a caller whose delays have another dtype passes
+    it, so that the sigmas describe the system those residuals were fit
+    with."""
+    dtype = dtype or batch.dtype
+    # A and the norms are float64 at every dtype: only the result is cast
+    A, norms, zero_col, _cinv, _M = _gls_design_system(batch, design, recipe, ridge)
+    var = torch.clamp(torch.diagonal(torch.linalg.inv_ex(A)[0], dim1=-2, dim2=-1), min=0.0)
+    return torch.where(zero_col, 0.0, torch.sqrt(var) / norms).to(dtype)

@@ -9,8 +9,10 @@ from __future__ import annotations
 
 import functools
 import math
+import warnings
 
 import numpy as np
+import torch
 
 
 def gwb_grid(start_s: float, stop_s: float, npts: int, howml: float):
@@ -31,11 +33,53 @@ def gwb_grid(start_s: float, stop_s: float, npts: int, howml: float):
     return ut, dt_grid, f
 
 
-def characteristic_strain(f, log10_amplitude, spectral_index,
+def interp(x, xp, fp):
+    """``np.interp`` on tensors: piecewise-linear interpolation of the nodes
+    ``(xp, fp)`` (1-D, ``xp`` increasing) at ``x`` (any shape), clamped to
+    ``fp[0]`` below ``xp[0]`` and ``fp[-1]`` above ``xp[-1]``. The segment
+    is found by ``torch.searchsorted``, and its formula is the reference's
+    (``jnp.interp``): ``fp[i-1] + (x - xp[i-1]) / dx * df``."""
+    i = torch.clamp(torch.searchsorted(xp, x.contiguous(), right=True), 1, xp.shape[0] - 1)
+    dx = xp[i] - xp[i - 1]
+    df = fp[i] - fp[i - 1]
+    f = torch.where(dx == 0, fp[i], fp[i - 1] + (x - xp[i - 1]) / torch.where(dx == 0, 1.0, dx) * df)
+    f = torch.where(x < xp[0], fp[0], f)
+    return torch.where(x > xp[-1], fp[-1], f)
+
+
+def characteristic_strain(f, log10_amplitude=None, spectral_index=None,
                           turnover: bool = False, f0: float = 1e-9,
-                          beta: float = 1.0, power: float = 1.0):
-    """Power-law hc(f) = A (f/f_1yr)^alpha, optionally with a turnover;
-    f_1yr = 1/3.16e7 Hz as in the reference. Tensors in, tensor out."""
+                          beta: float = 1.0, power: float = 1.0,
+                          user_spectrum=None):
+    """hc(f): the power law A (f/f_1yr)^alpha, optionally with a turnover
+    (f_1yr = 1/3.16e7 Hz as in the reference), or a user spectrum
+    ``(F, 2)`` [freq_hz, hc], which overrides the power law.
+
+    The user spectrum is interpolated in log-log space and clamped to its
+    endpoint values outside the node range (the reference's ``extrap1d``,
+    whose slope continuation is commented out). Strain values below 1e-30
+    are floored to 1e-30 first, so that no -inf node enters the
+    interpolation; the reference interpolates the raw values, so the
+    floor warns when it engages. The count needs the values on the host:
+    it is taken when the spectrum lies on the CPU (as the reference warns
+    only where the values are concrete, not inside jit), never with a
+    synchronisation of the card. Tensors in, tensor out."""
+    if user_spectrum is not None:
+        spec = user_spectrum.to(dtype=f.dtype, device=f.device)
+        raw = spec[:, 1]
+        if spec.device.type == "cpu":
+            n_floored = int(torch.count_nonzero(raw < 1e-30))
+            if n_floored:
+                warnings.warn(
+                    f"user GWB spectrum: {n_floored} strain value(s) below 1e-30 were "
+                    "floored to 1e-30 for log-log interpolation (the reference "
+                    "interpolates the raw values); rescale the spectrum if the "
+                    "ultra-low entries are intentional",
+                    stacklevel=2,
+                )
+        logh = interp(torch.log10(f), torch.log10(spec[:, 0]),
+                      torch.log10(torch.clamp(raw, min=1e-30)))
+        return 10.0**logh
     amp = 10.0**log10_amplitude
     alpha = -0.5 * (spectral_index - 3.0)
     hcf = amp * (f / (1.0 / 3.16e7)) ** alpha

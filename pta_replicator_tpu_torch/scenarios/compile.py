@@ -3,7 +3,10 @@
 Counterpart of ``random_cw_catalog`` and ``flagship_workload`` in
 ``pta_replicator_tpu/scenarios/compile.py``: the same numpy RNG call
 order, hence the same arrays and the same 16-hex content fingerprint, so
-both packages build the identical workload.
+both packages build the identical workload. :func:`deterministic_families`
+draws a burst, a burst with memory and a transient as the reference's
+scenario compiler draws its ``burst``, ``memory`` and ``transient``
+sections, from numpy generators of the port's own seeding.
 """
 from __future__ import annotations
 
@@ -92,3 +95,51 @@ def flagship_workload(npsr: int = 68, ntoa: int = 7758, nbackend: int = 4,
         h.update(name.encode())
         h.update(np.ascontiguousarray(draws[name]).tobytes())
     return batch, recipe, h.hexdigest()[:16]
+
+
+def _sine_gaussian(tg, t0, width, amp, rng):
+    """Burst morphology: a Gaussian-windowed oscillation with a random
+    cycle count and phase, and its quadrature, sampled on the grid."""
+    env = amp * np.exp(-0.5 * ((tg - t0) / width) ** 2)
+    ncyc = rng.uniform(0.5, 4.0)
+    ph = rng.uniform(0.0, 2.0 * np.pi)
+    arg = 2.0 * np.pi * ncyc * (tg - t0) / width + ph
+    return env * np.cos(arg), env * np.sin(arg)
+
+
+#: the families' amplitudes: the port's choice (the reference's compiler
+#: takes each ``log10_amp``/``log10_strain`` from the spec, with no default)
+BURST_LOG10_AMP, MEMORY_LOG10_STRAIN, TRANSIENT_LOG10_AMP = -7.0, -13.0, -6.5
+#: the reference compiler's defaults: epoch and width as fractions of the
+#: span, waveform grid points, and the array span behind the memory's epoch
+T0_FRAC, WIDTH_FRAC, NGRID, SPAN_DAYS = 0.5, 0.05, 256, 365.25 * 16
+
+
+def deterministic_families(batch, seed: int = 0, transient_psr: int = 0) -> dict:
+    """Recipe fields of one burst, one burst with memory and one Gaussian
+    transient (in pulsar ``transient_psr``), drawn as the reference's
+    compiler draws them (``pta_replicator_tpu/scenarios/compile.py``, its
+    burst, memory and transient sections at their default ``t0_frac``,
+    ``width_frac`` and ``ngrid``): the sine-Gaussian burst with its sky
+    and polarization, the memory's sky and polarization at epoch t0, the
+    transient on a window of +-5 widths. Float64 numpy arrays; each family
+    from ``np.random.default_rng((seed, family))``."""
+    start_s, stop_s = float(batch.start_s), float(batch.stop_s)
+    span_s = stop_s - start_s
+    t0 = start_s + T0_FRAC * span_s
+    width = WIDTH_FRAC * span_s
+    g0, g1 = max(start_s, t0 - 5.0 * width), min(stop_s, t0 + 5.0 * width)
+    tg = np.linspace(g0, g1, NGRID)
+
+    rng = np.random.default_rng((seed, 0))
+    hp, hc = _sine_gaussian(tg, t0, width, 10.0**BURST_LOG10_AMP, rng)
+    burst_sky = np.array([np.arccos(rng.uniform(-1.0, 1.0)), rng.uniform(0.0, 2.0 * np.pi),
+                          rng.uniform(0.0, np.pi)])
+    rng = np.random.default_rng((seed, 1))
+    t0_mjd = float(batch.tref_mjd) + (T0_FRAC - 0.5) * SPAN_DAYS
+    gwm = np.array([10.0**MEMORY_LOG10_STRAIN, np.arccos(rng.uniform(-1.0, 1.0)),
+                    rng.uniform(0.0, 2.0 * np.pi), rng.uniform(0.0, np.pi), t0_mjd])
+    wf = 10.0**TRANSIENT_LOG10_AMP * np.exp(-0.5 * ((tg - t0) / width) ** 2)
+    return dict(gwm_params=gwm, burst_sky=burst_sky, burst_hplus=hp, burst_hcross=hc,
+                burst_grid=np.array([g0, g1]), transient_waveform=wf,
+                transient_grid=np.array([g0, g1]), transient_psr=int(transient_psr))

@@ -414,7 +414,13 @@ def sweep(seed: int, batch, recipe, nreal: int, checkpoint_path: str, chunk: int
     chunk, so the same checkpoint bytes.
 
     ``stats``, when given, receives the pipeline's stats (depth >= 2) and,
-    on the card, ``d2h_ms``: each chunk's readback copy time."""
+    on the card, ``d2h_ms``: each chunk's readback copy time.
+
+    With ``fit`` and a ``recipe.fit_design`` the design refit's assembly
+    (``models.batched.fit_system``: A, its norms, and C^-1 with C0's
+    factor) is built once per sweep and handed to every chunk, at every
+    depth, as the deterministic delays are; its bits are a rebuild's. The
+    sidecar's fingerprint hashes the design's bytes with the recipe's."""
     from ..faults.retry import DEFAULT_POLICY, backoff_delay, is_transient
 
     if fused_stream and pipeline_depth < 2:
@@ -451,7 +457,7 @@ def sweep(seed: int, batch, recipe, nreal: int, checkpoint_path: str, chunk: int
 def _sweep_impl(seed, batch, recipe, nreal: int, checkpoint_path: str, chunk: int,
                 reduce_fn, fit: bool, progress, pipeline_depth: int, drain_timeout_s,
                 durable: bool, provenance, fused_stream: bool, noise, device, stats):
-    from ..models.batched import deterministic_delays, realize
+    from ..models.batched import deterministic_delays, fit_system, realize
     from ..parallel.pipeline import (
         PinnedReadback, _mark_chunk, drain_stage, host_copy, io_write_stage, pipeline_stats,
         run_pipelined,
@@ -507,6 +513,11 @@ def _sweep_impl(seed, batch, recipe, nreal: int, checkpoint_path: str, chunk: in
     static = None
     if done < nchunks and not fused_stream:
         static = deterministic_delays(batch, recipe, device=device)
+    # so does the design refit's assembly (with C0's factor inside it):
+    # once per sweep, at every depth
+    system = None
+    if done < nchunks and fit and recipe.fit_design is not None:
+        system = fit_system(batch, recipe)
 
     # every computing stage runs on the caller's current stream
     compute_stream = torch.cuda.current_stream(device) if device.type == "cuda" else None
@@ -524,7 +535,8 @@ def _sweep_impl(seed, batch, recipe, nreal: int, checkpoint_path: str, chunk: in
     def realize_chunk(i: int, static_i):
         generator = torch.Generator(device=device).manual_seed(chunk_seed(seed, i))
         res = realize(generator, batch, recipe, chunk, fit=fit, static=static_i,
-                      noise=None if noise is None else noise(i), device=device)
+                      noise=None if noise is None else noise(i), device=device,
+                      system=system)
         return reduce_fn(res, batch) if reduce_fn is not None else res
 
     def write_chunk(i: int, block) -> None:

@@ -4,7 +4,8 @@ The JAX package's random stream is public contract: ``realization_delays``
 splits each realization key five ways (white, ecorr, red, chromatic, gwb)
 and every family draws from its subkey at a documented shape; a
 correlated-noise ``noise_cov`` draws from ``fold_in(key, COV_STREAM_FOLD)``
-(a low-rank op first splits that key in two: base, low rank). These
+(a low-rank op first splits that key in two: base, low rank, and again at
+each nested low-rank level). These
 helpers replay that contract to rebuild the exact draws, which the port
 then takes as explicit noise.
 """
@@ -46,7 +47,7 @@ def jax_realization_draws(key, batch, recipe) -> dict:
         out["chromatic"] = jax.random.normal(
             k_chrom, (batch.npsr, 2 * recipe.chrom_nmodes), dtype
         )
-    if recipe.gwb_log10_amplitude is not None:
+    if recipe.gwb_log10_amplitude is not None or recipe.gwb_user_spectrum is not None:
         nf = gwb_grid(batch.start_s, batch.stop_s, recipe.gwb_npts,
                       recipe.gwb_howml)[2].shape[0]
         ncol = batch.npsr if recipe.orf_cholesky is None else recipe.orf_cholesky.shape[1]
@@ -56,10 +57,12 @@ def jax_realization_draws(key, batch, recipe) -> dict:
         from pta_replicator_tpu.covariance.structure import COV_STREAM_FOLD, LowRankCov
 
         k_cov = jax.random.fold_in(key, COV_STREAM_FOLD)
-        if isinstance(op, LowRankCov):
+        depth = 0
+        while isinstance(op, LowRankCov):  # split (base, low rank) at each level
             k_cov, k_lr = jax.random.split(k_cov, 2)
-            out["cov_lowrank"] = jax.random.normal(k_lr, op.phi.shape, op.U.dtype)
-            op = op.base
+            name = "cov_lowrank" if depth == 0 else f"cov_lowrank_{depth}"
+            out[name] = jax.random.normal(k_lr, op.phi.shape, op.U.dtype)
+            op, depth = op.base, depth + 1
         out["cov"] = jax.random.normal(k_cov, batch.toas_s.shape, _op_dtype(op))
     return {name: np.asarray(v) for name, v in out.items()}
 

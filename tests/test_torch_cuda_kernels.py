@@ -542,3 +542,90 @@ def test_sweep_on_the_card_byte_identical_across_depths(cuda_device, tmp_path):
         assert raw == results["d1"][1], name
         np.testing.assert_array_equal(res, results["d1"][0])
     assert np.all(np.isfinite(results["d1"][0]))
+
+
+# ------------------------------------------- the design refit's shapes
+
+#: the GLS refit's right-hand-side counts on config B's blocks (68 pulsars,
+#: b = 16): the GP basis (120), the 166-column design and a chunk of 200
+#: realizations; a shorter block chain keeps the plain sweeps quick
+FIT_QS = (120, 166, 200)
+
+
+@pytest.mark.parametrize("q", FIT_QS)
+@pytest.mark.parametrize("dtype,tol", COV_TOL)
+def test_tridiag_kernels_at_the_fit_widths(cuda_device, dtype, tol, q):
+    """tridiag_plan takes each width on the staged route within the card's
+    limits, and the substitution sweeps there match the plain ones."""
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    plan = tgp.tridiag_plan(68, 485, 16, q, dtype, sms=sms)
+    assert plan.route == "staged" and plan.threads <= tgp.TRIDIAG_SOLVE_MAX_THREADS
+    assert plan.shared_bytes <= torch.cuda.get_device_properties(cuda_device).shared_memory_per_block_optin
+    assert plan.grid[0] * plan.columns >= q and plan.grid[1] == 68
+    D, E, X = _tridiag(68, 24, 16, q, dtype, cuda_device, seed=q)
+    launches.clear()
+    Ld, M, _ = tgp.tridiag_forward(D, E)
+    Y = tgp.tridiag_forward_solve(Ld, M, X)
+    Z = tgp.tridiag_backward(Ld, M, Y)
+    torch.cuda.synchronize()
+    assert (launches["tridiag_factor_solve_fwd"], launches["tridiag_solve_fwd"],
+            launches["tridiag_factor_solve_bwd"]) == (1, 1, 1)
+    pY = tgp.tridiag_forward_solve_plain(Ld, M, X)
+    assert _rel_max_t(Y, pY) <= tol
+    assert _rel_max_t(Z, tgp.tridiag_backward_plain(Ld, M, pY)) <= tol
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12), (torch.float32, 1e-4)])
+def test_woodbury_kernel_at_the_gls_fitted_bank_width(cuda_device, dtype, tol):
+    """Q = 286: a GLS-fitted bank priced with its 166-column design beside
+    the 120-column GP basis. woodbury_plan takes it (five panels, fifteen
+    pairs) and the kernel matches the plain version."""
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    panels, pairs, nsplit, _ = tgp.woodbury_plan(68, 7758, 286, sms)
+    assert (panels, pairs) == (5, 15) and nsplit >= 1
+    T, w, r = _woodbury(68, 997, 286, dtype, cuda_device, seed=3)
+    launches.clear()
+    got = tgp.fused_woodbury_update(T, w, r)
+    torch.cuda.synchronize()
+    assert launches["fused_woodbury_update"] == 1
+    for g, x in zip(got, tgp.fused_woodbury_plain(T, w, r)):
+        assert bool(torch.all(torch.isfinite(g))) and _rel_max(g, x) <= tol
+
+
+@pytest.mark.parametrize("cov", ["banded", "dense"])
+def test_gls_refit_on_the_card_matches_the_cpu(cuda_device, cov):
+    """realize with a GLS fit_design and a structured noise_cov, float64:
+    the card (B.4/B.5 or B.2 inside C^-1) against the CPU's plain routes
+    on the same draws, to 1e-10 of the largest entry."""
+    import dataclasses
+
+    from pta_replicator_tpu_torch import flagship_workload, realize
+    from pta_replicator_tpu_torch.covariance import banded_from_times, kron_time_channel
+    from pta_replicator_tpu_torch.models import batched as TB
+
+    out = {}
+    for device in ("cpu", cuda_device):
+        batch, recipe = flagship_workload(npsr=6, ntoa=512, ncw=10, dtype=torch.float64,
+                                          device=device)
+        if cov == "banded":
+            op = banded_from_times(batch.toas_s, batch.mask, rho=0.5, corr_s=30 * 86400.0,
+                                   block=16, dtype=torch.float64, device=device)
+            recipe = dataclasses.replace(recipe, log10_ecorr=None)
+        else:
+            op = kron_time_channel(batch.toas_s, channels=4, time_ell_s=20 * 86400.0,
+                                   chan_rho=0.9, dtype=torch.float64, device=device)
+        design = torch.as_tensor(np.random.default_rng(1).standard_normal((6, 512, 12)),
+                                 device=device)
+        recipe = dataclasses.replace(recipe, noise_cov=op, cov_log10_sigma=-6.5,
+                                     fit_design=design, fit_gls=True)
+        rng = np.random.default_rng(2)
+        noise = {k: rng.standard_normal((4,) + s) for k, s in TB.noise_shapes(batch, recipe).items()}
+        launches.clear()
+        out[str(device)] = realize(None, batch, recipe, 4, fit=True, noise=noise,
+                                   device=device).cpu()
+        counts = dict(launches)
+    if cov == "banded":
+        assert counts["tridiag_solve_fwd"] > 0 and counts["tridiag_factor_solve_bwd"] > 0
+    else:
+        assert counts["cov_syrk_update"] > 0
+    assert _rel_max(out["cuda"], out["cpu"]) <= 1e-10

@@ -15,6 +15,7 @@ from pta_replicator_tpu.models import batched as JB
 from pta_replicator_tpu.scenarios.compile import flagship_workload as jax_flagship
 from pta_replicator_tpu_torch import convert, flagship_workload, realize
 from pta_replicator_tpu_torch.models import batched as TB
+from pta_replicator_tpu_torch.scenarios.compile import deterministic_families
 
 SHAPE = dict(npsr=4, ntoa=1024, ncw=12)
 
@@ -135,19 +136,136 @@ def test_noise_is_validated(port_workload):
         realize(None, tb, tr, 2, device="cpu")
 
 
-@pytest.mark.parametrize("field,value", [
-    ("burst_hcross", np.zeros(4)),
-    ("fit_design", np.zeros((4, 1024, 3))),
-    ("gwb_user_spectrum", np.ones((5, 2))),
-    ("burst_grid", np.zeros(4)),
-    ("gwm_params", np.zeros(5)),
-    ("burst_sky", np.zeros(3)),
-    ("transient_grid", np.zeros(2)),
-    ("fit_gls", True),
+def _field_recipe(jb, jr, field):
+    """The flagship recipe with ``field`` set, and the fields it travels
+    with: a whole burst for a burst field, a transient (into pulsar 2 for
+    ``transient_psr``) for a transient field, a WLS or GLS design for the
+    fits, and a user GWB spectrum in place of the power law."""
+    fam = deterministic_families(jb, seed=5, transient_psr=2 if field == "transient_psr" else 0)
+    arr = lambda names: {k: jnp.asarray(fam[k]) for k in names}
+    if field.startswith("burst_"):
+        return dataclasses.replace(jr, **arr(TB.BURST_FIELDS))
+    if field in ("transient_waveform", "transient_grid", "transient_psr"):
+        return dataclasses.replace(jr, transient_psr=fam["transient_psr"],
+                                   **arr(("transient_waveform", "transient_grid")))
+    if field == "gwm_params":
+        return dataclasses.replace(jr, **arr(("gwm_params",)))
+    if field in ("fit_design", "fit_gls"):
+        # the quadratic, a white column and a padding column; a column
+        # inside the 60-mode GP span has its own test below
+        t = np.asarray(jb.toas_s) / np.asarray(jb.tspan_s)[:, None]
+        white = np.random.default_rng(6).standard_normal(t.shape)
+        design = np.stack([np.ones_like(t), t, t**2, white, np.zeros_like(t)], axis=-1)
+        return dataclasses.replace(jr, fit_design=jnp.asarray(design), fit_gls=field == "fit_gls")
+    assert field == "gwb_user_spectrum"
+    f = np.geomspace(2e-9, 6e-8, 7)
+    return dataclasses.replace(jr, gwb_log10_amplitude=None, gwb_gamma=None,
+                               gwb_user_spectrum=jnp.asarray(np.stack([f, 1e-15 * (f / 1e-8) ** -0.6],
+                                                                      axis=1)))
+
+
+@pytest.mark.parametrize("field", [
+    "burst_hcross", "fit_design", "gwb_user_spectrum", "burst_grid", "gwm_params", "burst_sky",
+    "transient_grid", "fit_gls", "transient_waveform", "transient_psr",
 ])
-def test_unported_recipe_fields_raise(field, value):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md item A"):
-        TB.Recipe(**{field: value})
+def test_jax_recipe_field_carries_across(jax_workload, field):
+    """A JAX recipe with the field converts, realizes on the CPU with the
+    JAX package's draws and matches its output (the fields the port
+    refused before it ran them)."""
+    jb, jr, _ = jax_workload
+    jr = _field_recipe(jb, jr, field)
+    tb = convert.batch_from_arrays(vars(jb), device="cpu")
+    tr = convert.recipe_from_arrays(vars(jr), device="cpu")
+    want_field = getattr(jr, field)
+    if isinstance(want_field, (bool, int)):
+        assert getattr(tr, field) == want_field
+    else:
+        np.testing.assert_array_equal(getattr(tr, field).numpy(), np.asarray(want_field))
+    key = jax.random.PRNGKey(13)
+    ref = np.asarray(JB.realize(key, jb, jr, nreal=2, fit=True))
+    got = realize(None, tb, tr, 2, fit=True, noise=jax_realize_draws(key, jb, jr, 2),
+                  device="cpu").numpy()
+    assert np.max(np.abs(got - ref)) <= 1e-9 * np.sqrt(np.mean(ref**2))
+
+
+@pytest.mark.parametrize("columns", ["sin", "sin_cos"])
+def test_gls_refit_of_a_low_sinusoid_matches_jax_within_its_own_spread(jax_workload, columns):
+    """A GLS design with a sinusoid of the span's period, a direction
+    inside the 60-mode GP span (as a timing model's F0/F1 and astrometric
+    columns are): C^-1 all but annihilates it, so the fitted residual
+    carries the conditioning of a red-noise-dominated fit. The JAX
+    package's own spread on the same pre-fit delays, its jitted
+    ``realize`` against an eager ``finalize_residuals`` in TOA order and
+    with the TOA order reversed, is 2.1e-8 (sin) and 3.4e-8 (sin_cos) of
+    the RMS; the port's ``realize`` sits 1.9e-8 and 3.0e-8 from the JAX
+    one. It must stay within twice the spread and within 1e-7 of the RMS
+    (1e-9 for the designs of test_jax_recipe_field_carries_across, whose
+    spread is 3e-10)."""
+    jb, jr, _ = jax_workload
+    t = np.asarray(jb.toas_s) / np.asarray(jb.tspan_s)[:, None]
+    cols = [np.ones_like(t), t, t**2, np.sin(2 * np.pi * t)]
+    if columns == "sin_cos":
+        cols.append(np.cos(2 * np.pi * t))
+    cols += [np.random.default_rng(6).standard_normal(t.shape), np.zeros_like(t)]
+    design = np.stack(cols, axis=-1)
+    jr = dataclasses.replace(jr, fit_design=jnp.asarray(design), fit_gls=True)
+    key = jax.random.PRNGKey(13)
+    ref = np.asarray(JB.realize(key, jb, jr, nreal=2, fit=True))
+    got = realize(None, convert.batch_from_arrays(vars(jb), device="cpu"),
+                  convert.recipe_from_arrays(vars(jr), device="cpu"), 2, fit=True,
+                  noise=jax_realize_draws(key, jb, jr, 2), device="cpu").numpy()
+    per_toa = ("toas_s", "errors_s", "mask", "epoch_index", "backend_index", "freqs_mhz")
+    jb_rev = dataclasses.replace(jb, **{f: getattr(jb, f)[:, ::-1] for f in per_toa})
+    jr_rev = dataclasses.replace(jr, fit_design=jnp.asarray(design[:, ::-1]))
+    static = JB.deterministic_delays(jb, jr)
+    eager, rev = [], []
+    for k in jax.random.split(key, 2):
+        raw = JB.realization_delays(k, jb, jr) + static
+        eager.append(np.asarray(JB.finalize_residuals(raw, jb, jr, True)))
+        rev.append(np.asarray(JB.finalize_residuals(raw[:, ::-1], jb_rev, jr_rev, True))[:, ::-1])
+    rms = np.sqrt(np.mean(ref**2))
+    spread = max(np.max(np.abs(np.stack(x) - ref)) for x in (eager, rev)) / rms
+    gap = np.max(np.abs(got - ref)) / rms
+    assert gap <= 2 * spread and gap <= 1e-7, (gap, spread)
+
+
+@pytest.mark.parametrize("kwargs,match", [
+    (dict(burst_sky=np.zeros(3), burst_hplus=np.zeros(8)), "a burst needs all of"),
+    (dict(transient_waveform=np.zeros(8)), "travel together"),
+    (dict(transient_grid=np.zeros(2)), "travel together"),
+    (dict(gwm_params=np.zeros(4)), "gwm_params must have shape"),
+    (dict(burst_sky=np.zeros(2), burst_hplus=np.zeros(8), burst_hcross=np.zeros(8),
+          burst_grid=np.zeros(2)), "burst_sky must have shape"),
+    (dict(burst_sky=np.zeros(3), burst_hplus=np.zeros(8), burst_hcross=np.zeros(8),
+          burst_grid=np.zeros(3)), "burst_grid must have shape"),
+    (dict(transient_waveform=np.zeros(8), transient_grid=np.zeros(1)),
+     "transient_grid must have shape"),
+    (dict(transient_psr=-1), "transient_psr must be an int >= 0"),
+    (dict(gwb_log10_amplitude=-14.0), "needs gwb_gamma"),
+    (dict(gwb_user_spectrum=np.ones((4, 3))), "gwb_user_spectrum must be"),
+    (dict(fit_design=np.zeros((4, 8))), "fit_design must be"),
+])
+def test_recipe_validation_rejects(kwargs, match):
+    with pytest.raises(ValueError, match=match):
+        TB.Recipe(**kwargs)
+
+
+def test_recipe_validation_accepts_the_ported_fields():
+    """The reference's "amplitude or user spectrum" rule, GLS without a
+    power law, and a whole burst."""
+    spec = np.stack([np.geomspace(1e-9, 1e-7, 4), np.full(4, 1e-15)], axis=1)
+    TB.Recipe(gwb_log10_amplitude=-14.0, gwb_user_spectrum=spec)
+    TB.Recipe(gwb_user_spectrum=spec, fit_gls=True)
+    r = TB.Recipe(burst_sky=np.zeros(3), burst_hplus=np.zeros(8), burst_hcross=np.zeros(8),
+                  burst_grid=np.array([0.0, 1.0]), transient_psr=np.int64(3))
+    assert r.transient_psr == 3
+
+
+def test_recipe_moves_and_casts_fit_design():
+    r = TB.Recipe(fit_design=np.ones((2, 5, 3)), fit_gls=True)
+    assert r.fit_design.dtype == torch.float64
+    assert r.astype(torch.float32).fit_design.dtype == torch.float32
+    assert r.to("cpu").fit_design.device.type == "cpu"
 
 
 def test_convert_carries_jax_only_knobs_and_rejects_unknown(jax_workload):
