@@ -27,7 +27,13 @@ with GLS weighted through config B's block-tridiagonal kernels
 the GLS-fitted float64 bank is priced with its own design, the Woodbury
 kernel at 286 columns (`full_fit_likelihood`); and the deterministic
 delays add a burst, a burst with memory and a transient, beside a realize
-with a user GWB spectrum (`deterministic_families`). It prints one JSON
+with a user GWB spectrum (`deterministic_families`). The bf16 rung of the
+Woodbury assembly is held against its plain version at Q = 123 (float64
+and float32 inputs) and 286 (`woodbury_kernel_vs_plain_bf16`), gated on a
+numerics capture of the armed float64 bank call and priced on the
+flagship bank (`likelihood_bf16`); the tuner searches the kernel's TOA
+splits (`tuner_woodbury`), and the MAP fit runs at the flagship width and
+card against CPU (`map_fit`, `map_fit_card_vs_cpu`). It prints one JSON
 line per phase. The
 line before the last is the kernels line, the last the result line.
 Without a CUDA device, or without the port beside it, it exits non-zero
@@ -52,8 +58,10 @@ from pta_replicator_tpu_torch.covariance import banded_from_times, kron_time_cha
 from pta_replicator_tpu_torch.covariance import kernels as cov_kernels
 from pta_replicator_tpu_torch.covariance import structure as cov_structure
 from pta_replicator_tpu_torch.likelihood import gp as lgp
-from pta_replicator_tpu_torch.likelihood.infer import _reduced_points, _theta_block
+from pta_replicator_tpu_torch.likelihood import tuner
+from pta_replicator_tpu_torch.likelihood.infer import _reduced_points, _theta_block, map_objective
 from pta_replicator_tpu_torch.models import batched as B
+from pta_replicator_tpu_torch.obs import numerics
 from pta_replicator_tpu_torch.ops import cw
 from pta_replicator_tpu_torch.ops import gp as ops_gp
 from pta_replicator_tpu_torch.scenarios.compile import deterministic_families
@@ -197,6 +205,21 @@ TOL_FAMILIES = 1e-12
 #: nodes between 2 and 60 nHz, so the synthesis grid is clamped at both ends
 USER_SPECTRUM_F = np.geomspace(2e-9, 6e-8, 9)
 USER_SPECTRUM = np.stack([USER_SPECTRUM_F, 1e-15 * (USER_SPECTRUM_F / 1e-8) ** (-2.0 / 3.0)], axis=1)
+
+#: the bf16 rung of B.3 against its plain version on the card, max |error|
+#: over the largest |entry| of each output: the CPU tests' tolerance of the
+#: plain version against JAX (both sum exact products of bf16 operands in
+#: float32, in another order)
+TOL_WOODBURY_BF16 = 1e-5
+#: H100 SXM dense bf16 tensor-core peak (NVIDIA data sheet)
+BF16_PEAK_OPS = 989e12
+#: the MAP fit over the GWB's amplitude and slope, started off the
+#: flagship recipe's truth (-14.0, 4.33), and card vs CPU at SMALL (x and
+#: sigma, relative)
+MAP_START = {"gwb_log10_amplitude": -14.4, "gwb_gamma": 4.0}
+TOL_MAP_CARD_VS_CPU = 1e-6
+#: calls per candidate of the tuner's search on the card
+TUNER_REPS = 20
 
 #: the counter of each block-tridiagonal sweep checked in cov_kernels
 TRIDIAG_COUNTER = {"factor": "tridiag_factor_solve_fwd", "factor_solve": "tridiag_factor_solve_fwd",
@@ -577,6 +600,18 @@ def chromatic_recipe(batch, recipe):
         chrom_nmodes=30).to(batch.device)
 
 
+def _woodbury_operands(batch, recipe, design):
+    """B.3's operands at a likelihood path's own shape, float64: the
+    stacked basis T of the fused build, the white inverse variances with a
+    tenth of the rows masked (w = 0), random residuals."""
+    reduced, _ = lgp.ReducedGP.build_fused(batch, recipe, design=design)
+    winv = B.white_ecorr_parts(batch, reduced.sigma2, None, torch.float64)[0]
+    rng = np.random.default_rng(7)
+    keep = torch.as_tensor(rng.random(tuple(winv.shape)) > 0.1, device=winv.device)
+    r64 = torch.as_tensor(rng.standard_normal(tuple(winv.shape)) * 1e-6, device=winv.device)
+    return reduced.T, winv * keep, r64
+
+
 def phase_woodbury_kernel(batch, recipe, design, basis):
     """Kernel vs plain at a likelihood path's own shape: the stacked basis
     T (68 x 7,758 x Q) and white inverse variances of the float64
@@ -584,13 +619,7 @@ def phase_woodbury_kernel(batch, recipe, design, basis):
     7,758 is no multiple of any tile. Both dtypes; two kernel runs must
     give the same bits; the float64 call is also read by the profiler
     (device time per kernel). Returns the float64 row (the path's dtype)."""
-    reduced, _ = lgp.ReducedGP.build_fused(batch, recipe, design=design)
-    winv = B.white_ecorr_parts(batch, reduced.sigma2, None, torch.float64)[0]
-    rng = np.random.default_rng(7)
-    keep = torch.as_tensor(rng.random(tuple(winv.shape)) > 0.1, device=winv.device)
-    r64 = torch.as_tensor(rng.standard_normal(tuple(winv.shape)) * 1e-6, device=winv.device)
-    operands64 = (reduced.T, winv * keep, r64)
-    del reduced
+    operands64 = _woodbury_operands(batch, recipe, design)
     rows = {}
     for dtype in (torch.float64, torch.float32):
         T, w, r = (x.to(dtype).contiguous() for x in operands64)
@@ -630,6 +659,202 @@ def phase_woodbury_kernel(batch, recipe, design, basis):
         rows[dtype] = row
         del A, WA, At, got, again, want, lib_out
     return rows[torch.float64]
+
+
+def woodbury_bf16_bound(npsr, ntoa, q, dtype):
+    """Least time for the bf16 rung on this card: the full Gram of [T |
+    r] (ops/gp.py::woodbury_operations, "bf16") at the bf16 tensor-core
+    peak, or its bytes (T, w, r read once in their dtype, the float32
+    outputs written once) over HBM bandwidth."""
+    size = torch.finfo(dtype).bits // 8
+    ops_ms = ops_gp.woodbury_operations(npsr, ntoa, q, "bf16") / BF16_PEAK_OPS * 1e3
+    nbytes = size * (npsr * ntoa * q + 2 * npsr * ntoa) + 4 * (npsr * q * q + npsr * q + npsr)
+    bytes_ms = nbytes / PEAK_BYTES * 1e3
+    return max(ops_ms, bytes_ms), ("operations" if ops_ms >= bytes_ms else "bytes")
+
+
+def _bf16_library(T, w, r):
+    """One torch.bmm of the bf16 operands bf16([T | r])^T bf16(w [T | r]),
+    built before timing, with float32 output (``out_dtype``)."""
+    A = torch.cat([T, r[..., None]], dim=-1)
+    At = A.to(torch.bfloat16).transpose(1, 2)
+    WA = (A * w[..., None]).to(torch.bfloat16)
+    return lambda: torch.bmm(At, WA, out_dtype=torch.float32)
+
+
+def phase_woodbury_bf16(batch, recipe, design, basis, dtypes):
+    """The bf16 rung of B.3 (precision="bf16") against its plain version
+    on the card at a likelihood path's shape, with float64 and float32
+    inputs (``dtypes``): TOL_WOODBURY_BF16, two runs bitwise equal, finite,
+    and T^T W T asymmetric as the reference's (its largest |X - X^T| over
+    the largest |X|). Returns the rows by dtype."""
+    operands64 = _woodbury_operands(batch, recipe, design)
+    rows = {}
+    for dtype in dtypes:
+        T, w, r = (x.to(dtype).contiguous() for x in operands64)
+        run = lambda: ops_gp.fused_woodbury_update(T, w, r, precision="bf16")
+        plain = lambda: ops_gp.fused_woodbury_plain(T, w, r, precision="bf16")
+        got, again, want = run(), run(), plain()
+        torch.cuda.synchronize()
+        library = _bf16_library(T, w, r)
+        library()
+        errs = [_rel_max(g, x) for g, x in zip(got, want)]
+        bound, bound_by = woodbury_bf16_bound(*T.shape, dtype)
+        sms = torch.cuda.get_device_properties(T.device).multi_processor_count
+        tnt = got[0]
+        row = dict(
+            basis=basis, input_dtype=str(dtype), shape=list(T.shape),
+            plan=dict(zip(("panels", "pairs", "nsplit", "workspace_entries"),
+                          ops_gp.woodbury_plan(*T.shape, sms, "bf16"))),
+            rel_err_tnt=errs[0], rel_err_d=errs[1], rel_err_rnr=errs[2], tol=TOL_WOODBURY_BF16,
+            max_abs_err=max(float((g - x).abs().max()) for g, x in zip(got, want)),
+            asymmetry=float((tnt - tnt.transpose(-1, -2)).abs().max() / tnt.abs().max()),
+            output_dtype=str(tnt.dtype),
+            same_bits=all(bool(torch.equal(a, b)) for a, b in zip(got, again)),
+            finite=all(bool(torch.isfinite(g).all()) for g in got),
+            ms=cuda_ms(run, 20), plain_ms=cuda_ms(plain, 3), library_ms=cuda_ms(library, 20),
+            bound_ms=bound, bound_by=bound_by,
+        )
+        emit("woodbury_kernel_vs_plain_bf16", **row)
+        require(row["finite"] and max(errs) <= TOL_WOODBURY_BF16,
+                f"woodbury bf16 kernel vs plain {dtype}: {row}")
+        require(row["same_bits"] and row["asymmetry"] > 0 and tnt.dtype == torch.float32,
+                f"woodbury bf16 kernel not deterministic, symmetric or not float32: {row}")
+        rows[dtype] = row
+        del got, again, want, tnt
+    return rows
+
+
+def phase_likelihood_bf16(bank, batch, recipe, design, ll):
+    """The bf16 rung on the flagship f64 bank (200 x 8 x 8): arm the
+    numerics ledger, run the f64 fused bank call, write the capture to a
+    temporary directory and disarm; bf16 without the capture must raise
+    PrecisionNotReady; then the bank and grid calls with the capture, the
+    bf16 launches counted around them (> 0, the highest kernel's 0).
+    Measured, not gated: the finite share and the relative deviation from
+    the f64 log L ``ll`` (the float32 reduced algebra may lose
+    definiteness), and the finite share without the design (S alone)."""
+    grid, shape = lk.grid_cartesian(LIKELIHOOD_GRID)
+    capture = tempfile.mkdtemp(prefix="chip_smoke_numerics_")
+    try:
+        numerics.reset()
+        numerics.arm()
+        lk.bank_loglikelihood(bank, batch, recipe, grid=grid, design=design, fused=True)
+        doc = json.loads(Path(numerics.write(capture)).read_text())
+        numerics.disarm()
+        verdict = numerics.ladder_verdict(doc)
+        refused = False
+        try:
+            lk.bank_loglikelihood(bank, batch, recipe, grid=grid, design=design, precision="bf16")
+        except lgp.PrecisionNotReady:
+            refused = True
+        call = lambda: lk.bank_loglikelihood(bank, batch, recipe, grid=grid, design=design,
+                                             precision="bf16", numerics_capture=capture)
+        launches.clear()
+        ll16 = call().cpu()
+        ll16_one = lk.grid_loglikelihood(bank[0], batch, recipe, grid, design=design,
+                                         precision="bf16", numerics_capture=capture).cpu()
+        counts = launches["fused_woodbury_update_bf16"], launches["fused_woodbury_update"]
+        # without the design: whether S alone (the GP block) still factors
+        free = lk.bank_loglikelihood(bank, batch, recipe, grid=grid, precision="bf16",
+                                     numerics_capture=capture)
+        _, call_ms = _timed_ms(call)
+        _, build_ms = _timed_ms(lambda: lgp.ReducedGP.build(batch, recipe, design=design,
+                                                             precision="bf16"))
+    finally:
+        numerics.reset()
+        shutil.rmtree(capture, ignore_errors=True)
+    finite = torch.isfinite(ll16)
+    rel = ((ll16 - ll).abs() / ll.abs())[finite]
+    row = dict(
+        bank_shape=list(bank.shape), grid_shape=list(shape),
+        verdict={site: ("ready" if v["ready"] else v["reasons"]) for site, v in verdict.items()},
+        sites_headroom_bits={k: v["headroom_bits"] for k, v in doc["sites"].items()},
+        refused_without_capture=refused, bf16_launches=counts[0], highest_launches=counts[1],
+        call_ms=call_ms, build_ms=build_ms, evals_per_s=ll16.numel() / (call_ms / 1e3),
+        output_shape=list(ll16.shape), output_dtype=str(ll16.dtype),
+        finite_share=float(finite.double().mean()),
+        rel_vs_float64_median=float(rel.median()) if rel.numel() else None,
+        rel_vs_float64_max=float(rel.max()) if rel.numel() else None,
+        grid_finite_share=float(torch.isfinite(ll16_one).double().mean()),
+        finite_share_without_design=float(torch.isfinite(free).double().mean()),
+    )
+    emit("likelihood_bf16", **row)
+    require(all(verdict[s]["ready"] for s in lgp.FUSED_PRECISION_SITES),
+            f"the armed f64 capture does not clear the fused sites: {row}")
+    require(refused, "precision='bf16' ran without a numerics capture")
+    require(counts[0] > 0 and counts[1] == 0,
+            f"the bf16 calls did not launch only the bf16 kernel: {row}")
+    require(tuple(ll16.shape) == tuple(ll.shape), f"bf16 likelihood output: {row}")
+    return counts[0]
+
+
+def phase_tuner_woodbury(batch, recipe, design):
+    """tuner.autotune at the flagship Q = 123 in f64 highest and in bf16,
+    into a temporary cache: each candidate split count's CUDA-event ms;
+    the lookup must return the winner."""
+    T, w, r = _woodbury_operands(batch, recipe, design)
+    workdir = Path(tempfile.mkdtemp(prefix="chip_smoke_tuner_"))
+    try:
+        rows = {}
+        for precision in ("highest", "bf16"):
+            choice = tuner.autotune(T, w, r, precision, reps=TUNER_REPS,
+                                    cache_path=str(workdir / "cache.json"))
+            lookup = tuner.woodbury_knob(T, precision, cache_path=str(workdir / "cache.json"))
+            rows[precision] = dict(
+                winner=choice["nsplit"], lookup=lookup, bucket=choice["bucket"],
+                candidates_ms={str(s["nsplit"]): s["seconds"] * 1e3 for s in choice["scored"]},
+                plan=ops_gp.woodbury_plan(*T.shape, torch.cuda.get_device_properties(
+                    T.device).multi_processor_count, precision)[2])
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    emit("tuner_woodbury", shape=list(T.shape), reps=TUNER_REPS, **rows)
+    for precision, row in rows.items():
+        require(row["lookup"] == {"nsplit": row["winner"]},
+                f"the tuner's lookup does not return its winner ({precision}): {row}")
+
+
+def phase_map_fit(batch, recipe, generator):
+    """map_fit on the card: the flagship f64 residuals of one realization
+    (fitted, priced with the quadratic design) over the GWB's amplitude
+    and slope, started off the truth. Gate: converged and finite."""
+    design = B.quadratic_design(batch)
+    res = realize(generator, batch, recipe, 1, fit=True)[0]
+    names = tuple(sorted(MAP_START))
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    fit = lk.map_fit(res, batch, recipe, MAP_START, design=design)
+    fit_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    value_and_grad, hessian = map_objective(res, batch, recipe, names, design, batch.device)
+    _, vg_ms = _timed_ms(lambda: value_and_grad(fit.x))
+    _, hess_ms = _timed_ms(lambda: hessian(fit.x))
+    row = dict(shape=[int(n) for n in res.shape], start=MAP_START, **fit.as_dict(),
+               fit_s=fit_s, value_and_grad_ms=vg_ms, hessian_ms=hess_ms, peak_memory_gib=peak)
+    emit("map_fit", **row)
+    require(fit.converged and np.all(np.isfinite(fit.x)) and np.all(np.isfinite(fit.sigma)),
+            f"map_fit on the card: {row}")
+
+
+def phase_map_fit_card_vs_cpu(shape):
+    """map_fit at ``shape`` on the card and on the CPU, f64, on the same
+    residuals: x and sigma within TOL_MAP_CARD_VS_CPU, the same iterations."""
+    cb, cr = flagship_workload(**shape, dtype=torch.float64, device="cpu")
+    gb, gr = flagship_workload(**shape, dtype=torch.float64)
+    rng = np.random.default_rng(4)
+    noise = {k: rng.standard_normal((1,) + s) for k, s in B.noise_shapes(cb, cr).items()}
+    res = realize(None, cb, cr, 1, fit=True, noise=noise, device="cpu")[0]
+    ref = lk.map_fit(res, cb, cr, MAP_START, design=B.quadratic_design(cb), device="cpu")
+    got = lk.map_fit(res, gb, gr, MAP_START, design=B.quadratic_design(gb))
+    row = dict(shape=shape, iterations=[got.iterations, ref.iterations],
+               converged=[got.converged, ref.converged],
+               rel_x=float(np.max(np.abs(got.x - ref.x) / np.abs(ref.x))),
+               rel_sigma=float(np.max(np.abs(got.sigma - ref.sigma) / np.abs(ref.sigma))),
+               tol=TOL_MAP_CARD_VS_CPU)
+    emit("map_fit_card_vs_cpu", **row)
+    require(got.iterations == ref.iterations and got.converged and ref.converged
+            and max(row["rel_x"], row["rel_sigma"]) <= TOL_MAP_CARD_VS_CPU,
+            f"map_fit card vs CPU: {row}")
 
 
 def phase_likelihood_chromatic(batch, recipe, generator):
@@ -1824,8 +2049,10 @@ def phase_full_fit_likelihood(batch, recipe, generator):
     require(out["finite"] and rel <= TOL_LIKELIHOOD, f"GLS-fitted bank fused vs composed: {out}")
     del bank
     torch.cuda.empty_cache()
-    row = phase_woodbury_kernel(batch, rec, design, "GLS-fitted bank: design 166 + GP 120")
-    return count, row
+    basis = "GLS-fitted bank: design 166 + GP 120"
+    row = phase_woodbury_kernel(batch, rec, design, basis)
+    bf16_row = phase_woodbury_bf16(batch, rec, design, basis, (torch.float64,))[torch.float64]
+    return count, row, bf16_row
 
 
 def phase_deterministic_families(batch, recipe, generator):
@@ -1935,6 +2162,8 @@ def main():
         shutil.rmtree(workdir, ignore_errors=True)
     design = B.quadratic_design(batch64)
     woodbury_row = phase_woodbury_kernel(batch64, recipe64, design, "flagship")
+    bf16_rows = phase_woodbury_bf16(batch64, recipe64, design, "flagship",
+                                    (torch.float64, torch.float32))
     chrom64 = chromatic_recipe(batch64, recipe64)
     phase_woodbury_kernel(batch64, chrom64, design, "flagship + chromatic")
     phase_likelihood_chromatic(batch64, chrom64, torch.Generator(device=batch64.device).manual_seed(2))
@@ -1943,11 +2172,16 @@ def main():
     del res
     woodbury_count, ll = phase_likelihood(bank, batch64, recipe64, design)
     phase_likelihood_float32(bank, batch, recipe, ll)
+    bf16_count = phase_likelihood_bf16(bank, batch64, recipe64, design, ll)
     phase_likelihood_server(bank, batch64, recipe64, design, ll)
     phase_likelihood_card_vs_cpu(SMALL)
     del bank
     torch.cuda.empty_cache()
-    gls_bank_count, gls_bank_row = phase_full_fit_likelihood(
+    phase_tuner_woodbury(batch64, recipe64, design)
+    phase_map_fit(batch64, recipe64, torch.Generator(device=batch64.device).manual_seed(6))
+    phase_map_fit_card_vs_cpu(SMALL)
+    torch.cuda.empty_cache()
+    gls_bank_count, gls_bank_row, gls_bank_bf16_row = phase_full_fit_likelihood(
         batch64, recipe64, torch.Generator(device=batch64.device).manual_seed(5))
     del batch64, recipe64, design
     cov_rows = phase_cov_kernels()
@@ -1983,6 +2217,18 @@ def main():
         "bound_ms": woodbury_row["bound_ms"], "bound_by": woodbury_row["bound_by"],
         "library_ms": woodbury_row["library_ms"], **NO_ISSUE_ACCOUNT,
         "gls_bank_launches": gls_bank_count, "gls_bank_q286": _width_row(gls_bank_row),
+    }, {
+        "name": "fused_woodbury_update_bf16", "route": "cuda",
+        "source": "pta_replicator_tpu_torch/csrc/fused_woodbury.cu",
+        "replaces": 'pta_replicator_tpu/ops/pallas_gp.py:160 (precision="bf16")',
+        "launches": bf16_count, "max_abs_err": bf16_rows[f64]["max_abs_err"],
+        "ms": bf16_rows[f64]["ms"], "plain_ms": bf16_rows[f64]["plain_ms"],
+        "bound_ms": bf16_rows[f64]["bound_ms"], "bound_by": bf16_rows[f64]["bound_by"],
+        "library_ms": bf16_rows[f64]["library_ms"],
+        "library": "torch.bmm of the bf16 operands, float32 output",
+        **NO_ISSUE_ACCOUNT,
+        "float32_inputs": _width_row(bf16_rows[torch.float32]),
+        "gls_bank_q286": _width_row(gls_bank_bf16_row),
     },
         {**_cov_kernel_entry("cov_syrk_update", "pta_replicator_tpu_torch/csrc/cov_syrk.cu",
                              "pta_replicator_tpu/ops/pallas_cw.py:484", syrk_count,

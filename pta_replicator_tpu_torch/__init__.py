@@ -9,7 +9,8 @@ design by WLS or by GLS weighted by the recipe's own noise model),
 batched over pulsars and realizations; and the rank-reduced GP likelihood that prices a bank
 of realizations over a hyperparameter grid or through a request-batched
 server (``likelihood/``), its Woodbury assembly a hand-written CUDA
-kernel; and structured noise covariances (``covariance/``: banded,
+kernel with a bf16 tensor-core rung gated by the numerics ledger
+(``obs/numerics.py``), a launch-plan tuner and a MAP fit; and structured noise covariances (``covariance/``: banded,
 dense, Kronecker, low rank) that ``realize`` samples and the likelihood
 prices inside C0, on hand-written block-tridiagonal and blocked-Cholesky
 kernels; and the resumable sweep that writes realizations in chunks to a
@@ -22,10 +23,12 @@ package imports nothing of it, and nothing of JAX.
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
 """
 from .batch import PulsarBatch, synthetic_batch
+from .likelihood import FUSED_PRECISION_SITES, MapResult, PrecisionNotReady, map_fit, tuner
 from .models.batched import Recipe, deterministic_delays, realize
 from .scenarios.compile import flagship_workload
 
 __all__ = [
-    "PulsarBatch", "Recipe", "deterministic_delays", "flagship_workload",
-    "realize", "synthetic_batch",
+    "FUSED_PRECISION_SITES", "MapResult", "PrecisionNotReady", "PulsarBatch", "Recipe",
+    "deterministic_delays", "flagship_workload", "map_fit", "realize", "synthetic_batch",
+    "tuner",
 ]

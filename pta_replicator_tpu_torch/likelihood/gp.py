@@ -24,14 +24,22 @@ cov_log10_sigma) (``models.batched.white_ecorr_solver``).
   Cholesky per pulsar. Its fused build (:meth:`ReducedGP.build_fused`)
   forms the blocks with the fused Woodbury assembly
   (``ops/gp.py::fused_woodbury_update``, a CUDA kernel on the card).
+  ``precision="bf16"`` runs that assembly on bf16 operands with float32
+  sums, and the reduced algebra then runs in float32; it is refused
+  unless a numerics capture clears the fused sites
+  (:func:`require_precision_ready`).
 
 Every function runs on the device and in the dtype of its tensors; the
 tested configuration is float64 (the Gram entries reach Nt / sigma^2 ~
-1e16 against 1/phi on the diagonal).
+1e16 against 1/phi on the diagonal). The factorizations and the fused
+blocks pass through identity probes of the numerics ledger
+(``obs/numerics.py``), which record only while it is armed.
 """
 from __future__ import annotations
 
+import json
 import math
+import os
 from dataclasses import dataclass
 from typing import Optional
 
@@ -48,6 +56,7 @@ from ..models.batched import (
     white_ecorr_parts,
     white_ecorr_solver,
 )
+from ..obs import numerics
 from ..ops import gp as ops_gp
 
 _LOG_2PI = math.log(2.0 * math.pi)
@@ -62,20 +71,63 @@ WHITE_NOISE_FIELDS = frozenset(
 )
 
 
-def require_precision_ready(precision) -> str:
-    """Validate a ``precision=`` policy: ``"highest"`` (or None) passes.
-    ``"bf16"`` raises ``NotImplementedError``: its gate reads a capture of
-    the numerics observatory, which the port does not have yet."""
+#: the numerics-ledger sites of the fused assembly's outputs: the bf16
+#: policy is refused unless a capture's ladder verdict clears every one
+FUSED_PRECISION_SITES = ("gp.fused_tnt", "gp.fused_d", "gp.fused_rnr")
+
+
+class PrecisionNotReady(RuntimeError):
+    """``precision='bf16'`` was asked for without a numerics capture whose
+    ladder verdict clears every fused site. The remedy: run the fused
+    path armed (``numerics.arm()``, then ``numerics.write(dir)``) on
+    representative data, and pass that capture as ``numerics_capture=``."""
+
+
+def require_precision_ready(precision, numerics_capture=None) -> str:
+    """Validate a ``precision=`` policy against the numerics ledger.
+
+    ``"highest"`` (or None) always passes. ``"bf16"`` needs
+    ``numerics_capture``: a ``numerics.json`` (or its directory) written
+    by an armed run of the fused path, whose
+    :func:`~pta_replicator_tpu_torch.obs.numerics.ladder_verdict` marks
+    every :data:`FUSED_PRECISION_SITES` entry ready; otherwise
+    :class:`PrecisionNotReady` names the sites and reasons. Returns the
+    validated policy."""
     if precision in (None, "highest"):
         return "highest"
     if precision != "bf16":
         raise ValueError(
             f"unknown precision policy {precision!r}: expected one of {ops_gp.PRECISIONS}"
         )
-    raise NotImplementedError(
-        "precision='bf16' is not ported to pta_replicator_tpu_torch yet: its "
-        "gate reads a numerics-observatory capture (ROADMAP.md items A.16 and B.3)"
-    )
+    if numerics_capture is None:
+        raise PrecisionNotReady(
+            "precision='bf16' needs evidence: pass numerics_capture= a numerics.json "
+            "(or its directory) written by an armed run of the fused path, so the "
+            f"ladder verdict for {FUSED_PRECISION_SITES} can be checked"
+        )
+    path = os.fspath(numerics_capture)
+    if os.path.isdir(path):
+        path = os.path.join(path, "numerics.json")
+    try:
+        with open(path, encoding="utf-8") as fh:
+            doc = json.load(fh)
+    except (OSError, ValueError) as exc:
+        raise PrecisionNotReady(
+            f"numerics capture {path!r} is unreadable ({exc}); rerun the fused path "
+            "armed and write a fresh capture"
+        ) from exc
+    verdict = numerics.ladder_verdict(doc)
+    missing = [s for s in FUSED_PRECISION_SITES if s not in verdict]
+    if missing:
+        raise PrecisionNotReady(
+            f"numerics capture {path!r} never observed fused sites {missing} — it "
+            "must come from an armed run of the fused path itself, not an "
+            "unrelated capture"
+        )
+    blocked = {s: verdict[s]["reasons"] for s in FUSED_PRECISION_SITES if not verdict[s]["ready"]}
+    if blocked:
+        raise PrecisionNotReady(f"ladder verdict refuses bf16 for {sorted(blocked)}: {blocked}")
+    return "bf16"
 
 
 def _stack_columns(batch: PulsarBatch, design, U, dtype):
@@ -100,19 +152,27 @@ def _stack_columns(batch: PulsarBatch, design, U, dtype):
     return torch.cat(cols, dim=-1), zero_col, ktm, ndof
 
 
-def _fused_assembly(T, winv, gain, seg_sum, r, tile):
+def _fused_assembly(T, winv, gain, seg_sum, r, tile, precision, nsplit):
     """``T^T C0^-1 T``, ``T^T C0^-1 r`` and ``r^T C0^-1 r`` without
-    forming C0^-1 T: the fused Woodbury assembly prices the diagonal N,
-    then the per-epoch ECORR correction is exact O(E Q^2) algebra applied
-    here, through the same segment sum the composed solver uses."""
-    tnt, d, rnr = ops_gp.fused_woodbury_update(T, winv, r, tile=tile)
+    forming C0^-1 T: the fused Woodbury assembly prices the diagonal N
+    (``precision`` and the knobs ``tile``, ``nsplit`` go to it), then the
+    per-epoch ECORR correction is exact O(E Q^2) algebra applied here,
+    through the same segment sum the composed solver uses, in the
+    assembly's accumulator dtype (its inputs formed in the input dtype)."""
+    tnt, d, rnr = ops_gp.fused_woodbury_update(T, winv, r, tile=tile, precision=precision,
+                                               nsplit=nsplit)
     if gain is not None:
-        S = seg_sum(winv[..., None] * T)  # (Np, E, Q)
-        s_r = seg_sum((winv * r)[..., None])[..., 0]
-        tnt = tnt - torch.einsum("peq,pe,pes->pqs", S, gain, S)
-        d = d - torch.einsum("peq,pe->pq", S, gain * s_r)
-        rnr = rnr - torch.sum(gain * s_r * s_r, dim=-1)
-    return tnt, d, rnr
+        acc = tnt.dtype
+        S = seg_sum(winv[..., None] * T).to(acc)  # (Np, E, Q)
+        s_r = seg_sum((winv * r)[..., None])[..., 0].to(acc)
+        g = gain.to(acc)
+        tnt = tnt - torch.einsum("peq,pe,pes->pqs", S, g, S)
+        d = d - torch.einsum("peq,pe->pq", S, g * s_r)
+        rnr = rnr - torch.sum(g * s_r * s_r, dim=-1)
+    # the blocks the reduced likelihood consumes: the ledger's evidence
+    # for the bf16 verdict (identity unless armed)
+    return (numerics.probe("gp.fused_tnt", tnt), numerics.probe("gp.fused_d", d),
+            numerics.probe("gp.fused_rnr", rnr))
 
 
 def _tm_columns(batch: PulsarBatch, design, dtype):
@@ -158,7 +218,7 @@ def loglikelihood(residuals, batch: PulsarBatch, recipe: Recipe, design=None,
         G = c0inv(U)  # C0^-1 U
         phi_safe = torch.where(phi > 0, phi, 1.0).to(dtype)
         S = torch.einsum("pnr,pns->prs", U, G) + torch.diag_embed(1.0 / phi_safe)
-        L = _cholesky(S)
+        L = numerics.probe_cholesky("gp.chol_rank", _cholesky(S))
         b = torch.einsum("pnr,pn->pr", U, x0)
         z = torch.linalg.solve_triangular(L, b[..., None], upper=False)[..., 0]
         quad = quad - torch.sum(z * z, dim=-1)
@@ -180,7 +240,7 @@ def loglikelihood(residuals, batch: PulsarBatch, recipe: Recipe, design=None,
         Mn, zero_col = _tm_columns(batch, design, dtype)
         A = torch.einsum("pnk,pnl->pkl", Mn, cinv_mat(Mn))
         A = A + torch.diag_embed(zero_col.to(dtype))
-        La = _cholesky(A)
+        La = numerics.probe_cholesky("gp.chol_tm", _cholesky(A))
         bm = torch.einsum("pnk,pn->pk", Mn, w)
         zm = torch.linalg.solve_triangular(La, bm[..., None], upper=False)[..., 0]
         quad = quad - torch.sum(zm * zm, dim=-1)
@@ -240,6 +300,9 @@ class ReducedGP:
     #: the same solver (grids over cov_log10_sigma take the direct route)
     extra: Optional[object] = None
     extra_s2: Optional[torch.Tensor] = None
+    #: the fused assembly's policy ("highest" or "bf16"); "highest" off
+    #: the fused build. With "bf16" the blocks are float32
+    precision: str = "highest"
 
     @classmethod
     def build(cls, batch: PulsarBatch, recipe: Recipe, design=None, dtype=None,
@@ -247,9 +310,10 @@ class ReducedGP:
               tile: Optional[int] = None) -> "ReducedGP":
         """Precompute every Nt-sized block on the batch's device:
         ``C0^-1 T`` and ``T^T C0^-1 T`` as two contractions (composed), or
-        with ``fused=True`` through :meth:`build_fused`."""
-        require_precision_ready(precision)
-        if fused:
+        with ``fused=True`` (or a precision other than "highest") through
+        :meth:`build_fused`. The caller gates ``precision`` first
+        (:func:`require_precision_ready`; likelihood/infer.py does)."""
+        if fused or precision != "highest":
             return cls.build_fused(batch, recipe, design=design, dtype=dtype,
                                    precision=precision, tile=tile)[0]
         dtype = dtype or batch.dtype
@@ -273,31 +337,45 @@ class ReducedGP:
         """The fused build: one pass of the fused Woodbury assembly forms
         ``T^T C0^-1 T`` and, when ``residuals`` (Np, Nt) is given, its
         projection in the same pass, without the (Np, Nt, Q) ``C0^-1 T``.
-        Returns ``(ReducedGP, GPProjection or None)``. ``tile=None`` is
-        the reference's untuned default. Only the analytic white/ECORR C0
-        is fusable: a recipe with a structured ``noise_cov`` raises (the
-        composed :meth:`build` prices it)."""
+        Returns ``(ReducedGP, GPProjection or None)``.
+
+        ``precision="bf16"`` runs the assembly on bf16 operands with
+        float32 sums, so the blocks are float32; the caller gates it
+        first (:func:`require_precision_ready`). ``tile=None`` asks
+        ``likelihood/tuner.py`` for the cached knob of this assembly (the
+        plain version's tile on the CPU, the kernel's TOA splits on the
+        card), else the untuned defaults. Only the analytic white/ECORR
+        C0 is fusable: a recipe with a structured ``noise_cov`` raises
+        (the composed :meth:`build` prices it)."""
         if recipe.noise_cov is not None:
             raise ValueError(
                 "the fused Woodbury rung prices the analytic white/"
                 "ECORR C0 only; a recipe with a structured noise_cov "
                 "block must use the composed ReducedGP.build"
             )
-        require_precision_ready(precision)
         dtype = dtype or batch.dtype
-        tile = ops_gp.DEFAULT_WOODBURY_TILE if tile is None else int(tile)
         sigma2, ecorr2, U, _phi = gls_noise_model(batch, recipe)
         winv, seg_sum, gain, logdet_c0 = white_ecorr_parts(batch, sigma2, ecorr2, dtype)
+        winv = numerics.probe("solver.winv", winv)
+        logdet_c0 = numerics.probe("solver.logdet_c0", logdet_c0)
         T, zero_col, ktm, ndof = _stack_columns(batch, design, U, dtype)
+        if tile is None:
+            from .tuner import woodbury_knob
+
+            knob = woodbury_knob(T, precision)
+        else:
+            knob = {"tile": int(tile)}
         if residuals is None:
             r = torch.zeros(batch.mask.shape, dtype=dtype, device=batch.device)
         else:
             r = torch.as_tensor(residuals).to(device=batch.device, dtype=dtype) * batch.mask
-        TNT, d, rNr = _fused_assembly(T, winv, gain, seg_sum, r, tile)
+        TNT, d, rNr = _fused_assembly(T, winv, gain, seg_sum, r,
+                                      knob.get("tile", ops_gp.DEFAULT_WOODBURY_TILE),
+                                      precision, knob.get("nsplit"))
         reduced = cls(
             TNT=TNT, CiT=None, logdet_c0=logdet_c0, sigma2=sigma2.to(dtype),
             ecorr2=None if ecorr2 is None else ecorr2.to(dtype),
-            zero_col=zero_col, ndof=ndof, T=T, ktm=ktm, fused=True,
+            zero_col=zero_col, ndof=ndof, T=T, ktm=ktm, fused=True, precision=precision,
         )
         return reduced, (None if residuals is None else GPProjection(rNr=rNr, d=d))
 
@@ -309,19 +387,27 @@ class ReducedGP:
         """The Nt-sized reductions of residuals (..., Np, Nt); leading axes
         (a bank's realizations) carry through to the projection. The C0^-1
         apply is rebuilt from the retained variances through the same
-        solver pieces the build used."""
-        dtype = self.TNT.dtype
-        r = torch.as_tensor(residuals).to(device=batch.device, dtype=dtype) * batch.mask
+        solver pieces the build used. On the bf16 build the projection is
+        cast to float32, the assembly's dtype, so banked and build-time
+        projections agree."""
         if self.fused:
             # C0^-1 r by the O(Nt) direct apply, then one contraction
             # against the retained T
+            dtype = self.T.dtype
+            r = torch.as_tensor(residuals).to(device=batch.device, dtype=dtype) * batch.mask
             winv, seg_sum, gain, _ld = white_ecorr_parts(batch, self.sigma2, self.ecorr2, dtype)
             y = winv * r
             if gain is not None:
                 s_r = seg_sum(y[..., None])
                 y = y - winv * pick_epochs(gain[..., None] * s_r, batch)[..., 0]
-            return GPProjection(rNr=torch.einsum("...pn,...pn->...p", r, y),
-                                d=torch.einsum("pnq,...pn->...pq", self.T, y))
+            rNr = torch.einsum("...pn,...pn->...p", r, y)
+            d = torch.einsum("pnq,...pn->...pq", self.T, y)
+            if self.precision == "bf16":
+                rNr, d = rNr.float(), d.float()
+            return GPProjection(rNr=numerics.probe("gp.fused_rnr", rNr),
+                                d=numerics.probe("gp.fused_d", d))
+        dtype = self.TNT.dtype
+        r = torch.as_tensor(residuals).to(device=batch.device, dtype=dtype) * batch.mask
         _winv, c0inv, _ld = white_ecorr_solver(batch, self.sigma2, self.ecorr2, dtype,
                                                extra=self.extra, extra_s2=self.extra_s2)
         y = c0inv(r[..., None])[..., 0]
@@ -338,7 +424,14 @@ class ReducedGP:
         every realization is solved against that factor. The result has
         the axes (G, R) in that order, each only where the input has it,
         then (Np,) with ``per_pulsar``; nothing in it is proportional to
-        Nt."""
+        Nt.
+
+        On the bf16 build this algebra runs in float32 (the blocks'
+        dtype), with log det C0 and the degrees of freedom in the build
+        dtype, as the reference's promotion gives; S and A are
+        symmetrized, (X + X^T) / 2, before their factors, as the
+        reference's Cholesky does (its bf16 T^T W T is not symmetric, and
+        this Cholesky reads only the lower triangle)."""
         dtype, k = self.TNT.dtype, self.ktm
         phi = torch.as_tensor(phi).to(device=self.TNT.device, dtype=dtype)
         grid_axis, real_axis = phi.ndim == 3, proj.rNr.ndim == 2
@@ -350,7 +443,9 @@ class ReducedGP:
         active = (phi > 0).to(dtype)
         phi_safe = torch.where(phi > 0, phi, 1.0)
         TNT_uu = self.TNT[:, k:, k:] * (active[..., :, None] * active[..., None, :])
-        L = _cholesky(TNT_uu + torch.diag_embed(1.0 / phi_safe))  # (G, Np, R, R)
+        sym = _symmetrized if self.precision == "bf16" else (lambda x: x)
+        L = _cholesky(sym(TNT_uu + torch.diag_embed(1.0 / phi_safe)))  # (G, Np, R, R)
+        L = numerics.probe_cholesky("gp.reduced_chol_rank", L)
         d_u = dd[:, :, k:] * active[..., None]  # (G, Np, R, Rr)
         z = torch.linalg.solve_triangular(L, d_u, upper=False)
         quad = rNr.T[None] - torch.sum(z * z, dim=-2)  # (G, Np, Rr)
@@ -362,7 +457,7 @@ class ReducedGP:
             V = torch.linalg.solve_triangular(L, TNT_mu.transpose(-1, -2), upper=False)
             A = self.TNT[:, :k, :k] - V.transpose(-1, -2) @ V
             A = A + torch.diag_embed(self.zero_col.to(dtype))
-            La = _cholesky(A)
+            La = numerics.probe_cholesky("gp.reduced_chol_tm", _cholesky(sym(A)))
             bm = dd[:, :, :k] - V.transpose(-1, -2) @ z  # (G, Np, k, Rr)
             zm = torch.linalg.solve_triangular(La, bm, upper=False)
             quad = quad - torch.sum(zm * zm, dim=-2)
@@ -374,6 +469,10 @@ class ReducedGP:
         if not grid_axis:
             ll = ll[0]
         return ll if per_pulsar else torch.sum(ll, dim=-1)
+
+
+def _symmetrized(x):
+    return 0.5 * (x + x.transpose(-1, -2))
 
 
 def phi_for_recipe(batch: PulsarBatch, recipe: Recipe):

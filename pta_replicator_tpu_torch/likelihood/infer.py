@@ -1,9 +1,11 @@
-"""Grid and bank evaluation of the rank-reduced GP likelihood.
+"""Grid and bank evaluation of the rank-reduced GP likelihood, and the
+MAP fit.
 
 Counterpart of ``pta_replicator_tpu/likelihood/infer.py``: evaluation
 over hyperparameter grids (the :class:`~.gp.ReducedGP` fast path whenever
-the grid holds the white noise fixed, else the direct per-point rebuild)
-and over realization banks. The reference's ``vmap`` engines become batch
+the grid holds the white noise fixed, else the direct per-point rebuild),
+over realization banks, and a damped-Newton MAP fit with Fisher-matrix
+uncertainties (:func:`map_fit`). The reference's ``vmap`` engines become batch
 axes written out: the G points' priors phi are computed in a host loop
 (O(Np R) each), S is factored once per (point, pulsar) as one batched
 (G, Np, R, R) Cholesky, and every realization is solved against that one
@@ -100,11 +102,27 @@ def _reduced_points(theta, names, reduced: gp.ReducedGP, proj: gp.GPProjection,
     return reduced.loglikelihood(proj, phi, per_pulsar=per_pulsar)
 
 
+def _resolve_fused(recipe: Recipe, fused: bool, precision, numerics_capture):
+    """Validate ``precision`` against the numerics ledger (bf16 is
+    refused without a capture that clears the fused sites) and resolve
+    the route: a precision other than "highest" forces the fused build.
+    Returns ``(fused, precision)``."""
+    precision = gp.require_precision_ready(precision, numerics_capture)
+    fused = bool(fused) or precision != "highest"
+    if fused and recipe.noise_cov is not None:
+        raise ValueError(
+            "fused=True prices the analytic white/ECORR C0 only; a recipe with a "
+            "structured noise_cov block must use the composed path (fused=False)"
+        )
+    return fused, precision
+
+
 def grid_loglikelihood(residuals, batch: PulsarBatch, recipe: Recipe,
                        grid: Dict[str, object], design=None,
                        per_pulsar: bool = False, chunk: Optional[int] = None,
                        fused: bool = False, precision: str = "highest",
-                       tile: Optional[int] = None, device="cuda"):
+                       tile: Optional[int] = None, numerics_capture=None,
+                       device="cuda"):
     """log L of one residual vector (Np, Nt) over a hyperparameter grid:
     (G,) totals, or (G, Np) with ``per_pulsar``, on ``device``.
 
@@ -112,13 +130,18 @@ def grid_loglikelihood(residuals, batch: PulsarBatch, recipe: Recipe,
     ReducedGP fast path (one Nt-sized precompute, then O(R^3) per point,
     ``chunk`` points per batched evaluation); any other grid pays the
     full rebuild per point. ``fused=True`` (reducible grids only) builds
-    the precompute with the fused Woodbury assembly; ``tile`` sets only
-    the plain version's Nt tile on the CPU."""
+    the precompute with the fused Woodbury assembly. ``precision="bf16"``
+    runs that assembly in bf16 with float32 sums (and forces
+    ``fused``), refused unless ``numerics_capture`` holds a ladder
+    verdict that clears the fused sites (:func:`~.gp.require_precision_ready`).
+    ``tile=None`` takes the assembly's knob from ``likelihood/tuner.py``'s
+    cache (the untuned defaults without one); a ``tile`` sets only the
+    plain version's Nt step on the CPU."""
     device = resolve_device(device)
     batch, recipe = batch.to(device), recipe.to(device)
     residuals = torch.as_tensor(residuals).to(device)
     dtype = residuals.dtype
-    gp.require_precision_ready(precision)
+    fused, precision = _resolve_fused(recipe, fused, precision, numerics_capture)
     names, theta = _theta_block(grid, dtype, device)
     reducible = _reducible(names, recipe)
     if fused and not reducible:
@@ -135,7 +158,8 @@ def grid_loglikelihood(residuals, batch: PulsarBatch, recipe: Recipe,
         ])
     if fused:
         reduced, proj = gp.ReducedGP.build_fused(
-            batch, recipe, residuals=residuals, design=design, dtype=dtype, tile=tile)
+            batch, recipe, residuals=residuals, design=design, dtype=dtype,
+            precision=precision, tile=tile)
     else:
         reduced = gp.ReducedGP.build(batch, recipe, design=design, dtype=dtype)
         proj = reduced.project(residuals, batch)
@@ -150,7 +174,8 @@ def grid_loglikelihood(residuals, batch: PulsarBatch, recipe: Recipe,
 def bank_loglikelihood(bank, batch: PulsarBatch, recipe: Recipe,
                        grid: Optional[Dict[str, object]] = None, design=None,
                        fused: bool = False, precision: str = "highest",
-                       tile: Optional[int] = None, device="cuda"):
+                       tile: Optional[int] = None, numerics_capture=None,
+                       device="cuda"):
     """log L of every realization of a residual bank: (R,) without a
     grid, (G, R) with one, on ``device`` in the batch's dtype. ``bank`` is
     an (R, Np, Nt) array or tensor, or a :class:`~.serve.RealizationBank`
@@ -160,12 +185,13 @@ def bank_loglikelihood(bank, batch: PulsarBatch, recipe: Recipe,
     pass over the TOA axis); each grid point then prices all R
     realizations from the projections. ``fused=True`` builds the
     precompute with the fused Woodbury assembly, and each row is then
-    projected by the direct O(Nt) apply."""
+    projected by the direct O(Nt) apply. ``precision``, ``tile`` and
+    ``numerics_capture`` act as in :func:`grid_loglikelihood`."""
     from .serve import RealizationBank, project_bank
 
     device = resolve_device(device)
     batch, recipe = batch.to(device), recipe.to(device)
-    gp.require_precision_ready(precision)
+    fused, precision = _resolve_fused(recipe, fused, precision, numerics_capture)
     if grid is not None:
         names, theta = _theta_block(grid, batch.dtype, device)
         if not _reducible(names, recipe):
@@ -174,7 +200,8 @@ def bank_loglikelihood(bank, batch: PulsarBatch, recipe: Recipe,
                 f"enabled blocks); got {names} — evaluate white-noise axes per "
                 "realization via grid_loglikelihood instead"
             )
-    reduced = gp.ReducedGP.build(batch, recipe, design=design, fused=fused, tile=tile)
+    reduced = gp.ReducedGP.build(batch, recipe, design=design, fused=fused,
+                                 precision=precision, tile=tile)
     if isinstance(bank, RealizationBank):
         proj = project_bank(bank, reduced, batch)
     else:
@@ -185,3 +212,138 @@ def bank_loglikelihood(bank, batch: PulsarBatch, recipe: Recipe,
     if grid is None:
         return reduced.loglikelihood(proj, gp.phi_for_recipe(batch, recipe))
     return _reduced_points(theta, names, reduced, proj, batch, recipe)
+
+
+# ----------------------------------------------------------- MAP/Fisher
+
+#: damped Newton: the starting damping, its floor, its factors on an
+#: accepted and a rejected step, and the tries per iteration
+MAP_LAMBDA0, MAP_LAMBDA_MIN, MAP_SHRINK, MAP_GROW, MAP_TRIES = 1e-3, 1e-12, 3.0, 10.0, 12
+
+
+@dataclasses.dataclass
+class MapResult:
+    """MAP fit and Fisher-matrix uncertainties."""
+
+    #: hyperparameter names, in the order of every array below
+    names: Tuple[str, ...]
+    #: (P,) MAP point
+    x: np.ndarray
+    #: log L at the MAP point
+    loglikelihood: float
+    #: (P, P) observed Fisher information (-Hessian of log L)
+    fisher: np.ndarray
+    #: (P, P) covariance (the Fisher inverse), NaN when singular
+    covariance: np.ndarray
+    #: (P,) 1-sigma uncertainties sqrt(diag covariance)
+    sigma: np.ndarray
+    #: max |gradient| fell below gtol
+    converged: bool
+    #: Newton iterations
+    iterations: int
+
+    def as_dict(self) -> dict:
+        return {
+            "names": list(self.names),
+            "x": [float(v) for v in self.x],
+            "loglikelihood": float(self.loglikelihood),
+            "sigma": [float(v) for v in self.sigma],
+            "converged": bool(self.converged),
+            "iterations": int(self.iterations),
+        }
+
+
+def map_objective(residuals, batch: PulsarBatch, recipe: Recipe, names: Tuple[str, ...],
+                  design=None, device="cuda"):
+    """``(value_and_grad, hessian)`` of ``-log L`` over the Recipe fields
+    ``names`` at a numpy point: the value as a float, the gradient and
+    Hessian as float64 numpy arrays, from autograd through the direct
+    :func:`~.gp.loglikelihood` in float64 on ``device``."""
+    f64 = torch.float64
+    device = resolve_device(device)
+    batch, recipe = batch.to(device).astype(f64), recipe.to(device).astype(f64)
+    residuals = torch.as_tensor(residuals).to(device=device, dtype=f64)
+    design = None if design is None else torch.as_tensor(design).to(device=device, dtype=f64)
+
+    def neg_ll(xv):
+        return -gp.loglikelihood(residuals, batch, _replace(recipe, names, list(xv)),
+                                 design=design)
+
+    def value_and_grad(xv):
+        xt = torch.tensor(xv, dtype=f64, device=device, requires_grad=True)
+        f = neg_ll(xt)
+        (g,) = torch.autograd.grad(f, xt)
+        return float(f.detach()), g.cpu().numpy()
+
+    def hessian(xv):
+        xt = torch.tensor(xv, dtype=f64, device=device)
+        return torch.autograd.functional.hessian(neg_ll, xt).cpu().numpy()
+
+    return value_and_grad, hessian
+
+
+def map_fit(residuals, batch: PulsarBatch, recipe: Recipe, params: Dict[str, float],
+            design=None, maxiter: int = 50, gtol: float = 1e-4, device="cuda") -> MapResult:
+    """MAP hyperparameter fit with Fisher-matrix uncertainties: climb to
+    the peak of log L over the Recipe fields ``params`` (name -> start)
+    and read the curvature there.
+
+    Damped Newton (Levenberg), as the reference: each step solves ``(H +
+    lam I) dx = -g`` for ``-log L``'s gradient g and Hessian H, ``lam``
+    shrinking by 3 on an accepted step (to at least 1e-12) and growing by
+    10 on a rejected one, at most 12 tries an iteration; converged when
+    max |g| < ``gtol``. g and H come from autograd through the direct
+    :func:`~.gp.loglikelihood`, in float64 whatever the batch's dtype
+    (float32 cannot resolve the differences near the peak). The
+    objective is the flat-prior log-likelihood; degenerate curvature
+    reports NaN sigmas rather than raising.
+
+    On the card a recipe with a structured ``noise_cov`` raises: its C0
+    solves run the block-tridiagonal and SYRK kernels, which have no
+    backward yet (ROADMAP A.24)."""
+    names = tuple(sorted(params))
+    _check_axes(names)
+    device = resolve_device(device)
+    if device.type == "cuda" and recipe.noise_cov is not None:
+        raise NotImplementedError(
+            "map_fit differentiates the likelihood through C0's solver, and a "
+            "structured noise_cov runs it on the block-tridiagonal / SYRK kernels, "
+            "which have no backward yet (ROADMAP A.24); fit it with device='cpu'"
+        )
+    value_and_grad, hessian = map_objective(residuals, batch, recipe, names, design, device)
+    x = np.asarray([float(params[k]) for k in names], np.float64)
+    lam = MAP_LAMBDA0
+    f, g = value_and_grad(x)
+    it = 0
+    converged = bool(np.max(np.abs(g)) < gtol)
+    while it < maxiter and not converged:
+        it += 1
+        H = hessian(x)
+        accepted = False
+        for _ in range(MAP_TRIES):  # grow the damping until the step helps
+            try:
+                dx = np.linalg.solve(H + lam * np.eye(len(x)), -g)
+            except np.linalg.LinAlgError:
+                lam *= MAP_GROW
+                continue
+            f_new, g_new = value_and_grad(x + dx)
+            if np.isfinite(f_new) and f_new <= f:
+                x, f, g = x + dx, f_new, g_new
+                lam = max(lam / MAP_SHRINK, MAP_LAMBDA_MIN)
+                accepted = True
+                break
+            lam *= MAP_GROW
+        if not accepted:
+            break  # damping exhausted: report the best point found
+        converged = bool(np.max(np.abs(g)) < gtol)
+
+    fisher = hessian(x)
+    try:
+        cov = np.linalg.inv(fisher)
+        with np.errstate(invalid="ignore"):
+            sigma = np.sqrt(np.where(np.diag(cov) > 0, np.diag(cov), np.nan))
+    except np.linalg.LinAlgError:
+        cov = np.full_like(fisher, np.nan)
+        sigma = np.full(len(names), np.nan)
+    return MapResult(names=names, x=x, loglikelihood=-f, fisher=fisher, covariance=cov,
+                     sigma=sigma, converged=converged, iterations=it)

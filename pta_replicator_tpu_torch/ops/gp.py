@@ -22,12 +22,22 @@ pass over the TOA axis without forming the (Np, Nt, Q) product W T.
   version, CUDA tensors to the hand-written kernel in
   ``csrc/fused_woodbury.cu``, which launches or raises. The kernel takes
   any basis width: it tiles [T | r]'s Gram matrix over 64-column panel
-  pairs and splits the TOA axis as :func:`woodbury_plan` says. It sums
-  in its own order (``tile`` sets only the plain version's), so the two
-  agree to a tolerance, not bitwise.
+  pairs and splits the TOA axis as :func:`woodbury_plan` says (or as the
+  caller's ``nsplit``, the tuner's knob, says). It sums in its own order
+  (``tile`` sets only the plain version's), so the two agree to a
+  tolerance, not bitwise.
 
-Only ``precision="highest"`` is ported: the bf16 variant waits for the
-numerics observatory that gates it (ROADMAP.md items B.3 and A.16).
+``precision="bf16"`` is the reference's mixed rung: T and the products
+w T and w r (formed in the input dtype) are rounded to bfloat16 as
+``x.to(torch.bfloat16)`` rounds, the products summed in float32, and
+r^T W r stays in float32; the outputs are float32 whatever the input
+dtype. Its T^T W T is not symmetric (element [q][s] is bf16(T_q)
+bf16(w T_s)), and T^T W r rounds w r, not r. The plain version emulates
+it with the same arithmetic: operands rounded to bf16 and cast back to float32 (exact),
+float32 sums tile by tile. The card runs it on bf16 tensor cores
+(``mma.sync`` m16n8k16, float32 accumulators) over every ordered panel
+pair. The likelihood gates it on a numerics capture
+(``likelihood/gp.py::require_precision_ready``); nothing here does.
 """
 from __future__ import annotations
 
@@ -38,10 +48,11 @@ import torch
 
 from ..kernels import build, launches
 
-#: the reference's untuned tile along Nt (the tuner is not ported)
+#: the reference's untuned tile along Nt (``likelihood/tuner.py`` may
+#: override it on the CPU)
 DEFAULT_WOODBURY_TILE = 256
 
-#: the precision policies of the reference; "bf16" is not ported yet
+#: the precision policies of the reference
 PRECISIONS = ("highest", "bf16")
 
 #: the kernel's panel width and TOA rows per pipeline stage
@@ -58,17 +69,16 @@ WOODBURY_BLOCKS_PER_SM = 16
 def _check_precision(precision: str):
     if precision not in PRECISIONS:
         raise ValueError(f"precision must be one of {PRECISIONS}, got {precision!r}")
-    if precision != "highest":
-        raise NotImplementedError(
-            "the bf16 variant of the fused Woodbury assembly is not ported to "
-            "pta_replicator_tpu_torch yet (ROADMAP.md item B.3, gated by A.16)"
-        )
 
 
-def woodbury_operations(npsr: int, ntoa: int, q: int) -> int:
-    """Floating-point operations of the assembly, counted per TOA: the
-    lower triangle of T^T W T (Q(Q+1)), plus 4Q + 3 for the scaling W T,
-    T^T W r and r^T W r."""
+def woodbury_operations(npsr: int, ntoa: int, q: int, precision: str = "highest") -> int:
+    """Floating-point operations of the assembly. ``"highest"``, per TOA:
+    the lower triangle of T^T W T (Q(Q+1)), plus 4Q + 3 for the scaling W
+    T, T^T W r and r^T W r. ``"bf16"``: the full (Q + 1)-square Gram matrix
+    of [T | r] on the tensor cores, 2 (Q + 1)^2 per TOA (both triangles;
+    the products w T and r^T W r are a few per entry more)."""
+    if precision == "bf16":
+        return 2 * npsr * ntoa * (q + 1) ** 2
     return npsr * ntoa * (q * (q + 1) + 4 * q + 3)
 
 
@@ -84,11 +94,26 @@ def _check_operands(T, w, r):
         raise TypeError("fused_woodbury_update: T, w and r must share dtype and device")
 
 
-def gp_tile_terms(t, w, r):
+def _bf16(x):
+    """``x`` rounded to bfloat16 as ``x.to(torch.bfloat16)`` rounds (a
+    float64 tensor goes through float32), returned as float32 (exact)."""
+    return x.to(torch.bfloat16).to(torch.float32)
+
+
+def gp_tile_terms(t, w, r, precision: str = "highest"):
     """One Nt-tile's contribution ``(t^T W t (Np, Q, Q), t^T W r (Np, Q),
     r^T W r (Np,))`` for a tile ``t`` (Np, tile, Q), ``w`` and ``r`` (Np,
-    tile)."""
+    tile). ``precision="bf16"``: the two design contractions from bf16
+    operands (t, and w t or w r formed in the input dtype) summed in
+    float32, r^T W r from float32 r and w r; float32 outputs."""
     wr = w * r
+    if precision == "bf16":
+        f32 = torch.float32
+        tb = _bf16(t)
+        tnt = torch.einsum("pnq,pns->pqs", tb, _bf16(t * w[..., None]))
+        d = torch.einsum("pnq,pn->pq", tb, _bf16(wr))
+        rnr = torch.einsum("pn,pn->p", r.to(f32), wr.to(f32))
+        return tnt, d, rnr
     tnt = torch.einsum("pnq,pns->pqs", t, t * w[..., None])
     d = torch.einsum("pnq,pn->pq", t, wr)
     rnr = torch.einsum("pn,pn->p", r, wr)
@@ -99,7 +124,8 @@ def fused_woodbury_plain(T, w, r, tile: int = DEFAULT_WOODBURY_TILE,
                          precision: str = "highest"):
     """``(T^T W T, T^T W r, r^T W r)`` in plain PyTorch: Nt zero-padded to
     the ``tile`` grid (padded rows carry w = 0) and the tiles accumulated
-    in order from zero, as the reference's tiled fallback does."""
+    in order from zero, as the reference's tiled fallback does; in the
+    input dtype, or float32 with ``precision="bf16"``."""
     _check_precision(precision)
     _check_operands(T, w, r)
     npsr, ntoa, q = T.shape
@@ -108,11 +134,13 @@ def fused_woodbury_plain(T, w, r, tile: int = DEFAULT_WOODBURY_TILE,
         T = torch.nn.functional.pad(T, (0, 0, 0, pad))
         w = torch.nn.functional.pad(w, (0, pad))
         r = torch.nn.functional.pad(r, (0, pad))
-    tnt = T.new_zeros((npsr, q, q))
-    d = T.new_zeros((npsr, q))
-    rnr = T.new_zeros((npsr,))
+    acc = torch.float32 if precision == "bf16" else T.dtype
+    tnt = T.new_zeros((npsr, q, q), dtype=acc)
+    d = T.new_zeros((npsr, q), dtype=acc)
+    rnr = T.new_zeros((npsr,), dtype=acc)
     for lo in range(0, ntoa + pad, tile):
-        dt, dd, dq = gp_tile_terms(T[:, lo:lo + tile], w[:, lo:lo + tile], r[:, lo:lo + tile])
+        dt, dd, dq = gp_tile_terms(T[:, lo:lo + tile], w[:, lo:lo + tile], r[:, lo:lo + tile],
+                                   precision)
         tnt, d, rnr = tnt + dt, d + dd, rnr + dq
     return tnt, d, rnr
 
@@ -131,50 +159,85 @@ def woodbury_pair(k: int):
     return i, k - i * (i + 1) // 2
 
 
-def woodbury_plan(npsr: int, ntoa: int, q: int, sms: int):
+def woodbury_plan(npsr: int, ntoa: int, q: int, sms: int, precision: str = "highest"):
     """The kernel's launch plan on a card with ``sms`` streaming
     multiprocessors: ``(panels, pairs, nsplit, workspace_entries)``.
 
     The Q + 1 augmented columns pad to ``panels`` panels of
-    ``WOODBURY_PANEL``; each of the ``pairs`` lower-triangle panel pairs of
-    each pulsar is one block per TOA split. ``nsplit`` is the most splits
-    that keep pairs x Np x nsplit within ``WOODBURY_BLOCKS_PER_SM`` blocks
-    per SM, with no more splits than ``WOODBURY_CHUNK``-row chunks and
-    none empty (the kernel gives each split ``ceil(Nt / nsplit)`` rows);
-    it falls as the pairs grow. ``workspace_entries`` counts the partial
-    sums the splits leave for the reduction, none with one split, so it
-    never exceeds ``WOODBURY_BLOCKS_PER_SM * sms`` tiles."""
+    ``WOODBURY_PANEL``; each of the ``pairs`` panel pairs of each pulsar
+    is one block per TOA split: the lower-triangle pairs for
+    ``"highest"`` (the tile is mirrored), every ordered pair for
+    ``"bf16"`` (whose T^T W T is not symmetric). ``nsplit`` is the most
+    splits that keep pairs x Np x nsplit within ``WOODBURY_BLOCKS_PER_SM``
+    blocks per SM, with no more splits than ``WOODBURY_CHUNK``-row chunks
+    and none empty (the kernel gives each split ``ceil(Nt / nsplit)``
+    rows); it falls as the pairs grow. ``workspace_entries`` counts the
+    partial sums the splits leave for the reduction, none with one split,
+    so it never exceeds ``WOODBURY_BLOCKS_PER_SM * sms`` tiles."""
+    _check_precision(precision)
     panels = -(-(q + 1) // WOODBURY_PANEL)
-    pairs = panels * (panels + 1) // 2
-    nsplit = max(1, min(WOODBURY_BLOCKS_PER_SM * sms // (pairs * npsr), -(-ntoa // WOODBURY_CHUNK)))
-    nsplit = -(-ntoa // -(-ntoa // nsplit))
+    pairs = panels * panels if precision == "bf16" else panels * (panels + 1) // 2
+    nsplit = _whole_splits(ntoa, min(WOODBURY_BLOCKS_PER_SM * sms // (pairs * npsr),
+                                     woodbury_max_splits(ntoa)))
     workspace = npsr * pairs * nsplit * WOODBURY_PANEL**2 if nsplit > 1 else 0
     return panels, pairs, nsplit, workspace
+
+
+def _whole_splits(ntoa: int, nsplit: int) -> int:
+    """``nsplit`` (at least 1) lowered until no split is empty."""
+    nsplit = max(1, nsplit)
+    return -(-ntoa // -(-ntoa // nsplit))
+
+
+def woodbury_max_splits(ntoa: int) -> int:
+    """The most TOA splits a launch takes: one ``WOODBURY_CHUNK``-row chunk
+    each."""
+    return -(-ntoa // WOODBURY_CHUNK)
+
+
+def woodbury_split_candidates(npsr: int, ntoa: int, q: int, sms: int,
+                              precision: str = "highest"):
+    """The split counts the tuner scores on the card, ascending: 1, the
+    plan's choice, its half and its double, and the most a launch takes,
+    each lowered until no split is empty."""
+    plan = woodbury_plan(npsr, ntoa, q, sms, precision)[2]
+    wanted = (1, plan // 2, plan, 2 * plan, woodbury_max_splits(ntoa))
+    return sorted({_whole_splits(ntoa, min(n, woodbury_max_splits(ntoa))) for n in wanted})
 
 
 def _bind(lib):
     lib.fused_woodbury_workspace.argtypes = [ctypes.c_int, ctypes.c_int]
     lib.fused_woodbury_workspace.restype = ctypes.c_longlong
-    lib.fused_woodbury_launch.argtypes = (
-        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-    )
-    lib.fused_woodbury_launch.restype = ctypes.c_int
+    lib.fused_woodbury_bf16_workspace.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.fused_woodbury_bf16_workspace.restype = ctypes.c_longlong
+    for fn in (lib.fused_woodbury_launch, lib.fused_woodbury_bf16_launch):
+        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
     lib.fused_woodbury_error_string.argtypes = [ctypes.c_int]
     lib.fused_woodbury_error_string.restype = ctypes.c_char_p
 
 
-def _woodbury_launch(lib, T, w, r, nsplit: int):
+#: the launch counter of each precision's kernel
+WOODBURY_COUNTERS = {"highest": "fused_woodbury_update", "bf16": "fused_woodbury_update_bf16"}
+
+
+def _woodbury_launch(lib, T, w, r, nsplit: int, precision: str = "highest"):
     """Launch ``lib``'s kernel (the build of ``csrc/fused_woodbury.cu``)
-    with ``nsplit`` TOA splits on the current stream; the outputs and the
-    workspace come from ``torch.empty``."""
+    of ``precision`` with ``nsplit`` TOA splits on the current stream; the
+    outputs (input dtype, or float32 for bf16) and the workspace come from
+    ``torch.empty``."""
     npsr, ntoa, q = T.shape
-    workspace = T.new_empty((npsr * lib.fused_woodbury_workspace(q, nsplit),))
-    tnt = T.new_empty((npsr, q, q))
-    d = T.new_empty((npsr, q))
-    rnr = T.new_empty((npsr,))
+    bf16 = precision == "bf16"
+    acc = torch.float32 if bf16 else T.dtype
+    entries = (lib.fused_woodbury_bf16_workspace if bf16 else lib.fused_woodbury_workspace)(q, nsplit)
+    workspace = T.new_empty((npsr * entries,), dtype=acc)
+    tnt = T.new_empty((npsr, q, q), dtype=acc)
+    d = T.new_empty((npsr, q), dtype=acc)
+    rnr = T.new_empty((npsr,), dtype=acc)
+    launch = lib.fused_woodbury_bf16_launch if bf16 else lib.fused_woodbury_launch
     with torch.cuda.device(T.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.fused_woodbury_launch(
+        rc = launch(
             T.data_ptr(), w.data_ptr(), r.data_ptr(),
             workspace.data_ptr() if workspace.numel() else None,
             tnt.data_ptr(), d.data_ptr(), rnr.data_ptr(),
@@ -184,15 +247,17 @@ def _woodbury_launch(lib, T, w, r, nsplit: int):
         raise RuntimeError(
             f"fused_woodbury kernel launch failed: {lib.fused_woodbury_error_string(rc).decode()}"
         )
-    launches["fused_woodbury_update"] += 1
+    launches[WOODBURY_COUNTERS[precision]] += 1
     return tnt, d, rnr
 
 
-def fused_woodbury_cuda(T, w, r):
+def fused_woodbury_cuda(T, w, r, precision: str = "highest", nsplit=None):
     """``(T^T W T, T^T W r, r^T W r)`` from the CUDA kernel
-    (``csrc/fused_woodbury.cu``), launched on the current stream with
-    :func:`woodbury_plan`'s splits. Any basis width runs. Raises on a
-    malformed input, a failed build or a refused launch."""
+    (``csrc/fused_woodbury.cu``) of ``precision``, launched on the current
+    stream with ``nsplit`` TOA splits (None: :func:`woodbury_plan`'s).
+    Any basis width runs. Raises on a malformed input, a failed build or
+    a refused launch."""
+    _check_precision(precision)
     _check_operands(T, w, r)
     if T.device.type != "cuda":
         raise ValueError(f"fused_woodbury_cuda needs CUDA tensors, got {T.device}")
@@ -204,20 +269,25 @@ def fused_woodbury_cuda(T, w, r):
             "fused_woodbury_update: the kernel takes at least one column, at least "
             f"one TOA and 1..65535 pulsars, got {tuple(T.shape)}"
         )
-    sms = torch.cuda.get_device_properties(T.device).multi_processor_count
-    return _woodbury_launch(build.load("fused_woodbury", _bind), T, w, r,
-                            woodbury_plan(npsr, ntoa, q, sms)[2])
+    if nsplit is None:
+        sms = torch.cuda.get_device_properties(T.device).multi_processor_count
+        nsplit = woodbury_plan(npsr, ntoa, q, sms, precision)[2]
+    elif not 1 <= nsplit <= min(ntoa, 65535):
+        raise ValueError(f"fused_woodbury_update: nsplit {nsplit} is not in 1..{min(ntoa, 65535)}")
+    return _woodbury_launch(build.load("fused_woodbury", _bind), T, w, r, int(nsplit), precision)
 
 
 def fused_woodbury_update(T, w, r, tile: int = DEFAULT_WOODBURY_TILE,
-                          precision: str = "highest"):
+                          precision: str = "highest", nsplit=None):
     """``(T^T W T (Np, Q, Q), T^T W r (Np, Q), r^T W r (Np,))`` in one pass
-    over Nt. CPU tensors run the plain version (``tile`` TOAs per step);
-    CUDA tensors run the kernel, which launches or raises."""
+    over Nt, in the input dtype (float32 for ``precision="bf16"``). CPU
+    tensors run the plain version (``tile`` TOAs per step); CUDA tensors
+    run the kernel (``nsplit`` TOA splits, None for the plan's), which
+    launches or raises."""
     _check_precision(precision)
     if T.device.type == "cpu":
-        return fused_woodbury_plain(T, w, r, tile)
-    return fused_woodbury_cuda(T, w, r)
+        return fused_woodbury_plain(T, w, r, tile, precision)
+    return fused_woodbury_cuda(T, w, r, precision, nsplit)
 
 
 # ------------------------------------- block-tridiagonal factor/solve

@@ -230,9 +230,11 @@ def _atomic_write(write_fn, final_path: str, suffix: str, durable: bool = False)
 
 
 # the serialization layer under public names (the plane-tile cache of
-# parallel/prefetch.py writes through it)
+# parallel/prefetch.py, the numerics capture and the tuner's cache write
+# through it)
 npy_bytes = _npy_bytes
 durable_replace = _durable_replace
+atomic_write = _atomic_write
 
 
 def _consolidate(checkpoint_path: str, blocks, durable: bool) -> None:

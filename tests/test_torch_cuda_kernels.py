@@ -12,6 +12,7 @@ torch = pytest.importorskip("torch")
 
 from pta_replicator_tpu_torch.covariance import kernels as tk
 from pta_replicator_tpu_torch.kernels import launches
+from pta_replicator_tpu_torch.likelihood.gp import PrecisionNotReady, require_precision_ready
 from pta_replicator_tpu_torch.ops import cw as tcw
 from pta_replicator_tpu_torch.ops import gp as tgp
 
@@ -234,8 +235,10 @@ def test_woodbury_kernel_refuses_bad_operands(cuda_device):
         tgp.fused_woodbury_update(T, w.cpu(), r)
     with pytest.raises(ValueError, match="contiguous"):
         tgp.fused_woodbury_update(T.transpose(0, 1).contiguous().transpose(0, 1), w, r)
-    with pytest.raises(NotImplementedError, match="B.3"):
-        tgp.fused_woodbury_update(T, w, r, precision="bf16")
+    with pytest.raises(ValueError, match="precision"):
+        tgp.fused_woodbury_update(T, w, r, precision="fp8")
+    with pytest.raises(PrecisionNotReady):
+        require_precision_ready("bf16")
 
 
 # ------------------------------------------------- covariance kernels
@@ -629,3 +632,92 @@ def test_gls_refit_on_the_card_matches_the_cpu(cuda_device, cov):
     else:
         assert counts["cov_syrk_update"] > 0
     assert _rel_max(out["cuda"], out["cpu"]) <= 1e-10
+
+
+# ------------------------------------------------- the bf16 rung of B.3
+
+#: bf16 kernel vs its plain version on the card, max |error| over the
+#: largest |entry| of each output: both sum the same exact products of
+#: bf16 operands in float32, in another order (the CPU tests' tolerance
+#: against JAX)
+TOL_WOODBURY_BF16 = 1e-5
+
+
+@pytest.mark.parametrize("shape", WOODBURY_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_woodbury_bf16_kernel_matches_plain(cuda_device, shape, dtype):
+    T, w, r = _woodbury(*shape, dtype, cuda_device)
+    launches.clear()
+    got = tgp.fused_woodbury_update(T, w, r, precision="bf16")
+    torch.cuda.synchronize()
+    assert launches["fused_woodbury_update_bf16"] == 1 and launches["fused_woodbury_update"] == 0
+    want = tgp.fused_woodbury_plain(T, w, r, precision="bf16")
+    for g, x in zip(got, want):
+        assert g.shape == x.shape and g.dtype == torch.float32
+        assert bool(torch.all(torch.isfinite(g)))
+        assert _rel_max(g, x) <= TOL_WOODBURY_BF16
+    if shape[-1] > 1:  # both triangles, unmirrored, as the reference's
+        assert not torch.equal(got[0], got[0].transpose(-1, -2))
+
+
+@pytest.mark.parametrize("nsplit", [1, 2, 7])
+def test_woodbury_bf16_kernel_any_split_count(cuda_device, nsplit):
+    T, w, r = _woodbury(4, 997, 123, torch.float64, cuda_device)
+    lib = tgp.build.load("fused_woodbury", tgp._bind)
+    got = tgp._woodbury_launch(lib, T, w, r, nsplit, "bf16")
+    want = tgp.fused_woodbury_plain(T, w, r, precision="bf16")
+    for g, x in zip(got, want):
+        assert _rel_max(g, x) <= TOL_WOODBURY_BF16
+    for q in (7, 123, 183, 300):
+        plan = tgp.woodbury_plan(68, 7758, q, 132, "bf16")
+        assert 68 * lib.fused_woodbury_bf16_workspace(q, plan[2]) == plan[3]
+
+
+def test_woodbury_bf16_kernel_is_deterministic(cuda_device):
+    T, w, r = _woodbury(4, 997, 123, torch.float32, cuda_device)
+    a = tgp.fused_woodbury_update(T, w, r, precision="bf16")
+    b = tgp.fused_woodbury_update(T, w, r, precision="bf16")
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+
+
+def test_woodbury_split_knob_on_the_card(cuda_device, tmp_path):
+    """The tuner's knob on the card: every candidate split count gives the
+    plain version's sums; the search caches one the lookup returns."""
+    from pta_replicator_tpu_torch.likelihood import tuner
+
+    T, w, r = _woodbury(4, 997, 123, torch.float64, cuda_device)
+    want = tgp.fused_woodbury_plain(T, w, r)
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    for n in tgp.woodbury_split_candidates(4, 997, 123, sms):
+        for g, x in zip(tgp.fused_woodbury_update(T, w, r, nsplit=n), want):
+            assert _rel_max(g, x) <= 1e-12
+    path = str(tmp_path / "cache.json")
+    choice = tuner.autotune(T, w, r, reps=2, cache_path=path)
+    assert choice["route"] == "cuda" and choice["nsplit"] in choice["candidates"]
+    assert tuner.woodbury_knob(T, cache_path=path) == {"nsplit": choice["nsplit"]}
+    assert tuner.woodbury_knob(T, "bf16", cache_path=path) == {}
+
+
+def test_map_fit_on_the_card_refuses_a_covariance_and_matches_the_cpu(cuda_device):
+    import dataclasses
+
+    from pta_replicator_tpu_torch import flagship_workload, realize
+    from pta_replicator_tpu_torch import likelihood as lk
+    from pta_replicator_tpu_torch.covariance import banded_from_times
+
+    start = {"gwb_log10_amplitude": -14.6, "gwb_gamma": 3.8}
+    fits = {}
+    for device in ("cpu", cuda_device):
+        batch, recipe = flagship_workload(npsr=4, ntoa=300, ncw=5, dtype=torch.float64,
+                                          device=device)
+        res = realize(torch.Generator().manual_seed(3), batch.to("cpu"), recipe.to("cpu"), 1,
+                      device="cpu")[0]
+        fits[str(device)] = lk.map_fit(res, batch, recipe, start, device=device)
+    assert fits["cuda"].converged and fits["cuda"].iterations == fits["cpu"].iterations
+    np.testing.assert_allclose(fits["cuda"].x, fits["cpu"].x, rtol=1e-6)
+    np.testing.assert_allclose(fits["cuda"].sigma, fits["cpu"].sigma, rtol=1e-6)
+    op = banded_from_times(batch.toas_s, batch.mask, rho=0.5, corr_s=30 * 86400.0, block=16,
+                           dtype=torch.float64, device=cuda_device)
+    with pytest.raises(NotImplementedError, match="A.24"):
+        lk.map_fit(res, batch, dataclasses.replace(recipe, noise_cov=op), start)

@@ -108,6 +108,8 @@ def _recipe(batch, model):
         base.update(gp, log10_ecorr=jnp.asarray(-6.7))
     elif model == "phi_zero":
         base.update(gp, rn_log10_amplitude=jnp.asarray([-np.inf, -13.5, -13.4, -np.inf]))
+    elif model in GLS_OPTIONS:
+        base.update(gp, **GLS_OPTIONS[model])
     elif model in ("banded", "dense", "kron", "lowrank", "nested_lowrank"):
         base.update(gp)
         banded = banded_from_times(t, m, rho=0.6, corr_s=40 * 86400.0, block=16,
@@ -135,8 +137,24 @@ def _port(batch, recipe):
             convert.recipe_from_arrays(vars(recipe), device="cpu"))
 
 
+#: the GP options of the GLS weighting on top of red noise + GWB: a
+#: chromatic block (index 2 and 4), the red-noise basis switches and grid
+#: bounds, the turnover GWB spectrum, and TNEQUAD with ECORR
+GLS_OPTIONS = {
+    "chromatic_2": dict(chrom_log10_amplitude=jnp.asarray(-13.6), chrom_gamma=jnp.asarray(3.0),
+                        chrom_index=jnp.asarray(2.0), chrom_nmodes=6),
+    "chromatic_4": dict(chrom_log10_amplitude=jnp.asarray(-13.6), chrom_gamma=jnp.asarray(3.0),
+                        chrom_index=jnp.asarray(4.0), chrom_nmodes=6),
+    "rn_libstempo": dict(rn_libstempo=True),
+    "rn_logf": dict(rn_logf=True),
+    "rn_pshift": dict(rn_pshift=True),
+    "gwb_turnover": dict(gwb_turnover=True, gwb_f0=3e-9, gwb_beta=1.5, gwb_power=2.0),
+    "tnequad_ecorr": dict(tnequad=True, log10_ecorr=jnp.asarray(-6.7)),
+    "rn_fmin_fmax": dict(rn_fmin=jnp.asarray(2e-9), rn_fmax=jnp.asarray(4e-8)),
+}
+
 MODELS = ["white", "ecorr", "red_gwb", "phi_zero", "banded", "dense", "kron", "lowrank",
-          "nested_lowrank"]
+          "nested_lowrank", *GLS_OPTIONS]
 
 
 def _batch_for(model, batch, full_batch):

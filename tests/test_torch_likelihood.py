@@ -400,11 +400,14 @@ def test_server_expires_queued_requests(served, monkeypatch):
 # ----------------------------------------------------------- not ported
 
 def test_unported_parts_raise(base, tmp_path):
+    """bf16 is ported and gated: without a numerics capture the entry
+    points refuse it (PrecisionNotReady), and an unknown policy stays a
+    ValueError."""
     _, _, res, (tb, tr) = base
-    with pytest.raises(NotImplementedError, match="A.16"):
+    with pytest.raises(lk.PrecisionNotReady, match="numerics_capture"):
         lk.grid_loglikelihood(res, tb, tr, GRID, precision="bf16", device="cpu")
-    with pytest.raises(NotImplementedError, match="A.16"):
-        tgp.ReducedGP.build(tb, tr, precision="bf16")
+    with pytest.raises(lk.PrecisionNotReady, match="numerics_capture"):
+        lk.bank_loglikelihood(np.stack([res]), tb, tr, precision="bf16", device="cpu")
     with pytest.raises(ValueError, match="precision"):
         tgp.require_precision_ready("fp8")
     assert tgp.require_precision_ready(None) == "highest"
