@@ -682,6 +682,14 @@ def _bf16_library(T, w, r):
     return lambda: torch.bmm(At, WA, out_dtype=torch.float32)
 
 
+def _bf16_library_convert(T, w, r):
+    """The conversion and the torch.bmm together: A.to(bf16), (A w).to(bf16)
+    and bmm from [T | r] in the input dtype (A built before timing)."""
+    A = torch.cat([T, r[..., None]], dim=-1)
+    return lambda: torch.bmm(A.to(torch.bfloat16).transpose(1, 2),
+                             (A * w[..., None]).to(torch.bfloat16), out_dtype=torch.float32)
+
+
 def phase_woodbury_bf16(batch, recipe, design, basis, dtypes):
     """The bf16 rung of B.3 (precision="bf16") against its plain version
     on the card at a likelihood path's shape, with float64 and float32
@@ -698,14 +706,19 @@ def phase_woodbury_bf16(batch, recipe, design, basis, dtypes):
         torch.cuda.synchronize()
         library = _bf16_library(T, w, r)
         library()
+        library_convert = _bf16_library_convert(T, w, r)
         errs = [_rel_max(g, x) for g, x in zip(got, want)]
         bound, bound_by = woodbury_bf16_bound(*T.shape, dtype)
         sms = torch.cuda.get_device_properties(T.device).multi_processor_count
         tnt = got[0]
+        plan = ops_gp.woodbury_plan(*T.shape, sms, "bf16")
+        size = T.element_size()
         row = dict(
             basis=basis, input_dtype=str(dtype), shape=list(T.shape),
-            plan=dict(zip(("panels", "pairs", "nsplit", "workspace_entries"),
-                          ops_gp.woodbury_plan(*T.shape, sms, "bf16"))),
+            plan=dict(zip(("panels", "pairs", "nsplit", "workspace_entries"), plan),
+                      grid=ops_gp.woodbury_bf16_grid(T.shape[0], T.shape[2], plan[2], size)._asdict(),
+                      staged_over_t=ops_gp.woodbury_bf16_staged_bytes(*T.shape, size)
+                      / (T.numel() * size)),
             rel_err_tnt=errs[0], rel_err_d=errs[1], rel_err_rnr=errs[2], tol=TOL_WOODBURY_BF16,
             max_abs_err=max(float((g - x).abs().max()) for g, x in zip(got, want)),
             asymmetry=float((tnt - tnt.transpose(-1, -2)).abs().max() / tnt.abs().max()),
@@ -713,7 +726,7 @@ def phase_woodbury_bf16(batch, recipe, design, basis, dtypes):
             same_bits=all(bool(torch.equal(a, b)) for a, b in zip(got, again)),
             finite=all(bool(torch.isfinite(g).all()) for g in got),
             ms=cuda_ms(run, 20), plain_ms=cuda_ms(plain, 3), library_ms=cuda_ms(library, 20),
-            bound_ms=bound, bound_by=bound_by,
+            library_convert_ms=cuda_ms(library_convert, 20), bound_ms=bound, bound_by=bound_by,
         )
         emit("woodbury_kernel_vs_plain_bf16", **row)
         require(row["finite"] and max(errs) <= TOL_WOODBURY_BF16,
@@ -2226,9 +2239,14 @@ def main():
         "bound_ms": bf16_rows[f64]["bound_ms"], "bound_by": bf16_rows[f64]["bound_by"],
         "library_ms": bf16_rows[f64]["library_ms"],
         "library": "torch.bmm of the bf16 operands, float32 output",
+        "library_convert_ms": bf16_rows[f64]["library_convert_ms"],
+        "plan": bf16_rows[f64]["plan"],
         **NO_ISSUE_ACCOUNT,
-        "float32_inputs": _width_row(bf16_rows[torch.float32]),
-        "gls_bank_q286": _width_row(gls_bank_bf16_row),
+        "float32_inputs": {**_width_row(bf16_rows[torch.float32]),
+                           "library_convert_ms": bf16_rows[torch.float32]["library_convert_ms"]},
+        "gls_bank_q286": {**_width_row(gls_bank_bf16_row),
+                          "library_convert_ms": gls_bank_bf16_row["library_convert_ms"],
+                          "plan": gls_bank_bf16_row["plan"]},
     },
         {**_cov_kernel_entry("cov_syrk_update", "pta_replicator_tpu_torch/csrc/cov_syrk.cu",
                              "pta_replicator_tpu/ops/pallas_cw.py:484", syrk_count,

@@ -61,25 +61,21 @@
 //   bits. The sums run in another order than the plain version's
 //   tile-sequential einsum, so kernel and plain agree to a tolerance.
 //
-// The bf16 rung (precision="bf16"; the second half of this file) runs
-// the same staging into bf16 tensor-core tiles with float32 accumulators
-// over every ordered panel pair: JAX's bf16 T^T W T is not symmetric. At
-// 68 x 7,758 x 123 it is bound by bytes: reading T in its input dtype
-// takes 0.157 ms in float64 and 0.079 ms in float32 at 3.35 TB/s, while
-// the full Gram, 2 Np Nt (Q + 1)^2 = 1.6e10 operations, takes 0.016 ms at
-// 989 TFLOP/s.
+// The bf16 rung (precision="bf16"; the second half of this file) has a
+// kernel of its own, described there.
 //
-// What holds it back (measured by kernels/woodbury_study.py; PERF.md):
-// staging. Each of the P panels is staged by P blocks, so at Q = 123 the
-// blocks pull twice T's bytes into shared memory, and a build that only
-// stages takes about as long as the whole kernel. The products alone run
-// near 60% of the DMMA rate (their fragment loads share the shared-memory
-// pipe with the copies).
+// What holds the highest kernel back (measured by kernels/woodbury_study.py;
+// PERF.md): staging. Each of the P panels is staged by P blocks, so at
+// Q = 123 the blocks pull twice T's bytes into shared memory, and a build
+// that only stages takes about as long as the whole kernel. The products
+// alone run near 60% of the DMMA rate (their fragment loads share the
+// shared-memory pipe with the copies).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstddef>
+#include <cstdint>
 
 namespace {
 
@@ -449,114 +445,327 @@ int launch(const void* tmat, const void* w, const void* r, void* ws, void* tnt, 
 
 // ---------------------------------------------------------------- bf16
 //
-// The bf16 rung (precision="bf16", pallas_gp.py:99-112): the same staged
-// chunks, converted after they land into bf16 operand tiles that the
-// tensor cores multiply with float32 accumulators (mma.sync m16n8k16).
-// JAX's bf16 T^T W T is not symmetric, so the grid runs every ordered
-// panel pair (i, j) and writes its tile unmirrored:
-//   C[a][b] = sum_n bf16(A[n][64 i + a]) * bf16(w[n] * A[n][64 j + b]),
-// each product w * A formed in the input dtype and rounded as
+// The bf16 rung (precision="bf16", pallas_gp.py:99-112). For the Q + 1
+// augmented columns A = [T | r], padded to P panels of 64, it sums
+//   C[a][b] = sum_n bf16(A[n][a]) * bf16(w[n] * A[n][b])
+// in float32 over every entry of the padded (64 P)-square Gram matrix:
+// JAX's bf16 T^T W T is not symmetric, so nothing is mirrored. Each
+// product w A is formed in the input dtype and rounded as
 // x.to(torch.bfloat16) rounds (float64 through float32). d is column Q
-// (rows bf16(T), column bf16(w r)); row Q (bf16(r) against w T) is
-// dropped. r^T W r never touches bf16: the thread that stages the r
-// column sums float(r) * float(w r) with FFMA beside the tensor cores.
-// Outputs and the split workspace are float32; the splits are added in
-// order, with no atomics, so every run gives the same bits.
+// (rows bf16(T), column bf16(w r)); row Q is dropped. r^T W r never
+// touches bf16: the thread that converts an r entry adds float(r) *
+// float(w r) by FFMA beside the tensor cores.
+//
+// Bound. At 68 x 7,758 the rung is bound by reading T once in its input
+// dtype: 0.157 ms (float64) and 0.079 ms (float32) at Q = 123, 0.367 ms
+// (float64) at Q = 286, at 3.35 TB/s; the full Gram on the tensor cores,
+// 2 Np Nt (Q + 1)^2 operations, takes 0.016 and 0.11 ms at 989 TFLOP/s
+// (mma.sync reaches a fraction of that rate).
+//
+// Design. The unit of work is one (pulsar, TOA split), taken in chunks of
+// kBfRows = 64 TOA rows by all Q columns: one contiguous span of T. A
+// block is three warpgroups: the first issues the copies, the other two
+// multiply, and all three convert, so that conversion and products run
+// side by side.
+// * Staging: a span goes into a ring of raw slots by 16-byte
+//   cp.async.cg. Element copies remain only for its unaligned head and
+//   tail (one element in float64, up to three in float32): the span
+//   starts 16-byte aligned only when (p Nt + n0) Q sizeof(T) is. A slot
+//   keeps the span at its own offset modulo 16, so the interior copies
+//   are aligned on both sides. w and r of the chunk's rows are spans too.
+//   The ring holds as many slots as shared memory allows, so that 1.5 to
+//   3 chunks' bytes are in flight while one is converted.
+// * Converting once: each staged (row pair, column) becomes one 32-bit
+//   word of bf16(T) and one of bf16(w T), packed k pairs, stored into X
+//   (the A operand: the block's row panels) and Y (the B operand: its
+//   column panels). Both are [k pair][column] at a pitch of 8 (mod 32)
+//   words, so the conversion's stores (a warp's lanes on consecutive
+//   columns) and the fragment loads (lanes (g, t) on words (t, g)) are
+//   free of bank conflicts. Rows past the split and padding columns
+//   convert to zeros. X and Y are double buffered. A thread converts one
+//   column of the block's (a part of its k pairs when the columns are
+//   fewer than the threads) and loads kConvUnroll k pairs before it
+//   converts any.
+// * Reading each byte of T once per (pulsar, split): while P <= 2 (Q <=
+//   127) one block owns the unit, all P^2 tiles (64 float32 accumulators
+//   per multiplying thread), and stages its chunks in 32-row pieces, so
+//   that three pieces (1.5 float64 chunks at Q = 123) are in flight
+//   beside its bf16 buffers. For 3 <= P <= 8 a thread-block cluster of P
+//   blocks owns it, block i the 64 x 64 P strip of row panel i (16 P
+//   accumulators per multiplying thread): each block stages and converts a
+//   1/P share of the chunk's row pairs and stores its words through
+//   distributed shared memory into every block's Y and into X of the block
+//   whose row panel holds the column. Past the portable cluster size (P >
+//   8, Q >= 512) the unit runs as strips without a cluster: block (i,
+//   group) owns row panel i against a group of 8 column panels and
+//   converts its columns straight from device memory, so those blocks read
+//   T's bytes about 9 ceil(P / 8) times over (no path runs such a width).
+// * Pipeline: one barrier phase per chunk (the cluster's barrier when the
+//   unit is a cluster). After it the first warpgroup issues the copies of
+//   later pieces while the other two multiply chunk c - 1 (mma.sync
+//   m16n8k16 bf16, float32 accumulators); then all three convert chunk c.
+// * The tensor cores sum a chunk's kFaddSteps k16 steps from zero, and
+//   FADD adds that partial to the running float32 sums, which round to
+//   nearest: an accumulator carried through the tensor cores over a whole
+//   split drifts (3.1e-5 of the largest entry over 7,758 rows;
+//   kernels/woodbury_study.py measures each granularity).
+// * With one split each block writes its entries, unmirrored, into TNT, d
+//   and rnr; with several it writes its part of an (Np, split, 64 P, 64 P)
+//   workspace and a second kernel adds the splits in order. No atomics:
+//   every run gives the same bits.
+//
+// What holds it back (kernels/woodbury_study.py at 68 x 7,758, H100;
+// PERF.md). At Q = 123 in float64 the kernel takes 0.34 ms against a
+// 0.159 ms bound: the copies alone take 0.24 ms (about 1.5 chunks in
+// flight per SM), the conversion alone 0.21 and the products alone 0.13,
+// of which 0.07 is the barriers, the epilogue and the reduction; they
+// overlap only in part. At Q = 286 (clusters of 5) it takes 1.85 ms
+// against 0.369: the barriers, epilogue and reduction alone take 0.46 (a
+// cluster barrier costs over 1 us a chunk), the conversion alone 1.15 and
+// the products alone 1.00; storing the words through distributed shared
+// memory costs next to nothing beside that.
 
-constexpr int kBfStride = kChunk + 8;  // bf16 tile row: 12 words, conflict-free fragment loads
-constexpr int kBfTile = kPanel * kBfStride;
+constexpr int kBfRows = 64;               // TOA rows of a chunk: four k16 steps
+constexpr int kBfPairs = kBfRows / 2;     // k-pair words of a column per chunk
+constexpr int kWarpgroup = 128;           // threads of a warpgroup: one stages, two multiply
+constexpr int kBfThreads = 3 * kWarpgroup;
+constexpr int kConvUnroll = 4;            // k pairs a thread loads before converting
+// a part's share of the conversion when parts are whole warpgroups: the
+// staging warpgroup's weight, and a multiplying one's
+constexpr int kStagerWeight = 1;
+constexpr int kMultiplierWeight = 2;
+constexpr int kBfMaxCluster = 8;          // the portable cluster size
+constexpr int kBfGroup = 8;               // column panels of a strip (P > kBfMaxCluster)
+constexpr int kBfPad = 8;                 // X / Y pitch = 8 (mod 32) words
+constexpr int kBfMaxSlots = 6;            // raw slots of the staging ring, at most
+constexpr int kBfSingleMax = 2;           // panels up to which one block owns the unit
+constexpr int kBfPieceRows = 32;          // rows of a raw slot when one block owns the unit
+constexpr int kFaddSteps = 4;             // k16 steps the tensor cores sum before FADD
+constexpr long long kSmemLimit = 232448;  // shared memory one block can use (227 KB)
+constexpr long long kBfScratch = 128;     // partials of r^T W r: 12 warps, 8 cluster blocks
 
-__device__ __forceinline__ unsigned short to_bf16(float x) {
-  return __bfloat16_as_ushort(__float2bfloat16_rn(x));
+enum BfMode { kBfSingle = 0, kBfCluster = 1, kBfStrips = 2 };
+
+// The bf16 launch for Q columns of `size`-byte inputs, mirrored by
+// ops/gp.py::woodbury_bf16_grid (which the CPU tests check).
+struct BfGrid {
+  int panels;            // P
+  int mode;              // BfMode
+  int cluster;           // blocks of a cluster (1: no cluster)
+  int blocks;            // blocks of one (pulsar, split)
+  int rpan, cpan;        // row / column panels one block owns (a strip's group)
+  int slots;             // raw slots (0: strips convert from device memory)
+  int share_rows;        // most chunk rows one block stages
+  int piece_rows;        // rows of one raw slot: a piece of the block's share
+  int npiece;            // pieces of the share
+  long long xbuf, ybuf;  // bytes of one X / Y buffer
+  long long raw, wr;     // bytes of one raw slot, of one w or r slot
+  long long smem;        // dynamic shared memory of a block
+};
+
+__host__ __device__ inline long long round16(long long b) { return (b + 15) / 16 * 16; }
+
+__host__ __device__ inline BfGrid bf_grid(int q, int size) {
+  BfGrid g{};
+  g.panels = num_panels(q);
+  const int P = g.panels;
+  if (P <= kBfSingleMax) {
+    g.mode = kBfSingle, g.cluster = 1, g.blocks = 1, g.rpan = P, g.cpan = P;
+  } else if (P <= kBfMaxCluster) {
+    g.mode = kBfCluster, g.cluster = P, g.blocks = P, g.rpan = 1, g.cpan = P;
+  } else {
+    g.mode = kBfStrips, g.cluster = 1, g.rpan = 1, g.cpan = kBfGroup;
+    g.blocks = P * ((P + kBfGroup - 1) / kBfGroup);
+  }
+  g.xbuf = 4LL * kBfPairs * (kPanel * g.rpan + kBfPad);
+  g.ybuf = 4LL * kBfPairs * (kPanel * g.cpan + kBfPad);
+  const long long fixed = 2 * (g.xbuf + g.ybuf) + kBfScratch;
+  if (g.mode == kBfStrips) {
+    g.smem = fixed;
+    return g;
+  }
+  g.share_rows = 2 * ((kBfPairs + g.cluster - 1) / g.cluster);
+  g.piece_rows = g.mode == kBfSingle ? kBfPieceRows : g.share_rows;
+  g.npiece = g.share_rows / g.piece_rows;
+  g.raw = round16(static_cast<long long>(g.piece_rows) * q * size + 16);
+  g.wr = round16(static_cast<long long>(g.piece_rows) * size + 16);
+  g.slots = kBfMaxSlots;
+  while (g.slots > 2 * g.npiece && fixed + g.slots * (g.raw + 2 * g.wr) > kSmemLimit) --g.slots;
+  g.smem = fixed + g.slots * (g.raw + 2 * g.wr);
+  return g;
 }
-// float64 rounds through float32, as PyTorch's cast to bfloat16 does
-__device__ __forceinline__ unsigned short to_bf16(double x) {
-  return to_bf16(static_cast<float>(x));
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" :: "r"(dst), "l"(gmem) : "memory");
 }
 
-template <typename T>
-constexpr size_t smem_bytes_bf16() {
-  return smem_bytes<T>() + 2 * kBfTile * sizeof(unsigned short) + 16;
+// Copy `nbytes` from `src` (aligned to SIZE) to dst16 + (src mod 16), dst16
+// 16-byte aligned, by the staging warpgroup (ct = 0 .. kWarpgroup - 1):
+// the interior by 16-byte copies, the unaligned head and tail by SIZE-byte
+// element copies, issued by the last of those threads.
+template <int SIZE>
+__device__ __forceinline__ void stage_span(unsigned char* dst16, const unsigned char* src,
+                                           int nbytes, int ct) {
+  const int head = static_cast<int>(reinterpret_cast<uintptr_t>(src) & 15);
+  unsigned char* dst = dst16 + head;
+  const int hb = head ? min(16 - head, nbytes) : 0;  // head bytes
+  const int n16 = (nbytes - hb) >> 4;
+  const int tb = nbytes - hb - (n16 << 4);           // tail bytes
+  for (int u = ct; u < n16; u += kWarpgroup) cp_async16(dst + hb + 16 * u, src + hb + 16 * u);
+  const int he = hb / SIZE, e = kWarpgroup - 1 - ct;
+  if (e < he + tb / SIZE) {
+    const int off = e < he ? e * SIZE : hb + 16 * n16 + (e - he) * SIZE;
+    cp_async<SIZE>(dst + off, src + off, true);
+  }
 }
 
+// two values rounded to bf16, the first in the low half
+__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const unsigned*>(&v);
+}
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+// the same shared-memory address in block `rank` of the cluster
+__device__ __forceinline__ unsigned map_rank(unsigned addr, int rank) {
+  unsigned out;
+  asm("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(out) : "r"(addr), "r"(rank));
+  return out;
+}
+__device__ __forceinline__ void st_cluster(unsigned addr, unsigned v) {
+  asm volatile("st.shared::cluster.u32 [%0], %1;\n" :: "r"(addr), "r"(v) : "memory");
+}
+__device__ __forceinline__ void st_local(unsigned addr, unsigned v) {
+  asm volatile("st.shared.u32 [%0], %1;\n" :: "r"(addr), "r"(v) : "memory");
+}
+// every thread of the unit: the block's barrier, or the cluster's
+__device__ __forceinline__ void unit_sync(int cluster) {
+  if (cluster == 1) {
+    __syncthreads();
+    return;
+  }
+  asm volatile("barrier.cluster.arrive.release.aligned;\n\t"
+               "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// Not volatile: the products depend on their operands alone, so the
+// compiler may interleave independent ones.
 __device__ __forceinline__ void mma_bf16_16x8x16(float (&c)[4], const unsigned (&a)[4],
                                                  const unsigned (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-// A warp's 32 x 32 quarter of the 64 x 64 tile as 2 x 4 MMA tiles of
-// 16 x 8, one k16 step per staged chunk. The bf16 tiles are [column][k]
-// with k contiguous: the A operand (row panel, "row") and the B operand
-// (scaled column panel, "col") both read two k in one 32-bit word. With
-// g = lane / 4 and t = lane % 4, a[h] holds (row g + 8 (h & 1), k 2t + 8
-// (h >> 1)) and its k + 1, b[h] (k 2t + 8h and k + 1, column g), c[e] the
-// sum at (row g + 8 (e >> 1), column 2t + (e & 1)).
-struct AccBf16 {
-  float c[2][4][4];
+// A multiplying warp's share of the block's tile (64 rows, or 128 when one
+// block owns two panels): warp mw = 0..7 (wm = mw / 4, wn = mw % 4) owns
+// MT m-tiles of 16 rows from 16 MT wm against the n-tiles j = wn + 4 jj of 8 columns, so that the columns of
+// any P spread evenly over the four warp columns. Word (kp, c) of X or Y
+// holds rows 2 kp and 2 kp + 1 of column c. With g = lane / 4 and t =
+// lane % 4, a k16 step's fragments are a = X words (t, row g), (t, g + 8),
+// (t + 4, g), (t + 4, g + 8) and b = Y words (t, column g), (t + 4, g);
+// c[e] is the sum at (row g + 8 (e >> 1), column 2t + (e & 1)).
+template <int MT, int NT>
+struct BfAcc {
+  // k16 steps summed in the tensor cores before FADD (two past 40 n-tiles or
+  // two m-tiles a warp, to keep the fragments within the registers)
+  static constexpr int KS = (NT > 10 || MT > 2) && kFaddSteps > 2 ? 2 : kFaddSteps;
+  // n-tiles multiplied together (NT is even; a block's n-tiles come in
+  // panels of 8, so a warp's come in pairs)
+  static constexpr int kJB = 2;
+  static_assert(NT % kJB == 0, "n-tiles in pairs");
+  float c[MT][NT][4];
 
   __device__ __forceinline__ void zero() {
 #pragma unroll
-    for (int m = 0; m < 2; ++m)
+    for (int m = 0; m < MT; ++m)
 #pragma unroll
-      for (int n = 0; n < 4; ++n)
+      for (int n = 0; n < NT; ++n)
 #pragma unroll
         for (int e = 0; e < 4; ++e) c[m][n][e] = 0.0f;
   }
 
-  __device__ __forceinline__ void step(const unsigned short* A16, const unsigned short* B16) {
-    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-    const int wm = (warp >> 1) * 32, wn = (warp & 1) * 32;
+  // One chunk from X (pitch xp words) and Y (pitch yp) for warp mw; the
+  // block's tile has `ntiles` n-tiles.
+  __device__ __forceinline__ void step(const unsigned* X, int xp, const unsigned* Y, int yp,
+                                       int ntiles, int mw, int lane) {
+    const int wm = mw >> 2, wn = mw & 3;
     const int g = lane >> 2, t = lane & 3;
-    unsigned a[2][4], b[4][2];
 #pragma unroll
-    for (int m = 0; m < 2; ++m)
+    for (int ks0 = 0; ks0 < kBfRows / 16; ks0 += KS) {
+      unsigned a[MT][KS][4];
 #pragma unroll
-      for (int h = 0; h < 4; ++h)
-        a[m][h] = *reinterpret_cast<const unsigned*>(
-            A16 + (wm + 16 * m + g + 8 * (h & 1)) * kBfStride + 2 * t + 8 * (h >> 1));
+      for (int m = 0; m < MT; ++m)
 #pragma unroll
-    for (int n = 0; n < 4; ++n)
+        for (int s = 0; s < KS; ++s) {
+          const unsigned* x = X + (8 * (ks0 + s) + t) * xp + (wm * MT + m) * 16 + g;
+          a[m][s][0] = x[0];
+          a[m][s][1] = x[8];
+          a[m][s][2] = x[4 * xp];
+          a[m][s][3] = x[4 * xp + 8];
+        }
+      // kJB n-tiles at a time, so that MT * kJB independent products are in
+      // flight between two dependent ones
 #pragma unroll
-      for (int h = 0; h < 2; ++h)
-        b[n][h] = *reinterpret_cast<const unsigned*>(B16 + (wn + 8 * n + g) * kBfStride + 2 * t + 8 * h);
-    // each chunk's 16 products start from zero in the tensor core and are
-    // added to the running sums by FADD, which rounds to nearest: an
-    // accumulator carried through the tensor cores across all chunks
-    // drifts (its additions do not round to nearest), by 3e-5 of the
-    // largest entry over 485 chunks
+      for (int jj0 = 0; jj0 < NT; jj0 += kJB) {
+        if (wn + 4 * jj0 < ntiles) {
+          unsigned b[kJB][KS][2];
 #pragma unroll
-    for (int m = 0; m < 2; ++m)
+          for (int jb = 0; jb < kJB; ++jb)
 #pragma unroll
-      for (int n = 0; n < 4; ++n) {
-        float part[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-        mma_bf16_16x8x16(part, a[m], b[n]);
+            for (int s = 0; s < KS; ++s) {
+              const unsigned* y = Y + (8 * (ks0 + s) + t) * yp + 8 * (wn + 4 * (jj0 + jb)) + g;
+              b[jb][s][0] = y[0];
+              b[jb][s][1] = y[4 * yp];
+            }
+          float part[MT][kJB][4];
 #pragma unroll
-        for (int e = 0; e < 4; ++e) c[m][n][e] += part[e];
+          for (int m = 0; m < MT; ++m)
+#pragma unroll
+            for (int jb = 0; jb < kJB; ++jb)
+#pragma unroll
+              for (int e = 0; e < 4; ++e) part[m][jb][e] = 0.0f;
+#pragma unroll
+          for (int s = 0; s < KS; ++s)
+#pragma unroll
+            for (int m = 0; m < MT; ++m)
+#pragma unroll
+              for (int jb = 0; jb < kJB; ++jb) mma_bf16_16x8x16(part[m][jb], a[m][s], b[jb][s]);
+#pragma unroll
+          for (int m = 0; m < MT; ++m)
+#pragma unroll
+            for (int jb = 0; jb < kJB; ++jb)
+#pragma unroll
+              for (int e = 0; e < 4; ++e) c[m][jj0 + jb][e] += part[m][jb][e];
+        }
       }
+    }
   }
 
   template <typename F>
-  __device__ __forceinline__ void each(F f) const {
-    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-    const int wm = (warp >> 1) * 32, wn = (warp & 1) * 32;
+  __device__ __forceinline__ void each(int ntiles, int mw, int lane, F f) const {
+    const int wm = mw >> 2, wn = mw & 3;
     const int g = lane >> 2, t = lane & 3;
 #pragma unroll
-    for (int m = 0; m < 2; ++m)
+    for (int m = 0; m < MT; ++m)
 #pragma unroll
-      for (int n = 0; n < 4; ++n)
+      for (int jj = 0; jj < NT; ++jj)
 #pragma unroll
-        for (int e = 0; e < 4; ++e)
-          f(wm + m * 16 + g + 8 * (e >> 1), wn + n * 8 + 2 * t + (e & 1), c[m][n][e]);
+        for (int e = 0; e < 4; ++e) {
+          const int j = wn + 4 * jj;
+          if (j < ntiles)
+            f((wm * MT + m) * 16 + g + 8 * (e >> 1), 8 * j + 2 * t + (e & 1), c[m][jj][e]);
+        }
   }
 };
 
 // Entry (a, b) of pulsar p's bf16 Gram matrix into its output: T^T W T for
 // a, b < q, d for column q; row q (bf16(r) rows) and padding are dropped,
-// and the corner (q, q) is r^T W r, summed beside the tensor cores.
+// and the corner (q, q) is r^T W r.
 __device__ __forceinline__ void emit_bf16(float* tnt, float* d, float* rnr, int p, int q, int a,
                                           int b, float v) {
   if (a > q || b > q || (a == q && b < q)) return;
@@ -565,99 +774,310 @@ __device__ __forceinline__ void emit_bf16(float* tnt, float* d, float* rnr, int 
   else d[static_cast<size_t>(p) * q + a] = v;
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
+// One block of a (pulsar, split) unit: block (x, split, p), x the rank in
+// the unit's cluster (kBfCluster) or the strip (kBfStrips; kDirect: the
+// columns converted straight from device memory, no staging ring). NT
+// n-tiles per multiplying warp cover the block's columns.
+template <typename T, int MT, int NT, bool kDirect>
+__global__ void __launch_bounds__(kBfThreads, 1)
 woodbury_bf16_kernel(const T* __restrict__ tmat, const T* __restrict__ w,
                      const T* __restrict__ r, float* __restrict__ ws, float* __restrict__ tnt,
-                     float* __restrict__ d, float* __restrict__ rnr, int nt, int q, int nsplit) {
-  constexpr int kStages = Stages<T>::value;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* smem = reinterpret_cast<T*>(smem_raw);
-  unsigned short* A16 = reinterpret_cast<unsigned short*>(
-      smem_raw + sizeof(T) * static_cast<size_t>(kStageElems) * kStages);  // after the ring
-  unsigned short* B16 = A16 + kBfTile;
-  float* rnr_half = reinterpret_cast<float*>(B16 + kBfTile);
-  const int panels = num_panels(q);
-  const int pair = blockIdx.x, split = blockIdx.y, p = blockIdx.z;
-  const int pi = pair / panels, pj = pair % panels;
-  const bool diag = pi == pj;
-  const int rows = split_rows(nt, nsplit);
-  const int row0 = split * rows;
-  const int row1 = min(nt, row0 + rows);
-  const int nchunks = row1 > row0 ? (row1 - row0 + kChunk - 1) / kChunk : 0;
+                     float* __restrict__ d, float* __restrict__ rnr, int nt, int q, int nsplit,
+                     BfGrid g) {
+  constexpr int kSize = static_cast<int>(sizeof(T));
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  unsigned* const X = reinterpret_cast<unsigned*>(smem_raw);
+  unsigned* const Y = reinterpret_cast<unsigned*>(smem_raw + 2 * g.xbuf);
+  float* const scratch = reinterpret_cast<float*>(smem_raw + 2 * (g.xbuf + g.ybuf));
+  unsigned char* const ring = smem_raw + 2 * (g.xbuf + g.ybuf) + kBfScratch;
+  const long long slot_bytes = g.raw + 2 * g.wr;
+  const int xwords = static_cast<int>(g.xbuf / 4), ywords = static_cast<int>(g.ybuf / 4);
+  const int xp = kPanel * g.rpan + kBfPad, yp = kPanel * g.cpan + kBfPad;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const bool stager = threadIdx.x < kWarpgroup;     // the staging warpgroup
+  const int ct = threadIdx.x;                       // a stager's index
+  const int mw = warp - kWarpgroup / 32;            // a multiplying warp's index
 
-  const int c = threadIdx.x % kPanel, k0 = threadIdx.x / kPanel;
-  const Column<T> ca = column(tmat, r, p, nt, q, pi * kPanel + c);
-  const Column<T> cb = column(tmat, r, p, nt, q, pj * kPanel + c);
-  const T* wp = w + static_cast<size_t>(p) * nt;
-  // the r column's panel and column; its diagonal pair sums r^T W r
-  const int rq = q / kPanel, rc = q % kPanel;
-  const bool rnr_pair = diag && pi == rq;
-  const bool rnr_thread = rnr_pair && c == rc;
+  const int unit = blockIdx.x, split = blockIdx.y, p = blockIdx.z;
+  const int cs = g.cluster;
+  const int rank = g.mode == kBfCluster ? unit : 0;
+  // the block's row panel ip and first column panel jp
+  const int groups = (g.panels + kBfGroup - 1) / kBfGroup;
+  const int ip = g.mode == kBfStrips ? unit / groups : rank;
+  const int jp = g.mode == kBfStrips ? (unit % groups) * kBfGroup : 0;
+  const int cpanels = min(g.cpan, g.panels - jp);
+  const int ntiles = cpanels * (kPanel / 8);
+  // this block's share of each chunk's k pairs, and the columns it converts:
+  // all of them, or (strips) row panel ip's, then its group's
+  const int pr0 = kBfPairs * rank / cs, pr1 = kBfPairs * (rank + 1) / cs;
+  const int cpan_conv = g.mode == kBfStrips ? 1 + cpanels : g.panels;
+  const int ncols = kPanel * cpan_conv;
+  // the conversion's work split: nparts threads share a column, each a
+  // part of every piece's k pairs; or, past kBfThreads columns, a thread
+  // takes every kBfThreads-th column whole
+  const int nparts = max(1, kBfThreads / ncols);
+  const int part = static_cast<int>(threadIdx.x) / ncols;  // >= nparts: no column
+  const int col0 = static_cast<int>(threadIdx.x) % ncols;
+  // parts [0, sparts) are the staging warpgroup's; cum(k) is the weight of
+  // parts before k
+  const int sparts = ncols <= kWarpgroup ? kWarpgroup / ncols : 0;
+  auto cum = [&](int k) {
+    return min(k, sparts) * kStagerWeight + max(0, k - sparts) * kMultiplierWeight;
+  };
+
+  const int span = split_rows(nt, nsplit);
+  const int row0 = split * span, row1 = min(nt, row0 + span);
+  const int nch = row1 > row0 ? (row1 - row0 + kBfRows - 1) / kBfRows : 0;
+  const size_t prow = static_cast<size_t>(p) * nt;  // pulsar p's first row
+
+  // the copies of piece pc (chunk pc / npiece): rows [ka, kb) of its chunk,
+  // all columns, where this block's rows [2 pr0, 2 pr1) come in npiece
+  // pieces of piece_rows
+  auto piece_rows = [&](int pc, int& ka, int& kb) {
+    const int c = pc / g.npiece, j = pc % g.npiece;
+    ka = 2 * pr0 + j * g.piece_rows;
+    kb = min(min(2 * pr1, ka + g.piece_rows), row1 - (row0 + c * kBfRows));
+  };
+  auto stage = [&](int pc) {  // by the first warpgroup
+    int ka, kb;
+    piece_rows(pc, ka, kb);
+    if (kb <= ka) return;
+    unsigned char* slot = ring + (pc % g.slots) * slot_bytes;
+    const size_t e0 = prow + row0 + (pc / g.npiece) * kBfRows + ka;
+    stage_span<kSize>(slot, reinterpret_cast<const unsigned char*>(tmat + e0 * q),
+                      (kb - ka) * q * kSize, ct);
+    stage_span<kSize>(slot + g.raw, reinterpret_cast<const unsigned char*>(w + e0),
+                      (kb - ka) * kSize, ct);
+    stage_span<kSize>(slot + g.raw + g.wr, reinterpret_cast<const unsigned char*>(r + e0),
+                      (kb - ka) * kSize, ct);
+  };
+
   float racc = 0.0f;
-
-  AccBf16 acc;
-  acc.zero();
+  // this thread's part of chunk c into buffer c & 1 of X and Y (of every
+  // block of the cluster)
+  auto convert = [&](int c) {
+    if (part >= nparts) return;
+    const int n0 = row0 + c * kBfRows;
+    const int khi = min(2 * pr1, row1 - n0);  // rows from khi on are zeros
+    auto at = [&](const T* ptr) -> T {
+      if constexpr (kDirect) return __ldg(ptr);
+      else return *ptr;
+    };
+    for (int j = 0; j < (kDirect ? 1 : g.npiece); ++j) {
+      // the piece's k pairs [pa, pb), the chunk row of its staged row 0, and
+      // where its T, w and r rows are
+      const int pa = pr0 + j * (g.piece_rows / 2);
+      const int pb = kDirect ? pr1 : min(pr1, pa + g.piece_rows / 2);
+      const int kbase = 2 * pa;
+      const T* tv;
+      const T* wv;
+      const T* rv;
+      if constexpr (kDirect) {
+        tv = tmat + (prow + n0) * q;
+        wv = w + prow + n0;
+        rv = r + prow + n0;
+      } else {
+        const int pc = c * g.npiece + j;
+        const unsigned char* slot = ring + (pc % g.slots) * slot_bytes;
+        const size_t e0 = prow + n0 + kbase;
+        tv = reinterpret_cast<const T*>(slot + (reinterpret_cast<uintptr_t>(tmat + e0 * q) & 15));
+        wv = reinterpret_cast<const T*>(slot + g.raw + (reinterpret_cast<uintptr_t>(w + e0) & 15));
+        rv = reinterpret_cast<const T*>(slot + g.raw + g.wr +
+                                        (reinterpret_cast<uintptr_t>(r + e0) & 15));
+      }
+      const int i0 = kDirect ? 2 * pa : 0;  // staged row of the piece's first pair
+      const int qa = pa + (pb - pa) * cum(part) / cum(nparts);
+      const int qb = pa + (pb - pa) * cum(part + 1) / cum(nparts);
+      const int npairs = qb - qa;  // this thread's pairs [qa, qb)
+      for (int col = col0; col < ncols; col += kBfThreads) {
+        // the column's source: T's column tc, r, or nothing (padding)
+        int tc = col, xcol = col, ycol = col;  // X's and Y's column (-1: none)
+        if (kDirect) {
+          tc = col < kPanel ? ip * kPanel + col : jp * kPanel + col - kPanel;
+          xcol = col < kPanel ? col : -1;
+          ycol = col < kPanel ? -1 : col - kPanel;
+        }
+        const T* src = tc < q ? tv + tc : rv;
+        const int stride = tc < q ? q : 1;
+        const bool live = tc <= q, rcol = tc == q && xcol >= 0;
+        // destinations of k pair 0, as shared-window addresses (each word
+        // of a pair kp lies kp pitches on)
+        const int owner = cs == 1 ? 0 : col / kPanel;
+        const unsigned xa = xcol < 0 ? 0u
+            : smem_addr(X + (c & 1) * xwords + (cs == 1 ? xcol : col - owner * kPanel));
+        const unsigned ya = ycol < 0 ? 0u : smem_addr(Y + (c & 1) * ywords + ycol);
+        for (int kp0 = 0; kp0 < npairs; kp0 += kConvUnroll) {
+          T x0[kConvUnroll], x1[kConvUnroll], w0[kConvUnroll], w1[kConvUnroll];
 #pragma unroll
-  for (int s = 0; s < kStages - 1; ++s) {
-    if (s < nchunks) stage_chunk<T, kStages>(smem, s, row0, row1, ca, cb, diag, tmat, w, wp, c, k0);
-    cp_async_commit();
-  }
-  for (int chunk = 0; chunk < nchunks; ++chunk) {
-    cp_async_wait<kStages - 2>();  // this thread's copies of `chunk` landed
-    __syncthreads();  // everyone's landed; everyone is done with chunk - 1's slot and tiles
-    if (chunk + kStages - 1 < nchunks)
-      stage_chunk<T, kStages>(smem, chunk + kStages - 1, row0, row1, ca, cb, diag, tmat, w, wp,
-                              c, k0);
-    cp_async_commit();
-    const T* As = smem + (chunk % kStages) * kStageElems;
-    const T* Bs = diag ? As : As + kChunk * kStride;
-    const T* Ws = As + 2 * kChunk * kStride;
+          for (int u = 0; u < kConvUnroll; ++u) {  // every load first
+            const int k = 2 * (qa + kp0 + u), i = i0 + 2 * (qa - pa + kp0 + u);
+            const bool v0 = kp0 + u < npairs && k < khi, v1 = kp0 + u < npairs && k + 1 < khi;
+            w0[u] = v0 ? at(wv + i) : T(0);
+            w1[u] = v1 ? at(wv + i + 1) : T(0);
+            x0[u] = v0 && live ? at(src + i * stride) : T(0);
+            x1[u] = v1 && live ? at(src + (i + 1) * stride) : T(0);
+          }
 #pragma unroll
-    for (int m = 0; m < kRowsPerThread; ++m) {  // the entries this thread staged
-      const int k = k0 + kCopyRows * m;
-      const T a = As[k * kStride + c], wk = Ws[k];
-      A16[c * kBfStride + k] = to_bf16(a);
-      B16[c * kBfStride + k] = to_bf16(Bs[k * kStride + c] * wk);
-      if (rnr_thread) racc = fmaf(static_cast<float>(a), static_cast<float>(wk * a), racc);
+          for (int u = 0; u < kConvUnroll; ++u) {
+            if (kp0 + u >= npairs) break;
+            const int kp = qa + kp0 + u;
+            const T y0 = w0[u] * x0[u], y1 = w1[u] * x1[u];
+            if (rcol) {
+              racc = fmaf(static_cast<float>(x0[u]), static_cast<float>(y0), racc);
+              racc = fmaf(static_cast<float>(x1[u]), static_cast<float>(y1), racc);
+            }
+            const unsigned xw = pack_bf16(static_cast<float>(x0[u]), static_cast<float>(x1[u]));
+            const unsigned yw = pack_bf16(static_cast<float>(y0), static_cast<float>(y1));
+            const unsigned xo = 4u * kp * xp, yo = 4u * kp * yp;
+            if (cs == 1) {
+              if (xcol >= 0) st_local(xa + xo, xw);
+              if (ycol >= 0) st_local(ya + yo, yw);
+            } else {
+              st_cluster(map_rank(xa + xo, owner), xw);
+#pragma unroll
+              for (int m = 0; m < kBfMaxCluster; ++m)
+                if (m < cs) st_cluster(map_rank(ya + yo, m), yw);
+            }
+          }
+        }
+      }
     }
-    __syncthreads();
-    acc.step(A16, B16);
+  };
+
+  BfAcc<MT, NT> acc;
+  acc.zero();
+  // the ring: pieces [0, slots - npiece) ahead of chunk 0; each phase c the
+  // npiece pieces slots - npiece on, into the slots chunk c - 1 freed; one
+  // commit group a piece
+  const int ahead = g.slots - g.npiece, npieces = nch * g.npiece;
+  auto issue = [&](int c) {  // phase c's pieces, into the slots chunk c - 1 freed
+    if constexpr (!kDirect) {
+      for (int j = 0; j < g.npiece; ++j) {
+        const int pc = c * g.npiece + ahead + j;
+        if (pc < npieces) stage(pc);
+        cp_async_commit();
+      }
+    }
+  };
+  if constexpr (!kDirect) {
+    if (stager)
+      for (int pc = 0; pc < ahead; ++pc) {
+        if (pc < npieces) stage(pc);
+        cp_async_commit();
+      }
+  }
+  for (int c = 0; c <= nch; ++c) {
+    if constexpr (!kDirect) {
+      if (stager && c < nch) {  // this thread's copies of chunk c landed
+        switch (g.slots - 2 * g.npiece) {  // pieces still allowed in flight
+          case 0: cp_async_wait<0>(); break;
+          case 1: cp_async_wait<1>(); break;
+          case 2: cp_async_wait<2>(); break;
+          case 3: cp_async_wait<3>(); break;
+          default: cp_async_wait<4>(); break;
+        }
+      }
+    }
+    // chunk c landed in every block of the unit; c - 1 is converted
+    // everywhere; no block still reads the buffers chunk c goes into or
+    // the slots its later pieces go into
+    unit_sync(cs);
+    if (stager) issue(c);
+    else if (c > 0)
+      acc.step(X + ((c - 1) & 1) * xwords, xp, Y + ((c - 1) & 1) * ywords, yp, ntiles, mw, lane);
+    if (c < nch) convert(c);
   }
 
-  // the two threads staging the r column hold its even and odd rows
-  if (rnr_thread && k0 == 1) *rnr_half = racc;
+  // r^T W r: the warp sums, the block's, then the unit's in the corner's
+  // block, each in a fixed order
+  {
+    float v = racc;
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+    if (lane == 0) scratch[warp] = v;
+  }
   __syncthreads();
-  const float rnr_sum = rnr_thread && k0 == 0 ? racc + *rnr_half : 0.0f;
-  if (nsplit == 1) {
-    acc.each([&](int al, int bl, float v) {
-      const int a = pi * kPanel + al, b = pj * kPanel + bl;
-      if (a != q || b != q) emit_bf16(tnt, d, rnr, p, q, a, b, v);
-    });
-    if (rnr_thread && k0 == 0) rnr[p] = rnr_sum;
+  const int qp = q / kPanel;  // the panel of the corner (q, q)
+  bool corner;
+  float rsum = 0.0f;
+  if (cs == 1) {
+    corner = g.mode == kBfSingle || (ip == qp && qp >= jp && qp < jp + kBfGroup);
+    if (threadIdx.x == 0)
+      for (int i = 0; i < kBfThreads / 32; ++i) rsum += scratch[i];
   } else {
-    float* o = ws + ((static_cast<size_t>(p) * gridDim.x + pair) * nsplit + split) * kTile;
-    acc.each([&](int al, int bl, float v) {
-      if (!rnr_pair || al != rc || bl != rc) o[al * kPanel + bl] = v;
-    });
-    if (rnr_thread && k0 == 0) o[rc * kPanel + rc] = rnr_sum;
+    corner = rank == qp;
+    if (threadIdx.x == 0) {
+      float s = 0.0f;
+      for (int i = 0; i < kBfThreads / 32; ++i) s += scratch[i];
+      asm volatile("st.shared::cluster.f32 [%0], %1;\n"
+                   :: "r"(map_rank(smem_addr(scratch + 16 + rank), qp)), "f"(s) : "memory");
+    }
+    unit_sync(cs);  // also keeps every block's shared memory alive until the last remote store
+    if (threadIdx.x == 0 && corner)
+      for (int m = 0; m < cs; ++m) rsum += scratch[16 + m];
+  }
+
+  const int a0 = ip * kPanel, b0 = jp * kPanel;
+  if (nsplit == 1) {
+    if (!stager)
+      acc.each(ntiles, mw, lane, [&](int rl, int cl, float v) {
+        const int a = a0 + rl, b = b0 + cl;
+        if (a != q || b != q) emit_bf16(tnt, d, rnr, p, q, a, b, v);
+      });
+    if (threadIdx.x == 0 && corner) rnr[p] = rsum;
+  } else {
+    const int n = kPanel * g.panels;
+    float* o = ws + (static_cast<size_t>(p) * nsplit + split) * n * n;
+    if (!stager)
+      acc.each(ntiles, mw, lane, [&](int rl, int cl, float v) {
+        const int a = a0 + rl, b = b0 + cl;
+        if (a != q || b != q) o[static_cast<size_t>(a) * n + b] = v;
+      });
+    if (threadIdx.x == 0 && corner) o[static_cast<size_t>(q) * n + q] = rsum;
   }
 }
 
-// Sum the splits of each bf16 tile entry in order and scatter it.
+// Sum the splits of each padded Gram entry (n = 64 P) in order and scatter it.
 __global__ void __launch_bounds__(kReduceThreads)
 woodbury_bf16_reduce_kernel(const float* __restrict__ ws, float* __restrict__ tnt,
                             float* __restrict__ d, float* __restrict__ rnr, int q, int nsplit,
-                            int panels) {
-  const int p = blockIdx.y, npairs = panels * panels;
+                            int n) {
+  const int p = blockIdx.y;
   const int e = blockIdx.x * kReduceThreads + threadIdx.x;
-  if (e >= npairs * kTile) return;
-  const int pair = e / kTile, loc = e % kTile;
-  const float* src = ws + (static_cast<size_t>(p) * npairs + pair) * nsplit * kTile + loc;
+  if (e >= n * n) return;
+  const size_t plane = static_cast<size_t>(n) * n;
+  const float* src = ws + static_cast<size_t>(p) * nsplit * plane + e;
   float v = 0.0f;
-  for (int s = 0; s < nsplit; ++s) v += src[static_cast<size_t>(s) * kTile];
-  emit_bf16(tnt, d, rnr, p, q, (pair / panels) * kPanel + loc / kPanel,
-            (pair % panels) * kPanel + loc % kPanel, v);
+  for (int s = 0; s < nsplit; ++s) v += src[s * plane];
+  emit_bf16(tnt, d, rnr, p, q, e / n, e % n, v);
+}
+
+template <typename T, int MT, int NT, bool kDirect>
+cudaError_t launch_bf16_kernel(const BfGrid& g, dim3 grid, cudaStream_t stream, const T* tmat,
+                               const T* w, const T* r, float* ws, float* tnt, float* d,
+                               float* rnr, int nt, int q, int nsplit) {
+  auto kernel = woodbury_bf16_kernel<T, MT, NT, kDirect>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(g.smem));
+  if (err != cudaSuccess) return err;
+  if (g.cluster == 1) {
+    kernel<<<grid, kBfThreads, g.smem, stream>>>(tmat, w, r, ws, tnt, d, rnr, nt, q, nsplit, g);
+    return cudaGetLastError();
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(kBfThreads);
+  cfg.dynamicSmemBytes = static_cast<size_t>(g.smem);
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = g.cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, kernel, tmat, w, r, ws, tnt, d, rnr, nt, q, nsplit, g);
+  return err != cudaSuccess ? err : cudaGetLastError();
 }
 
 template <typename T>
@@ -666,24 +1086,33 @@ int launch_bf16(const void* tmat, const void* w, const void* r, void* ws, void* 
   if (np < 1 || np > 65535 || nt < 1 || q < 1 || nsplit < 1 || nsplit > nt ||
       nsplit > 65535 || (nsplit > 1 && ws == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
-  const int panels = num_panels(q);
-  const size_t smem = smem_bytes_bf16<T>();
-  auto kernel = woodbury_bf16_kernel<T>;
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
+  const BfGrid g = bf_grid(q, static_cast<int>(sizeof(T)));
+  if (g.smem > kSmemLimit) return static_cast<int>(cudaErrorInvalidValue);
+  const T* tt = static_cast<const T*>(tmat);
+  const T* ww = static_cast<const T*>(w);
+  const T* rr = static_cast<const T*>(r);
   float* o = static_cast<float*>(ws);
   float* t = static_cast<float*>(tnt);
   float* dd = static_cast<float*>(d);
   float* c = static_cast<float*>(rnr);
-  kernel<<<dim3(panels * panels, nsplit, np), kThreads, smem, stream>>>(
-      static_cast<const T*>(tmat), static_cast<const T*>(w), static_cast<const T*>(r), o, t, dd,
-      c, nt, q, nsplit);
-  err = cudaGetLastError();
+  const dim3 grid(g.blocks, nsplit, np);
+  // m-tiles of a multiplying warp: two per row panel of the block; n-tiles:
+  // two per column panel
+  cudaError_t err;
+  if (g.mode == kBfStrips)
+    err = launch_bf16_kernel<T, 2, 16, true>(g, grid, stream, tt, ww, rr, o, t, dd, c, nt, q, nsplit);
+  else if (g.panels == 1)
+    err = launch_bf16_kernel<T, 2, 2, false>(g, grid, stream, tt, ww, rr, o, t, dd, c, nt, q, nsplit);
+  else if (g.panels == 2)
+    err = launch_bf16_kernel<T, 4, 4, false>(g, grid, stream, tt, ww, rr, o, t, dd, c, nt, q, nsplit);
+  else if (g.panels <= 5)
+    err = launch_bf16_kernel<T, 2, 10, false>(g, grid, stream, tt, ww, rr, o, t, dd, c, nt, q, nsplit);
+  else
+    err = launch_bf16_kernel<T, 2, 16, false>(g, grid, stream, tt, ww, rr, o, t, dd, c, nt, q, nsplit);
   if (err != cudaSuccess || nsplit == 1) return static_cast<int>(err);
-  const int entries = panels * panels * kTile;
-  woodbury_bf16_reduce_kernel<<<dim3((entries + kReduceThreads - 1) / kReduceThreads, np),
-                                kReduceThreads, 0, stream>>>(o, t, dd, c, q, nsplit, panels);
+  const int n = kPanel * g.panels;
+  woodbury_bf16_reduce_kernel<<<dim3((n * n + kReduceThreads - 1) / kReduceThreads, np),
+                                kReduceThreads, 0, stream>>>(o, t, dd, c, q, nsplit, n);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -708,11 +1137,24 @@ extern "C" int fused_woodbury_launch(const void* tmat, const void* w, const void
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// The bf16 rung: float32 workspace entries per pulsar (every ordered
-// panel pair), none with one split.
+// The bf16 rung: float32 workspace entries per pulsar (the padded (64 P)-
+// square Gram matrix of each split), none with one split.
 extern "C" long long fused_woodbury_bf16_workspace(int q, int nsplit) {
   if (q < 1 || nsplit <= 1) return 0;
-  return static_cast<long long>(num_panels(q)) * num_panels(q) * nsplit * kTile;
+  const long long n = static_cast<long long>(kPanel) * num_panels(q);
+  return n * n * nsplit;
+}
+
+// The bf16 launch for Q columns of dtype 0 (float32) or 1 (float64):
+// out[0..5] = panels, mode (0 one block, 1 a cluster, 2 strips), cluster
+// size, blocks of one (pulsar, split), raw slots, shared bytes of a block.
+extern "C" int fused_woodbury_bf16_grid(int q, int dtype, long long* out) {
+  if (q < 1 || (dtype != 0 && dtype != 1) || out == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const BfGrid g = bf_grid(q, dtype == 1 ? 8 : 4);
+  const long long v[6] = {g.panels, g.mode, g.cluster, g.blocks, g.slots, g.smem};
+  for (int i = 0; i < 6; ++i) out[i] = v[i];
+  return 0;
 }
 
 // Launch the bf16 rung on `stream`: T, w and r in float32 (dtype 0) or

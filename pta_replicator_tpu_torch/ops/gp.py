@@ -35,8 +35,11 @@ dtype. Its T^T W T is not symmetric (element [q][s] is bf16(T_q)
 bf16(w T_s)), and T^T W r rounds w r, not r. The plain version emulates
 it with the same arithmetic: operands rounded to bf16 and cast back to float32 (exact),
 float32 sums tile by tile. The card runs it on bf16 tensor cores
-(``mma.sync`` m16n8k16, float32 accumulators) over every ordered panel
-pair. The likelihood gates it on a numerics capture
+(``mma.sync`` m16n8k16, float32 accumulators) over the whole padded Gram
+matrix, unmirrored: each (pulsar, TOA split) is one block (P <= 2
+panels), a cluster of P blocks (P <= 8) or strips of blocks (P > 8), as
+:func:`woodbury_bf16_grid` says, and stages 64-row spans of T once. The
+likelihood gates it on a numerics capture
 (``likelihood/gp.py::require_precision_ready``); nothing here does.
 """
 from __future__ import annotations
@@ -64,6 +67,30 @@ WOODBURY_CHUNK = 16
 #: measured faster at 68 x 7,758 on the H100 than the 2-4 blocks per SM
 #: that fill the card once (kernels/woodbury_study.py's split sweep)
 WOODBURY_BLOCKS_PER_SM = 16
+#: the bf16 kernel (``csrc/fused_woodbury.cu``, second half): TOA rows of
+#: a chunk (kBfRows), the panels up to which one block owns a unit
+#: (kBfSingleMax) and the rows of its raw slots (kBfPieceRows), the portable
+#: cluster size (kBfMaxCluster), the column panels of a strip past it
+#: (kBfGroup), the pad of an X / Y row in 32-bit words (kBfPad), raw slots
+#: of the staging ring at most (kBfMaxSlots), the shared bytes a block can
+#: use (kSmemLimit) and the r^T W r scratch (kBfScratch)
+WOODBURY_BF16_ROWS = 64
+WOODBURY_BF16_SINGLE_MAX = 2
+WOODBURY_BF16_PIECE_ROWS = 32
+WOODBURY_BF16_MAX_CLUSTER = 8
+WOODBURY_BF16_GROUP = 8
+WOODBURY_BF16_PAD = 8
+WOODBURY_BF16_MAX_SLOTS = 6
+WOODBURY_SMEM_LIMIT = 232448
+WOODBURY_BF16_SCRATCH = 128
+#: the bf16 plan's split count: at most WOODBURY_BF16_UNITS_PER_SM (pulsar,
+#: split) units and WOODBURY_BF16_BLOCKS_PER_SM blocks per SM. A block
+#: holds most of an SM's shared memory, so units count waves: about four
+#: of single-block units measured fastest at 68 x 7,758 x 123 on the H100,
+#: and three splits for clusters of five at Q = 286, whose workspace grows
+#: as (64 P)^2 a split (kernels/woodbury_study.py's split sweep)
+WOODBURY_BF16_UNITS_PER_SM = 4
+WOODBURY_BF16_BLOCKS_PER_SM = 8
 
 
 def _check_precision(precision: str):
@@ -164,23 +191,139 @@ def woodbury_plan(npsr: int, ntoa: int, q: int, sms: int, precision: str = "high
     multiprocessors: ``(panels, pairs, nsplit, workspace_entries)``.
 
     The Q + 1 augmented columns pad to ``panels`` panels of
-    ``WOODBURY_PANEL``; each of the ``pairs`` panel pairs of each pulsar
-    is one block per TOA split: the lower-triangle pairs for
-    ``"highest"`` (the tile is mirrored), every ordered pair for
-    ``"bf16"`` (whose T^T W T is not symmetric). ``nsplit`` is the most
-    splits that keep pairs x Np x nsplit within ``WOODBURY_BLOCKS_PER_SM``
-    blocks per SM, with no more splits than ``WOODBURY_CHUNK``-row chunks
-    and none empty (the kernel gives each split ``ceil(Nt / nsplit)``
-    rows); it falls as the pairs grow. ``workspace_entries`` counts the
-    partial sums the splits leave for the reduction, none with one split,
-    so it never exceeds ``WOODBURY_BLOCKS_PER_SM * sms`` tiles."""
+    ``WOODBURY_PANEL``. ``"highest"`` runs one block per lower-triangle
+    panel pair (``pairs`` of them; the tile is mirrored) per pulsar and TOA
+    split, and ``nsplit`` is the most splits that keep pairs x Np x nsplit
+    within ``WOODBURY_BLOCKS_PER_SM`` blocks per SM. ``"bf16"`` computes
+    every ordered pair (``pairs`` = panels^2; its T^T W T is not
+    symmetric) with :func:`woodbury_bf16_grid`'s blocks per (pulsar,
+    split), and ``nsplit`` is the most splits that keep Np x nsplit units
+    within ``WOODBURY_BF16_UNITS_PER_SM`` per SM and their blocks within
+    ``WOODBURY_BF16_BLOCKS_PER_SM``. Either way there
+    are no more splits than ``WOODBURY_CHUNK``-row chunks and none is
+    empty (the kernel gives each split ``ceil(Nt / nsplit)`` rows).
+    ``workspace_entries`` counts the float partial sums the splits leave
+    for the reduction (pairs x 64^2 per pulsar and split), none with one
+    split."""
     _check_precision(precision)
     panels = -(-(q + 1) // WOODBURY_PANEL)
-    pairs = panels * panels if precision == "bf16" else panels * (panels + 1) // 2
-    nsplit = _whole_splits(ntoa, min(WOODBURY_BLOCKS_PER_SM * sms // (pairs * npsr),
-                                     woodbury_max_splits(ntoa)))
+    if precision == "bf16":
+        pairs = panels * panels
+        blocks = woodbury_bf16_grid(npsr, q, 1, 8).blocks
+        target = min(WOODBURY_BF16_UNITS_PER_SM * sms // npsr,
+                     WOODBURY_BF16_BLOCKS_PER_SM * sms // (blocks * npsr))
+    else:
+        pairs = panels * (panels + 1) // 2
+        target = WOODBURY_BLOCKS_PER_SM * sms // (pairs * npsr)
+    nsplit = _whole_splits(ntoa, min(target, woodbury_max_splits(ntoa)))
     workspace = npsr * pairs * nsplit * WOODBURY_PANEL**2 if nsplit > 1 else 0
     return panels, pairs, nsplit, workspace
+
+
+class Bf16Grid(NamedTuple):
+    """The bf16 kernel's launch for one shape, as ``csrc/fused_woodbury.cu``
+    (``bf_grid``) computes it. ``mode`` is ``"single"`` (one block owns the
+    (pulsar, split) unit: P <= 2), ``"cluster"`` (a cluster of ``cluster``
+    = P blocks, block i the strip of row panel i: 3 <= P <= 8) or
+    ``"strips"`` (P > 8, the portable cluster size: block (i, group) owns
+    row panel i against ``WOODBURY_BF16_GROUP`` column panels, no cluster).
+    ``blocks`` is the blocks of one unit, ``grid`` the launch's (blocks,
+    nsplit, Np), ``share_rows`` the most rows of a 64-row chunk one block
+    stages, in pieces of ``piece_rows`` (one raw slot each; a single block
+    stages 32-row pieces, so that more of them fit in flight), ``slots``
+    its raw slots (0 for strips, which convert from device memory) and
+    ``shared_bytes`` its dynamic shared memory."""
+    panels: int
+    mode: str
+    cluster: int
+    blocks: int
+    grid: tuple
+    share_rows: int
+    piece_rows: int
+    slots: int
+    shared_bytes: int
+
+
+#: the kernel's mode codes (BfMode)
+BF16_MODES = ("single", "cluster", "strips")
+
+
+def _round16(n: int) -> int:
+    return -(-n // 16) * 16
+
+
+def woodbury_bf16_grid(npsr: int, q: int, nsplit: int, itemsize: int) -> Bf16Grid:
+    """The bf16 kernel's launch for ``npsr`` pulsars, ``q`` columns,
+    ``nsplit`` TOA splits and ``itemsize``-byte inputs (4 or 8): a mirror
+    of the kernel's ``bf_grid``. Raw slots are as many as fit the block's
+    shared memory, from two chunks' pieces to ``WOODBURY_BF16_MAX_SLOTS``."""
+    panels = -(-(q + 1) // WOODBURY_PANEL)
+    if panels <= WOODBURY_BF16_SINGLE_MAX:
+        mode, cluster, blocks, rpan, cpan = "single", 1, 1, panels, panels
+    elif panels <= WOODBURY_BF16_MAX_CLUSTER:
+        mode, cluster, blocks, rpan, cpan = "cluster", panels, panels, 1, panels
+    else:
+        group = WOODBURY_BF16_GROUP
+        mode, cluster, rpan, cpan = "strips", 1, 1, group
+        blocks = panels * -(-panels // group)
+    pairs = WOODBURY_BF16_ROWS // 2
+    xbuf = 4 * pairs * (WOODBURY_PANEL * rpan + WOODBURY_BF16_PAD)
+    ybuf = 4 * pairs * (WOODBURY_PANEL * cpan + WOODBURY_BF16_PAD)
+    fixed = 2 * (xbuf + ybuf) + WOODBURY_BF16_SCRATCH
+    share_rows = piece_rows = slots = 0
+    smem = fixed
+    if mode != "strips":
+        share_rows = 2 * -(-pairs // cluster)
+        piece_rows = WOODBURY_BF16_PIECE_ROWS if mode == "single" else share_rows
+        slot = _round16(piece_rows * q * itemsize + 16) + 2 * _round16(piece_rows * itemsize + 16)
+        slots = WOODBURY_BF16_MAX_SLOTS
+        while slots > 2 * share_rows // piece_rows and fixed + slots * slot > WOODBURY_SMEM_LIMIT:
+            slots -= 1
+        smem = fixed + slots * slot
+    return Bf16Grid(panels, mode, cluster, blocks, (blocks, nsplit, npsr), share_rows, piece_rows,
+                    slots, smem)
+
+
+def woodbury_bf16_shares(cluster: int):
+    """The k pairs of a 64-row chunk each block of a ``cluster`` stages and
+    converts: block b takes pairs ``[32 b / cluster, 32 (b + 1) / cluster)``
+    (rows twice those)."""
+    pairs = WOODBURY_BF16_ROWS // 2
+    return [(pairs * b // cluster, pairs * (b + 1) // cluster) for b in range(cluster)]
+
+
+def woodbury_bf16_span(offset: int, count: int, itemsize: int):
+    """How the kernel's ``stage_span`` copies ``count`` elements that start
+    ``offset`` elements past a 16-byte aligned address: ``(head, units,
+    tail)``, the elements copied one by one before the first 16-byte
+    boundary, the 16-byte copies, and the elements copied one by one after
+    the last boundary. A span of T is pulsar p's rows from n0:
+    ``offset = (p Nt + n0) Q``."""
+    nbytes = count * itemsize
+    head = offset * itemsize % 16
+    hb = min(16 - head, nbytes) if head else 0
+    units = (nbytes - hb) // 16
+    tb = nbytes - hb - 16 * units
+    return hb // itemsize, units, tb // itemsize
+
+
+def woodbury_bf16_staged_bytes(npsr: int, ntoa: int, q: int, itemsize: int) -> int:
+    """Bytes of T, w and r the bf16 kernel brings into its blocks per call
+    (any split count): once each for one block or a cluster, which stage
+    every chunk's span once; a strip block reads its row panel's and its
+    group's columns of T (their padding excepted) and w, r for each row."""
+    grid = woodbury_bf16_grid(npsr, q, 1, itemsize)
+    if grid.mode != "strips":
+        return npsr * ntoa * (q + 2) * itemsize
+    width = WOODBURY_PANEL
+    live = lambda lo, hi: max(0, min(hi, q + 1) - lo)  # columns of [T | r] in [lo, hi)
+    cols = 0
+    for i in range(grid.panels):
+        for j0 in range(0, grid.panels, WOODBURY_BF16_GROUP):
+            cols += live(i * width, (i + 1) * width)
+            cols += live(j0 * width, (j0 + WOODBURY_BF16_GROUP) * width)
+            cols += 1  # w
+    return npsr * ntoa * cols * itemsize
 
 
 def _whole_splits(ntoa: int, nsplit: int) -> int:
@@ -213,8 +356,12 @@ def _bind(lib):
     for fn in (lib.fused_woodbury_launch, lib.fused_woodbury_bf16_launch):
         fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
+    lib.fused_woodbury_bf16_grid.argtypes = [ctypes.c_int, ctypes.c_int,
+                                             ctypes.POINTER(ctypes.c_longlong)]
+    lib.fused_woodbury_bf16_grid.restype = ctypes.c_int
     lib.fused_woodbury_error_string.argtypes = [ctypes.c_int]
     lib.fused_woodbury_error_string.restype = ctypes.c_char_p
+
 
 
 #: the launch counter of each precision's kernel

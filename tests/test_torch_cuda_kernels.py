@@ -642,8 +642,14 @@ def test_gls_refit_on_the_card_matches_the_cpu(cuda_device, cov):
 #: against JAX)
 TOL_WOODBURY_BF16 = 1e-5
 
+#: the bf16 kernel's shapes: the highest kernel's (one block, P <= 2;
+#: clusters of 3 and 5), plus a cluster of 8 (Q = 511), strips past the
+#: portable cluster size (Q = 520, P = 9) and an odd pulsar count with
+#: float32 spans whose heads are not 16-byte aligned (Nt = 997, Q = 123)
+BF16_WOODBURY_SHAPES = WOODBURY_SHAPES + [(1, 70, 511), (1, 70, 520), (3, 997, 123)]
 
-@pytest.mark.parametrize("shape", WOODBURY_SHAPES)
+
+@pytest.mark.parametrize("shape", BF16_WOODBURY_SHAPES)
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 def test_woodbury_bf16_kernel_matches_plain(cuda_device, shape, dtype):
     T, w, r = _woodbury(*shape, dtype, cuda_device)
@@ -660,6 +666,17 @@ def test_woodbury_bf16_kernel_matches_plain(cuda_device, shape, dtype):
         assert not torch.equal(got[0], got[0].transpose(-1, -2))
 
 
+def _bf16_grid_of(lib, q, itemsize):
+    """(panels, mode, cluster, blocks, slots, shared bytes) as the built
+    kernel's fused_woodbury_bf16_grid computes them."""
+    import ctypes
+
+    out = (ctypes.c_longlong * 6)()
+    assert lib.fused_woodbury_bf16_grid(q, 1 if itemsize == 8 else 0, out) == 0
+    panels, mode, cluster, blocks, slots, smem = (int(v) for v in out)
+    return panels, tgp.BF16_MODES[mode], cluster, blocks, slots, smem
+
+
 @pytest.mark.parametrize("nsplit", [1, 2, 7])
 def test_woodbury_bf16_kernel_any_split_count(cuda_device, nsplit):
     T, w, r = _woodbury(4, 997, 123, torch.float64, cuda_device)
@@ -668,9 +685,13 @@ def test_woodbury_bf16_kernel_any_split_count(cuda_device, nsplit):
     want = tgp.fused_woodbury_plain(T, w, r, precision="bf16")
     for g, x in zip(got, want):
         assert _rel_max(g, x) <= TOL_WOODBURY_BF16
-    for q in (7, 123, 183, 300):
+    for q in (7, 123, 127, 128, 183, 286, 300, 511, 520):
         plan = tgp.woodbury_plan(68, 7758, q, 132, "bf16")
         assert 68 * lib.fused_woodbury_bf16_workspace(q, plan[2]) == plan[3]
+        for itemsize in (4, 8):  # the kernel's launch is the plan's
+            grid = tgp.woodbury_bf16_grid(68, q, plan[2], itemsize)
+            assert _bf16_grid_of(lib, q, itemsize) == (
+                grid.panels, grid.mode, grid.cluster, grid.blocks, grid.slots, grid.shared_bytes)
 
 
 def test_woodbury_bf16_kernel_is_deterministic(cuda_device):
@@ -679,6 +700,17 @@ def test_woodbury_bf16_kernel_is_deterministic(cuda_device):
     b = tgp.fused_woodbury_update(T, w, r, precision="bf16")
     for x, y in zip(a, b):
         assert torch.equal(x, y)
+
+
+def test_woodbury_bf16_cluster_kernel_is_deterministic(cuda_device):
+    """A cluster of five blocks (Q = 286) with three TOA splits: the same
+    bits twice, and T^T W T unmirrored."""
+    T, w, r = _woodbury(3, 997, 286, torch.float64, cuda_device)
+    a = tgp.fused_woodbury_update(T, w, r, precision="bf16", nsplit=3)
+    b = tgp.fused_woodbury_update(T, w, r, precision="bf16", nsplit=3)
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+    assert not torch.equal(a[0], a[0].transpose(-1, -2))
 
 
 def test_woodbury_split_knob_on_the_card(cuda_device, tmp_path):
