@@ -33,8 +33,15 @@ and float32 inputs) and 286 (`woodbury_kernel_vs_plain_bf16`), gated on a
 numerics capture of the armed float64 bank call and priced on the
 flagship bank (`likelihood_bf16`); the tuner searches the kernel's TOA
 splits (`tuner_woodbury`), and the MAP fit runs at the flagship width and
-card against CPU (`map_fit`, `map_fit_card_vs_cpu`). It prints one JSON
-line per phase. The
+card against CPU (`map_fit`, `map_fit_card_vs_cpu`). The declarative
+scenario path compiles the committed `ng15_population` spec on the card
+(100,000 binaries split into ~3,000 outlier CWs and a free-spectrum GWB
+under an anisotropic ORF, with burst, memory and glitch), holds the card
+compile against the CPU compile bit for bit and B.1 at its catalog
+against the plain version, and runs the spec's sweep
+(`scenario_population`); the same spec goes through `python -m
+pta_replicator_tpu_torch scenario validate|compile|run` in subprocesses
+(`scenario_cli`). It prints one JSON line per phase. The
 line before the last is the kernels line, the last the result line.
 Without a CUDA device, or without the port beside it, it exits non-zero
 and prints no result; any failed check raises.
@@ -46,6 +53,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -64,6 +72,8 @@ from pta_replicator_tpu_torch.models import batched as B
 from pta_replicator_tpu_torch.obs import numerics
 from pta_replicator_tpu_torch.ops import cw
 from pta_replicator_tpu_torch.ops import gp as ops_gp
+from pta_replicator_tpu_torch.scenarios import compile_spec, load_spec
+from pta_replicator_tpu_torch.scenarios import compile as scenario_compile
 from pta_replicator_tpu_torch.scenarios.compile import deterministic_families
 from pta_replicator_tpu_torch.utils import sweep as sweep_mod
 from pta_replicator_tpu_torch.utils.sweep import chunk_seed, sweep
@@ -167,6 +177,16 @@ SOURCES_PER_TILE, CW_STREAM_REPS, CW_STREAM_LARGE = 1024, 5, 100_000
 #: the sources of one macro tile: cw_stream_response joins 8 plane tiles
 #: (its default tiles_per_step) for each fold and launch
 SOURCES_PER_MACRO = 8 * SOURCES_PER_TILE
+
+#: the declarative scenario path: the committed full-width population
+#: spec (68 x 7,758, 100,000 binaries, ~3,000 outlier CWs, an lmax = 2
+#: anisotropic ORF, burst, memory and glitch), the CW kernel's timed
+#: calls at its catalog, and the CLI's realizations (full cubes, one
+#: chunk of the spec's 200: its sweep.nreal of 400 is cut to keep the
+#: cubes it writes and reads back at ~0.4 GB each)
+SCENARIO_SPEC = (Path(__file__).resolve().parent / "pta_replicator_tpu_torch" / "scenarios"
+                 / "specs" / "ng15_population.json")
+SCENARIO_CW_REPS, SCENARIO_CLI_NREAL = 10, 200
 
 #: the GLS refit's right-hand-side counts on config B: the GP basis alone,
 #: the design and a chunk of realizations
@@ -2128,6 +2148,200 @@ def phase_deterministic_families(batch, recipe, generator):
     return counts["cw_catalog_response"]
 
 
+def _unequal_tensors(a, b, where):
+    """The tensor fields of two dataclasses (nested ones field by field)
+    whose host copies are not bitwise equal, or whose presence differs."""
+    bad = []
+    for f in dataclasses.fields(a):
+        x, y = getattr(a, f.name), getattr(b, f.name)
+        if isinstance(x, torch.Tensor) or isinstance(y, torch.Tensor):
+            if not (isinstance(x, torch.Tensor) and isinstance(y, torch.Tensor)
+                    and x.dtype == y.dtype and torch.equal(x.cpu(), y.cpu())):
+                bad.append(f"{where}.{f.name}")
+        elif dataclasses.is_dataclass(x) and not isinstance(x, type):
+            bad += _unequal_tensors(x, y, f"{where}.{f.name}")
+    return bad
+
+
+def _scenario_cw_row(batch, params, tref_s, dtype):
+    """B.1 at the scenario's catalog against its plain version, on the
+    compiled batch cast to ``dtype`` (the catalog planes built as the path
+    builds them, chirped, with the pulsar term)."""
+    b = batch.astype(dtype)
+    u = b.toas_s - torch.tensor(b.start_s, dtype=dtype, device=b.device)
+    src, psr = _catalog_planes(b, params, True, tref_s)
+    run = lambda: cw.cw_catalog_response(u, src, psr, True, True)
+    want, plain_ms = _once_ms(lambda: cw.cw_catalog_response_plain(u, src, psr, True, True))
+    got, again = run(), run()
+    torch.cuda.synchronize()
+    bound, bound_by = cw_bound(*u.shape, src.shape[1], dtype, True, True)
+    row = dict(dtype=str(dtype), shape=[*u.shape, src.shape[1]], rel_rms=rel_rms(got, want),
+               tol=TOL[dtype], max_abs_err=float((got - want).abs().max()),
+               finite=bool(torch.isfinite(got).all()), same_bits=bool(torch.equal(got, again)),
+               ms=cuda_ms(run, SCENARIO_CW_REPS), plain_ms=plain_ms, bound_ms=bound,
+               bound_by=bound_by)
+    del want, got, again, src, psr
+    return row
+
+
+def phase_scenario_population(workdir):
+    """The declarative scenario path through its entry points, on the card:
+    ``load_spec`` and ``compile_spec`` of the committed ng15_population
+    spec (host seconds for the whole compile, and for its parts: the
+    population's draws and split, the anisotropic ORF's basis and
+    Cholesky, the catalog's host planes), then the launch counts cleared,
+    ``deterministic_delays`` (the ~3,000-source catalog on B.1, a burst,
+    memory and a glitch) and the spec's sweep (400 realizations in chunks
+    of 200 with the fit, reduced to per-pulsar RMS) through
+    ``utils/sweep.py::sweep`` seeded from the spec, the counts read
+    after. Apart: B.1 at the catalog's shape against its plain version,
+    float32 and float64. Gates: B.1 launched, the kernel within the CW
+    limits and the same bits twice, every compiled tensor equal to the CPU
+    compile's bit for bit, the sidecar's provenance, finite outputs."""
+    spec = load_spec(str(SCENARIO_SPEC))
+    compiled, compile_ms = _timed_ms(lambda: compile_spec(spec), reps=1)
+    batch, recipe = compiled.batch, compiled.recipe
+    (split, _), split_ms = _timed_ms(lambda: scenario_compile._draw_population(spec, batch),
+                                     reps=1)
+    chol, orf_ms = _timed_ms(lambda: scenario_compile._orf_cholesky(
+        spec.population["orf"], batch, path="population.orf"), reps=1)
+    params = recipe.cgw_params.cpu().numpy()
+    _, planes_ms = _timed_ms(lambda: B.cw_catalog_planes_for(
+        batch, *recipe.cgw_params.cpu().unbind(0), pdist=1.0, evolve=recipe.cgw_evolve,
+        tref_s=recipe.cgw_tref_s), reps=1)
+    orf_min_eig = float(np.linalg.eigvalsh(chol @ chol.T).min())
+
+    path = str(workdir / "scenario_population.npz")
+    torch.cuda.synchronize()
+    launches.clear()
+    static, static_ms = _timed_ms(lambda: deterministic_delays(batch, recipe), reps=1)
+    plan = compiled.plan
+    out, sweep_ms = _timed_ms(lambda: sweep(
+        compiled.realize_seed(), batch, recipe, plan.nreal, path, chunk=plan.chunk,
+        fit=plan.fit, pipeline_depth=plan.pipeline_depth, provenance=compiled.provenance()),
+        reps=1)
+    counts = {k: launches[k] for k in ("cw_catalog_response", "cw_fold_planes")}
+    with open(path + ".meta.json") as fh:
+        provenance = json.load(fh).get("provenance")
+
+    host = compile_spec(spec, device="cpu")
+    unequal = (_unequal_tensors(compiled.batch, host.batch, "batch")
+               + _unequal_tensors(compiled.recipe, host.recipe, "recipe"))
+    del host
+    rows = {dtype: _scenario_cw_row(batch, params, recipe.cgw_tref_s, dtype)
+            for dtype in (torch.float32, torch.float64)}
+    row = dict(
+        spec=SCENARIO_SPEC.name, hash=compiled.spec_hash, families=list(compiled.families),
+        shape=[batch.npsr, batch.ntoa_max], dtype=str(batch.dtype),
+        outliers=compiled.drawn["population_outliers"], catalog_shape=list(params.shape),
+        free_spectrum_bins=int(split.f_centers.shape[0]), orf_min_eigenvalue=orf_min_eig,
+        orf_clm=spec.population["orf"]["clm"], compile_s=compile_ms / 1e3,
+        compile_parts_s={"population_split": split_ms / 1e3,
+                         "orf_basis_and_cholesky": orf_ms / 1e3,
+                         "catalog_planes": planes_ms / 1e3},
+        static_ms=static_ms, nreal=plan.nreal, chunk=plan.chunk, fit=plan.fit,
+        sweep_s=sweep_ms / 1e3, realizations_per_s=plan.nreal / (sweep_ms / 1e3),
+        launches=counts, provenance=provenance, card_vs_cpu_unequal=unequal,
+        sweep_shape=list(out.shape), finite=bool(torch.isfinite(static).all()
+                                                 and np.isfinite(out).all()),
+        cw_kernel_vs_plain={str(k): v for k, v in rows.items()},
+    )
+    emit("scenario_population", **row)
+    require(min(counts.values()) > 0, f"the scenario path never launched B.1: {counts}")
+    require(not unequal, f"card compile differs from the CPU compile: {unequal}")
+    require(provenance == compiled.provenance(), f"sidecar provenance: {provenance}")
+    require(row["finite"] and float(static.abs().max()) > 0
+            and out.shape == (plan.nreal, batch.npsr),
+            f"scenario outputs: {row}")
+    require(orf_min_eig > 0 and row["outliers"] > 0, f"scenario ORF / outliers: {row}")
+    for dtype, r in rows.items():
+        require(r["finite"] and r["same_bits"] and r["rel_rms"] <= TOL[dtype],
+                f"B.1 at the scenario catalog, {dtype}: {r}")
+    del static, out
+    torch.cuda.empty_cache()
+    return counts["cw_catalog_response"], rows[torch.float32], compiled
+
+
+def _cli(*args, expect_ok=True):
+    """One ``python -m pta_replicator_tpu_torch scenario ...`` in a fresh
+    interpreter on the card: (exit code, parsed JSON summary or None,
+    stderr tail, host seconds)."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "pta_replicator_tpu_torch", "scenario", *args],
+                          cwd=str(Path(__file__).resolve().parent), capture_output=True,
+                          text=True, timeout=600)
+    seconds = time.perf_counter() - t0
+    summary = json.loads(proc.stdout.strip().splitlines()[-1]) if proc.returncode == 0 else None
+    require(expect_ok == (proc.returncode == 0),
+            f"scenario {args[0]} exit {proc.returncode}: {proc.stderr[-2000:]}")
+    return proc.returncode, summary, proc.stderr[-400:], seconds
+
+
+#: the JAX CLI's JSON summary keys of each action (``pta_replicator_tpu/
+#: __main__.py``: validate, compile --out, run --out)
+CLI_KEYS = {
+    "validate": {"spec", "name", "hash", "valid"},
+    "compile": {"spec", "name", "hash", "fingerprint", "families", "npsr", "ntoa", "plan", "out"},
+    "run": {"spec", "hash", "checkpoint", "shape", "rms_s", "out"},
+}
+
+
+def phase_scenario_cli(workdir, compiled):
+    """``python -m pta_replicator_tpu_torch scenario validate|compile|run`` on
+    the same spec, each in a subprocess on the card (``--device`` left at
+    its default; validate, compile, run and the refused run at once, then
+    the resumed run). Gates: exit 0 and the JAX CLI's summary keys; the
+    compile's static plane equal to the in-process one bit for bit; a
+    second ``run`` on the finished checkpoint resumes with the same
+    checkpoint bytes and the same residuals; a ``--nreal`` that is not a
+    multiple of the spec's chunk exits non-zero."""
+    spec = str(SCENARIO_SPEC)
+    ck, res, res2 = (str(workdir / n) for n in ("cli_ck.npz", "cli_r.npz", "cli_r2.npz"))
+    static_out = str(workdir / "cli_static.npz")
+    nreal = ["--nreal", str(SCENARIO_CLI_NREAL)]
+    # the independent calls run at once, each in its own interpreter; the
+    # resumed run waits for the first
+    with ThreadPoolExecutor(max_workers=4) as pool:
+        futures = {
+            "validate": pool.submit(_cli, "validate", spec),
+            "compile": pool.submit(_cli, "compile", spec, "--out", static_out),
+            "run": pool.submit(_cli, "run", spec, "--out", res, "--checkpoint", ck, *nreal),
+            "bad_nreal": pool.submit(_cli, "run", spec, "--nreal", str(compiled.plan.chunk + 1),
+                                     "--checkpoint", str(workdir / "cli_bad.npz"),
+                                     expect_ok=False),
+        }
+        calls = {name: f.result() for name, f in futures.items()}
+    bad_nreal = calls.pop("bad_nreal")
+    ck_bytes = _file_bytes(ck)
+    calls["resume"] = _cli("run", spec, "--out", res2, "--checkpoint", ck, *nreal)
+    with np.load(static_out) as z:
+        static_equal = bool(np.array_equal(
+            z["static"], compiled.static_delays().cpu().numpy()))
+    with np.load(res) as a, np.load(res2) as b:
+        resumed_equal = bool(np.array_equal(a["residuals"], b["residuals"]))
+        shape = list(a["residuals"].shape)
+    keys_ok = {name: set(calls[name][1]) == CLI_KEYS[name] for name in CLI_KEYS}
+    row = dict(
+        spec=SCENARIO_SPEC.name, nreal=SCENARIO_CLI_NREAL, residual_shape=shape,
+        seconds={**{name: c[3] for name, c in calls.items()}, "bad_nreal": bad_nreal[3]},
+        keys_match_jax_cli=keys_ok,
+        hash=calls["validate"][1]["hash"], families=calls["compile"][1]["families"],
+        static_equal_in_process=static_equal,
+        resumed_checkpoint_bytes_equal=_file_bytes(ck) == ck_bytes,
+        resumed_residuals_equal=resumed_equal,
+        bad_nreal_exit=bad_nreal[0], bad_nreal_stderr=bad_nreal[2].strip()[-200:],
+        rms_s=calls["run"][1]["rms_s"],
+    )
+    emit("scenario_cli", **row)
+    require(all(keys_ok.values()), f"CLI summary keys: {row}")
+    require(row["hash"] == compiled.spec_hash and static_equal, f"CLI compile: {row}")
+    require(row["resumed_checkpoint_bytes_equal"] and resumed_equal
+            and calls["resume"][1]["rms_s"] == row["rms_s"], f"CLI resume: {row}")
+    require(shape == [SCENARIO_CLI_NREAL, compiled.batch.npsr, compiled.batch.ntoa_max]
+            and "multiple" in bad_nreal[2],
+            f"CLI run: {row}")
+
+
 NO_LIBRARY = "none: no single PyTorch call computes it"
 #: the instruction account is the CW kernel's (kernels/cw_study.py); the
 #: other kernels have none
@@ -2163,6 +2377,13 @@ def main():
     phase_cw_population(*population, sass, clock)
     accumulate_count, accumulate_row = phase_cw_stream(population)
     del population
+    workdir = Path(tempfile.mkdtemp(prefix="chip_smoke_scenario_"))
+    try:
+        scenario_count, scenario_row, compiled = phase_scenario_population(workdir)
+        phase_scenario_cli(workdir, compiled)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    del compiled
     phase_breakdown(batch, recipe, static, generator)
     phase_card_vs_cpu(SMALL)
     phase_full_fit(batch, recipe, static, generator)
@@ -2221,6 +2442,8 @@ def main():
         "issue_ms": kernel_row["issue_ms"],
         "instructions_per_element": kernel_row["instructions_per_element"],
         "families_launches": families_count,
+        "scenario_launches": scenario_count,
+        "scenario_catalog": _width_row({**scenario_row, "library_ms": None}),
     }, {
         "name": "fused_woodbury_update", "route": "cuda",
         "source": "pta_replicator_tpu_torch/csrc/fused_woodbury.cu",

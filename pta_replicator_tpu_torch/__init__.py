@@ -17,7 +17,12 @@ kernels; and the resumable sweep that writes realizations in chunks to a
 checkpoint in the reference's format (``utils/sweep.py``), with the
 card's readback overlapped by a stage-graph executor (``parallel/``) and
 a CW catalog too large to build at once streamed in plane tiles onto the
-kernel's accumulating launch. The JAX package stays the reference; this
+kernel's accumulating launch; and the declarative scenario path
+(``scenarios/``): a JSON or TOML :class:`ScenarioSpec` compiled by
+:func:`compile_spec` to the JAX package's batch and recipe bit for bit
+(SMBHB population splits and anisotropic ORFs included), and run through
+the sweep by ``python -m pta_replicator_tpu_torch scenario``. The JAX
+package stays the reference; this
 package imports nothing of it, and nothing of JAX.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
@@ -25,10 +30,11 @@ Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
 from .batch import PulsarBatch, synthetic_batch
 from .likelihood import FUSED_PRECISION_SITES, MapResult, PrecisionNotReady, map_fit, tuner
 from .models.batched import Recipe, deterministic_delays, realize
+from .scenarios import ScenarioSpec, compile_spec, load_spec
 from .scenarios.compile import flagship_workload
 
 __all__ = [
     "FUSED_PRECISION_SITES", "MapResult", "PrecisionNotReady", "PulsarBatch", "Recipe",
-    "deterministic_delays", "flagship_workload", "map_fit", "realize", "synthetic_batch",
-    "tuner",
+    "ScenarioSpec", "compile_spec", "deterministic_delays", "flagship_workload", "load_spec",
+    "map_fit", "realize", "synthetic_batch", "tuner",
 ]

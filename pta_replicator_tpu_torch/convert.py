@@ -24,7 +24,9 @@ _STATIC_FIELDS = ("tref_mjd", "names", "backend_names", "start_s", "stop_s")
 
 #: JAX-only Recipe knobs with no counterpart in the port: the CW backend
 #: choice and the synthesis precision (the port has one CW dispatch and
-#: always synthesizes in IEEE float32)
+#: always synthesizes in IEEE float32). The ``bench_flagship`` scenario
+#: preset accepts them as parameters and drops them the same way
+#: (``scenarios/compile.py``)
 JAX_ONLY_RECIPE_FIELDS = frozenset({"cgw_backend", "gwb_synthesis_precision"})
 
 

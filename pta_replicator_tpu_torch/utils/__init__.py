@@ -1,2 +1,3 @@
-"""Resumable realization sweeps (``sweep.py``) and batch persistence
-(``checkpoint.py``)."""
+"""Resumable realization sweeps (``sweep.py``), batch persistence
+(``checkpoint.py``), the scenario compiler's key derivation (``prng.py``)
+and the population path's cosmology (``cosmology.py``)."""

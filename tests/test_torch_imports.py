@@ -32,6 +32,14 @@ def test_the_scan_covers_the_covariance_modules():
         assert f"pta_replicator_tpu_torch/{module}" in names
 
 
+def test_the_scan_covers_the_scenario_modules():
+    names = {p.relative_to(REPO).as_posix() for p in _port_sources()}
+    for module in ("__main__.py", "scenarios/__init__.py", "scenarios/spec.py",
+                   "scenarios/compile.py", "models/population.py", "ops/orf.py",
+                   "utils/cosmology.py", "utils/prng.py"):
+        assert f"pta_replicator_tpu_torch/{module}" in names
+
+
 def _forbidden(name: str) -> bool:
     return any(name == f or name.startswith(f + ".") for f in FORBIDDEN)
 
