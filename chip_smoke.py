@@ -41,7 +41,12 @@ compile against the CPU compile bit for bit and B.1 at its catalog
 against the plain version, and runs the spec's sweep
 (`scenario_population`); the same spec goes through `python -m
 pta_replicator_tpu_torch scenario validate|compile|run` in subprocesses
-(`scenario_cli`). It prints one JSON line per phase. The
+(`scenario_cli`). The dataset path writes an NG15-shaped par/tim dataset
+(68 pulsars, ragged to 7,758 TOAs), reads it through the native tim
+reader, idealizes, freezes and refits it with its real timing design
+(quadratic, WLS, GLS), holds B.1 at its shape against the plain version,
+and runs `python -m pta_replicator_tpu_torch info|realize` on it, with
+datasets written back out (`dataset_path`). It prints one JSON line per phase. The
 line before the last is the kernels line, the last the result line.
 Without a CUDA device, or without the port beside it, it exits non-zero
 and prints no result; any failed check raises.
@@ -187,6 +192,21 @@ SOURCES_PER_MACRO = 8 * SOURCES_PER_TILE
 SCENARIO_SPEC = (Path(__file__).resolve().parent / "pta_replicator_tpu_torch" / "scenarios"
                  / "specs" / "ng15_population.json")
 SCENARIO_CW_REPS, SCENARIO_CLI_NREAL = 10, 200
+
+#: the dataset path: an NG15-shaped par/tim dataset fabricated from a seed
+#: (68 pulsars, ragged 2,000 to 7,758 TOAs, 4 backends, 16 years, DMX every
+#: 40 days, ELL1 and DD binaries, JUMPs; utils/fabricate.py), the flagship
+#: recipe from JSON (utils/fabricate.py::ng15_like_recipe), the CLI's
+#: checkpointed sweep (400 in chunks of 200) and its datasets written, a
+#: second CLI sweep in chunks of 2 whose fourth dataset lies in its second
+#: chunk, the pulsars of the card-vs-CPU float64 bank, and B.1's timed calls
+DATASET = dict(npsr=68, ntoa_max=7758, ntoa_min=2000)
+DATASET_SEED, DATASET_NREAL, DATASET_CHUNK, DATASET_WRITE_MAX = 0, 400, 200, 4
+DATASET_SMALL_CHUNK, DATASET_SMALL_NREAL, DATASET_CARD_VS_CPU_PSRS = 2, 8, 6
+#: make_ideal's bound on every pulsar's residual RMS [s] (the JAX package's
+#: tests/test_simulate.py), and dataset r's residualized TOA shift against
+#: cube row r's pre-fit delays [s] (tests/test_cli.py)
+TOL_IDEAL_RMS_S, TOL_SHIFT_S = 1e-9, 5e-9
 
 #: the GLS refit's right-hand-side counts on config B: the GP basis alone,
 #: the design and a chunk of realizations
@@ -2214,7 +2234,8 @@ def phase_scenario_population(workdir):
     path = str(workdir / "scenario_population.npz")
     torch.cuda.synchronize()
     launches.clear()
-    static, static_ms = _timed_ms(lambda: deterministic_delays(batch, recipe), reps=1)
+    static, static_ms = _timed_ms(lambda: deterministic_delays(batch, recipe,
+                                                               device=batch.device), reps=1)
     plan = compiled.plan
     out, sweep_ms = _timed_ms(lambda: sweep(
         compiled.realize_seed(), batch, recipe, plan.nreal, path, chunk=plan.chunk,
@@ -2342,6 +2363,283 @@ def phase_scenario_cli(workdir, compiled):
             f"CLI run: {row}")
 
 
+def _dataset_cli(*args, expect_ok=True):
+    """One ``python -m pta_replicator_tpu_torch info|realize ...`` in a
+    fresh interpreter on the card: (exit code, parsed JSON summary or None,
+    host seconds)."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "pta_replicator_tpu_torch", *args],
+                          cwd=str(Path(__file__).resolve().parent), capture_output=True,
+                          text=True, timeout=900)
+    seconds = time.perf_counter() - t0
+    require(expect_ok == (proc.returncode == 0),
+            f"{args[0]} exit {proc.returncode}: {proc.stderr[-3000:]}")
+    summary = json.loads(proc.stdout.strip().splitlines()[-1]) if proc.returncode == 0 else None
+    return proc.returncode, summary, seconds
+
+
+def _shift_rows(psrs, rdir):
+    """(Np, Nt_max) residualized TOA shifts [s] of the dataset written in
+    ``rdir`` against the template pulsars, reloaded by the port (longdouble
+    epochs, weighted mean removed per pulsar), zero-padded."""
+    from pta_replicator_tpu_torch.io.tim import read_tim
+
+    out = np.zeros((len(psrs), max(p.toas.ntoas for p in psrs)))
+    for i, p in enumerate(psrs):
+        back = read_tim(str(Path(rdir) / f"{p.name}.tim"))
+        shift = np.asarray((back.mjd - p.toas.mjd) * np.longdouble(DAY_S), np.float64)
+        w = 1.0 / p.toas.errors_s**2
+        out[i, :p.toas.ntoas] = shift - np.sum(w * shift) / np.sum(w)
+    return out
+
+
+def _dataset_card_vs_cpu(psrs, spec_small):
+    """The first DATASET_CARD_VS_CPU_PSRS pulsars, float64, the same
+    explicit noise realized with the real design's WLS and GLS refits on
+    the card and on the CPU: the largest |error| over the largest |entry|."""
+    from pta_replicator_tpu_torch.__main__ import _build_recipe
+    from pta_replicator_tpu_torch.batch import freeze
+    from pta_replicator_tpu_torch.timing.fit import design_tensor
+
+    sub = psrs[:DATASET_CARD_VS_CPU_PSRS]
+    design = design_tensor(sub)[0]
+    rng = np.random.default_rng(8)
+    out, noise = {}, None
+    for mode in ("wls", "gls"):
+        for device in ("cpu", "cuda"):
+            b = freeze(sub, dtype=torch.float64, device=device)
+            r = dataclasses.replace(_build_recipe(spec_small, sub),
+                                    fit_design=torch.from_numpy(design),
+                                    fit_gls=mode == "gls").to(device)
+            if noise is None:
+                noise = {k: rng.standard_normal((SMALL_BANK,) + s)
+                         for k, s in B.noise_shapes(b, r).items()}
+            out[mode, device] = realize(None, b, r, SMALL_BANK, fit=True, noise=noise,
+                                        device=device).cpu()
+    return {mode: _rel_max(out[mode, "cuda"], out[mode, "cpu"]) for mode in ("wls", "gls")}
+
+
+def phase_dataset_path(workdir, smi):
+    """The dataset path on the card, at full width, through its entry
+    points: an NG15-shaped par/tim dataset written by the port
+    (``utils/fabricate.py``: ``fabricate_toas``, ``ParModel``,
+    ``write_partim``), then in process ``load_from_directories`` (every
+    tim file through the native reader), ``make_ideal``, ``freeze`` to the
+    card, ``design_tensor`` as the recipe's ``fit_design`` and a recipe
+    from JSON (per-backend EFAC/EQUAD/ECORR (68, 4), 30-mode red noise, an
+    HD GWB, the flagship's 100-source CW catalog), the launch counts
+    cleared, ``deterministic_delays`` (B.1) and ``realize`` in chunks of
+    200 with the quadratic fit, WLS and GLS of the real design, the counts
+    read; then the CLI in subprocesses on the card (``info``, ``realize
+    --full-fit --checkpoint --write-partim``, ``realize --gls-fit``, and a
+    checkpointed sweep in chunks of 2 whose fourth dataset lies in its
+    second chunk, at once). Apart: B.1 against its plain version at this
+    shape, float32 and float64. Gates: every residual RMS after make_ideal
+    <= 1e-9 s; the card's freeze equal to the CPU's bit for bit; B.1 within
+    the CW limits and the same bits twice; the refit's projection with the
+    real design (WLS <= 1e-5, GLS <= 5e-7, the float32-apply control above
+    the GLS limit) and C z = r <= 1e-6; card vs CPU float64 <= 1e-10; the
+    CLI's checkpointed cube equal to an in-process sweep bit for bit;
+    datasets 0 and 3 of each CLI sweep (3 in the small sweep's second
+    chunk) reloaded within 5e-9 s of their cube rows' pre-fit delays; the
+    template's TOAs restored bit for bit after an in-process
+    materialization, whose files equal the CLI's."""
+    from pta_replicator_tpu_torch.__main__ import _build_recipe
+    from pta_replicator_tpu_torch.batch import freeze
+    from pta_replicator_tpu_torch.io import tim as tim_io
+    from pta_replicator_tpu_torch.simulate import load_from_directories, make_ideal
+    from pta_replicator_tpu_torch.timing.fit import design_tensor
+    from pta_replicator_tpu_torch.utils.export import materialize_realizations
+    from pta_replicator_tpu_torch.utils.fabricate import (
+        ng15_like_pulsars, ng15_like_recipe, write_dataset,
+    )
+
+    host = {}
+    pardir, timdir = str(workdir / "par"), str(workdir / "tim")
+    t0 = time.perf_counter()
+    write_dataset(ng15_like_pulsars(**DATASET, seed=DATASET_SEED), pardir, timdir)
+    host["write_s"] = time.perf_counter() - t0
+    tim_mb = sum(f.stat().st_size for f in Path(timdir).iterdir()) / 1e6
+    tim_io.reads.clear()
+    t0 = time.perf_counter()
+    psrs = load_from_directories(pardir, timdir)
+    host["load_s"] = time.perf_counter() - t0
+    reads = dict(tim_io.reads)
+    t0 = time.perf_counter()
+    for p in psrs:
+        make_ideal(p)
+    host["make_ideal_s"] = time.perf_counter() - t0
+    ideal_rms = max(float(np.sqrt(np.mean(p.residuals.resids_value**2))) for p in psrs)
+    t0 = time.perf_counter()
+    batch_cpu = freeze(psrs, device="cpu")
+    host["freeze_host_s"] = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    batch_h2d = batch_cpu.to("cuda")
+    torch.cuda.synchronize()
+    host["freeze_h2d_s"] = time.perf_counter() - t0
+    batch = freeze(psrs)  # the entry point's own route to the card
+    unequal = _unequal_tensors(batch, batch_cpu, "batch") + _unequal_tensors(
+        batch, batch_h2d, "batch_h2d")
+    del batch_h2d
+    t0 = time.perf_counter()
+    design, names = design_tensor(psrs, ntoa_max=batch.ntoa_max)
+    host["design_tensor_s"] = time.perf_counter() - t0
+    spec = ng15_like_recipe(batch.npsr)
+    recipe_path = workdir / "recipe.json"
+    recipe_path.write_text(json.dumps(spec))
+    recipe = _build_recipe(json.loads(recipe_path.read_text()), psrs).to("cuda")
+    design_card = torch.from_numpy(design).to("cuda")
+    recipes = {"quadratic": recipe,
+               "wls": dataclasses.replace(recipe, fit_design=design_card),
+               "gls": dataclasses.replace(recipe, fit_design=design_card, fit_gls=True)}
+    ntoas = batch.ntoas.cpu().numpy()
+
+    # the path: counts cleared, the CW catalog once, then the refits
+    torch.cuda.synchronize()
+    launches.clear()
+    static, static_ms = _timed_ms(lambda: deterministic_delays(batch, recipe,
+                                                               device=batch.device), reps=1)
+    generator = torch.Generator(device="cuda").manual_seed(DATASET_SEED)
+    rates, projection = {}, {}
+    systems = {m: B.fit_system(batch, r) for m, r in recipes.items() if m != "quadratic"}
+    for mode, rec in recipes.items():
+        rates[mode], res = _rate(lambda: realize(generator, batch, rec, CHUNK, fit=True,
+                                                 static=static, system=systems.get(mode),
+                                                 device=batch.device))
+        require(bool(torch.isfinite(res).all()), f"dataset_path {mode}: non-finite residuals")
+        del res
+    torch.cuda.synchronize()
+    counts = {k: launches[k] for k in ("cw_catalog_response", "cw_fold_planes")}
+    delays = _chunk_delays(batch, recipe, static, generator, CHUNK)
+    for mode, system in systems.items():
+        fitted = system.subtract(delays)
+        projection[mode] = _projection(system, fitted, batch)
+    inverse = _inverse_residual(systems["gls"], fitted, batch, recipes["gls"])
+    control = _f32_apply_control(systems["gls"], lambda s: s.subtract(delays), batch,
+                                 recipes["gls"])
+    del delays, fitted, systems
+    torch.cuda.empty_cache()
+
+    cw_rows = {dtype: _scenario_cw_row(batch, recipe.cgw_params.cpu().numpy(),
+                                       recipe.cgw_tref_s, dtype)
+               for dtype in (torch.float32, torch.float64)}
+    card_vs_cpu = _dataset_card_vs_cpu(psrs, ng15_like_recipe(DATASET_CARD_VS_CPU_PSRS))
+
+    # the CLI, each call in its own interpreter on the card, at once
+    common = ["--pardir", pardir, "--timdir", timdir]
+    ck, out, out_gls = (str(workdir / n) for n in ("cli_ck.npz", "cli.npz", "cli_gls.npz"))
+    ck2, out2 = str(workdir / "cli_small_ck.npz"), str(workdir / "cli_small.npz")
+    with ThreadPoolExecutor(max_workers=4) as pool:
+        futures = {
+            "info": pool.submit(_dataset_cli, "info", *common),
+            "realize_full_fit": pool.submit(
+                _dataset_cli, "realize", *common, "--recipe", str(recipe_path), "--out", out,
+                "--full-fit", "--checkpoint", ck, "--nreal", str(DATASET_NREAL), "--chunk",
+                str(DATASET_CHUNK), "--seed", str(DATASET_SEED), "--write-partim",
+                str(workdir / "ds"), "--write-max", str(DATASET_WRITE_MAX)),
+            "realize_gls_fit": pool.submit(
+                _dataset_cli, "realize", *common, "--recipe", str(recipe_path), "--out", out_gls,
+                "--gls-fit", "--nreal", str(CHUNK), "--seed", str(DATASET_SEED)),
+            "realize_small_chunks": pool.submit(
+                _dataset_cli, "realize", *common, "--recipe", str(recipe_path), "--out", out2,
+                "--checkpoint", ck2, "--nreal", str(DATASET_SMALL_NREAL), "--chunk",
+                str(DATASET_SMALL_CHUNK), "--seed", str(DATASET_SEED), "--write-partim",
+                str(workdir / "ds_small"), "--write-max", str(DATASET_WRITE_MAX)),
+        }
+        calls = {name: f.result() for name, f in futures.items()}
+    info = calls["info"][1]
+
+    # the CLI's checkpointed cube against the in-process sweep, same seed
+    # and chunk: the same bits
+    in_process = sweep(DATASET_SEED, batch, recipes["wls"], DATASET_NREAL,
+                       str(workdir / "in_process.npz"), chunk=DATASET_CHUNK, reduce_fn=None,
+                       fit=True, device=batch.device)
+    with np.load(out) as z:
+        cube_equal = bool(np.array_equal(z["residuals"], in_process))
+        fit_saved = str(z["fit"])
+    del in_process
+
+    # dataset r <-> pre-fit delays of cube row r: the full-fit sweep's
+    # chunk 0, and the small sweep's cube (no fit: its rows are the
+    # residualized delays)
+    g0 = torch.Generator(device="cuda").manual_seed(chunk_seed(DATASET_SEED, 0))
+    prefit = realize(g0, batch, recipe, DATASET_CHUNK, fit=False, static=static,
+                     device=batch.device)
+    shift_err = {}
+    for r in (0, DATASET_WRITE_MAX - 1):
+        got = _shift_rows(psrs, workdir / "ds" / f"real{r:05d}")
+        shift_err[f"full_fit_r{r}"] = float(np.abs(got - prefit[r].cpu().numpy()).max())
+    del prefit
+    with np.load(out2) as z:
+        small_cube = z["residuals"]
+    for r in (0, DATASET_WRITE_MAX - 1):
+        got = _shift_rows(psrs, workdir / "ds_small" / f"real{r:05d}")
+        shift_err[f"chunks_of_2_r{r}"] = float(np.abs(got - small_cube[r]).max())
+
+    # in process: the same datasets, the template restored, and the rate
+    before = [p.toas.mjd.copy() for p in psrs]
+    ds_in = workdir / "ds_in_process"
+    _, export_ms = _timed_ms(lambda: materialize_realizations(
+        psrs, batch, recipes["wls"], DATASET_SEED, DATASET_NREAL, str(ds_in),
+        write_max=DATASET_WRITE_MAX, sweep_chunk=DATASET_CHUNK, static=static,
+        device=batch.device), reps=1)
+    restored = all(np.array_equal(p.toas.mjd, m) for p, m in zip(psrs, before))
+    export_mb = sum(f.stat().st_size for f in ds_in.rglob("*")) / 1e6
+    same_files = all(
+        (ds_in / f"real{r:05d}" / f.name).read_bytes() == f.read_bytes()
+        for r in range(DATASET_WRITE_MAX) for f in (workdir / "ds" / f"real{r:05d}").iterdir())
+
+    row = dict(
+        nvidia_smi=smi, shape=[batch.npsr, batch.ntoa_max], dtype=str(batch.dtype),
+        ntoas_min_max=[int(ntoas.min()), int(ntoas.max())], backends=list(batch.backend_names),
+        max_epochs=batch.max_epochs, design_columns=int(design.shape[-1]),
+        design_columns_min_max=[min(map(len, names)), max(map(len, names))],
+        design_mb=design.nbytes / 1e6, tim_mb=tim_mb, host_s=host, tim_reads=reads,
+        ideal_rms_max_s=ideal_rms, card_vs_cpu_freeze_unequal=unequal,
+        static_ms=static_ms, launches=counts, chunk=CHUNK, realizations_per_s=rates,
+        projection=projection, tol_projection=TOL_PROJECTION, inverse_residual=inverse,
+        projection_f32_apply_control=control, card_vs_cpu=card_vs_cpu,
+        tol_card_vs_cpu=TOL_FIT_CARD_VS_CPU,
+        cli_seconds={name: c[2] for name, c in calls.items()},
+        cli_summaries={name: c[1] for name, c in calls.items() if name != "info"},
+        info=info, cli_cube_equals_in_process=cube_equal, cli_fit=fit_saved,
+        shift_max_abs_s=shift_err, tol_shift_s=TOL_SHIFT_S, template_restored=restored,
+        export_s=export_ms / 1e3, export_mb=export_mb,
+        export_mb_per_s=export_mb / (export_ms / 1e3), export_files_equal_cli=same_files,
+        cw_kernel_vs_plain={str(k): v for k, v in cw_rows.items()},
+    )
+    emit("dataset_path", **row)
+    require(reads == {"native": batch.npsr}, f"tim files not all read natively: {reads}")
+    require(ideal_rms <= TOL_IDEAL_RMS_S, f"make_ideal left {ideal_rms} s")
+    require(not unequal, f"card freeze differs from the CPU freeze: {unequal}")
+    require(int(ntoas.max()) == DATASET["ntoa_max"] and len(set(ntoas.tolist())) > 1,
+            f"dataset not ragged to {DATASET['ntoa_max']}: {row['ntoas_min_max']}")
+    require(min(counts.values()) > 0, f"the dataset path never launched B.1: {counts}")
+    for dtype, r in cw_rows.items():
+        require(r["finite"] and r["same_bits"] and r["rel_rms"] <= TOL[dtype],
+                f"B.1 at the dataset, {dtype}: {r}")
+    require(all(v <= TOL_PROJECTION[m] for m, v in projection.items()),
+            f"dataset_path projection with the real design: {projection}")
+    require(inverse <= TOL_INVERSE, f"dataset_path: C z = r reads {inverse}")
+    require(control > TOL_PROJECTION["gls"],
+            f"dataset_path: the float32-apply control passes the GLS limit: {control}")
+    require(all(v <= TOL_FIT_CARD_VS_CPU for v in card_vs_cpu.values()),
+            f"dataset_path card vs CPU: {card_vs_cpu}")
+    require(info == {"npsr": batch.npsr, "ntoa_max": batch.ntoa_max, "names": list(batch.names),
+                     "backends": list(batch.backend_names), "max_epochs": batch.max_epochs,
+                     "tref_mjd": float(batch.tref_mjd)}, f"CLI info: {info}")
+    require(cube_equal and fit_saved == "wls", "CLI cube differs from the in-process sweep")
+    require(calls["realize_gls_fit"][1]["fit"] == "gls"
+            and calls["realize_full_fit"][1]["partim_dirs"] == DATASET_WRITE_MAX,
+            f"CLI summaries: {row['cli_summaries']}")
+    require(all(v <= TOL_SHIFT_S for v in shift_err.values()), f"dataset r <-> row r: {shift_err}")
+    require(restored and same_files, "materialization: template or files")
+    del static, batch, batch_cpu, recipe, recipes, design_card
+    torch.cuda.empty_cache()
+    return counts["cw_catalog_response"], cw_rows[torch.float32]
+
+
 NO_LIBRARY = "none: no single PyTorch call computes it"
 #: the instruction account is the CW kernel's (kernels/cw_study.py); the
 #: other kernels have none
@@ -2368,7 +2666,7 @@ def _cov_kernel_entry(name, source, replaces, launches_, row):
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device is available")
-    phase_device()
+    smi = phase_device()
     sass, clock = phase_build()
     population = flagship_workload(**POPULATION)
     cw_rows = phase_kernels(FLAGSHIP, population[1].cgw_params.cpu().numpy(), sass, clock)
@@ -2384,6 +2682,11 @@ def main():
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     del compiled
+    workdir = Path(tempfile.mkdtemp(prefix="chip_smoke_dataset_"))
+    try:
+        dataset_count, dataset_row = phase_dataset_path(workdir, smi)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
     phase_breakdown(batch, recipe, static, generator)
     phase_card_vs_cpu(SMALL)
     phase_full_fit(batch, recipe, static, generator)
@@ -2444,6 +2747,8 @@ def main():
         "families_launches": families_count,
         "scenario_launches": scenario_count,
         "scenario_catalog": _width_row({**scenario_row, "library_ms": None}),
+        "dataset_launches": dataset_count,
+        "dataset_catalog": _width_row({**dataset_row, "library_ms": None}),
     }, {
         "name": "fused_woodbury_update", "route": "cuda",
         "source": "pta_replicator_tpu_torch/csrc/fused_woodbury.cu",

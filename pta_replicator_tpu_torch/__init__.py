@@ -21,20 +21,31 @@ kernel's accumulating launch; and the declarative scenario path
 (``scenarios/``): a JSON or TOML :class:`ScenarioSpec` compiled by
 :func:`compile_spec` to the JAX package's batch and recipe bit for bit
 (SMBHB population splits and anisotropic ORFs included), and run through
-the sweep by ``python -m pta_replicator_tpu_torch scenario``. The JAX
+the sweep by ``python -m pta_replicator_tpu_torch scenario``; and the
+dataset path: par/tim directories loaded (``io/``, the native tim reader
+built from ``csrc/fast_tim.cpp``), idealized by the standalone timing
+engine (``timing/``, ``simulate.py``, host numpy with longdouble epochs),
+frozen onto the card (:func:`freeze`), realized and refit with their full
+timing design (``timing/fit.py::design_tensor``), and written back out as
+datasets (``utils/export.py``), through ``python -m
+pta_replicator_tpu_torch info|realize``. The JAX
 package stays the reference; this
 package imports nothing of it, and nothing of JAX.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
 """
-from .batch import PulsarBatch, synthetic_batch
+from .batch import PulsarBatch, freeze, synthetic_batch
 from .likelihood import FUSED_PRECISION_SITES, MapResult, PrecisionNotReady, map_fit, tuner
 from .models.batched import Recipe, deterministic_delays, realize
 from .scenarios import ScenarioSpec, compile_spec, load_spec
 from .scenarios.compile import flagship_workload
+from .simulate import (
+    SimulatedPulsar, load_from_directories, load_pulsar, make_ideal, simulate_pulsar,
+)
 
 __all__ = [
     "FUSED_PRECISION_SITES", "MapResult", "PrecisionNotReady", "PulsarBatch", "Recipe",
-    "ScenarioSpec", "compile_spec", "deterministic_delays", "flagship_workload", "load_spec",
-    "map_fit", "realize", "synthetic_batch", "tuner",
+    "ScenarioSpec", "SimulatedPulsar", "compile_spec", "deterministic_delays",
+    "flagship_workload", "freeze", "load_from_directories", "load_pulsar", "load_spec",
+    "make_ideal", "map_fit", "realize", "simulate_pulsar", "synthetic_batch", "tuner",
 ]

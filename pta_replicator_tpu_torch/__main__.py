@@ -1,13 +1,34 @@
-"""Command line of the port: the declarative scenario path.
+"""Command line of the port: the dataset path and the declarative
+scenario path.
 
+    python -m pta_replicator_tpu_torch info --pardir PAR --timdir TIM [--num-psrs N]
+    python -m pta_replicator_tpu_torch realize --pardir PAR --timdir TIM \
+        --recipe R.json --out R.npz [--nreal 100] [--seed 0] \
+        [--fit | --full-fit | --gls-fit] [--checkpoint CK.npz --chunk 256] \
+        [--write-partim DIR --write-max 16] [--device cuda]
     python -m pta_replicator_tpu_torch scenario validate SPEC [SPEC ...]
     python -m pta_replicator_tpu_torch scenario compile SPEC [--out W.npz] [--device cuda]
     python -m pta_replicator_tpu_torch scenario run SPEC [--out R.npz]
         [--checkpoint CK.npz] [--nreal N] [--device cuda]
 
-The counterpart of ``python -m pta_replicator_tpu scenario``: the same
-arguments, guards and JSON summary lines, plus ``--device`` (default
-``cuda``; without a card the command fails and names ``--device cpu``).
+The counterpart of ``python -m pta_replicator_tpu info|realize|scenario``:
+the same arguments, guards and JSON summary lines, with ``--device``
+(default ``cuda``; without a card the command fails and names ``--device
+cpu``) in place of ``--platform``. ``info`` loads a par/tim directory pair,
+zeroes the residuals (``make_ideal``) and prints the frozen array's shape,
+backends and epochs. ``realize`` adds a JSON recipe (the ``Recipe``'s
+fields, plus ``"orf"``: ``"hd"`` (default), ``"none"`` or ``{"lmax": L,
+"clm": [...]}``; the JAX-only ``cgw_backend`` and
+``gwb_synthesis_precision`` are dropped) and writes the residual cube,
+through ``realize`` or, with ``--checkpoint``, the resumable sweep;
+``--full-fit`` refits the full timing design of the par files (WLS),
+``--gls-fit`` the same weighted by the recipe's noise model;
+``--write-partim`` materializes the first datasets (``utils/export.py``).
+Its summary and npz add ``fit`` and ``design_columns``, which say what
+the cube was fitted with (a bank must be priced with that design). Flags
+of modules not ported yet exit non-zero before ingest: ``--sharded`` and
+``--mesh-shape`` (ROADMAP A.17), ``--telemetry``, ``--device-trace`` and
+``--faults`` (A.16).
 ``run`` draws its realizations from the port's generators, seeded from the
 spec's ``realize`` family (``CompiledScenario.realize_seed``), so its
 residuals are the port's own, not the JAX package's. ``fuzz`` and
@@ -27,6 +48,60 @@ import numpy as np
 def _parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="python -m pta_replicator_tpu_torch")
     sub = ap.add_subparsers(dest="cmd", required=True)
+    for name in ("realize", "info"):
+        p = sub.add_parser(name)
+        p.add_argument("--pardir", required=True)
+        p.add_argument("--timdir", required=True)
+        p.add_argument("--num-psrs", type=int, default=None)
+        p.add_argument("--telemetry", default=None, metavar="DIR",
+                       help="not ported (ROADMAP A.16): exits non-zero")
+        p.add_argument("--faults", default=None, metavar="SCHEDULE",
+                       help="not ported (ROADMAP A.16): exits non-zero")
+        p.add_argument("--faults-seed", type=int, default=0)
+        p.add_argument("--device", default="cuda",
+                       help="the torch device (default cuda; cpu on request)")
+    p = sub.choices["realize"]
+    p.add_argument("--device-trace", action="store_true",
+                   help="not ported (ROADMAP A.16): exits non-zero")
+    p.add_argument("--recipe", required=True, help="JSON recipe file")
+    p.add_argument("--nreal", type=int, default=100)
+    p.add_argument("--out", required=True)
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--fit", action="store_true",
+                   help="per-realization quadratic refit")
+    p.add_argument("--full-fit", action="store_true",
+                   help="per-realization FULL-model refit (spin, astrometry, DMX/DM, FD, "
+                        "binary, JUMP columns from the loaded par files) by WLS instead of "
+                        "the quadratic; implies --fit")
+    p.add_argument("--gls-fit", action="store_true",
+                   help="weight the full-model refit by the recipe's own noise model "
+                        "(GLS); implies --full-fit")
+    p.add_argument("--sharded", action="store_true",
+                   help="not ported (ROADMAP A.17, multi-GPU): exits non-zero")
+    p.add_argument("--mesh-shape", default=None, metavar="RxP",
+                   help="not ported (ROADMAP A.17, multi-GPU): exits non-zero")
+    p.add_argument("--checkpoint", default=None,
+                   help="resumable sweep checkpoint path (chunked)")
+    p.add_argument("--chunk", type=int, default=256)
+    p.add_argument("--pipeline-depth", type=int, default=2,
+                   help="chunks in flight for a checkpointed sweep (1: the synchronous "
+                        "loop); the results are identical at every depth")
+    p.add_argument("--fused-stream", action="store_true",
+                   help="run a checkpointed sweep as one stage graph that rebuilds each "
+                        "chunk's deterministic delays; byte-identical results; needs "
+                        "--pipeline-depth >= 2")
+    p.add_argument("--drain-timeout", type=float, default=900.0, metavar="S",
+                   help="fail a pipelined sweep when one chunk's readback or checkpoint "
+                        "write exceeds S seconds; <= 0 disables the deadline")
+    p.add_argument("--chunk-retries", type=int, default=2,
+                   help="transient chunk failures absorbed per failing chunk by resuming "
+                        "from the checkpoint sidecar; 0 fails fast")
+    p.add_argument("--write-partim", default=None, metavar="DIR",
+                   help="also materialize realizations as par/tim datasets under "
+                        "DIR/real{r:05d}/ (pre-fit injected delays, the residual cube's "
+                        "draws)")
+    p.add_argument("--write-max", type=int, default=16,
+                   help="cap on datasets written by --write-partim")
     p = sub.add_parser(
         "scenario",
         help="declarative scenario layer: validate/compile specs, or run one "
@@ -58,13 +133,13 @@ def _save_npz(path: str, **arrays) -> None:
     os.replace(tmp, path)
 
 
-def _device(name: str):
+def _device(name: str, cmd: str = "scenario"):
     from .device import resolve_device
 
     try:
         return resolve_device(name)
     except RuntimeError as exc:
-        raise SystemExit(f"scenario: {exc} (on the command line: --device cpu)")
+        raise SystemExit(f"{cmd}: {exc} (on the command line: --device cpu)")
 
 
 def _run_scenario(args):
@@ -156,9 +231,179 @@ def _run_scenario(args):
     print(json.dumps(summary, sort_keys=True))
 
 
+#: flags of modules not ported yet: (attribute, flag, ROADMAP item)
+UNPORTED_FLAGS = (
+    ("sharded", "--sharded", "A.17 (multi-GPU)"),
+    ("mesh_shape", "--mesh-shape", "A.17 (multi-GPU)"),
+    ("telemetry", "--telemetry", "A.16 (observability)"),
+    ("device_trace", "--device-trace", "A.16 (observability)"),
+    ("faults", "--faults", "A.16 (fault injection)"),
+)
+
+
+def _build_recipe(spec: dict, psrs):
+    """JSON recipe spec -> Recipe (on the host; the caller moves it), the
+    ORF's sky locations from ``psrs``. Array fields become float64
+    tensors; the JAX-only knobs are dropped
+    (``convert.JAX_ONLY_RECIPE_FIELDS``)."""
+    import torch
+
+    from .convert import JAX_ONLY_RECIPE_FIELDS
+    from .models.batched import ARRAY_FIELDS, Recipe
+    from .ops.coords import pulsar_ra_dec
+    from .ops.orf import assemble_orf
+
+    spec = dict(spec)
+    orf_mode = spec.pop("orf", "hd")
+    lmax_ok = (
+        isinstance(orf_mode, dict)
+        and isinstance(orf_mode.get("lmax"), int)
+        and not isinstance(orf_mode.get("lmax"), bool)
+    )
+    if not (orf_mode in ("hd", "none") or lmax_ok):
+        raise SystemExit(
+            'recipe key "orf" must be "hd", "none", or an object with an '
+            f'integer "lmax" key (and optional "clm"); got {orf_mode!r}'
+        )
+    kwargs = {}
+    for key, val in spec.items():
+        if key in JAX_ONLY_RECIPE_FIELDS:
+            continue
+        if key not in Recipe.__dataclass_fields__:
+            raise SystemExit(f"recipe key {key!r} is not a Recipe field")
+        kwargs[key] = (torch.from_numpy(np.asarray(val, dtype=np.float64))
+                       if key in ARRAY_FIELDS else val)
+
+    if "orf_cholesky" not in kwargs and orf_mode != "none":
+        locs = np.zeros((len(psrs), 2))
+        for i, p in enumerate(psrs):
+            ra, dec = pulsar_ra_dec(p.loc, p.name)
+            locs[i] = ra, np.pi / 2 - dec
+        if orf_mode == "hd":
+            orf = assemble_orf(locs, lmax=0)
+        else:
+            orf = assemble_orf(locs, clm=orf_mode.get("clm"), lmax=int(orf_mode["lmax"]))
+        kwargs["orf_cholesky"] = torch.from_numpy(np.linalg.cholesky(np.asarray(orf, np.float64)))
+    return Recipe(**kwargs)
+
+
+def _run_dataset(args):
+    """``info`` and ``realize``: ingest, freeze, and (realize) the cube."""
+    import dataclasses
+
+    import torch
+
+    from .batch import freeze
+    from .models.batched import deterministic_delays, realize
+    from .simulate import load_from_directories, make_ideal
+
+    # every guard runs before ingest: a refused invocation loads nothing
+    for attr, flag, item in UNPORTED_FLAGS:
+        if getattr(args, attr, None):
+            raise SystemExit(
+                f"{args.cmd} {flag}: not ported yet (ROADMAP {item}); the JAX package's "
+                f"`python -m pta_replicator_tpu {args.cmd}` has it"
+            )
+    if args.cmd == "realize":
+        if args.fused_stream and not args.checkpoint:
+            raise SystemExit(
+                "--fused-stream needs --checkpoint: the fused stage graph is the "
+                "checkpointed sweep executor"
+            )
+        if args.fused_stream and args.pipeline_depth < 2:
+            raise SystemExit(
+                "--fused-stream needs --pipeline-depth >= 2: at depth 1 there is no "
+                "concurrency for the static build to overlap with"
+            )
+        chunk = min(args.chunk, args.nreal)
+        if args.checkpoint and args.nreal % chunk:
+            raise SystemExit(f"--nreal {args.nreal} must be a multiple of --chunk {chunk}")
+    device = _device(args.device, args.cmd)
+    if device.type == "cuda":
+        # the fits and the GWB synthesis need IEEE float32 products
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+
+    psrs = load_from_directories(args.pardir, args.timdir, num_psrs=args.num_psrs)
+    for psr in psrs:
+        make_ideal(psr)
+    batch = freeze(psrs, device=device)
+    if args.cmd == "info":
+        print(json.dumps({
+            "npsr": batch.npsr,
+            "ntoa_max": batch.ntoa_max,
+            "names": list(batch.names),
+            "backends": list(batch.backend_names),
+            "max_epochs": batch.max_epochs,
+            "tref_mjd": float(batch.tref_mjd),
+        }))
+        return
+
+    with open(args.recipe) as fh:
+        recipe = _build_recipe(json.load(fh), psrs)
+    if args.gls_fit:
+        args.full_fit = True
+    mode = "quadratic" if args.fit else "none"
+    design_columns = 3 if args.fit else None
+    design_names = []
+    if args.full_fit:
+        from .timing.fit import design_tensor
+
+        args.fit = True
+        D, design_names = design_tensor(psrs, ntoa_max=batch.ntoa_max)
+        recipe = dataclasses.replace(recipe, fit_design=torch.from_numpy(D),
+                                     fit_gls=bool(args.gls_fit))
+        mode, design_columns = ("gls" if args.gls_fit else "wls"), int(D.shape[-1])
+    recipe = recipe.to(device)
+    # the deterministic delays (B.1's CW catalog, ...), once for realize
+    # and the datasets; a sweep builds its own
+    static = None
+    if not args.checkpoint or args.write_partim:
+        static = deterministic_delays(batch, recipe, device=device)
+
+    if args.checkpoint:
+        from .utils.sweep import sweep
+
+        out = sweep(args.seed, batch, recipe, args.nreal, args.checkpoint, chunk=chunk,
+                    reduce_fn=None, fit=args.fit, pipeline_depth=args.pipeline_depth,
+                    drain_timeout_s=args.drain_timeout if args.drain_timeout > 0 else None,
+                    chunk_retries=args.chunk_retries, fused_stream=args.fused_stream,
+                    progress=lambda d, n: print(f"chunk {d}/{n}", file=sys.stderr),
+                    device=device)
+    else:
+        generator = torch.Generator(device=device).manual_seed(args.seed)
+        out = realize(generator, batch, recipe, args.nreal, fit=args.fit, static=static,
+                      device=device).cpu().numpy()
+
+    np.savez(args.out, residuals=out, mask=batch.mask.cpu().numpy(),
+             names=np.array(batch.names), fit=np.array(mode),
+             design_names=np.array(json.dumps(design_names)))
+    summary = {
+        "out": args.out,
+        "shape": list(out.shape),
+        "rms_s": float(np.sqrt((out**2).mean())),
+        "fit": mode,
+        "design_columns": design_columns,
+    }
+    if args.write_partim:
+        from .utils.export import materialize_realizations
+
+        # dataset r carries the delays behind cube row r: the draws of the
+        # engine that made the cube (a checkpointed sweep's per-chunk
+        # generators, or realize's one generator of nreal)
+        dirs = materialize_realizations(
+            psrs, batch, recipe, args.seed, args.nreal, args.write_partim,
+            write_max=args.write_max, sweep_chunk=chunk if args.checkpoint else None,
+            static=static, device=device)
+        summary["partim_dirs"] = len(dirs)
+    print(json.dumps(summary))
+
+
 def main(argv=None):
     args = _parser().parse_args(sys.argv[1:] if argv is None else list(argv))
-    return _run_scenario(args)
+    if args.cmd == "scenario":
+        return _run_scenario(args)
+    return _run_dataset(args)
 
 
 if __name__ == "__main__":

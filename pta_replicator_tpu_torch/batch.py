@@ -10,13 +10,15 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Optional
+from typing import List, Optional
 
 import numpy as np
 import torch
 
 from .constants import DAY_IN_SEC
 from .device import resolve_device
+from .ops.coords import pulsar_theta_phi, unit_vector
+from .ops.quantize import quantize
 
 
 def _map_tensors(obj, fn):
@@ -150,4 +152,121 @@ def synthetic_batch(npsr: int = 68, ntoa: int = 7758, nbackend: int = 4,
         backend_names=tuple(f"backend{i}" for i in range(nbackend)),
         start_s=float(toas_s.min() - DAY_IN_SEC),
         stop_s=float(toas_s.max() + DAY_IN_SEC),
+    )
+
+
+def freeze(psrs: List, flagid: str = "f", coarsegrain: float = 0.1,
+           tref_mjd: Optional[float] = None, dtype=torch.float32,
+           device="cuda") -> PulsarBatch:
+    """Freeze a list of :class:`~.simulate.SimulatedPulsar` (or anything
+    with ``.toas``/``.loc``/``.name``: the JAX package's pulsars too) into
+    a PulsarBatch on ``device``.
+
+    Counterpart of ``pta_replicator_tpu/batch.py::freeze``, bit for bit in
+    float64: ragged TOA sets are padded to the max count (padding rows
+    repeat the last TOA, with unit errors and zero mask), ECORR epochs are
+    binned (greedy ``coarsegrain``-day buckets by :func:`~.ops.quantize.
+    quantize`), and per-TOA ``-flagid`` flags become integer groups shared
+    across the array, the vocabulary growing in order of first appearance;
+    each epoch's backend is that of its time-first TOA. Epochs leave
+    longdouble only here: ``tref_mjd`` is subtracted from the float64 MJDs
+    and the difference scaled to seconds on the host, before any tensor
+    exists. Index tensors are int64 (int32 in the JAX package)."""
+    device = resolve_device(device)
+    npsr = len(psrs)
+    ntoas = np.array([p.toas.ntoas for p in psrs], dtype=np.int64)
+    nt = int(ntoas.max())
+
+    mjds = [p.toas.get_mjds() for p in psrs]
+    if tref_mjd is None:
+        tref_mjd = float(
+            0.5 * (min(m.min() for m in mjds) + max(m.max() for m in mjds))
+        )
+
+    toas = np.zeros((npsr, nt))
+    errors = np.ones((npsr, nt))
+    mask = np.zeros((npsr, nt))
+    # observing frequencies feed chromatic noise; if ANY pulsar lacks
+    # them the whole field stays None so the chromatic op raises loudly
+    # instead of silently treating a 1400 MHz fill as real physics
+    have_freqs = all(
+        getattr(p.toas, "freqs_mhz", None) is not None for p in psrs
+    )
+    freqs = np.full((npsr, nt), 1400.0)  # benign padding (no div-by-zero)
+    backend_idx = np.zeros((npsr, nt), dtype=np.int64)
+    epoch_idx = np.zeros((npsr, nt), dtype=np.int64)
+    phat = np.zeros((npsr, 3))
+    tspan = np.zeros(npsr)
+
+    # global backend vocabulary across pulsars
+    backend_names: List[str] = []
+    epoch_counts = []
+    epoch_indices = []
+    for i, p in enumerate(psrs):
+        n = p.toas.ntoas
+        rel = (mjds[i] - tref_mjd) * DAY_IN_SEC
+        toas[i, :n] = rel
+        toas[i, n:] = rel[-1] if n else 0.0  # benign padding values
+        errors[i, :n] = p.toas.errors_s
+        if have_freqs:
+            freqs[i, :n] = p.toas.freqs_mhz
+        mask[i, :n] = 1.0
+        tspan[i] = rel[:n].max() - rel[:n].min() if n else 0.0
+        theta, phi = pulsar_theta_phi(p.loc, p.name)
+        phat[i] = unit_vector(theta, phi)
+
+        flags = p.toas.get_flag(flagid)
+        # the global vocabulary grows in order of first appearance (TOA
+        # order within each pulsar), so re-freezing a dataset reproduces
+        # the backend_names ordering of any tables built against it
+        flags_arr = np.asarray([str(v) for v in flags])
+        uniq, first, inv = np.unique(
+            flags_arr, return_index=True, return_inverse=True
+        )
+        local_to_global = np.empty(len(uniq), dtype=np.int64)
+        for u_i in np.argsort(first):
+            val = str(uniq[u_i])  # plain str, not np.str_
+            if val not in backend_names:
+                backend_names.append(val)
+            local_to_global[u_i] = backend_names.index(val)
+        backend_idx[i, :n] = local_to_global[inv]
+
+        bins = quantize(mjds[i], flags=flags, dt=coarsegrain)
+        epoch_indices.append(bins.epoch_index)
+        epoch_counts.append(bins.nepochs)
+
+    max_epochs = int(max(epoch_counts)) if epoch_counts else 1
+    epoch_mask = np.zeros((npsr, max_epochs))
+    epoch_backend = np.zeros((npsr, max_epochs), dtype=np.int64)
+    for i, p in enumerate(psrs):
+        idx, cnt = epoch_indices[i], epoch_counts[i]
+        epoch_idx[i, : len(idx)] = idx
+        epoch_mask[i, :cnt] = 1.0
+        # backend of each epoch = backend of its (time-)first TOA
+        order = np.argsort(mjds[i], kind="stable")
+        uniq_e, first_pos = np.unique(idx[order], return_index=True)
+        epoch_backend[i, uniq_e] = backend_idx[i, order[first_pos]]
+
+    start = float(min(m.min() for m in mjds) - 1.0) * DAY_IN_SEC
+    stop = float(max(m.max() for m in mjds) + 1.0) * DAY_IN_SEC
+
+    real = lambda a: torch.from_numpy(a).to(dtype=dtype, device=device)
+    index = lambda a: torch.from_numpy(a).to(device)
+    return PulsarBatch(
+        toas_s=real(toas),
+        errors_s=real(errors),
+        mask=real(mask),
+        phat=real(phat),
+        epoch_index=index(epoch_idx),
+        epoch_mask=real(epoch_mask),
+        epoch_backend_index=index(epoch_backend),
+        backend_index=index(backend_idx),
+        tspan_s=real(tspan),
+        ntoas=index(ntoas),
+        freqs_mhz=real(freqs) if have_freqs else None,
+        tref_mjd=tref_mjd,
+        names=tuple(p.name for p in psrs),
+        backend_names=tuple(backend_names),
+        start_s=start - tref_mjd * DAY_IN_SEC,
+        stop_s=stop - tref_mjd * DAY_IN_SEC,
     )

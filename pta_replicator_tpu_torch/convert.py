@@ -1,11 +1,13 @@
-"""Carry a batch, a recipe and a covariance op across from the JAX package.
+"""Carry a batch, a recipe, a covariance op and a pulsar across from the
+JAX package.
 
 The JAX package's ``PulsarBatch``, ``Recipe`` and covariance ops are
 dataclasses whose array leaves convert to numpy. These functions take
 their fields as a mapping (``vars(obj)``, arrays as numpy or anything with
 ``__array__``) and build the port's objects, without importing the JAX
 package. Every array is copied: the numpy view of a JAX array is
-read-only.
+read-only. :func:`pulsar_from_jax` carries a JAX ``SimulatedPulsar``
+(host numpy, longdouble epochs) across by its attributes.
 """
 from __future__ import annotations
 
@@ -18,6 +20,7 @@ from .batch import PulsarBatch
 from .covariance.structure import BandedCov, CovOp, DenseCov, KroneckerCov, LowRankCov
 from .device import resolve_device
 from .models.batched import Recipe
+from .simulate import SimulatedPulsar
 
 _INDEX_FIELDS = ("epoch_index", "epoch_backend_index", "backend_index", "ntoas")
 _STATIC_FIELDS = ("tref_mjd", "names", "backend_names", "start_s", "stop_s")
@@ -95,3 +98,38 @@ def recipe_from_arrays(fields, device="cuda") -> Recipe:
     if kwargs.get("noise_cov") is not None:
         kwargs["noise_cov"] = covop_from_arrays(vars(kwargs["noise_cov"]), device)
     return Recipe(**kwargs).to(device)
+
+
+def pulsar_from_jax(psr) -> SimulatedPulsar:
+    """The port's SimulatedPulsar from a JAX package's one (or anything
+    with its attributes): the par model re-parsed from its verbatim lines,
+    the TOA columns copied (epochs stay longdouble, bit for bit), the
+    timing model rebuilt from its fields, the provenance ledger copied,
+    and the residuals recomputed (the same operations, so the same bits)."""
+    import copy
+
+    from .io.par import parse_par_lines
+    from .io.tim import TOAData
+    from .utils.checkpoint import _rebuild_model
+
+    toas = psr.toas
+    out = SimulatedPulsar(
+        ephem=psr.ephem,
+        par=parse_par_lines(list(psr.par.lines), path=psr.par.path),
+        model=_rebuild_model(dataclasses.asdict(psr.model)),
+        toas=TOAData(
+            mjd=np.array(toas.mjd, dtype=np.longdouble),
+            errors_s=np.array(toas.errors_s, dtype=np.float64),
+            freqs_mhz=np.array(toas.freqs_mhz, dtype=np.float64),
+            observatories=list(toas.observatories),
+            flags=[dict(f) for f in toas.flags],
+            labels=list(toas.labels),
+        ),
+        name=psr.name,
+        loc=dict(psr.loc),
+        added_signals=copy.deepcopy(psr.added_signals),
+        added_signals_time=(None if psr.added_signals_time is None else
+                            {k: np.array(v) for k, v in psr.added_signals_time.items()}),
+    )
+    out.update_residuals()
+    return out

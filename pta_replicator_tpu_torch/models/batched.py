@@ -1148,19 +1148,26 @@ def gls_noise_model(batch: PulsarBatch, recipe: Recipe):
 
 
 def _epoch_table(batch: PulsarBatch):
-    """(Np, E, K) int64 TOA indices of each epoch's members in TOA order,
-    padded with Nt (the index of an appended zero row); K is the largest
-    epoch. Built on the host from ``batch.epoch_index``."""
+    """(Np, E, K) int64 TOA indices of each epoch's valid members in TOA
+    order, padded with Nt (the index of an appended zero row); K is the
+    largest epoch. Padding and masked TOAs join no epoch (their terms are
+    zero): a ragged array's padding rows all carry epoch index 0, and
+    counting them would make K the padding's length. Built on the host
+    from ``batch.epoch_index`` and ``batch.mask``."""
     index = batch.epoch_index.cpu().numpy()
+    valid = batch.mask.cpu().numpy() > 0
     npsr, ntoa = index.shape
-    order = np.argsort(index, axis=1, kind="stable")
-    members = np.take_along_axis(index, order, axis=1)
-    counts = np.zeros((npsr, batch.max_epochs), np.int64)
-    np.add.at(counts, (np.arange(npsr)[:, None], index), 1)
+    nep = batch.max_epochs
+    key = np.where(valid, index, nep)  # a sentinel epoch past the last
+    order = np.argsort(key, axis=1, kind="stable")
+    members = np.take_along_axis(key, order, axis=1)
+    counts = np.zeros((npsr, nep + 1), np.int64)
+    np.add.at(counts, (np.arange(npsr)[:, None], key), 1)
     start = np.cumsum(counts, axis=1) - counts
     rank = np.arange(ntoa)[None, :] - np.take_along_axis(start, members, axis=1)
-    table = np.full((npsr, batch.max_epochs, max(int(counts.max()), 1)), ntoa, np.int64)
-    table[np.arange(npsr)[:, None], members, rank] = order
+    table = np.full((npsr, nep, max(int(counts[:, :nep].max()), 1)), ntoa, np.int64)
+    psr, pos = np.nonzero(members < nep)
+    table[psr, members[psr, pos], rank[psr, pos]] = order[psr, pos]
     return torch.as_tensor(table, device=batch.device)
 
 
@@ -1259,8 +1266,10 @@ def white_ecorr_solver(batch: PulsarBatch, sigma2, ecorr2, dtype,
 # the norms are formed in float64 and the (K, K) solve runs in float64
 # whatever the delays' dtype (on the card, cuBLAS's float32 accumulation
 # over 7,758 TOAs put ~6e-5 of relative error on a Gram matrix, ROADMAP
-# C.1). The WLS apply runs in the delays' dtype; the GLS apply in float64
-# up to the model (gls_cinv says why).
+# C.1). Both applies run in float64 up to the model, cast to the delays'
+# dtype last (gls_cinv says why for GLS; a timing design's near-collinear
+# columns for both), and the GLS apply of float64 delays takes one step of
+# iterative refinement (FitSystem.subtract).
 
 _F64 = torch.float64
 #: the column-normalized normal equations' ridge (the reference's default)
@@ -1338,8 +1347,8 @@ class FitSystem:
     gls: bool
     #: the delays' dtype it applies to
     dtype: torch.dtype
-    #: WLS: the weighted, column-normalized design Mn = M w / norms in
-    #: ``dtype``; GLS: the masked design M in float64
+    #: WLS: the weighted, column-normalized design Mn = M w / norms; GLS:
+    #: the masked design M; float64 either way
     design: torch.Tensor
     #: (Np, K) float64 column norms (1 at padding columns)
     norms: torch.Tensor
@@ -1349,10 +1358,12 @@ class FitSystem:
     pivots: torch.Tensor
     #: (Np, Nt) valid-TOA mask in ``dtype``
     mask: torch.Tensor
-    #: WLS: the square-root weights mask / errors (Np, Nt) in ``dtype``
+    #: WLS: the square-root weights mask / errors (Np, Nt), float64
     w: Optional[torch.Tensor] = None
     #: GLS: C^-1 over (..., Np, Nt, Q), float64 (:func:`gls_cinv`)
     cinv_mat: Optional[object] = None
+    #: the ridge on A's diagonal (the GLS refinement step's residual needs it)
+    ridge: float = 0.0
 
     def require_fits(self, recipe: Recipe):
         """Refuse a ``recipe`` whose design refit this system was not
@@ -1371,18 +1382,34 @@ class FitSystem:
                 f"the fit system was assembled for {self.dtype} delays, got {delays.dtype}"
             )
         M = self.design
+        # float64 up to the residual, cast to dtype last: a float32 M^T W r,
+        # or a float32 model subtracted in float32, put ~1e-3 (WLS) and
+        # ~1e-6 (GLS, projection) of the fitted residual into a timing
+        # design's near-collinear directions (cond(A) ~ 1e7); the GLS apply
+        # is float64 anyway (gls_cinv)
+        d64 = delays.to(_F64)
         if self.gls:
-            # float64 up to the model (gls_cinv); the subtraction in dtype
-            Cir = self.cinv_mat(delays.to(_F64)[..., None])[..., 0]
+            Cir = self.cinv_mat(d64[..., None])[..., 0]
             b = torch.einsum("pnk,...pn->...pk", M, Cir) / self.norms
-            coef = _lu_solve(self.lu, self.pivots, b, vec=True) / self.norms
-            model = torch.einsum("pnk,...pk->...pn", M, coef).to(self.dtype)
+            x = _lu_solve(self.lu, self.pivots, b, vec=True)
+            if self.dtype == _F64:
+                # float64 delays take one step of iterative refinement
+                # against a fresh C^-1 apply to the fitted residual: A
+                # carries C^-1 M's rounding, which the same columns turn
+                # into ~1e-9 of the fitted residual, and the step into
+                # ~2e-11. Float32 delays keep one apply: their cast of the
+                # residual limits the fit first
+                post = d64 - torch.einsum("pnk,...pk->...pn", M, x / self.norms)
+                rb = torch.einsum("pnk,...pn->...pk", M,
+                                  self.cinv_mat(post[..., None])[..., 0]) / self.norms
+                x = x + _lu_solve(self.lu, self.pivots, rb - self.ridge * x, vec=True)
+            model = torch.einsum("pnk,...pk->...pn", M, x / self.norms)
         else:
-            b = torch.einsum("pnk,...pn->...pk", M, delays * self.w)
+            b = torch.einsum("pnk,...pn->...pk", M, d64 * self.w)
             coef = _lu_solve(self.lu, self.pivots, b, vec=True)
             model = torch.einsum("pnk,...pk->...pn", M, coef) / torch.where(
                 self.w.abs() > 0, self.w, 1.0)
-        return (delays - model) * self.mask
+        return ((d64 - model) * self.mask).to(self.dtype)
 
 
 def _normal_matrix(gram, zero_col, ridge):
@@ -1407,8 +1434,8 @@ def _wls_system(batch: PulsarBatch, design, ridge, dtype) -> FitSystem:
     del Mw
     A = _normal_matrix(torch.einsum("pnk,pnl->pkl", Mn, Mn), zero_col, ridge)
     lu, pivots = _lu(A)
-    return FitSystem(gls=False, dtype=dtype, design=Mn.to(dtype), norms=norms, lu=lu,
-                     pivots=pivots, mask=batch.mask.to(dtype), w=w.to(dtype))
+    return FitSystem(gls=False, dtype=dtype, design=Mn, norms=norms, lu=lu,
+                     pivots=pivots, mask=batch.mask.to(dtype), w=w)
 
 
 def _gls_design_system(batch: PulsarBatch, design, recipe: Recipe, ridge):
@@ -1433,7 +1460,7 @@ def _gls_system(batch: PulsarBatch, design, recipe: Recipe, ridge, dtype) -> Fit
     A, norms, _zero_col, cinv, M = _gls_design_system(batch, design, recipe, ridge)
     lu, pivots = _lu(A)
     return FitSystem(gls=True, dtype=dtype, design=M, norms=norms, lu=lu, pivots=pivots,
-                     mask=batch.mask.to(dtype), cinv_mat=cinv)
+                     mask=batch.mask.to(dtype), cinv_mat=cinv, ridge=ridge)
 
 
 def fit_system(batch: PulsarBatch, recipe: Recipe, dtype=None):

@@ -40,6 +40,30 @@ def test_the_scan_covers_the_scenario_modules():
         assert f"pta_replicator_tpu_torch/{module}" in names
 
 
+def test_the_scan_covers_the_dataset_modules():
+    names = {p.relative_to(REPO).as_posix() for p in _port_sources()}
+    for module in ("io/__init__.py", "io/par.py", "io/tim.py", "io/native.py",
+                   "io/noise_dict.py", "timing/__init__.py", "timing/time_scales.py",
+                   "timing/model.py", "timing/components.py", "timing/fit.py", "simulate.py",
+                   "batch.py", "ops/coords.py", "ops/quantize.py", "utils/checkpoint.py",
+                   "utils/export.py", "utils/fabricate.py"):
+        assert f"pta_replicator_tpu_torch/{module}" in names
+
+
+def test_toa_epochs_never_pass_through_a_torch_tensor():
+    """The modules that hold longdouble epochs import no torch; freeze
+    (batch.py) and export take epochs to float64 or seconds first."""
+    for module in ("io/par.py", "io/tim.py", "io/native.py", "timing/time_scales.py",
+                   "timing/model.py", "timing/components.py", "timing/fit.py", "simulate.py",
+                   "ops/coords.py", "ops/quantize.py"):
+        tree = ast.parse((REPO / "pta_replicator_tpu_torch" / module).read_text())
+        imported = {a.name.split(".")[0] for n in ast.walk(tree) if isinstance(n, ast.Import)
+                    for a in n.names}
+        imported |= {(n.module or "").split(".")[0] for n in ast.walk(tree)
+                     if isinstance(n, ast.ImportFrom) and n.level == 0}
+        assert "torch" not in imported, module
+
+
 def _forbidden(name: str) -> bool:
     return any(name == f or name.startswith(f + ".") for f in FORBIDDEN)
 
