@@ -46,7 +46,14 @@ pta_replicator_tpu_torch scenario validate|compile|run` in subprocesses
 reader, idealizes, freezes and refits it with its real timing design
 (quadratic, WLS, GLS), holds B.1 at its shape against the plain version,
 and runs `python -m pta_replicator_tpu_torch info|realize` on it, with
-datasets written back out (`dataset_path`). It prints one JSON line per phase. The
+datasets written back out (`dataset_path`). The per-pulsar oracle path
+runs the reference's regression recipe and every other `add_*` operator
+on the same 68 pulsars in host float64 numpy, gates the ledger's
+decomposition, and holds the card's batched engine against it: B.1 on
+the oracle's CW catalog, the burst, memory and transient, and the GLS
+refit of the full timing design on the nested Woodbury, on B.4/B.5
+(banded) and on the dense rung with B.2, against the dense oracle; then
+`SimulatedPulsar.fit` and `write_partim` (`oracle_path`). It prints one JSON line per phase. The
 line before the last is the kernels line, the last the result line.
 Without a CUDA device, or without the port beside it, it exits non-zero
 and prints no result; any failed check raises.
@@ -207,6 +214,34 @@ DATASET_SMALL_CHUNK, DATASET_SMALL_NREAL, DATASET_CARD_VS_CPU_PSRS = 2, 8, 6
 #: tests/test_simulate.py), and dataset r's residualized TOA shift against
 #: cube row r's pre-fit delays [s] (tests/test_cli.py)
 TOL_IDEAL_RMS_S, TOL_SHIFT_S = 1e-9, 5e-9
+
+#: the per-pulsar oracle path (phase oracle_path), on the dataset path's 68
+#: pulsars: the reference's regression recipe (tests/test_parity_libstempo.py:
+#: 30-56: GWB, EFAC, ECORR, libstempo-convention red noise, one CW), then
+#: chromatic (DM) noise, the dataset recipe's 100-source CW catalog at the
+#: reference's epoch, a burst, a burst with memory and a transient (pulsar
+#: ORACLE_TRANSIENT_PSR) as the JAX package's own tests shape them
+ORACLE_CHROMATIC = dict(log10_amplitude=-13.8, spectral_index=3.0, chromatic_index=2.0, seed=777)
+ORACLE_TREF_S = 53000 * 86400.0
+ORACLE_BURST_WIDTH_S, ORACLE_BURST_GRID = 100 * 86400.0, 16384
+ORACLE_MEMORY = dict(strain=5e-15, gwtheta=1.1, gwphi=2.3, bwm_pol=0.7)
+ORACLE_TRANSIENT_PSR = 1
+#: the ledger's decomposition of each pulsar's TOA shifts and residuals [s]
+#: (tests/test_parity_libstempo.py:68-75), both exact up to the longdouble
+#: epochs' rounding: the residuals through the timing model, the ideal TOAs
+#: shifted once by the ledger's sum
+TOL_LEDGER_S = 5e-9
+#: the card against the oracle (tests/test_batched.py:293, :453, :476-483,
+#: :1000-1008): B.1 float64 per TOA (rtol, atol), the memory ramp (rtol,
+#: atol), burst and transient (atol over the oracle's RMS), and the GLS
+#: refit (post-fit relative RMS; sigmas rtol)
+TOL_ORACLE_CW = (1e-8, 1e-15)
+TOL_ORACLE_MEMORY = (1e-9, 1e-19)
+TOL_ORACLE_BURST = 1e-5
+TOL_ORACLE_GLS = 1e-6
+#: the GLS refit's batch: the dataset's shortest pulsar and its 7,758-TOA
+#: one; the dense run's squared-exponential noise_cov and amplitudes
+ORACLE_DENSE_CORR_S, ORACLE_DENSE_LOG10_SIGMA = 20 * DAY_S, -6.6
 
 #: the GLS refit's right-hand-side counts on config B: the GP basis alone,
 #: the design and a chunk of realizations
@@ -2640,6 +2675,315 @@ def phase_dataset_path(workdir, smi):
     return counts["cw_catalog_response"], cw_rows[torch.float32]
 
 
+def _within(got, want, rtol, atol):
+    """The largest |got - want| / (atol + rtol |want|): <= 1 passes
+    numpy's ``assert_allclose``."""
+    return float(np.max(np.abs(got - want) / (atol + rtol * np.abs(want))))
+
+
+def _oracle_gls_recipe(batch, run):
+    """tests/test_batched.py:959-975's recipe on the card (per-backend EFAC,
+    EQUAD and ECORR; red and chromatic noise; the GWB auto-term): ``nested``
+    as is (the nested Woodbury), ``banded`` without ECORR with a banded
+    noise_cov (B.4/B.5), ``dense`` with ECORR and a dense noise_cov (the
+    dense rung: the blocked Cholesky on B.2)."""
+    nb = len(batch.backend_names)
+    rng = np.random.default_rng(5)
+    r = B.Recipe(
+        efac=rng.uniform(0.9, 1.4, (batch.npsr, nb)),
+        log10_equad=rng.uniform(-6.8, -6.2, (batch.npsr, nb)),
+        log10_ecorr=rng.uniform(-6.9, -6.4, (batch.npsr, nb)),
+        rn_log10_amplitude=rng.uniform(-13.8, -13.2, batch.npsr),
+        rn_gamma=rng.uniform(3.0, 4.5, batch.npsr),
+        chrom_log10_amplitude=rng.uniform(-13.9, -13.4, batch.npsr),
+        chrom_gamma=rng.uniform(2.5, 4.0, batch.npsr), chrom_index=2.0,
+        gwb_log10_amplitude=-14.2, gwb_gamma=13.0 / 3.0,
+    ).to(batch.device)
+    f64 = torch.float64
+    if run == "banded":
+        op = banded_from_times(batch.toas_s, batch.mask, **BANDED, dtype=f64, device=batch.device)
+        return dataclasses.replace(r, log10_ecorr=None, noise_cov=op, cov_log10_sigma=torch.tensor(
+            BANDED_LOG10_SIGMA, dtype=f64, device=batch.device))
+    if run == "dense":
+        from pta_replicator_tpu_torch.covariance import dense_from_times
+
+        op = dense_from_times(batch.toas_s, batch.mask, corr_s=ORACLE_DENSE_CORR_S, dtype=f64,
+                              device=batch.device)
+        return dataclasses.replace(r, noise_cov=op, cov_log10_sigma=torch.tensor(
+            ORACLE_DENSE_LOG10_SIGMA, dtype=f64, device=batch.device))
+    return r
+
+
+def phase_oracle_path(workdir, smi):
+    """The per-pulsar oracle path on the dataset path's 68 pulsars, and its
+    joins to the card's batched engine (the twins of tests/test_batched.py:
+    267-293, 439-483, 930-1008). (1) Host float64 numpy through the entry
+    points: ``load_from_directories``, ``make_ideal``, the regression recipe
+    (``add_gwb`` -14 / 4.33 seed 123456; ``add_measurement_noise`` EFAC 1
+    and ``add_jitter`` ECORR 3e-7; ``add_red_noise`` -15 / 4.2, 30 modes,
+    libstempo convention; ``add_cgw``), then ``add_chromatic_noise``, the
+    100-source ``add_catalog_of_cws``, ``add_burst``, ``add_gw_memory`` and
+    ``add_noise_transient``; host seconds per operator. Gate: each
+    pulsar's ledger decomposes its TOA shifts and, through the timing
+    model, its residuals to <= 5e-9 s (the first-order form, the ledger's
+    sum less its weighted mean, is reported: it misses by the timing
+    model's Doppler factor). (2) The pulsars as they stand before the
+    deterministic block frozen to the card in float64 and float32, the
+    launch counts cleared, the same catalog through ``cgw_catalog_delays``
+    (B.1), the counts read: float64 against each oracle ledger entry at
+    rtol 1e-8, atol 1e-15; float32's relative RMS reported. (3)
+    ``gw_memory_delays``, ``burst_delays`` and ``transient_delays`` against
+    the oracle (rtol 1e-9; 1e-5 of the RMS). (4) The GLS refit of the
+    full timing design on the shortest and the 7,758-TOA pulsar, three
+    recipes (nested Woodbury; banded noise_cov on B.4/B.5; dense noise_cov
+    with ECORR on the dense rung and B.2), each with the counts cleared
+    before and read after: ``gls_fit_subtract`` and
+    ``gls_fit_uncertainties`` without the engine's ridge (the oracle's
+    linear system) against ``covariance_from_recipe`` (reading the recipe
+    on the card) + ``gls_fit`` at relative RMS < 1e-6 and sigmas rtol
+    1e-6, padding columns exactly 0; with the default ridge, reported and
+    held to 10 ridge / lambda_min (ROADMAP C.10). Then
+    ``SimulatedPulsar.fit("gls", recipe=...)`` and ``fit("wls")`` on both,
+    ``write_partim`` and a reload: the par carries the fitted values and
+    errors."""
+    import pta_replicator_tpu_torch as ptr
+    from pta_replicator_tpu_torch.batch import freeze
+    from pta_replicator_tpu_torch.simulate import Residuals, load_from_directories, load_pulsar
+    from pta_replicator_tpu_torch.simulate import make_ideal
+    from pta_replicator_tpu_torch.timing.components import full_design_matrix
+    from pta_replicator_tpu_torch.timing.fit import covariance_from_recipe, design_tensor, gls_fit
+    from pta_replicator_tpu_torch.utils.fabricate import ng15_like_recipe
+
+    t_phase = time.perf_counter()
+    host = {}
+
+    def timed(name, fn, *args, **kw):
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        host[name] = host.get(name, 0.0) + time.perf_counter() - t0
+        return out
+
+    # (1) the oracle, host float64
+    psrs = timed("load", load_from_directories, str(workdir / "par"), str(workdir / "tim"))
+    for p in psrs:
+        timed("make_ideal", make_ideal, p)
+    ideal = [p.toas.mjd.copy() for p in psrs]
+    timed("add_gwb", ptr.add_gwb, psrs, -14, 4.33, seed=123456)
+    for ii, p in enumerate(psrs):
+        timed("add_measurement_noise", ptr.add_measurement_noise, p, efac=1.00, log10_equad=None,
+              seed=54321 + ii, tnequad=False)
+        timed("add_jitter", ptr.add_jitter, p, log10_ecorr=np.log10(3e-7), seed=54321 + ii)
+    for ii, p in enumerate(psrs):
+        timed("add_red_noise", ptr.add_red_noise, p, -15, 4.2, components=30, Tspan=None,
+              seed=12345 + ii, libstempo_convention=True)
+    for p in psrs:
+        timed("add_cgw", ptr.add_cgw, p, gwtheta=np.pi / 2, gwphi=2.5, mc=1e9, dist=5.0,
+              fgw=1e-8, phase0=0.5, psi=1.5, inc=np.pi / 4, pdist=1.0, pphase=None,
+              psrTerm=True, evolve=True, phase_approx=False, tref=ORACLE_TREF_S)
+    for ii, p in enumerate(psrs):
+        timed("add_chromatic_noise", ptr.add_chromatic_noise, p, **{
+            **ORACLE_CHROMATIC, "seed": ORACLE_CHROMATIC["seed"] + ii})
+
+    # (2)-(3) the card's batch, frozen before the deterministic block (the
+    # block then moves each TOA by <= ~1e-6 s, which the atol floors cover)
+    batch64 = freeze(psrs, dtype=torch.float64)
+    batch32 = freeze(psrs, dtype=torch.float32)
+    cat = np.asarray(ng15_like_recipe(len(psrs))["cgw_params"], np.float64)
+    lists = dict(zip(("gwtheta_list", "gwphi_list", "mc_list", "dist_list", "fgw_list",
+                      "phase0_list", "psi_list", "inc_list"), cat))
+    for p in psrs:
+        timed("add_catalog_of_cws", ptr.add_catalog_of_cws, p, **lists, tref=ORACLE_TREF_S)
+    tref_s = float(batch64.tref_mjd) * DAY_S
+    t0 = float(batch64.toas_s[batch64.mask > 0].mean())
+    width = ORACLE_BURST_WIDTH_S
+    hp = lambda t: 4e-9 * np.exp(-0.5 * ((t - t0) / width) ** 2)
+    hc = lambda t: 2e-9 * np.sin((t - t0) / width) * np.exp(-0.5 * ((t - t0) / width) ** 2)
+    lo, hi = t0 - 8 * width, t0 + 8 * width
+    grid = np.linspace(lo, hi, ORACLE_BURST_GRID)
+    t0_mjd = float(np.median(psrs[0].toas.get_mjds()))
+    for p in psrs:
+        timed("add_burst", ptr.add_burst, p, 0.9, 4.1, hp, hc, psi=0.6, tref=tref_s)
+        timed("add_gw_memory", ptr.add_gw_memory, p, t0_mjd=t0_mjd, **ORACLE_MEMORY)
+    timed("add_noise_transient", ptr.add_noise_transient, psrs[ORACLE_TRANSIENT_PSR], hp,
+          tref=tref_s)
+
+    ledger = {"toa_shift_max_s": 0.0, "through_model_max_s": 0.0, "first_order_max_s": 0.0,
+              "first_order_over_delay_max": 0.0}
+    for p, mjd0 in zip(psrs, ideal):
+        total = np.sum(list(p.added_signals_time.values()), axis=0)
+        shift = np.asarray((p.toas.mjd - mjd0) * np.longdouble(DAY_S), np.float64)
+        base = dataclasses.replace(p.toas, mjd=mjd0.copy())
+        base.adjust_seconds(total)
+        model = np.abs(Residuals(base, p.model).resids_value - p.residuals.resids_value).max()
+        w = 1.0 / p.toas.errors_s**2
+        first = np.abs(p.residuals.resids_value - (total - np.sum(w * total) / np.sum(w))).max()
+        for key, v in (("toa_shift_max_s", np.abs(shift - total).max()),
+                       ("through_model_max_s", model), ("first_order_max_s", first),
+                       ("first_order_over_delay_max", first / np.abs(total).max())):
+            ledger[key] = max(ledger[key], float(v))
+
+    def oracle_rows(name):
+        return [p.added_signals_time[f"{p.name}_{name}"] for p in psrs]
+
+    def vs_oracle(dev, name, rtol, atol_of):
+        dev = dev.double().cpu().numpy()
+        out = 0.0
+        for i, want in enumerate(oracle_rows(name)):
+            n = len(want)
+            out = max(out, _within(dev[i, :n], want, rtol, atol_of(want)))
+            require(np.all(dev[i, n:] == 0.0), f"oracle_path {name}: padding row {i} not 0")
+        return out
+
+    torch.cuda.synchronize()
+    launches.clear()
+    cw64 = B.cgw_catalog_delays(batch64, *cat, tref_s=ORACLE_TREF_S)
+    cw32 = B.cgw_catalog_delays(batch32, *cat, tref_s=ORACLE_TREF_S)
+    torch.cuda.synchronize()
+    cw_counts = {k: launches[k] for k in ("cw_catalog_response", "cw_fold_planes")}
+    rtol, atol = TOL_ORACLE_CW
+    cw_within = vs_oracle(cw64, "cw_catalog", rtol, lambda w: atol)
+    mask = batch64.mask.cpu().numpy() > 0
+    want = np.zeros(mask.shape)
+    for i, row_ in enumerate(oracle_rows("cw_catalog")):
+        want[i, :len(row_)] = row_
+    f32_rel = float(np.sqrt(np.mean((cw32.double().cpu().numpy()[mask] - want[mask]) ** 2)
+                            / np.mean(want[mask] ** 2)))
+    # B.1's time on this batch: the entry point (host planes, fold and
+    # response), and the response kernel alone on prebuilt planes
+    b1_ms = {}
+    for b in (batch64, batch32):
+        u = b.toas_s - torch.tensor(b.start_s, dtype=b.dtype, device=b.device)
+        src, psr_planes = _catalog_planes(b, cat, True, ORACLE_TREF_S)
+        b1_ms[str(b.dtype)] = {
+            "cgw_catalog_delays": cuda_ms(lambda: B.cgw_catalog_delays(
+                b, *cat, tref_s=ORACLE_TREF_S), 5),
+            "response_kernel": cuda_ms(lambda: cw.cw_catalog_response(
+                u, src, psr_planes, True, True), 20)}
+        del u, src, psr_planes
+    rtol_m, atol_m = TOL_ORACLE_MEMORY
+    memory = vs_oracle(B.gw_memory_delays(batch64, ORACLE_MEMORY["strain"],
+                                          ORACLE_MEMORY["gwtheta"], ORACLE_MEMORY["gwphi"],
+                                          ORACLE_MEMORY["bwm_pol"], t0_mjd),
+                       "gw_memory", rtol_m, lambda w: atol_m)
+    rms_atol = lambda w: TOL_ORACLE_BURST * max(float(np.sqrt(np.mean(w**2))), 1e-30)
+    burst = vs_oracle(B.burst_delays(batch64, 0.9, 4.1, hp(grid), hc(grid), lo, hi, psi=0.6),
+                      "burst", 0.0, rms_atol)
+    devt = B.transient_delays(batch64, ORACLE_TRANSIENT_PSR, hp(grid), lo, hi).cpu().numpy()
+    tp = psrs[ORACLE_TRANSIENT_PSR]
+    want_t = tp.added_signals_time[f"{tp.name}_noise_transient"]
+    transient = _within(devt[ORACLE_TRANSIENT_PSR, :len(want_t)], want_t, 0.0, rms_atol(want_t))
+    transient_others_zero = bool(np.all(np.delete(devt, ORACLE_TRANSIENT_PSR, axis=0) == 0.0))
+    del cw64, cw32, batch32
+
+    # (4) the GLS refit of the full design against the dense oracle
+    ntoas = [p.toas.ntoas for p in psrs]
+    pick = [int(np.argmin(ntoas)), int(np.argmax(ntoas))]
+    two = [psrs[i] for i in pick]
+    batch = freeze(two, dtype=torch.float64)
+    design_np = design_tensor(two, ntoa_max=batch.ntoa_max)[0]
+    design = torch.from_numpy(design_np).to(batch.device)
+    rng = np.random.default_rng(5)
+    delays_np = rng.standard_normal(tuple(batch.toas_s.shape)) * 1e-6 * batch.mask.cpu().numpy()
+    delays = torch.from_numpy(delays_np).to(batch.device)
+    designs = [full_design_matrix(p.par, p.toas.get_mjds(), freqs_mhz=p.toas.freqs_mhz,
+                                  f0=p.model.f0, flags=p.toas.flags)[0] for p in two]
+    gls, gls_counts, recipes = {}, {}, {}
+    for run in ("nested", "banded", "dense"):
+        rec = recipes[run] = _oracle_gls_recipe(batch, run)
+        torch.cuda.synchronize()
+        launches.clear()
+        (post, sig), card_ms = _timed_ms(lambda: (
+            B.gls_fit_subtract(delays, batch, design, rec, ridge=0.0),
+            B.gls_fit_uncertainties(batch, design, rec, ridge=0.0)), reps=1)
+        gls_counts[run] = {k: launches[k] for k in COV_KERNELS}
+        post_d = B.gls_fit_subtract(delays, batch, design, rec).cpu().numpy()
+        sig_d = B.gls_fit_uncertainties(batch, design, rec).cpu().numpy()
+        lam = torch.linalg.eigvalsh(B._gls_design_system(batch, design, rec, 0.0)[0]).cpu().numpy()
+        post, sig = post.cpu().numpy(), sig.cpu().numpy()
+        row = {"card_ms": card_ms, "oracle_s": [], "post_rel_rms": [], "sigma_rel_max": [],
+               "padding_zero": [], "default_ridge_post_rel_rms": [],
+               "default_ridge_sigma_rel_max": [], "lambda_min": lam.min(axis=-1).tolist()}
+        for i, p in enumerate(two):
+            n = p.toas.ntoas
+            t1 = time.perf_counter()
+            C = covariance_from_recipe(p, rec, psr_index=i, backend_names=batch.backend_names)
+            _, ref_post, ref_cov = gls_fit(delays_np[i][:n], C, designs[i], return_cov=True)
+            row["oracle_s"].append(time.perf_counter() - t1)
+            del C
+            ref_sig = np.sqrt(np.clip(np.diag(ref_cov), 0.0, None))
+            k = len(ref_sig)
+            den = np.sqrt(np.mean(ref_post**2))
+            row["post_rel_rms"].append(float(np.sqrt(np.mean((post[i][:n] - ref_post) ** 2)) / den))
+            row["sigma_rel_max"].append(float(np.max(np.abs(sig[i][:k] / ref_sig - 1.0))))
+            row["padding_zero"].append(bool(np.all(sig[i][k:] == 0.0)))
+            row["default_ridge_post_rel_rms"].append(
+                float(np.sqrt(np.mean((post_d[i][:n] - ref_post) ** 2)) / den))
+            row["default_ridge_sigma_rel_max"].append(
+                float(np.max(np.abs(sig_d[i][:k] / ref_sig - 1.0))))
+        gls[run] = row
+        del post, sig, post_d, sig_d
+        torch.cuda.empty_cache()
+
+    # SimulatedPulsar.fit, GLS from the dense recipe read on the card, then
+    # WLS; each written and reloaded
+    fits, written = {}, {}
+    for fitter in ("gls", "wls"):
+        fits[fitter] = []
+        for i, p in enumerate(two):
+            t1 = time.perf_counter()
+            if fitter == "gls":
+                p.fit("gls", recipe=recipes["dense"], psr_index=i,
+                      backend_names=batch.backend_names)
+            else:
+                p.fit("wls")
+            fits[fitter].append(time.perf_counter() - t1)
+            par, tim = str(workdir / f"fit_{fitter}_{p.name}.par"), str(workdir / "fit.tim")
+            p.write_partim(par, tim)
+            back = load_pulsar(par, tim)
+            f0 = back.par.params["F0"]
+            written[f"{fitter}_{p.name}"] = bool(
+                back.par.lines == p.par.lines and back.par.f0 == p.model.f0
+                and float(f0[2]) == p.fit_uncertainties["F0"]
+                and len(p.fit_results) == designs[i].shape[1])
+    del recipes, batch, batch64, design, delays
+    torch.cuda.empty_cache()
+    phase_s = time.perf_counter() - t_phase
+
+    row = dict(
+        nvidia_smi=smi, npsr=len(psrs), ntoas_min_max=[min(ntoas), max(ntoas)],
+        host_s=host, ledger=ledger, tol_ledger_s=TOL_LEDGER_S,
+        cw=dict(launches=cw_counts, sources=int(cat.shape[1]), f64_within=cw_within,
+                tol=list(TOL_ORACLE_CW), f32_rel_rms_vs_oracle=f32_rel, ms=b1_ms),
+        memory_within=memory, burst_within=burst, transient_within=transient,
+        transient_others_zero=transient_others_zero,
+        gls_psrs=[p.name for p in two], gls_ntoas=[p.toas.ntoas for p in two],
+        gls_columns=[int(m.shape[1]) for m in designs], gls=gls, gls_launches=gls_counts,
+        tol_gls=TOL_ORACLE_GLS, ridge=B._RIDGE, fit_s=fits, written_par_carries_fit=written,
+        phase_s=phase_s,
+    )
+    emit("oracle_path", **row)
+    require(max(ledger["toa_shift_max_s"], ledger["through_model_max_s"]) <= TOL_LEDGER_S,
+            f"oracle_path: the ledger does not decompose the residuals: {ledger}")
+    require(min(cw_counts.values()) > 0, f"oracle_path never launched B.1: {cw_counts}")
+    require(cw_within <= 1.0, f"oracle_path: B.1 f64 vs the oracle catalog: {cw_within}")
+    require(f32_rel <= TOL[torch.float32], f"oracle_path: B.1 f32 vs the oracle: {f32_rel}")
+    require(memory <= 1.0 and burst <= 1.0 and transient <= 1.0 and transient_others_zero,
+            f"oracle_path memory / burst / transient: {memory} / {burst} / {transient}")
+    for run, r in gls.items():
+        require(max(r["post_rel_rms"]) < TOL_ORACLE_GLS and max(r["sigma_rel_max"]) < TOL_ORACLE_GLS
+                and all(r["padding_zero"]), f"oracle_path GLS {run}: {r}")
+        bias = [10 * B._RIDGE / lam for lam in r["lambda_min"]]
+        require(all(x <= b for x, b in zip(r["default_ridge_post_rel_rms"], bias))
+                and all(x <= b for x, b in zip(r["default_ridge_sigma_rel_max"], bias)),
+                f"oracle_path GLS {run}: the default ridge moves more than its bias: {r}")
+    require(all(gls_counts["banded"][k] > 0 for k in COV_KERNELS if k != "cov_syrk_update"),
+            f"oracle_path: the banded GLS refit missed B.4/B.5: {gls_counts['banded']}")
+    require(gls_counts["dense"]["cov_syrk_update"] > 0,
+            f"oracle_path: the dense GLS refit missed B.2: {gls_counts['dense']}")
+    require(all(written.values()), f"oracle_path: a written par lacks the fit: {written}")
+    return cw_counts, gls_counts
+
+
 NO_LIBRARY = "none: no single PyTorch call computes it"
 #: the instruction account is the CW kernel's (kernels/cw_study.py); the
 #: other kernels have none
@@ -2685,6 +3029,7 @@ def main():
     workdir = Path(tempfile.mkdtemp(prefix="chip_smoke_dataset_"))
     try:
         dataset_count, dataset_row = phase_dataset_path(workdir, smi)
+        oracle_cw_counts, oracle_gls_counts = phase_oracle_path(workdir, smi)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     phase_breakdown(batch, recipe, static, generator)
@@ -2749,6 +3094,8 @@ def main():
         "scenario_catalog": _width_row({**scenario_row, "library_ms": None}),
         "dataset_launches": dataset_count,
         "dataset_catalog": _width_row({**dataset_row, "library_ms": None}),
+        "oracle_launches": oracle_cw_counts["cw_catalog_response"],
+        "oracle_fold_launches": oracle_cw_counts["cw_fold_planes"],
     }, {
         "name": "fused_woodbury_update", "route": "cuda",
         "source": "pta_replicator_tpu_torch/csrc/fused_woodbury.cu",
@@ -2779,20 +3126,24 @@ def main():
         {**_cov_kernel_entry("cov_syrk_update", "pta_replicator_tpu_torch/csrc/cov_syrk.cu",
                              "pta_replicator_tpu/ops/pallas_cw.py:484", syrk_count,
                              cov_rows["cov_syrk_update", f64]),
-         "gls_fit_launches": fit_syrk_count},
+         "gls_fit_launches": fit_syrk_count,
+         "oracle_gls_launches": oracle_gls_counts["dense"]["cov_syrk_update"]},
         {**_cov_kernel_entry("tridiag_factor_solve_fwd", "pta_replicator_tpu_torch/csrc/block_tridiag.cu",
                              "pta_replicator_tpu/ops/pallas_gp.py:428",
                              tridiag_counts["tridiag_factor_solve_fwd"], cov_rows["factor", f64]),
-         "gls_fit_launches": fit_tridiag_counts["tridiag_factor_solve_fwd"]},
+         "gls_fit_launches": fit_tridiag_counts["tridiag_factor_solve_fwd"],
+         "oracle_gls_launches": oracle_gls_counts["banded"]["tridiag_factor_solve_fwd"]},
         {**_cov_kernel_entry("tridiag_solve_fwd", "pta_replicator_tpu_torch/csrc/block_tridiag.cu",
                              "pta_replicator_tpu/ops/pallas_gp.py:428",
                              tridiag_counts["tridiag_solve_fwd"], cov_rows["solve", f64]),
          "gls_fit_launches": fit_tridiag_counts["tridiag_solve_fwd"],
+         "oracle_gls_launches": oracle_gls_counts["banded"]["tridiag_solve_fwd"],
          "fit_widths": {str(q): _width_row(cov_rows["solve", f64, q]) for q in FIT_WIDTHS}},
         {**_cov_kernel_entry("tridiag_factor_solve_bwd", "pta_replicator_tpu_torch/csrc/block_tridiag.cu",
                              "pta_replicator_tpu/ops/pallas_gp.py:458",
                              tridiag_counts["tridiag_factor_solve_bwd"], cov_rows["backward", f64]),
          "gls_fit_launches": fit_tridiag_counts["tridiag_factor_solve_bwd"],
+         "oracle_gls_launches": oracle_gls_counts["banded"]["tridiag_factor_solve_bwd"],
          "fit_widths": {str(q): _width_row(cov_rows["backward", f64, q]) for q in FIT_WIDTHS}},
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {

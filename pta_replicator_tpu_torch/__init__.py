@@ -28,7 +28,16 @@ engine (``timing/``, ``simulate.py``, host numpy with longdouble epochs),
 frozen onto the card (:func:`freeze`), realized and refit with their full
 timing design (``timing/fit.py::design_tensor``), and written back out as
 datasets (``utils/export.py``), through ``python -m
-pta_replicator_tpu_torch info|realize``. The JAX
+pta_replicator_tpu_torch info|realize``; and the per-pulsar oracle path:
+the reference's mutate-and-ledger API (``add_measurement_noise``,
+``add_jitter``, ``add_red_noise``, ``add_chromatic_noise``, ``add_gwb``,
+``add_cgw``, ``add_catalog_of_cws``, ``add_burst``, ``add_gw_memory``,
+``add_noise_transient``, ``add_gwb_plus_outlier_cws``) in host float64
+numpy on numpy's legacy RNG in the reference's draw order, the refit
+``SimulatedPulsar.fit`` (WLS, or GLS weighted by the dense covariance of
+``timing/fit.py::covariance_from_recipe``) and ``to_enterprise``, which
+equals the JAX package's oracle bit for bit and against which the batched
+engine on the card is held. The JAX
 package stays the reference; this
 package imports nothing of it, and nothing of JAX.
 
@@ -36,16 +45,26 @@ Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
 """
 from .batch import PulsarBatch, freeze, synthetic_batch
 from .likelihood import FUSED_PRECISION_SITES, MapResult, PrecisionNotReady, map_fit, tuner
+from .models import (
+    add_burst, add_catalog_of_cws, add_cgw, add_chromatic_noise, add_gw_memory, add_gwb,
+    add_gwb_plus_outlier_cws, add_jitter, add_measurement_noise, add_noise_transient,
+    add_red_noise, population_recipe, split_population,
+)
 from .models.batched import Recipe, deterministic_delays, realize
 from .scenarios import ScenarioSpec, compile_spec, load_spec
 from .scenarios.compile import flagship_workload
 from .simulate import (
-    SimulatedPulsar, load_from_directories, load_pulsar, make_ideal, simulate_pulsar,
+    Residuals, SimulatedPulsar, load_from_directories, load_pulsar, make_ideal,
+    simulate_pulsar,
 )
 
 __all__ = [
     "FUSED_PRECISION_SITES", "MapResult", "PrecisionNotReady", "PulsarBatch", "Recipe",
-    "ScenarioSpec", "SimulatedPulsar", "compile_spec", "deterministic_delays",
-    "flagship_workload", "freeze", "load_from_directories", "load_pulsar", "load_spec",
-    "make_ideal", "map_fit", "realize", "simulate_pulsar", "synthetic_batch", "tuner",
+    "Residuals", "ScenarioSpec", "SimulatedPulsar", "add_burst", "add_catalog_of_cws",
+    "add_cgw", "add_chromatic_noise", "add_gw_memory", "add_gwb", "add_gwb_plus_outlier_cws",
+    "add_jitter", "add_measurement_noise", "add_noise_transient", "add_red_noise",
+    "compile_spec", "deterministic_delays", "flagship_workload", "freeze",
+    "load_from_directories", "load_pulsar", "load_spec", "make_ideal", "map_fit",
+    "population_recipe", "realize", "simulate_pulsar", "split_population",
+    "synthetic_batch", "tuner",
 ]

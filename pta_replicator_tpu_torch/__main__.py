@@ -32,8 +32,9 @@ of modules not ported yet exit non-zero before ingest: ``--sharded`` and
 ``run`` draws its realizations from the port's generators, seeded from the
 spec's ``realize`` family (``CompiledScenario.realize_seed``), so its
 residuals are the port's own, not the JAX package's. ``fuzz`` and
-``replay`` diff the batched engine against the numpy oracle path, which
-the port does not have yet (ROADMAP A.15, A.18): they exit non-zero.
+``replay`` diff the batched engine against the numpy oracle path through
+the differential fuzz harness, which is not ported yet (ROADMAP A.15):
+they exit non-zero.
 """
 from __future__ import annotations
 
@@ -149,8 +150,8 @@ def _run_scenario(args):
     if args.action in ("fuzz", "replay"):
         raise SystemExit(
             f"scenario {args.action}: not ported; it diffs the batched engine against "
-            "the numpy oracle path, which waits for ROADMAP A.15 (the fuzz harness) and "
-            "A.18 (the oracle path). Use `python -m pta_replicator_tpu scenario "
+            "the numpy oracle path through the differential fuzz harness, which waits "
+            "for ROADMAP A.15. Use `python -m pta_replicator_tpu scenario "
             f"{args.action}`."
         )
 

@@ -1,13 +1,17 @@
 """Realistic datasets from SMBHB populations: the loudest binaries as a CW
 catalog, the remainder as a free-spectrum GWB.
 
-Counterpart of ``split_population`` and ``population_recipe`` in
-``pta_replicator_tpu/models/population.py`` (the Becsy, Cornish & Kelley
-2022 method): the binning and the split are the same host numpy code, so
-their arrays are the JAX package's bit for bit; the recipe carries the
-remainder as a user GWB spectrum and the outliers as the CW catalog, the
-two paths the port already runs on the card (``models/gwb.py`` and the CW
-kernel through ``deterministic_delays``).
+Counterpart of ``pta_replicator_tpu/models/population.py`` (the Becsy,
+Cornish & Kelley 2022 method; reference analog ``add_gwb_plus_outlier_cws``,
+pta_replicator/deterministic.py:565-715): the binning and the split are
+the same host numpy code, so their arrays are the JAX package's bit for
+bit. Two entry points share them: :func:`add_gwb_plus_outlier_cws`, the
+per-pulsar oracle (one legacy-RNG stream drives the GWB draws and then the
+outliers' sky, phase and orientation draws), and :func:`population_recipe`,
+whose recipe carries the remainder as a user GWB spectrum and the outliers
+as the CW catalog, the two paths the batched engine runs on the card
+(``models/batched.py::gwb_delays`` and the CW kernel through
+``deterministic_delays``).
 """
 from __future__ import annotations
 
@@ -25,6 +29,8 @@ from ..utils.cosmology import (
     m1m2_from_mtmr,
 )
 from .batched import Recipe
+from .cgw import add_catalog_of_cws
+from .gwb import add_gwb
 
 
 @dataclass
@@ -105,6 +111,70 @@ def split_population(vals, weights, fobs, T_obs, outlier_per_bin: int = 100) -> 
         outlier_hs=np.asarray(out_hs),
         outlier_mc=np.asarray(out_mc),
         outlier_dl=np.asarray(out_dl),
+    )
+
+
+def _random_orientations(n):
+    """Sky positions, phases, polarizations, inclinations for outliers —
+    legacy global-RNG draws in the reference's order
+    (deterministic.py:696-700)."""
+    gwtheta = np.arccos(np.random.uniform(low=-1.0, high=1.0, size=n))
+    gwphi = np.random.uniform(low=0.0, high=2 * np.pi, size=n)
+    phase0 = np.random.uniform(low=0.0, high=2 * np.pi, size=n)
+    psi = np.random.uniform(low=0.0, high=np.pi, size=n)
+    inc = np.arccos(np.random.uniform(low=-1.0, high=1.0, size=n))
+    return gwtheta, gwphi, phase0, psi, inc
+
+
+def add_gwb_plus_outlier_cws(psrs, vals, weights, fobs, T_obs, outlier_per_bin: int = 100,
+                             seed: int = None, howml: float = 10,
+                             cw_tref_s: float = 53000 * 86400):
+    """Inject a population-derived dataset on the oracle path: the
+    free-spectrum GWB of the remainder, then the loudest binaries as one
+    CW catalog in every pulsar (pulsar term, chirping).
+
+    Returns the same tuple as the reference (deterministic.py:715):
+    (f_centers, free_spec, outlier_fo, outlier_hs, outlier_mc, outlier_dl,
+    gwthetas, gwphis, phases, psis, incs).
+    """
+    split = split_population(vals, weights, fobs, T_obs, outlier_per_bin)
+
+    add_gwb(psrs, None, None, userSpec=split.user_spectrum, howml=howml, seed=seed)
+
+    n_cw = split.outlier_fo.shape[0]
+    gwtheta, gwphi, phase0, psi, inc = _random_orientations(n_cw)
+
+    for psr in psrs:
+        add_catalog_of_cws(
+            psr,
+            gwtheta_list=gwtheta,
+            gwphi_list=gwphi,
+            mc_list=split.outlier_mc,
+            dist_list=split.outlier_dl,
+            fgw_list=split.outlier_fo,
+            phase0_list=phase0,
+            psi_list=psi,
+            inc_list=inc,
+            pdist=1.0,
+            pphase=None,
+            psrTerm=True,
+            evolve=True,
+            phase_approx=False,
+            tref=cw_tref_s,
+        )
+
+    return (
+        split.f_centers,
+        split.free_spec,
+        split.outlier_fo,
+        split.outlier_hs,
+        split.outlier_mc,
+        split.outlier_dl,
+        gwtheta,
+        gwphi,
+        phase0,
+        psi,
+        inc,
     )
 
 

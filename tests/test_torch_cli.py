@@ -106,8 +106,9 @@ def test_a_bad_spec_names_its_field(tmp_path):
 
 @pytest.mark.parametrize("action", ("fuzz", "replay"))
 def test_fuzz_and_replay_are_refused_naming_the_roadmap(spec_path, action):
-    with pytest.raises(SystemExit, match="A.15.*A.18"):
+    with pytest.raises(SystemExit, match=r"ROADMAP A\.15\.") as err:
         main(["scenario", action, spec_path])
+    assert "A.18" not in str(err.value)  # the oracle path is ported
 
 
 def test_no_card_is_an_error_not_a_fall_back_to_the_cpu(spec_path, monkeypatch):

@@ -50,12 +50,21 @@ def test_the_scan_covers_the_dataset_modules():
         assert f"pta_replicator_tpu_torch/{module}" in names
 
 
+def test_the_scan_covers_the_oracle_modules():
+    names = {p.relative_to(REPO).as_posix() for p in _port_sources()}
+    for module in ("models/__init__.py", "models/white_noise.py", "models/red_noise.py",
+                   "models/cgw.py", "models/bursts.py", "models/gwb.py",
+                   "models/population.py", "ops/fourier.py", "timing/fit.py", "simulate.py"):
+        assert f"pta_replicator_tpu_torch/{module}" in names
+
+
 def test_toa_epochs_never_pass_through_a_torch_tensor():
     """The modules that hold longdouble epochs import no torch; freeze
     (batch.py) and export take epochs to float64 or seconds first."""
     for module in ("io/par.py", "io/tim.py", "io/native.py", "timing/time_scales.py",
                    "timing/model.py", "timing/components.py", "timing/fit.py", "simulate.py",
-                   "ops/coords.py", "ops/quantize.py"):
+                   "ops/coords.py", "ops/quantize.py", "models/white_noise.py",
+                   "models/red_noise.py", "models/bursts.py"):
         tree = ast.parse((REPO / "pta_replicator_tpu_torch" / module).read_text())
         imported = {a.name.split(".")[0] for n in ast.walk(tree) if isinstance(n, ast.Import)
                     for a in n.names}

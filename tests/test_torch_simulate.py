@@ -4,8 +4,7 @@ deterministic order, equal to the serial load), ``make_ideal`` (TOAs and
 residuals bit for bit, residual RMS <= 1e-9 s, the JAX package's own
 bound), ``inject`` and the ledger, the ``write_partim`` round trip, and
 ``save_pulsar`` / ``load_pulsar_checkpoint`` with each package reading the
-other's file; the oracle's refit and ``to_enterprise`` refuse, naming
-ROADMAP A.18."""
+other's file; the oracle's refit and ``to_enterprise`` run."""
 import os
 
 import numpy as np
@@ -142,9 +141,22 @@ def test_pulsar_checkpoints_load_in_either_package(dirs, tmp_path, writer):
     assert got.par.lines == want.par.lines and got.model == convert.pulsar_from_jax(want).model
 
 
-def test_the_oracle_refit_and_enterprise_wait_for_a18(dirs):
+def test_the_oracle_refit_and_to_enterprise_run(dirs, monkeypatch):
+    """The refit runs and writes the fitted par (its parity with the JAX
+    package is tests/test_torch_oracle_fit.py's); ``to_enterprise`` hands a
+    written par/tim pair to ``enterprise.pulsar.Pulsar``."""
+    import sys
+    import types
+
     psr = tsim.load_pulsar(*_pairs(*dirs)[0])
-    with pytest.raises(NotImplementedError, match="A.18"):
-        psr.fit()
-    with pytest.raises(NotImplementedError, match="A.18"):
-        psr.to_enterprise()
+    tsim.make_ideal(psr)
+    psr.inject("red", {}, 1e-6 * np.sin(np.linspace(0.0, 9.0, psr.toas.ntoas)))
+    before = list(psr.par.lines)
+    psr.fit()
+    assert psr.par.lines != before and "F0" in psr.fit_uncertainties
+    sub = types.ModuleType("enterprise.pulsar")
+    sub.Pulsar = lambda par, tim, **kw: (os.path.basename(par), os.path.basename(tim), kw)
+    monkeypatch.setitem(sys.modules, "enterprise", types.ModuleType("enterprise"))
+    monkeypatch.setitem(sys.modules, "enterprise.pulsar", sub)
+    assert psr.to_enterprise() == (f"{psr.name}.par", f"{psr.name}.tim",
+                                   {"ephem": "DE440", "timing_package": "pint"})
