@@ -41,12 +41,24 @@ compile against the CPU compile bit for bit and B.1 at its catalog
 against the plain version, and runs the spec's sweep
 (`scenario_population`); the same spec goes through `python -m
 pta_replicator_tpu_torch scenario validate|compile|run` in subprocesses
-(`scenario_cli`). The dataset path writes an NG15-shaped par/tim dataset
+(`scenario_cli`). The differential fuzz harness runs the first 25
+generated scenarios (every family and structural variant, one sweep
+identity check) on the card against the host float64 oracle within the
+JAX package's per-family tolerances, then a planted ECORR defect that
+must be detected, shrunk to ECORR alone and replayed, and `scenario fuzz
+--fast` and `scenario replay` in subprocesses, and holds the card's
+families (B.1 among them) against the port's CPU run (`fuzz`). The
+dataset path writes an NG15-shaped par/tim dataset
 (68 pulsars, ragged to 7,758 TOAs), reads it through the native tim
 reader, idealizes, freezes and refits it with its real timing design
 (quadratic, WLS, GLS), holds B.1 at its shape against the plain version,
 and runs `python -m pta_replicator_tpu_torch info|realize` on it, with
-datasets written back out (`dataset_path`). The per-pulsar oracle path
+datasets written back out (`dataset_path`); `python -m
+pta_replicator_tpu_torch likelihood` prices that CLI's 400-realization
+bank over an 8 x 8 grid, with a MAP fit and 32 served requests, against
+the in-process call (`likelihood_cli`), then a synthetic flagship-shaped
+bank its noise model describes, whose MAP must find the injected GWB
+amplitude within 5 sigma (`likelihood_cli_truth`). The per-pulsar oracle path
 runs the reference's regression recipe and every other `add_*` operator
 on the same 68 pulsars in host float64 numpy, gates the ledger's
 decomposition, and holds the card's batched engine against it: B.1 on
@@ -84,7 +96,8 @@ from pta_replicator_tpu_torch.models import batched as B
 from pta_replicator_tpu_torch.obs import numerics
 from pta_replicator_tpu_torch.ops import cw
 from pta_replicator_tpu_torch.ops import gp as ops_gp
-from pta_replicator_tpu_torch.scenarios import compile_spec, load_spec
+from pta_replicator_tpu_torch.scenarios import compile_spec, load_spec, sample_spec
+from pta_replicator_tpu_torch.scenarios import spec_families
 from pta_replicator_tpu_torch.scenarios import compile as scenario_compile
 from pta_replicator_tpu_torch.scenarios.compile import deterministic_families
 from pta_replicator_tpu_torch.utils import sweep as sweep_mod
@@ -214,6 +227,47 @@ DATASET_SMALL_CHUNK, DATASET_SMALL_NREAL, DATASET_CARD_VS_CPU_PSRS = 2, 8, 6
 #: tests/test_simulate.py), and dataset r's residualized TOA shift against
 #: cube row r's pre-fit delays [s] (tests/test_cli.py)
 TOL_IDEAL_RMS_S, TOL_SHIFT_S = 1e-9, 5e-9
+
+#: the differential fuzz harness: every signal family and structural
+#: variant a run must exercise (``spec_families`` tokens; the JAX
+#: package's bench list, benchmarks/scenario_fuzz.py:59-69); the first
+#: fuzz_cover_n() generated scenarios at root 0 cover them and hold a
+#: sweep-identity check (found from the specs, capped at FUZZ_CAP); the
+#: sweep identity on every 4th; the card against the port's own CPU run
+#: (each kernel against its plain version) over the first
+#: FUZZ_CARD_VS_CPU of them under the same draws; the planted defect of
+#: the JAX package's bench (6 scenarios at root 5)
+REQUIRED_COVERAGE = (
+    "white", "ecorr", "red", "chromatic",
+    "gwb_powerlaw", "gwb_turnover", "gwb_freespec",
+    "orf_hd", "orf_none", "orf_aniso",
+    "cw", "cw_streamed", "population_cw",
+    "burst", "memory", "transient", "glitch",
+    "cov_banded", "cov_kron", "cov_dense",
+)
+FUZZ_CAP, FUZZ_SWEEP_EVERY, FUZZ_CARD_VS_CPU = 200, 4, 8
+FUZZ_PLANTED = dict(n=6, root_seed=5, perturb={"family": "ecorr", "scale": 1.01})
+#: the likelihood CLI: two 8-point GWB axes and one MAP field, its grid
+#: against the in-process call on the same bank; on the dataset path's
+#: checkpointed full-fit bank (400 x 68 x 7,758) also 32 served requests
+LIKELIHOOD_CLI_GRID = ("gwb_log10_amplitude=-14.6:-13.4:8", "gwb_gamma=3.5:5.0:8")
+LIKELIHOOD_CLI_MAP, LIKELIHOOD_CLI_SERVE = "gwb_log10_amplitude=-14.2", 32
+TOL_LIKELIHOOD_CLI = 1e-12
+#: the likelihood CLI's truth arm, on a bank its noise model describes
+#: (the dataset bank's is not: the CLI prices without a design, as the
+#: JAX CLI does, so the weighted mean that realize() removes, the refit
+#: and the CW catalog are outside the model, and with spans of 8 to 16 of
+#: the array's 16 years so is the GWB's power below each pulsar's 1/T):
+#: the synthetic flagship-shaped batch (every pulsar spans the 16 years),
+#: ng15_like_recipe without its CW catalog, the GWB without
+#: cross-correlations and without power below 1/T (orf "none", gwb_howml
+#: 1) on a synthesis grid of 4,800 points (~1.2 days; the default 600's
+#: ~9.7-day grid reads as excess GWB power, ROADMAP C.11), its summed
+#: stochastic delays (realization_delays: nothing fitted or removed) from
+#: a seed. The MAP must land within 5 of its Fisher sigmas of the
+#: injected log10 A, inside the grid
+LIKELIHOOD_TRUTH_NPTS = 4800
+LIKELIHOOD_TRUTH_NREAL, LIKELIHOOD_TRUTH_SEED, TOL_LIKELIHOOD_TRUTH_SIGMAS = 100, 7, 5.0
 
 #: the per-pulsar oracle path (phase oracle_path), on the dataset path's 68
 #: pulsars: the reference's regression recipe (tests/test_parity_libstempo.py:
@@ -1064,8 +1118,8 @@ def phase_likelihood_server(bank, batch, recipe, design, ll):
     row = dict(requests=SERVER_REQUESTS, max_batch=SERVER_BATCH, setup_s=setup_s,
                rel_vs_bank=rel, tol=TOL_LIKELIHOOD, batches=stats["batches"],
                coalesce_efficiency=stats["coalesce_efficiency"],
-               latency_p50_ms=stats["latency_s"]["p50"] * 1e3,
-               latency_p99_ms=stats["latency_s"]["p99"] * 1e3,
+               latency_p50_ms=stats["latency"]["p50"] * 1e3,
+               latency_p99_ms=stats["latency"]["p99"] * 1e3,
                evals_per_s=stats["evals_per_s"], requests_per_s=stats["requests_per_s"])
     emit("likelihood_server", **row)
     require(rel <= TOL_LIKELIHOOD and stats["requests"] == SERVER_REQUESTS,
@@ -1318,8 +1372,8 @@ def _serve(bank, batch, recipe, design, grid, ll):
     n = len(grid[axes[0]])
     rel = max(float(np.max(np.abs(rows[i] - ll[i % n].numpy()) / np.abs(ll[i % n].numpy())))
               for i in range(SERVER_REQUESTS))
-    return dict(server_rel_vs_bank=rel, server_p50_ms=stats["latency_s"]["p50"] * 1e3,
-                server_p99_ms=stats["latency_s"]["p99"] * 1e3, server_batches=stats["batches"])
+    return dict(server_rel_vs_bank=rel, server_p50_ms=stats["latency"]["p50"] * 1e3,
+                server_p99_ms=stats["latency"]["p99"] * 1e3, server_batches=stats["batches"])
 
 
 def phase_covariance_banded(batch32, recipe32, static, generator):
@@ -2318,19 +2372,24 @@ def phase_scenario_population(workdir):
     return counts["cw_catalog_response"], rows[torch.float32], compiled
 
 
+def _module_cli(*args, timeout=600):
+    """``python -m pta_replicator_tpu_torch ARGS`` in a fresh interpreter
+    on the card: (exit code, stdout, stderr, host seconds)."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "pta_replicator_tpu_torch", *args],
+                          cwd=str(Path(__file__).resolve().parent), capture_output=True,
+                          text=True, timeout=timeout)
+    return proc.returncode, proc.stdout, proc.stderr, time.perf_counter() - t0
+
+
 def _cli(*args, expect_ok=True):
     """One ``python -m pta_replicator_tpu_torch scenario ...`` in a fresh
     interpreter on the card: (exit code, parsed JSON summary or None,
     stderr tail, host seconds)."""
-    t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, "-m", "pta_replicator_tpu_torch", "scenario", *args],
-                          cwd=str(Path(__file__).resolve().parent), capture_output=True,
-                          text=True, timeout=600)
-    seconds = time.perf_counter() - t0
-    summary = json.loads(proc.stdout.strip().splitlines()[-1]) if proc.returncode == 0 else None
-    require(expect_ok == (proc.returncode == 0),
-            f"scenario {args[0]} exit {proc.returncode}: {proc.stderr[-2000:]}")
-    return proc.returncode, summary, proc.stderr[-400:], seconds
+    code, out, err, seconds = _module_cli("scenario", *args)
+    summary = json.loads(out.strip().splitlines()[-1]) if code == 0 else None
+    require(expect_ok == (code == 0), f"scenario {args[0]} exit {code}: {err[-2000:]}")
+    return code, summary, err[-400:], seconds
 
 
 #: the JAX CLI's JSON summary keys of each action (``pta_replicator_tpu/
@@ -2402,15 +2461,10 @@ def _dataset_cli(*args, expect_ok=True):
     """One ``python -m pta_replicator_tpu_torch info|realize ...`` in a
     fresh interpreter on the card: (exit code, parsed JSON summary or None,
     host seconds)."""
-    t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, "-m", "pta_replicator_tpu_torch", *args],
-                          cwd=str(Path(__file__).resolve().parent), capture_output=True,
-                          text=True, timeout=900)
-    seconds = time.perf_counter() - t0
-    require(expect_ok == (proc.returncode == 0),
-            f"{args[0]} exit {proc.returncode}: {proc.stderr[-3000:]}")
-    summary = json.loads(proc.stdout.strip().splitlines()[-1]) if proc.returncode == 0 else None
-    return proc.returncode, summary, seconds
+    code, out, err, seconds = _module_cli(*args, timeout=900)
+    require(expect_ok == (code == 0), f"{args[0]} exit {code}: {err[-3000:]}")
+    summary = json.loads(out.strip().splitlines()[-1]) if code == 0 else None
+    return code, summary, seconds
 
 
 def _shift_rows(psrs, rdir):
@@ -2673,6 +2727,339 @@ def phase_dataset_path(workdir, smi):
     del static, batch, batch_cpu, recipe, recipes, design_card
     torch.cuda.empty_cache()
     return counts["cw_catalog_response"], cw_rows[torch.float32]
+
+
+def fuzz_cover_n():
+    """The smallest n whose specs ``sample_spec(0, 0..n-1)`` carry every
+    token of REQUIRED_COVERAGE (``spec_families``) and hold a scenario the
+    sweep-identity arm checks (a sweep plan at an index divisible by
+    FUZZ_SWEEP_EVERY); no compile, no run. FUZZ_CAP when no n below it
+    does."""
+    missing, checked = set(REQUIRED_COVERAGE), False
+    for i in range(FUZZ_CAP):
+        spec = sample_spec(0, i)
+        missing -= set(spec_families(spec))
+        checked = checked or (spec.sweep is not None and i % FUZZ_SWEEP_EVERY == 0)
+        if not missing and checked:
+            return i + 1
+    return FUZZ_CAP
+
+
+def _fuzz_card_vs_cpu(fz, n):
+    """The batched families of the first ``n`` scenarios at root 0 on the
+    card against the same on the CPU, where each wrapper runs its kernel's
+    plain version, under the CPU's draws copied to the card: the largest
+    relative deviation per family (``fuzz._rel``)."""
+    worst = {}
+    for i in range(n):
+        spec = sample_spec(0, i)
+        cpu = compile_spec(spec, validate=False, device="cpu")
+        card = compile_spec(spec, validate=False, device="cuda")
+        draws = fz.realization_draws(cpu)
+        want = fz.batched_family_delays(cpu, draws)
+        got = fz.batched_family_delays(card, {k: v.to("cuda") for k, v in draws.items()})
+        for fam in want:
+            worst[fam] = max(worst.get(fam, 0.0), fz._rel(got[fam], want[fam]))
+    return worst
+
+
+def phase_fuzz(workdir):
+    """The differential fuzz harness on the card, through its entry point:
+    ``fuzz(n, root_seed=0, sweep_every=4)``, n from fuzz_cover_n(), with
+    the launch counts cleared before and read after; then the
+    planted-defect arm (ECORR scaled by 1.01 in 6 scenarios at root 5,
+    shrunk, written and replayed without the defect); then ``scenario fuzz
+    --fast`` and ``scenario replay`` of a minimal spec, each in a fresh
+    interpreter; then the card's batched families against the port's CPU
+    run over the first 8 scenarios under the same draws (B.1 against its
+    plain version at the generator's shapes: scenario 0's catalog on the
+    accumulating launch in tiles of two sources, scenarios 1, 3, 5 and 7's
+    in one), the counts cleared before and read after. Gates: agreement
+    1.0 with every family within the unchanged FAMILY_TOLERANCES; every
+    sweep-identity check bit-identical (cube and checkpoint bytes); the
+    coverage complete; B.1's response, fold and accumulating launches each
+    > 0; every spec with ECORR detected, each minimal spec's families
+    ("ecorr",), each written, replayed, and agreeing without the defect;
+    both CLI calls exit 0; card against CPU within FAMILY_TOLERANCES (B.1's
+    cw family within 3e-3, TOL[float32]), with B.1's response and
+    accumulating launches > 0."""
+    from pta_replicator_tpu_torch.scenarios import fuzz as fz
+
+    n_cover = fuzz_cover_n()
+    torch.cuda.synchronize()
+    launches.clear()
+    report = fz.fuzz(n_cover, root_seed=0, sweep_every=FUZZ_SWEEP_EVERY, device="cuda")
+    torch.cuda.synchronize()
+    counts = dict(launches)
+
+    planted_dir = workdir / "planted"
+    planted = fz.fuzz(FUZZ_PLANTED["n"], root_seed=FUZZ_PLANTED["root_seed"],
+                      out_dir=str(planted_dir), perturb=FUZZ_PLANTED["perturb"],
+                      device="cuda")
+    with_ecorr = [i for i in range(FUZZ_PLANTED["n"])
+                  if sample_spec(FUZZ_PLANTED["root_seed"], i).ecorr is not None]
+    replays = {f["index"]: fz.replay(f["replay_file"], device="cuda").agree
+               for f in planted["failures"] if "replay_file" in f}
+
+    cli = {}
+    cli["fuzz_fast"] = _module_cli("scenario", "fuzz", "--fast", "--out-dir",
+                                   str(workdir / "cli_failures"))
+    replay_file = planted["failures"][0]["replay_file"] if planted["failures"] else None
+    cli["replay"] = (_module_cli("scenario", "replay", replay_file) if replay_file
+                     else (None, "", "no minimal spec to replay", 0.0))
+    fast = json.loads(cli["fuzz_fast"][1]) if cli["fuzz_fast"][0] == 0 else {}
+    torch.cuda.synchronize()
+    launches.clear()
+    card_vs_cpu = _fuzz_card_vs_cpu(fz, min(FUZZ_CARD_VS_CPU, n_cover))
+    torch.cuda.synchronize()
+    card_vs_cpu_launches = dict(launches)
+
+    over = {fam: rel for fam, rel in report["max_rel_by_family"].items()
+            if rel > fz.FAMILY_TOLERANCES[fam]}
+    over_cpu = {fam: rel for fam, rel in card_vs_cpu.items()
+                if rel > fz.FAMILY_TOLERANCES[fam]}
+    missing = sorted(set(REQUIRED_COVERAGE) - set(report["coverage"]))
+    row = dict(
+        n_cover=n_cover, cap=FUZZ_CAP, scenarios_per_s=report["scenarios_per_s"],
+        elapsed_s=report["elapsed_s"], agreement_rate=report["agreement_rate"],
+        max_rel_by_family=report["max_rel_by_family"], tolerances=report["tolerances"],
+        families_over_tolerance=over, coverage=report["coverage"],
+        coverage_missing=missing, combo_histogram_size=report["combo_histogram_size"],
+        sweep_identity=report["sweep_identity"], launches=counts,
+        failures=report["failures"],
+        planted=dict(n_scenarios=planted["n_scenarios"], with_ecorr=with_ecorr,
+                     detected=[f["index"] for f in planted["failures"]],
+                     minimal_families=[f["minimal_families"] for f in planted["failures"]],
+                     minimal_spec_hashes=[f["minimal_spec_hash"] for f in planted["failures"]],
+                     shrink_steps=[f["shrink_steps"] for f in planted["failures"]],
+                     replayed_agree=replays, elapsed_s=planted["elapsed_s"]),
+        cli={name: dict(exit=c[0], seconds=c[3], stderr_tail=c[2].strip()[-300:])
+             for name, c in cli.items()},
+        cli_fast=dict(n_scenarios=fast.get("n_scenarios"),
+                      agreement_rate=fast.get("agreement_rate"),
+                      scenarios_per_s=fast.get("scenarios_per_s")),
+        card_vs_cpu_first=min(FUZZ_CARD_VS_CPU, n_cover), card_vs_cpu=card_vs_cpu,
+        card_vs_cpu_over=over_cpu, card_vs_cpu_launches=card_vs_cpu_launches,
+    )
+    emit("fuzz", **row)
+    require(n_cover < FUZZ_CAP, f"fuzz: no n below {FUZZ_CAP} covers every token")
+    require(report["agreement_rate"] == 1.0 and not report["failures"],
+            f"fuzz: disagreements on the card: {report['failures']}")
+    require(not over, f"fuzz: families over their tolerance on the card: {over}")
+    require(report["sweep_identity"]["checked"] > 0
+            and report["sweep_identity"]["all_bit_identical"] is True,
+            f"fuzz: sweep identity: {report['sweep_identity']}")
+    require(not missing, f"fuzz: coverage misses {missing}")
+    require(all(counts.get(k, 0) > 0 for k in
+                ("cw_catalog_response", "cw_fold_planes", "cw_catalog_accumulate")),
+            f"fuzz: B.1 not launched on every route: {counts}")
+    require(with_ecorr and [f["index"] for f in planted["failures"]] == with_ecorr,
+            f"fuzz planted: detected {row['planted']['detected']}, ECORR in {with_ecorr}")
+    require(all(f["minimal_families"] == ["ecorr"] for f in planted["failures"]),
+            f"fuzz planted: minimal families {row['planted']['minimal_families']}")
+    require(len(replays) == len(planted["failures"]) and all(replays.values()),
+            f"fuzz planted: replays {replays}")
+    require(cli["fuzz_fast"][0] == 0 and fast.get("agreement_rate") == 1.0,
+            f"scenario fuzz --fast: {row['cli']['fuzz_fast']}")
+    require(cli["replay"][0] == 0, f"scenario replay: {row['cli']['replay']}")
+    require("cw" in card_vs_cpu and not over_cpu,
+            f"fuzz card vs CPU: over {over_cpu} of {card_vs_cpu}")
+    require(all(card_vs_cpu_launches.get(k, 0) > 0 for k in
+                ("cw_catalog_response", "cw_catalog_accumulate")),
+            f"fuzz card vs CPU: B.1 not launched on both routes: {card_vs_cpu_launches}")
+    return counts
+
+
+def _likelihood_by_cli(workdir, name, dataset, extra=()):
+    """``python -m pta_replicator_tpu_torch likelihood`` in a fresh
+    interpreter on the card, over LIKELIHOOD_CLI_GRID with the MAP field
+    LIKELIHOOD_CLI_MAP (on bank row 0): (its JSON result, host seconds)."""
+    out = workdir / f"{name}.json"
+    args = ["likelihood", *dataset]
+    for axis in LIKELIHOOD_CLI_GRID:
+        args += ["--grid", axis]
+    args += ["--map", LIKELIHOOD_CLI_MAP, *extra, "--out", str(out)]
+    code, _, stderr, seconds = _module_cli(*args, timeout=900)
+    require(code == 0, f"likelihood CLI ({name}) exit {code}: {stderr[-3000:]}")
+    return json.loads(out.read_text()), seconds
+
+
+def _likelihood_in_process(result, bank, batch, recipe):
+    """The CLI's grid against ``bank_loglikelihood`` in process on the same
+    bank: (the largest deviation of the means relative to the largest
+    mean, over the points finite in both; whether the same points are
+    NaN, float32's S losing definiteness at some (``likelihood_float32``);
+    the in-process best index, by ``np.argmax`` as the CLI takes it;
+    seconds)."""
+    from pta_replicator_tpu_torch.__main__ import _axis_specs
+
+    grid, _ = lk.grid_cartesian(_axis_specs(LIKELIHOOD_CLI_GRID, "grid"))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ll = lk.bank_loglikelihood(bank, batch, recipe, grid=grid, device=batch.device)
+    mean = ll.cpu().numpy().mean(axis=1)
+    seconds = time.perf_counter() - t0
+    got = np.array(result["grid"]["loglikelihood_mean"])
+    finite = np.isfinite(got) & np.isfinite(mean)
+    rel = (float(np.abs(got - mean)[finite].max() / np.abs(mean[finite]).max())
+           if finite.any() else float("nan"))
+    same_nan = bool(np.array_equal(np.isnan(got), np.isnan(mean)))
+    return rel, same_nan, int(np.argmax(mean)), seconds
+
+
+def _require_cli_grid(name, result, rel, same_nan, best):
+    """The gates both arms share: the CLI's grid = the in-process one, its
+    MAP converged and finite."""
+    require(rel <= TOL_LIKELIHOOD_CLI and same_nan and result["grid"]["best"]["index"] == best,
+            f"likelihood CLI ({name}) grid vs in process: {rel}, NaN at the same points "
+            f"{same_nan}, best {result['grid']['best']['index']} vs {best}")
+    require(result["map"]["converged"] and np.all(np.isfinite(result["map"]["x"]))
+            and np.all(np.isfinite(result["map"]["sigma"])),
+            f"likelihood CLI ({name}) MAP: {result['map']}")
+
+
+def phase_likelihood_cli(workdir):
+    """``python -m pta_replicator_tpu_torch likelihood`` in fresh
+    interpreters on the card, priced unfused and without a design (the JAX
+    CLI's route) in torch's default float32, each grid against
+    ``bank_loglikelihood`` in process on the same bank. (1) The bank the
+    dataset path's CLI ``realize --full-fit --checkpoint`` wrote (400
+    realizations at the full 68-pulsar width, in chunks of 200) with its
+    par/tim and recipe: two 8-point GWB axes, a MAP fit of the GWB
+    amplitude on row 0, and 32 served requests from 4 clients; in process
+    the same ingest, freeze and recipe (the set-up, timed). Its MAP is no
+    truth check: the model leaves out what the bank holds (the removed
+    mean, the refit, the CW catalog, the GWB's power below 1/T). (2) The
+    truth arm: a bank its noise model describes (see
+    LIKELIHOOD_TRUTH_NREAL), drawn on the card and saved as .npy, through
+    ``--synthetic 68x7758``: the same grid and MAP field, and the MAP of
+    row 0 again on the CPU (float64 inside map_fit, as on the card; the
+    CPU tests hold it to the JAX CLI's).
+    Gates: exit 0; grid means within 1e-12 relative of the in-process
+    call's where finite, NaN at the same points (float32's S can lose
+    definiteness), the same best point; the MAP converged and finite; (1)
+    every request answered, with no failures; (2) the MAP inside the
+    grid's amplitude span and within TOL_LIKELIHOOD_TRUTH_SIGMAS Fisher
+    sigmas of the injected log10 A, the grid's best finite amplitude off
+    the span's edges, and the card's MAP x and sigma within
+    TOL_MAP_CARD_VS_CPU of the CPU's in as many iterations."""
+    from pta_replicator_tpu_torch.__main__ import _build_recipe
+    from pta_replicator_tpu_torch.batch import freeze
+    from pta_replicator_tpu_torch.simulate import load_from_directories, make_ideal
+
+    recipe_path = workdir / "recipe.json"
+    result, seconds = _likelihood_by_cli(
+        workdir, "likelihood",
+        ["--bank", str(workdir / "cli_ck.npz"), "--recipe", str(recipe_path),
+         "--pardir", str(workdir / "par"), "--timdir", str(workdir / "tim")],
+        ["--serve", str(LIKELIHOOD_CLI_SERVE)])
+    t0 = time.perf_counter()
+    psrs = load_from_directories(str(workdir / "par"), str(workdir / "tim"))
+    for p in psrs:
+        make_ideal(p)
+    batch = freeze(psrs, dtype=torch.get_default_dtype(), device="cuda")
+    recipe = _build_recipe(json.loads(recipe_path.read_text()), psrs).to("cuda")
+    bank = lk.RealizationBank.from_checkpoint(str(workdir / "cli_ck.npz"))
+    setup_s = time.perf_counter() - t0
+    rel, same_nan, best, grid_s = _likelihood_in_process(result, bank, batch, recipe)
+    serve = result["serve"]
+    row = dict(
+        bank_shape=[bank.nreal, *bank.shape[1:]], dtype=str(batch.dtype),
+        grid_shape=result["grid"]["shape"], cli_s=seconds, in_process_setup_s=setup_s,
+        in_process_grid_s=grid_s, grid_rel_vs_in_process=rel, tol=TOL_LIKELIHOOD_CLI,
+        grid_nan_at_same_points=same_nan,
+        grid_finite_share=float(np.isfinite(result["grid"]["loglikelihood_mean"]).mean()),
+        best=result["grid"]["best"], best_in_process=best, map=result["map"],
+        serve={k: serve[k] for k in ("requests", "batches", "coalesce_efficiency",
+                                     "evals_per_s", "requests_per_s", "rejected",
+                                     "deadline_expired", "latency")},
+        serve_p50_ms=serve["latency"].get("p50", float("nan")) * 1e3,
+        serve_p99_ms=serve["latency"].get("p99", float("nan")) * 1e3,
+        serve_failures=serve.get("failures", []),
+    )
+    emit("likelihood_cli", **row)
+    _require_cli_grid("dataset", result, rel, same_nan, best)
+    require(serve["requests"] == LIKELIHOOD_CLI_SERVE and not row["serve_failures"],
+            f"likelihood CLI serve: {row['serve']}, failures {row['serve_failures']}")
+    del batch, recipe, bank
+    _likelihood_cli_truth(workdir)
+
+
+def _likelihood_cli_truth(workdir):
+    """phase_likelihood_cli's truth arm (2), its row ``likelihood_cli_truth``;
+    beside it, ungated, the MAP of row 0 through realize()'s tail (the
+    weighted mean removed) and of a row drawn on the default 600-point
+    synthesis grid, each priced as the CLI prices (ROADMAP C.11)."""
+    from pta_replicator_tpu_torch.__main__ import _axis_specs, _build_recipe
+    from pta_replicator_tpu_torch.batch import synthetic_batch
+    from pta_replicator_tpu_torch.utils.fabricate import ng15_like_recipe
+
+    npsr, ntoa = FLAGSHIP["npsr"], FLAGSHIP["ntoa"]
+    spec = {k: v for k, v in ng15_like_recipe(npsr).items() if not k.startswith("cgw_")}
+    spec.update(orf="none", gwb_howml=1.0)
+    coarse = _build_recipe(spec, None).to("cuda")  # the default synthesis grid
+    spec["gwb_npts"] = LIKELIHOOD_TRUTH_NPTS
+    truth_path, bank_path = workdir / "truth_recipe.json", workdir / "truth_bank.npy"
+    truth_path.write_text(json.dumps(spec))
+    batch = synthetic_batch(npsr=npsr, ntoa=ntoa, seed=0, dtype=torch.get_default_dtype())
+    recipe = _build_recipe(json.loads(truth_path.read_text()), None).to("cuda")
+    draw = lambda r, n: B.draw_noise(
+        torch.Generator(device="cuda").manual_seed(LIKELIHOOD_TRUTH_SEED), batch, r, n)
+    delays = B.realization_delays(batch, recipe, draw(recipe, LIKELIHOOD_TRUTH_NREAL))
+    np.save(bank_path, delays.cpu().numpy())
+    # C.11's two parts on row 0, reported: realize()'s tail (the weighted
+    # mean removed), and the default synthesis grid
+    start = _axis_specs([LIKELIHOOD_CLI_MAP], "map")
+    c11 = {"residualized": lk.map_fit(B.finalize_residuals(delays[:1], batch, recipe, False)[0],
+                                      batch, recipe, start),
+           "default_grid": lk.map_fit(B.realization_delays(batch, coarse, draw(coarse, 1))[0],
+                                      batch, coarse, start)}
+    del delays, coarse
+    result, seconds = _likelihood_by_cli(
+        workdir, "likelihood_truth",
+        ["--bank", str(bank_path), "--recipe", str(truth_path), "--synthetic", f"{npsr}x{ntoa}"])
+    bank = lk.RealizationBank.from_array(np.load(bank_path))
+    rel, same_nan, best, grid_s = _likelihood_in_process(result, bank, batch, recipe)
+    t0 = time.perf_counter()
+    ref = lk.map_fit(bank.row(0), batch.to("cpu"), recipe.to("cpu"), start, device="cpu")
+    cpu_map_s = time.perf_counter() - t0
+    amplitude = _axis_specs(LIKELIHOOD_CLI_GRID, "grid")["gwb_log10_amplitude"]
+    lo, hi = float(amplitude.min()), float(amplitude.max())
+    x, sigma = result["map"]["x"][0], result["map"]["sigma"][0]
+    injected = spec["gwb_log10_amplitude"]
+    means = np.array(result["grid"]["loglikelihood_mean"])
+    grid, _ = lk.grid_cartesian(_axis_specs(LIKELIHOOD_CLI_GRID, "grid"))
+    finite_best = int(np.nanargmax(means))
+    best_amplitude = float(grid["gwb_log10_amplitude"][finite_best])
+    row = dict(
+        bank_shape=[bank.nreal, *bank.shape[1:]], dtype=str(batch.dtype), cli_s=seconds,
+        in_process_grid_s=grid_s, grid_rel_vs_in_process=rel, tol=TOL_LIKELIHOOD_CLI,
+        grid_nan_at_same_points=same_nan, grid_finite_share=float(np.isfinite(means).mean()),
+        best=result["grid"]["best"], best_in_process=best,
+        best_finite={"index": finite_best, **{k: float(v[finite_best]) for k, v in grid.items()}},
+        map=result["map"],
+        injected_log10_amplitude=injected, map_minus_injected_dex=x - injected,
+        map_minus_injected_sigmas=(x - injected) / sigma,
+        tol_sigmas=TOL_LIKELIHOOD_TRUTH_SIGMAS, grid_amplitude_span=[lo, hi],
+        cpu_map=ref.as_dict(), cpu_map_s=cpu_map_s,
+        map_rel_x_vs_cpu=abs(x - ref.x[0]) / abs(ref.x[0]),
+        map_rel_sigma_vs_cpu=abs(sigma - ref.sigma[0]) / abs(ref.sigma[0]),
+        tol_map_vs_cpu=TOL_MAP_CARD_VS_CPU,
+        c11={k: dict(map=m.as_dict(), minus_injected_dex=float(m.x[0]) - injected,
+                     minus_injected_sigmas=(float(m.x[0]) - injected) / float(m.sigma[0]))
+             for k, m in c11.items()},
+    )
+    emit("likelihood_cli_truth", **row)
+    _require_cli_grid("truth", result, rel, same_nan, best)
+    require(result["map"]["iterations"] == ref.iterations and ref.converged
+            and max(row["map_rel_x_vs_cpu"], row["map_rel_sigma_vs_cpu"]) <= TOL_MAP_CARD_VS_CPU,
+            f"likelihood CLI truth: the card's MAP against the CPU's: {row}")
+    require(lo < x < hi and abs(x - injected) <= TOL_LIKELIHOOD_TRUTH_SIGMAS * sigma,
+            f"likelihood CLI truth: MAP {x} +- {sigma} against the injected {injected}: {row}")
+    require(lo < best_amplitude < hi,
+            f"likelihood CLI truth: the grid's best finite amplitude {best_amplitude} on its edge")
+    del batch, recipe, bank
+    torch.cuda.empty_cache()
 
 
 def _within(got, want, rtol, atol):
@@ -2996,9 +3383,10 @@ def _width_row(row):
                                 "library_ms")}
 
 
-def _cov_kernel_entry(name, source, replaces, launches_, row):
+def _cov_kernel_entry(name, source, replaces, launches_, row, fuzz_launches):
     entry = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
-             "launches": launches_, "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+             "launches": launches_, "fuzz_launches": fuzz_launches,
+             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
              "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
              "bound_by": row["bound_by"], "library_ms": row["library_ms"],
              **NO_ISSUE_ACCOUNT}
@@ -3026,9 +3414,15 @@ def main():
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     del compiled
+    workdir = Path(tempfile.mkdtemp(prefix="chip_smoke_fuzz_"))
+    try:
+        fuzz_counts = phase_fuzz(workdir)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
     workdir = Path(tempfile.mkdtemp(prefix="chip_smoke_dataset_"))
     try:
         dataset_count, dataset_row = phase_dataset_path(workdir, smi)
+        phase_likelihood_cli(workdir)
         oracle_cw_counts, oracle_gls_counts = phase_oracle_path(workdir, smi)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
@@ -3096,6 +3490,9 @@ def main():
         "dataset_catalog": _width_row({**dataset_row, "library_ms": None}),
         "oracle_launches": oracle_cw_counts["cw_catalog_response"],
         "oracle_fold_launches": oracle_cw_counts["cw_fold_planes"],
+        "fuzz_launches": fuzz_counts.get("cw_catalog_response", 0),
+        "fuzz_fold_launches": fuzz_counts.get("cw_fold_planes", 0),
+        "fuzz_accumulate_launches": fuzz_counts.get("cw_catalog_accumulate", 0),
     }, {
         "name": "fused_woodbury_update", "route": "cuda",
         "source": "pta_replicator_tpu_torch/csrc/fused_woodbury.cu",
@@ -3105,6 +3502,7 @@ def main():
         "bound_ms": woodbury_row["bound_ms"], "bound_by": woodbury_row["bound_by"],
         "library_ms": woodbury_row["library_ms"], **NO_ISSUE_ACCOUNT,
         "gls_bank_launches": gls_bank_count, "gls_bank_q286": _width_row(gls_bank_row),
+        "fuzz_launches": fuzz_counts.get("fused_woodbury_update", 0),
     }, {
         "name": "fused_woodbury_update_bf16", "route": "cuda",
         "source": "pta_replicator_tpu_torch/csrc/fused_woodbury.cu",
@@ -3122,26 +3520,31 @@ def main():
         "gls_bank_q286": {**_width_row(gls_bank_bf16_row),
                           "library_convert_ms": gls_bank_bf16_row["library_convert_ms"],
                           "plan": gls_bank_bf16_row["plan"]},
+        "fuzz_launches": fuzz_counts.get("fused_woodbury_update_bf16", 0),
     },
         {**_cov_kernel_entry("cov_syrk_update", "pta_replicator_tpu_torch/csrc/cov_syrk.cu",
                              "pta_replicator_tpu/ops/pallas_cw.py:484", syrk_count,
-                             cov_rows["cov_syrk_update", f64]),
+                             cov_rows["cov_syrk_update", f64],
+                             fuzz_counts.get("cov_syrk_update", 0)),
          "gls_fit_launches": fit_syrk_count,
          "oracle_gls_launches": oracle_gls_counts["dense"]["cov_syrk_update"]},
         {**_cov_kernel_entry("tridiag_factor_solve_fwd", "pta_replicator_tpu_torch/csrc/block_tridiag.cu",
                              "pta_replicator_tpu/ops/pallas_gp.py:428",
-                             tridiag_counts["tridiag_factor_solve_fwd"], cov_rows["factor", f64]),
+                             tridiag_counts["tridiag_factor_solve_fwd"], cov_rows["factor", f64],
+                             fuzz_counts.get("tridiag_factor_solve_fwd", 0)),
          "gls_fit_launches": fit_tridiag_counts["tridiag_factor_solve_fwd"],
          "oracle_gls_launches": oracle_gls_counts["banded"]["tridiag_factor_solve_fwd"]},
         {**_cov_kernel_entry("tridiag_solve_fwd", "pta_replicator_tpu_torch/csrc/block_tridiag.cu",
                              "pta_replicator_tpu/ops/pallas_gp.py:428",
-                             tridiag_counts["tridiag_solve_fwd"], cov_rows["solve", f64]),
+                             tridiag_counts["tridiag_solve_fwd"], cov_rows["solve", f64],
+                             fuzz_counts.get("tridiag_solve_fwd", 0)),
          "gls_fit_launches": fit_tridiag_counts["tridiag_solve_fwd"],
          "oracle_gls_launches": oracle_gls_counts["banded"]["tridiag_solve_fwd"],
          "fit_widths": {str(q): _width_row(cov_rows["solve", f64, q]) for q in FIT_WIDTHS}},
         {**_cov_kernel_entry("tridiag_factor_solve_bwd", "pta_replicator_tpu_torch/csrc/block_tridiag.cu",
                              "pta_replicator_tpu/ops/pallas_gp.py:458",
-                             tridiag_counts["tridiag_factor_solve_bwd"], cov_rows["backward", f64]),
+                             tridiag_counts["tridiag_factor_solve_bwd"], cov_rows["backward", f64],
+                             fuzz_counts.get("tridiag_factor_solve_bwd", 0)),
          "gls_fit_launches": fit_tridiag_counts["tridiag_factor_solve_bwd"],
          "oracle_gls_launches": oracle_gls_counts["banded"]["tridiag_factor_solve_bwd"],
          "fit_widths": {str(q): _width_row(cov_rows["backward", f64, q]) for q in FIT_WIDTHS}},

@@ -1,40 +1,60 @@
-"""Command line of the port: the dataset path and the declarative
-scenario path.
+"""Command line of the port: the dataset path, the likelihood over a
+realization bank, and the declarative scenario path.
 
     python -m pta_replicator_tpu_torch info --pardir PAR --timdir TIM [--num-psrs N]
     python -m pta_replicator_tpu_torch realize --pardir PAR --timdir TIM \
         --recipe R.json --out R.npz [--nreal 100] [--seed 0] \
         [--fit | --full-fit | --gls-fit] [--checkpoint CK.npz --chunk 256] \
         [--write-partim DIR --write-max 16] [--device cuda]
+    python -m pta_replicator_tpu_torch likelihood --bank CK.npz --recipe R.json \
+        (--pardir PAR --timdir TIM | --synthetic 10x512) \
+        [--grid FIELD=LO:HI:N ...] [--map FIELD=X0 ...] [--serve N] [--out L.json]
+        [--device cuda]
     python -m pta_replicator_tpu_torch scenario validate SPEC [SPEC ...]
     python -m pta_replicator_tpu_torch scenario compile SPEC [--out W.npz] [--device cuda]
     python -m pta_replicator_tpu_torch scenario run SPEC [--out R.npz]
         [--checkpoint CK.npz] [--nreal N] [--device cuda]
+    python -m pta_replicator_tpu_torch scenario fuzz [--n 50 | --fast] [--root-seed 0]
+        [--out-dir DIR] [--sweep-every K] [--device cuda]
+    python -m pta_replicator_tpu_torch scenario replay SPEC [SPEC ...] [--device cuda]
 
-The counterpart of ``python -m pta_replicator_tpu info|realize|scenario``:
-the same arguments, guards and JSON summary lines, with ``--device``
-(default ``cuda``; without a card the command fails and names ``--device
-cpu``) in place of ``--platform``. ``info`` loads a par/tim directory pair,
-zeroes the residuals (``make_ideal``) and prints the frozen array's shape,
-backends and epochs. ``realize`` adds a JSON recipe (the ``Recipe``'s
-fields, plus ``"orf"``: ``"hd"`` (default), ``"none"`` or ``{"lmax": L,
-"clm": [...]}``; the JAX-only ``cgw_backend`` and
+The counterpart of ``python -m pta_replicator_tpu info|realize|likelihood|
+scenario``: the same arguments, guards, exit codes and JSON output, with
+``--device`` (default ``cuda``; without a card the command fails and names
+``--device cpu``) in place of ``--platform``. ``info`` loads a par/tim
+directory pair, zeroes the residuals (``make_ideal``) and prints the
+frozen array's shape, backends and epochs. ``realize`` adds a JSON recipe
+(the ``Recipe``'s fields, plus ``"orf"``: ``"hd"`` (default), ``"none"``
+or ``{"lmax": L, "clm": [...]}``; the JAX-only ``cgw_backend`` and
 ``gwb_synthesis_precision`` are dropped) and writes the residual cube,
 through ``realize`` or, with ``--checkpoint``, the resumable sweep;
 ``--full-fit`` refits the full timing design of the par files (WLS),
 ``--gls-fit`` the same weighted by the recipe's noise model;
 ``--write-partim`` materializes the first datasets (``utils/export.py``).
 Its summary and npz add ``fit`` and ``design_columns``, which say what
-the cube was fitted with (a bank must be priced with that design). Flags
-of modules not ported yet exit non-zero before ingest: ``--sharded`` and
-``--mesh-shape`` (ROADMAP A.17), ``--telemetry``, ``--device-trace`` and
-``--faults`` (A.16).
+the cube was fitted with (a bank must be priced with that design).
+
+``likelihood`` prices a realization bank (a sweep checkpoint of either
+package, or an (R, Np, Nt) ``.npy`` cube) under a recipe's noise model on
+the dataset it was synthesized from: a ``--grid`` of phi-only
+hyperparameters through ``bank_loglikelihood`` (unfused, no design, the
+JAX CLI's route), a ``--map`` fit on one row, and a ``--serve`` demo of
+request-batched evaluation with its SLO block. Its batch is frozen in
+torch's default float dtype, as the JAX CLI's is in JAX's default float
+(float64 under ``jax_enable_x64``).
+
 ``run`` draws its realizations from the port's generators, seeded from the
 spec's ``realize`` family (``CompiledScenario.realize_seed``), so its
-residuals are the port's own, not the JAX package's. ``fuzz`` and
-``replay`` diff the batched engine against the numpy oracle path through
-the differential fuzz harness, which is not ported yet (ROADMAP A.15):
-they exit non-zero.
+residuals are the port's own, not the JAX package's. ``fuzz`` diffs the
+batched engine against the per-pulsar oracle path over random scenarios
+(``scenarios/fuzz.py``; the JAX package's specs, the port's draws) and
+exits 1 on a disagreement or a broken sweep identity, writing the shrunk
+failing specs under ``--out-dir``; ``replay`` re-runs saved specs through
+the differential and exits 1 when one disagrees.
+
+Flags of modules not ported yet exit non-zero before any work:
+``--sharded`` and ``--mesh-shape`` (ROADMAP A.17), ``--telemetry``,
+``--device-trace`` and ``--faults`` (A.16).
 """
 from __future__ import annotations
 
@@ -111,7 +131,10 @@ def _parser() -> argparse.ArgumentParser:
                    help="validate: check spec files and print their content hashes; "
                         "compile: spec -> workload summary (--out writes the static-"
                         "plane npz); run: compile + checkpointed sweep with the spec "
-                        "hash stamped into the sidecar; fuzz, replay: not ported")
+                        "hash stamped into the sidecar; fuzz: random scenarios through "
+                        "the batched-vs-oracle differential (exit 1 on any "
+                        "disagreement); replay: re-run saved specs through the "
+                        "differential")
     p.add_argument("specs", nargs="*", metavar="SPEC",
                    help="scenario spec file(s), .json or .toml")
     p.add_argument("--out", default=None,
@@ -121,8 +144,72 @@ def _parser() -> argparse.ArgumentParser:
                    help="run: resumable sweep checkpoint path (default: <out>.sweep.npz)")
     p.add_argument("--nreal", type=int, default=None,
                    help="run: override the spec's sweep.nreal")
+    p.add_argument("--n", type=int, default=50,
+                   help="fuzz: scenarios to generate (default 50)")
+    p.add_argument("--root-seed", type=int, default=0,
+                   help="fuzz: generator root seed (scenario K derives via fold_in(root, K))")
+    p.add_argument("--out-dir", default="scenario_fuzz_failures",
+                   help="fuzz: directory for shrunk replayable failing specs (default: "
+                        "./scenario_fuzz_failures/, created only when a disagreement is "
+                        "found)")
+    p.add_argument("--sweep-every", type=int, default=0,
+                   help="fuzz: run the pipelined-vs-sync sweep byte-identity arm on every "
+                        "K-th scenario that carries a sweep plan (0 = off)")
+    p.add_argument("--fast", action="store_true",
+                   help="fuzz: the CI arm — 8 scenarios, sweep identity every 4th")
+    p.add_argument("--telemetry", default=None, metavar="DIR",
+                   help="not ported (ROADMAP A.16): exits non-zero")
     p.add_argument("--device", default="cuda",
-                   help="compile, run: the torch device (default cuda; cpu on request)")
+                   help="compile, run, fuzz, replay: the torch device (default cuda; cpu "
+                        "on request)")
+
+    p = sub.add_parser(
+        "likelihood",
+        help="rank-reduced GP likelihood over a realization bank: hyperparameter "
+             "grids, MAP+Fisher fits, and a request-batched serving demo with SLO stats")
+    p.add_argument("--bank", required=True,
+                   help="realization bank: a sweep checkpoint (consolidated npz or "
+                        "in-progress chunk files from `realize --checkpoint`) or a plain "
+                        ".npy residual cube (R, Np, Nt)")
+    p.add_argument("--recipe", required=True,
+                   help="JSON recipe (the NOISE MODEL to evaluate under — normally the "
+                        "recipe the bank was synthesized with)")
+    p.add_argument("--pardir", default=None)
+    p.add_argument("--timdir", default=None)
+    p.add_argument("--num-psrs", type=int, default=None)
+    p.add_argument("--synthetic", default=None, metavar="NPSRxNTOA",
+                   help="use a synthetic frozen batch (e.g. 10x512) instead of ingesting "
+                        "--pardir/--timdir — the batch must match whatever produced the "
+                        "bank")
+    p.add_argument("--synthetic-seed", type=int, default=0)
+    p.add_argument("--grid", action="append", default=[], metavar="FIELD=LO:HI:N",
+                   help="hyperparameter grid axis (repeatable; axes combine as a "
+                        "cartesian product), e.g. rn_log10_amplitude=-14.5:-13:16")
+    p.add_argument("--map", action="append", default=[], dest="map_params",
+                   metavar="FIELD=X0",
+                   help="MAP+Fisher fit over these fields from the given start values "
+                        "(repeatable)")
+    p.add_argument("--real-index", type=int, default=0,
+                   help="bank row the MAP fit runs on (default 0)")
+    p.add_argument("--serve", type=int, default=0, metavar="N",
+                   help="serving demo: N requests sampled over the --grid axes, submitted "
+                        "from --clients threads through the request-batched server; "
+                        "prints the SLO stats block")
+    p.add_argument("--clients", type=int, default=4)
+    p.add_argument("--max-batch", type=int, default=8)
+    p.add_argument("--max-delay-ms", type=float, default=5.0)
+    p.add_argument("--max-queue", type=int, default=None,
+                   help="bounded request queue: submissions past this are rejected "
+                        "(ServerSaturated) and counted in the SLO block")
+    p.add_argument("--deadline-ms", type=float, default=None,
+                   help="per-request queue deadline: a request unserved past this raises "
+                        "DeadlineExpired instead of being evaluated late")
+    p.add_argument("--telemetry", default=None, metavar="DIR",
+                   help="not ported (ROADMAP A.16): exits non-zero")
+    p.add_argument("--out", default=None,
+                   help="write the result JSON here instead of stdout")
+    p.add_argument("--device", default="cuda",
+                   help="the torch device (default cuda; cpu on request)")
     return ap
 
 
@@ -135,25 +222,39 @@ def _save_npz(path: str, **arrays) -> None:
 
 
 def _device(name: str, cmd: str = "scenario"):
+    """The command's torch device; on a card, with IEEE float32 products
+    (the fits, the GWB synthesis and the differential's families refuse
+    TF32)."""
+    import torch
+
     from .device import resolve_device
 
     try:
-        return resolve_device(name)
+        device = resolve_device(name)
     except RuntimeError as exc:
         raise SystemExit(f"{cmd}: {exc} (on the command line: --device cpu)")
+    if device.type == "cuda":
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    return device
+
+
+def _refuse_unported(args):
+    """Exit before any work when a flag of a module not ported yet is set."""
+    for attr, flag, item in UNPORTED_FLAGS:
+        if getattr(args, attr, None):
+            raise SystemExit(
+                f"{args.cmd} {flag}: not ported yet (ROADMAP {item}); the JAX package's "
+                f"`python -m pta_replicator_tpu {args.cmd}` has it"
+            )
 
 
 def _run_scenario(args):
     from .scenarios import SpecError, compile_spec, load_spec
+    from .scenarios import fuzz as fz
     from .scenarios.compile import sweep_plan
 
-    if args.action in ("fuzz", "replay"):
-        raise SystemExit(
-            f"scenario {args.action}: not ported; it diffs the batched engine against "
-            "the numpy oracle path through the differential fuzz harness, which waits "
-            "for ROADMAP A.15. Use `python -m pta_replicator_tpu scenario "
-            f"{args.action}`."
-        )
+    _refuse_unported(args)
 
     def load_all():
         if not args.specs:
@@ -199,6 +300,46 @@ def _run_scenario(args):
             print(json.dumps(summary, sort_keys=True))
         return
 
+    if args.action == "fuzz":
+        if args.specs:
+            raise SystemExit(
+                "scenario fuzz generates its own random scenarios and takes no SPEC "
+                "files (use `scenario replay` to re-run a saved spec through the "
+                "differential)"
+            )
+        n = 8 if args.fast else args.n
+        sweep_every = 4 if args.fast else args.sweep_every
+        report = fz.fuzz(n, root_seed=args.root_seed, out_dir=args.out_dir,
+                         sweep_every=sweep_every,
+                         progress=lambda d, t: print(f"scenario {d}/{t}", file=sys.stderr),
+                         device=_device(args.device))
+        print(json.dumps(report, indent=1, sort_keys=True))
+        if report["n_disagreements"]:
+            print(f"scenario fuzz: {report['n_disagreements']} disagreement(s); shrunk "
+                  f"replayable spec(s) under {args.out_dir}/", file=sys.stderr)
+            raise SystemExit(1)
+        si = report["sweep_identity"]
+        if si["checked"] and not si["all_bit_identical"]:
+            # the report on stdout is often discarded: the reason goes to
+            # stderr too
+            print("scenario fuzz: pipelined-vs-sync sweep byte-identity violated (see "
+                  "the sweep_identity block of the report)", file=sys.stderr)
+            raise SystemExit(1)
+        return
+
+    if args.action == "replay":
+        specs = load_all()
+        device = _device(args.device)
+        rc = 0
+        for path, spec in specs:
+            res = fz.run_scenario(compile_spec(spec, validate=False, device=device))
+            print(json.dumps({"spec": path, **res.to_dict()}, indent=1, sort_keys=True))
+            if not res.agree:
+                rc = 1
+        if rc:
+            raise SystemExit(rc)
+        return
+
     from .utils.sweep import sweep
 
     specs = load_all()
@@ -242,11 +383,12 @@ UNPORTED_FLAGS = (
 )
 
 
-def _build_recipe(spec: dict, psrs):
-    """JSON recipe spec -> Recipe (on the host; the caller moves it), the
-    ORF's sky locations from ``psrs``. Array fields become float64
-    tensors; the JAX-only knobs are dropped
-    (``convert.JAX_ONLY_RECIPE_FIELDS``)."""
+def _build_recipe(spec: dict, psrs, locs=None):
+    """JSON recipe spec -> Recipe (on the host; the caller moves it). The
+    ORF's sky locations come from ``psrs`` (the par-file path) or an
+    explicit ``locs`` (azimuth, colatitude) array (the synthetic path of
+    ``likelihood``). Array fields become float64 tensors; the JAX-only
+    knobs are dropped (``convert.JAX_ONLY_RECIPE_FIELDS``)."""
     import torch
 
     from .convert import JAX_ONLY_RECIPE_FIELDS
@@ -276,10 +418,11 @@ def _build_recipe(spec: dict, psrs):
                        if key in ARRAY_FIELDS else val)
 
     if "orf_cholesky" not in kwargs and orf_mode != "none":
-        locs = np.zeros((len(psrs), 2))
-        for i, p in enumerate(psrs):
-            ra, dec = pulsar_ra_dec(p.loc, p.name)
-            locs[i] = ra, np.pi / 2 - dec
+        if locs is None:
+            locs = np.zeros((len(psrs), 2))
+            for i, p in enumerate(psrs):
+                ra, dec = pulsar_ra_dec(p.loc, p.name)
+                locs[i] = ra, np.pi / 2 - dec
         if orf_mode == "hd":
             orf = assemble_orf(locs, lmax=0)
         else:
@@ -299,12 +442,7 @@ def _run_dataset(args):
     from .simulate import load_from_directories, make_ideal
 
     # every guard runs before ingest: a refused invocation loads nothing
-    for attr, flag, item in UNPORTED_FLAGS:
-        if getattr(args, attr, None):
-            raise SystemExit(
-                f"{args.cmd} {flag}: not ported yet (ROADMAP {item}); the JAX package's "
-                f"`python -m pta_replicator_tpu {args.cmd}` has it"
-            )
+    _refuse_unported(args)
     if args.cmd == "realize":
         if args.fused_stream and not args.checkpoint:
             raise SystemExit(
@@ -320,11 +458,6 @@ def _run_dataset(args):
         if args.checkpoint and args.nreal % chunk:
             raise SystemExit(f"--nreal {args.nreal} must be a multiple of --chunk {chunk}")
     device = _device(args.device, args.cmd)
-    if device.type == "cuda":
-        # the fits and the GWB synthesis need IEEE float32 products
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
-
     psrs = load_from_directories(args.pardir, args.timdir, num_psrs=args.num_psrs)
     for psr in psrs:
         make_ideal(psr)
@@ -400,10 +533,169 @@ def _run_dataset(args):
     print(json.dumps(summary))
 
 
+def _axis_specs(pairs, kind):
+    """Parse FIELD=LO:HI:N / FIELD=X0 CLI axis specs."""
+    out = {}
+    for spec in pairs:
+        if "=" not in spec:
+            raise SystemExit(f"--{kind} must look like FIELD=..., got {spec!r}")
+        field, _, val = spec.partition("=")
+        if kind == "grid":
+            parts = val.split(":")
+            if len(parts) != 3:
+                raise SystemExit(f"--grid axis must be FIELD=LO:HI:N, got {spec!r}")
+            lo, hi, n = float(parts[0]), float(parts[1]), int(parts[2])
+            out[field] = np.linspace(lo, hi, n)
+        else:
+            out[field] = float(val)
+    return out
+
+
+def _run_likelihood(args):
+    """``likelihood``: a bank priced over a grid, a MAP fit, a serving demo."""
+    import torch
+
+    from . import likelihood as lk
+
+    _refuse_unported(args)
+    if not args.synthetic and not (args.pardir and args.timdir):
+        raise SystemExit("likelihood needs a dataset: --pardir/--timdir or --synthetic")
+    if args.synthetic:
+        try:
+            npsr, ntoa = (int(x) for x in args.synthetic.lower().split("x"))
+        except ValueError:
+            raise SystemExit(f"--synthetic must look like 10x512 (got {args.synthetic!r})")
+    device = _device(args.device, args.cmd)
+    # the JAX CLI freezes in JAX's default float (float64 under x64)
+    dtype = torch.get_default_dtype()
+    # the JAX package's ingest, build_recipe and compute spans wait for A.16
+    if args.synthetic:
+        from .batch import synthetic_batch
+
+        batch = synthetic_batch(npsr=npsr, ntoa=ntoa, seed=args.synthetic_seed, dtype=dtype,
+                                device=device)
+        phat = batch.phat.cpu().numpy()
+        locs = np.stack([np.arctan2(phat[:, 1], phat[:, 0]), np.arccos(phat[:, 2])], axis=-1)
+        psrs = None
+    else:
+        from .batch import freeze
+        from .simulate import load_from_directories, make_ideal
+
+        psrs = load_from_directories(args.pardir, args.timdir, num_psrs=args.num_psrs)
+        for psr in psrs:
+            make_ideal(psr)
+        batch = freeze(psrs, dtype=dtype, device=device)
+        locs = None
+
+    with open(args.recipe) as fh:
+        recipe = _build_recipe(json.load(fh), psrs, locs=locs).to(device)
+
+    if args.bank.endswith(".npy") and os.path.exists(args.bank):
+        bank = lk.RealizationBank.from_array(np.load(args.bank))
+    else:
+        bank = lk.RealizationBank.from_checkpoint(args.bank)
+    if tuple(bank.shape[1:]) != tuple(batch.toas_s.shape):
+        raise SystemExit(
+            f"bank rows are {tuple(bank.shape[1:])} but the batch is "
+            f"{tuple(batch.toas_s.shape)} — the bank was synthesized from a different "
+            "dataset"
+        )
+
+    result = {"bank": args.bank, "nreal": bank.nreal, "npsr": batch.npsr}
+    grid_axes = _axis_specs(args.grid, "grid")
+    if grid_axes:
+        grid, shape = lk.grid_cartesian(grid_axes)
+        # the bank streams chunk by chunk through the projection: the
+        # whole cube never sits on the card
+        ll = lk.bank_loglikelihood(bank, batch, recipe, grid=grid, device=device)
+        mean = ll.cpu().numpy().mean(axis=1)  # (G, R) -> (G,)
+        best = int(np.argmax(mean))
+        result["grid"] = {
+            "axes": sorted(grid_axes),
+            "shape": list(shape),
+            "loglikelihood_mean": [float(v) for v in mean],
+            "best": {
+                "index": best,
+                **{k: float(grid[k][best]) for k in grid},
+                "loglikelihood_mean": float(mean[best]),
+            },
+        }
+    if args.map_params:
+        mr = lk.map_fit(bank.row(args.real_index), batch, recipe,
+                        _axis_specs(args.map_params, "map"), device=device)
+        result["map"] = mr.as_dict()
+    if args.serve:
+        if not grid_axes:
+            raise SystemExit("--serve needs --grid axes to sample requests from")
+        result["serve"] = _serve_demo(args, bank, batch, recipe, grid_axes, device)
+
+    payload = json.dumps(result, indent=1, sort_keys=True)
+    if args.out:
+        with open(args.out, "w") as fh:
+            fh.write(payload + "\n")
+    else:
+        print(payload)
+
+
+def _serve_demo(args, bank, batch, recipe, grid_axes, device):
+    """N requests sampled over the grid axes, submitted from --clients
+    threads through the request-batched server; returns the SLO stats
+    block."""
+    import threading
+
+    from . import likelihood as lk
+
+    server = lk.LikelihoodServer(
+        bank, batch, recipe, axes=tuple(grid_axes), max_batch=args.max_batch,
+        max_delay_s=args.max_delay_ms / 1e3, max_queue=args.max_queue,
+        request_deadline_s=None if args.deadline_ms is None else args.deadline_ms / 1e3,
+        device=device,
+    )
+    rng = np.random.default_rng(0)
+    points = {k: rng.choice(v, size=args.serve) for k, v in grid_axes.items()}
+    failures = []
+
+    def client(lo, hi):
+        futs = []
+        for i in range(lo, hi):
+            try:
+                futs.append(server.submit(**{k: points[k][i] for k in points}))
+            except lk.ServerSaturated:
+                continue  # shed by --max-queue; counted in stats()["rejected"]
+        for f in futs:
+            try:
+                f.result(timeout=120)
+            except lk.DeadlineExpired:
+                pass  # shed by --deadline-ms; counted in stats()
+            except Exception as exc:  # noqa: BLE001 — reported in the block
+                failures.append(repr(exc))
+
+    # ceil partition: exactly min(clients, serve) threads
+    per = -(-args.serve // max(1, args.clients))
+    threads = []
+    with server:
+        # one warm request, then the SLO window re-zeroed: the block
+        # describes steady-state serving, not the first call's set-up
+        server.evaluate(**{k: float(np.atleast_1d(v)[0]) for k, v in grid_axes.items()})
+        server.reset_stats()
+        for lo in range(0, args.serve, per):
+            t = threading.Thread(target=client, args=(lo, min(lo + per, args.serve)))
+            t.start()
+            threads.append(t)
+        for t in threads:
+            t.join()
+        stats = server.stats()
+    if failures:
+        stats["failures"] = failures[:8]
+    return stats
+
+
 def main(argv=None):
     args = _parser().parse_args(sys.argv[1:] if argv is None else list(argv))
     if args.cmd == "scenario":
         return _run_scenario(args)
+    if args.cmd == "likelihood":
+        return _run_likelihood(args)
     return _run_dataset(args)
 
 

@@ -37,7 +37,8 @@ from .infer import _check_axes, _reduced_points, _reducible
 
 _STOP = object()
 
-#: request latencies kept for the percentiles of :meth:`LikelihoodServer.stats`
+#: request latencies and batch fills kept for the summaries of
+#: :meth:`LikelihoodServer.stats`
 LATENCY_WINDOW = 10_000
 
 
@@ -340,6 +341,7 @@ class LikelihoodServer:
             self._batches += 1
             self._busy_s += done - t0
             self._latency.extend(done - r.t_submit for r in reqs)
+            self._batch_fill.append(nb)
         for k, r in enumerate(reqs):
             if r.future.set_running_or_notify_cancel():
                 r.future.set_result(out[k])
@@ -351,6 +353,7 @@ class LikelihoodServer:
         (so a measurement can leave out the warm-up)."""
         with self._lock:
             self._latency = collections.deque(maxlen=LATENCY_WINDOW)
+            self._batch_fill = collections.deque(maxlen=LATENCY_WINDOW)
             self._requests = 0
             self._batches = 0
             self._busy_s = 0.0
@@ -359,19 +362,19 @@ class LikelihoodServer:
             self._started_at = time.monotonic()
 
     def stats(self) -> dict:
-        """Request and batch counts, coalescing efficiency, latency
-        percentiles over the last :data:`LATENCY_WINDOW` requests, and
-        throughput since the last reset."""
+        """The SLO block, with the JAX package's keys: request and batch
+        counts, coalescing efficiency, throughput since the last reset,
+        and the latency and batch-fill summaries (count since the reset;
+        min, max and percentiles over the last :data:`LATENCY_WINDOW`
+        requests and batches)."""
         with self._lock:
             requests, batches = self._requests, self._batches
             latency = np.asarray(self._latency)
+            fill = np.asarray(self._batch_fill, np.float64)
             busy_s, rejected = self._busy_s, self._rejected
             expired = self._deadline_expired
             elapsed = time.monotonic() - self._started_at
         evals = requests * self.nreal
-        pct = {} if latency.size == 0 else {
-            f"p{q}": float(np.percentile(latency, q)) for q in (50, 95, 99)
-        }
         return {
             "requests": requests,
             "batches": batches,
@@ -379,6 +382,7 @@ class LikelihoodServer:
             "max_batch": self.max_batch,
             "max_delay_s": self.max_delay_s,
             "coalesce_efficiency": requests / (batches * self.max_batch) if batches else 0.0,
+            "batch_fill_mean": requests / batches if batches else 0.0,
             "evals": evals,
             "evals_per_s": evals / elapsed if elapsed > 0 else 0.0,
             "requests_per_s": requests / elapsed if elapsed > 0 else 0.0,
@@ -387,5 +391,16 @@ class LikelihoodServer:
             "deadline_expired": expired,
             "max_queue": self.max_queue,
             "request_deadline_s": self.request_deadline_s,
-            "latency_s": pct,
+            "latency": _summary(latency, requests),
+            "batch_fill": _summary(fill, batches),
         }
+
+
+def _summary(values: np.ndarray, count: int) -> dict:
+    """count, min, max, p50, p95 and p99 of ``values`` (the count alone
+    when there are none)."""
+    if values.size == 0:
+        return {"count": count}
+    out = {"count": count, "min": float(values.min()), "max": float(values.max())}
+    out.update({f"p{q}": float(np.percentile(values, q)) for q in (50, 95, 99)})
+    return out

@@ -2,8 +2,9 @@
 cpu``): validate, compile and run print the JAX CLI's JSON summary keys
 with equal values where the draws do not enter; run stamps the spec's
 provenance into the sidecar and resumes a finished checkpoint with the
-same bytes; the JAX CLI's guards; ``fuzz`` and ``replay`` refused with a
-message naming ROADMAP A.15/A.18; no fall-back to the CPU without a card."""
+same bytes; fuzz and replay print the JAX CLI's report keys and exit 1 on
+a disagreement; the JAX CLI's guards; ``--telemetry`` refused naming
+ROADMAP A.16; no fall-back to the CPU without a card."""
 import json
 import subprocess
 import sys
@@ -104,11 +105,56 @@ def test_a_bad_spec_names_its_field(tmp_path):
         main(["scenario", "validate", path])
 
 
-@pytest.mark.parametrize("action", ("fuzz", "replay"))
-def test_fuzz_and_replay_are_refused_naming_the_roadmap(spec_path, action):
-    with pytest.raises(SystemExit, match=r"ROADMAP A\.15\.") as err:
-        main(["scenario", action, spec_path])
-    assert "A.18" not in str(err.value)  # the oracle path is ported
+def test_fuzz_fast_exits_zero_with_the_jax_report(tmp_path, capsys):
+    out_dir = str(tmp_path / "failures")
+    main(["scenario", "fuzz", "--fast", "--out-dir", out_dir, "--device", "cpu"])
+    captured = capsys.readouterr()
+    report = json.loads(captured.out)
+    assert report["n_scenarios"] == 8 and report["agreement_rate"] == 1.0
+    assert captured.err.strip().splitlines()[-1] == "scenario 8/8"
+    assert set(report) == {
+        "n_scenarios", "root_seed", "elapsed_s", "scenarios_per_s", "agreement_rate",
+        "n_disagreements", "max_rel_disagreement", "max_rel_by_family", "tolerances",
+        "coverage", "combo_histogram_size", "failures", "sweep_identity"}
+    assert not (tmp_path / "failures").exists()  # made only on a disagreement
+
+
+def test_replay_prints_the_jax_verdicts_and_exits_one_on_a_planted_defect(
+        spec_path, monkeypatch, capsys):
+    from pta_replicator_tpu_torch.scenarios import fuzz as fz
+
+    got = _summary(main, ["scenario", "replay", spec_path, "--device", "cpu"], capsys)
+    want = _summary(jax_main, ["scenario", "replay", spec_path], capsys)
+    assert got.keys() == want.keys()
+    assert got["agree"] and got["spec_hash"] == want["spec_hash"]
+    assert got["families"] == want["families"]
+    assert got["verdicts"].keys() == want["verdicts"].keys()
+
+    run = fz.run_scenario
+    monkeypatch.setattr(fz, "run_scenario",
+                        lambda c: run(c, perturb={"family": "white", "scale": 1.01}))
+    with pytest.raises(SystemExit) as err:
+        main(["scenario", "replay", spec_path, "--device", "cpu"])
+    assert err.value.code == 1
+    assert json.loads(capsys.readouterr().out)["worst_family"] == "white"
+
+
+def test_fuzz_takes_no_spec_as_the_jax_cli(spec_path):
+    with pytest.raises(SystemExit, match="takes no SPEC files"):
+        main(["scenario", "fuzz", spec_path, "--device", "cpu"])
+    with pytest.raises(SystemExit, match="takes no SPEC files"):
+        jax_main(["scenario", "fuzz", spec_path])
+
+
+@pytest.mark.parametrize("argv", [
+    ["scenario", "fuzz", "--fast"],
+    ["scenario", "validate", "{spec}"],
+    ["likelihood", "--bank", "b.npz", "--recipe", "r.json", "--synthetic", "4x128"],
+])
+def test_telemetry_is_refused_naming_the_roadmap(spec_path, argv):
+    argv = [a.format(spec=spec_path) for a in argv] + ["--telemetry", "t", "--device", "cpu"]
+    with pytest.raises(SystemExit, match=r"--telemetry: not ported yet \(ROADMAP A\.16"):
+        main(argv)
 
 
 def test_no_card_is_an_error_not_a_fall_back_to_the_cpu(spec_path, monkeypatch):

@@ -336,7 +336,7 @@ def test_server_rows_equal_bank_loglikelihood(served):
     for i, row in enumerate(rows):
         assert row.shape == (3,)
         assert _rel(row, want[i]) <= 1e-12
-    assert stats["requests"] == 9 and stats["batches"] >= 3 and stats["latency_s"]["p50"] > 0
+    assert stats["requests"] == 9 and stats["batches"] >= 3 and stats["latency"]["p50"] > 0
     with pytest.raises(ValueError, match="exactly"):
         lk.LikelihoodServer(lk.RealizationBank.from_array(bank), tb, tr, axes,
                             device="cpu").start().submit(gwb_gamma=4.0)
