@@ -53,7 +53,11 @@ dataset path writes an NG15-shaped par/tim dataset
 reader, idealizes, freezes and refits it with its real timing design
 (quadratic, WLS, GLS), holds B.1 at its shape against the plain version,
 and runs `python -m pta_replicator_tpu_torch info|realize` on it, with
-datasets written back out (`dataset_path`); `python -m
+datasets written back out (`dataset_path`); the same CLI's `realize
+--checkpoint` with `--telemetry` and without (equal bytes, the JAX CLI's
+span set), `likelihood` and `scenario compile` captures, `report`, and an
+in-process flagship-shaped sweep whose rate and synchronizing CUDA calls
+are held with and without a capture (`telemetry`); `python -m
 pta_replicator_tpu_torch likelihood` prices that CLI's 400-realization
 bank over an 8 x 8 grid, with a MAP fit and 32 served requests, against
 the in-process call (`likelihood_cli`), then a synthetic flagship-shaped
@@ -2729,6 +2733,262 @@ def phase_dataset_path(workdir, smi):
     return counts["cw_catalog_response"], cw_rows[torch.float32]
 
 
+#: the telemetry phase (PR 18): the CLI's checkpointed realize at the
+#: dataset's width, and the in-process sweep whose rate and synchronizing
+#: calls are held with and without a capture
+TELEMETRY_NREAL, TELEMETRY_CHUNK = 400, 200
+TELEMETRY_SWEEP = dict(nreal=2000, chunk=200, pipeline_depth=2)
+TELEMETRY_REPS = 3
+#: the capture's median sweep rate over the rate without, at least
+TELEMETRY_RATE_FLOOR = 0.90
+TELEMETRY_GRID = ["gwb_log10_amplitude=-14.6:-13.6:3"]
+#: CUDA runtime calls that block the host on the card
+SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaEventSynchronize")
+
+
+def telemetry_spans(npsr):
+    """The span paths and calls of ``realize --checkpoint --chunk 200
+    --nreal 400 --fit --telemetry`` at depth 2 on ``npsr`` pulsars: the
+    JAX CLI's set (tests/test_torch_telemetry_cli.py holds the two equal on
+    the CPU)."""
+    ing = "realize/ingest"
+    pipe = "realize/compute/sweep_pipeline"
+    nchunks = TELEMETRY_NREAL // TELEMETRY_CHUNK
+    return {
+        "realize": 1, ing: 1, f"{ing}/load_pulsars": 1,
+        f"{ing}/load_pulsars/read_par": npsr, f"{ing}/load_pulsars/read_tim": npsr,
+        f"{ing}/make_ideal": npsr, "realize/freeze": 1, "realize/build_recipe": 1,
+        "realize/compute": 1, "realize/compute/static_delays": 1, pipe: 1,
+        f"{pipe}/dispatch": nchunks, f"{pipe}/drain": nchunks, f"{pipe}/io_write": nchunks,
+        "realize/write_output": 1,
+    }
+
+
+def _npz_members(path):
+    """Each member's name and stored bytes (the npy payloads; the zip's
+    own timestamps excluded)."""
+    import zipfile
+
+    with zipfile.ZipFile(path) as zf:
+        return {name: zf.read(name) for name in zf.namelist()}
+
+
+def _capture(directory):
+    """A capture directory read back: span calls by path, metric values
+    by name (the first instance), meta.json, and the events.jsonl records
+    that fail the port's EVENT_SCHEMA."""
+    from pta_replicator_tpu_torch.obs import report as obs_report
+    from pta_replicator_tpu_torch.obs.trace import EVENT_SCHEMA
+
+    data = obs_report.load_telemetry(str(directory))
+    spans = obs_report.aggregate_spans(data["events"])
+    bad = []
+    for rec in data["events"]:
+        schema = EVENT_SCHEMA.get(rec.get("type"))
+        if schema is None or any(not isinstance(rec.get(f), t) for f, t in schema.items()):
+            bad.append(rec)
+    metrics = {name: insts[0].get("value", insts[0].get("count"))
+               for name, insts in (data["metrics"] or {}).items()}
+    return dict(spans=spans, calls={p: a["calls"] for p, a in spans.items()},
+                metrics=metrics, meta=data["meta"] or {}, bad=bad,
+                problems=data["problems"])
+
+
+def _telemetry_sweep(batch, recipe, path, directory=None):
+    """One in-process sweep at TELEMETRY_SWEEP (the default reduce), under
+    a capture into ``directory`` when given: (realizations per second of
+    the sweep call, seconds of the capture's finish)."""
+    from pta_replicator_tpu_torch import obs
+
+    sweep_mod._cleanup_chunks(str(path), TELEMETRY_SWEEP["nreal"] // TELEMETRY_SWEEP["chunk"])
+    for leftover in (path, Path(str(path) + ".meta.json")):
+        Path(leftover).unlink(missing_ok=True)
+    if directory is not None:
+        obs.start_capture(str(directory))
+    try:
+        t0 = time.perf_counter()
+        sweep(DATASET_SEED, batch, recipe, TELEMETRY_SWEEP["nreal"], str(path),
+              chunk=TELEMETRY_SWEEP["chunk"], fit=True,
+              pipeline_depth=TELEMETRY_SWEEP["pipeline_depth"], device=batch.device)
+        seconds = time.perf_counter() - t0
+    finally:
+        t1 = time.perf_counter()
+        if directory is not None:
+            obs.finish_capture(context={"phase": "telemetry"})
+        finish_s = time.perf_counter() - t1
+        # the next run without a capture streams nowhere: the sink closed,
+        # the buffers cleared (a capture's tracer keeps its sink open)
+        obs.configure(None)
+        obs.reset_all()
+    return TELEMETRY_SWEEP["nreal"] / seconds, finish_s
+
+
+def _sync_calls(run):
+    """The CUDA runtime's synchronizing calls during ``run()`` under
+    torch.profiler, by name, and B.1's launches."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    launches.clear()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    counts = {name: 0 for name in SYNC_CALLS}
+    for evt in prof.key_averages():
+        if evt.key in counts:
+            counts[evt.key] += evt.count
+    # the profiler's own closing synchronize is the same in both runs
+    return counts, launches.get("cw_catalog_response", 0)
+
+
+def phase_telemetry(workdir, smi):
+    """Telemetry on the card (A.16.1), on the dataset path's 68-pulsar
+    NG15-shaped dataset and its recipe (the 100-source CW catalog). (1)
+    ``realize --checkpoint --chunk 200 --nreal 400 --fit`` in fresh
+    interpreters, with ``--telemetry DIR`` and without, at once, beside
+    ``scenario compile ng15_population.json --telemetry``; then
+    ``likelihood --telemetry`` over the capture run's bank (a 3-point GWB
+    axis), and ``report DIR --json`` and ``report DIR``. (2) In process, at
+    the flagship shape of that dataset (68 x 7,758, chunk 200, 2,000
+    realizations, depth 2, the default reduce): the sweep 3 times with a
+    capture and 3 without, alternating, then once each under
+    torch.profiler, counting the CUDA runtime's synchronizing calls and
+    B.1's launches. Gates: the checkpoints and cubes with and without the
+    capture equal member for member, byte for byte; the span paths and
+    calls exactly ``telemetry_spans`` (drain and io_write under
+    sweep_pipeline); ``sweep.realizations`` 400, ``io.tim.toas`` and
+    ``batch.toas_frozen`` the dataset's TOA count; ``meta.json``'s
+    ``device_memory`` naming the card with a peak > 0; every events.jsonl
+    record valid against EVENT_SCHEMA; both reports exit 0, the JSON's
+    ``realize/compute`` spans equal to the phase's own aggregate; the
+    likelihood's and the compile's spans and counters; the synchronizing
+    calls equal with and without a capture (the readback's event waits
+    seen at all), B.1's launches equal; the capture's median rate >=
+    0.90 x the rate without."""
+    from pta_replicator_tpu_torch.__main__ import _build_recipe
+    from pta_replicator_tpu_torch.batch import freeze
+    from pta_replicator_tpu_torch.simulate import load_from_directories, make_ideal
+
+    common = ["--pardir", str(workdir / "par"), "--timdir", str(workdir / "tim")]
+    recipe_path = str(workdir / "recipe.json")
+    tel, tel_lk, tel_sc = (workdir / n for n in ("tel", "tel_likelihood", "tel_scenario"))
+    realize_args = ["realize", *common, "--recipe", recipe_path, "--nreal",
+                    str(TELEMETRY_NREAL), "--chunk", str(TELEMETRY_CHUNK), "--fit", "--seed",
+                    str(DATASET_SEED)]
+    runs = {
+        "with": realize_args + ["--out", str(workdir / "tel_cube.npz"), "--checkpoint",
+                                str(workdir / "tel_ck.npz"), "--telemetry", str(tel)],
+        "without": realize_args + ["--out", str(workdir / "plain_cube.npz"), "--checkpoint",
+                                   str(workdir / "plain_ck.npz")],
+        "scenario": ["scenario", "compile", str(SCENARIO_SPEC), "--telemetry", str(tel_sc)],
+    }
+    with ThreadPoolExecutor(max_workers=len(runs)) as pool:
+        futures = {name: pool.submit(_module_cli, *args, timeout=900)
+                   for name, args in runs.items()}
+        calls = {name: f.result() for name, f in futures.items()}
+    for name, (code, _out, err, _s) in calls.items():
+        require(code == 0, f"telemetry CLI {name}: exit {code}: {err[-3000:]}")
+    lk_args = ["likelihood", "--bank", str(workdir / "tel_ck.npz"), "--recipe", recipe_path,
+               *common, *sum((["--grid", g] for g in TELEMETRY_GRID), []), "--out",
+               str(workdir / "tel_likelihood.json"), "--telemetry", str(tel_lk)]
+    calls["likelihood"] = _module_cli(*lk_args, timeout=900)
+    calls["report_json"] = _module_cli("report", str(tel), "--json")
+    calls["report"] = _module_cli("report", str(tel))
+    for name in ("likelihood", "report_json", "report"):
+        code, _out, err, _s = calls[name]
+        require(code == 0, f"telemetry CLI {name}: exit {code}: {err[-3000:]}")
+
+    cap, cap_lk, cap_sc = _capture(tel), _capture(tel_lk), _capture(tel_sc)
+    ck_equal = _npz_members(workdir / "tel_ck.npz") == _npz_members(workdir / "plain_ck.npz")
+    cube_equal = (_npz_members(workdir / "tel_cube.npz")
+                  == _npz_members(workdir / "plain_cube.npz"))
+    psrs = load_from_directories(*common[1::2])
+    npsr, ntoas = len(psrs), int(sum(p.toas.ntoas for p in psrs))
+    want = telemetry_spans(npsr)
+    with np.load(workdir / "tel_ck.npz") as z:
+        bank_bytes = int(sum(z[k].nbytes for k in z.files))
+    report_json = json.loads(calls["report_json"][1])
+    compute = {p: (a["calls"], a["total_s"]) for p, a in cap["spans"].items()
+               if p.startswith("realize/compute")}
+    compute_report = {p: (a["calls"], a["total_s"]) for p, a in report_json["spans"].items()
+                      if p.startswith("realize/compute")}
+    name = torch.cuda.get_device_name(0)
+    memory = cap["meta"].get("device_memory") or []
+    lk_spans = {p: c for p, c in cap_lk["calls"].items() if "likelihood_project" in p}
+
+    # (2) the in-process sweep at the flagship shape of the dataset
+    for p in psrs:
+        make_ideal(p)
+    batch = freeze(psrs)
+    ntoa_max = batch.ntoa_max
+    recipe = _build_recipe(json.loads(Path(recipe_path).read_text()), psrs).to("cuda")
+    del psrs
+    path = workdir / "tel_sweep.npz"
+    _telemetry_sweep(batch, recipe, path)  # warm: the allocator, the build cache
+    rates = {"with": [], "without": []}
+    finish_s = []
+    for k in range(TELEMETRY_REPS):
+        r, f = _telemetry_sweep(batch, recipe, path, workdir / f"tel_sweep_{k}")
+        rates["with"].append(r)
+        finish_s.append(f)
+        rates["without"].append(_telemetry_sweep(batch, recipe, path)[0])
+    syncs, b1 = {}, {}
+    syncs["with"], b1["with"] = _sync_calls(
+        lambda: _telemetry_sweep(batch, recipe, path, workdir / "tel_sweep_profiled"))
+    syncs["without"], b1["without"] = _sync_calls(lambda: _telemetry_sweep(batch, recipe, path))
+    cap_sweep = _capture(workdir / "tel_sweep_profiled")
+    median = {k: float(np.median(v)) for k, v in rates.items()}
+    del batch, recipe
+    torch.cuda.empty_cache()
+
+    row = dict(
+        nvidia_smi=smi, npsr=npsr, ntoas=ntoas, bank_bytes=bank_bytes,
+        cli_seconds={n: c[3] for n, c in calls.items()},
+        checkpoint_members_equal=ck_equal, cube_members_equal=cube_equal,
+        spans=cap["calls"], spans_expected=want,
+        span_total_s={p: a["total_s"] for p, a in cap["spans"].items()},
+        metrics=cap["metrics"], device_memory=memory,
+        schema_failures=len(cap["bad"]) + len(cap_lk["bad"]) + len(cap_sc["bad"]),
+        problems=cap["problems"], report_compute_equal=compute == compute_report,
+        report_lines=len(calls["report"][1].splitlines()),
+        likelihood_spans=lk_spans, likelihood_metrics=cap_lk["metrics"],
+        scenario_spans=cap_sc["calls"], scenario_metrics=cap_sc["metrics"],
+        sweep=dict(TELEMETRY_SWEEP, shape=[npsr, ntoa_max], rates=rates, median=median,
+                   ratio=median["with"] / median["without"], floor=TELEMETRY_RATE_FLOOR,
+                   finish_capture_s=finish_s, sync_calls=syncs, b1_launches=b1,
+                   spans=cap_sweep["calls"]),
+    )
+    emit("telemetry", **row)
+    require(ck_equal and cube_equal, "telemetry: a capture changed the checkpoint or the cube")
+    require(cap["calls"] == want, f"telemetry: realize spans {cap['calls']} != {want}")
+    require(cap["metrics"].get("sweep.realizations") == TELEMETRY_NREAL
+            and cap["metrics"].get("io.tim.toas") == ntoas
+            and cap["metrics"].get("batch.toas_frozen") == ntoas,
+            f"telemetry: counters {cap['metrics']}")
+    require(any(name in m["device"] and m.get("peak_bytes_in_use", 0) > 0 for m in memory),
+            f"telemetry: device_memory {memory}")
+    require(row["schema_failures"] == 0 and not cap["problems"],
+            f"telemetry: schema failures {cap['bad'][:3]} {cap['problems']}")
+    require(row["report_compute_equal"] and compute,
+            f"telemetry: report --json {compute_report} vs {compute}")
+    require(lk_spans == {"likelihood/compute/likelihood_project": 1,
+                         "likelihood/compute/likelihood_project/cw_stream_stage":
+                             TELEMETRY_NREAL // TELEMETRY_CHUNK + 1}
+            and all(f"likelihood/{s}" in cap_lk["calls"]
+                    for s in ("ingest", "freeze", "build_recipe", "compute"))
+            and cap_lk["metrics"].get("cw_stream.bytes_staged") == bank_bytes,
+            f"telemetry: likelihood {cap_lk['calls']} {cap_lk['metrics']}")
+    require(cap_sc["calls"] == {"scenario": 1, "scenario/scenario_compile": 1}
+            and cap_sc["metrics"].get("scenario.compiled") == 1,
+            f"telemetry: scenario {cap_sc['calls']} {cap_sc['metrics']}")
+    require(syncs["with"] == syncs["without"] and syncs["with"]["cudaEventSynchronize"] > 0,
+            f"telemetry: synchronizing calls {syncs}")
+    require(b1["with"] == b1["without"] > 0, f"telemetry: B.1 launches {b1}")
+    require(median["with"] >= TELEMETRY_RATE_FLOOR * median["without"],
+            f"telemetry: sweep rate with a capture {median}")
+    return b1["with"]
+
+
 def fuzz_cover_n():
     """The smallest n whose specs ``sample_spec(0, 0..n-1)`` carry every
     token of REQUIRED_COVERAGE (``spec_families``) and hold a scenario the
@@ -3422,6 +3682,7 @@ def main():
     workdir = Path(tempfile.mkdtemp(prefix="chip_smoke_dataset_"))
     try:
         dataset_count, dataset_row = phase_dataset_path(workdir, smi)
+        telemetry_count = phase_telemetry(workdir, smi)
         phase_likelihood_cli(workdir)
         oracle_cw_counts, oracle_gls_counts = phase_oracle_path(workdir, smi)
     finally:
@@ -3487,6 +3748,7 @@ def main():
         "scenario_launches": scenario_count,
         "scenario_catalog": _width_row({**scenario_row, "library_ms": None}),
         "dataset_launches": dataset_count,
+        "telemetry_launches": telemetry_count,
         "dataset_catalog": _width_row({**dataset_row, "library_ms": None}),
         "oracle_launches": oracle_cw_counts["cw_catalog_response"],
         "oracle_fold_launches": oracle_cw_counts["cw_fold_planes"],

@@ -17,6 +17,7 @@ realization bank, and the declarative scenario path.
     python -m pta_replicator_tpu_torch scenario fuzz [--n 50 | --fast] [--root-seed 0]
         [--out-dir DIR] [--sweep-every K] [--device cuda]
     python -m pta_replicator_tpu_torch scenario replay SPEC [SPEC ...] [--device cuda]
+    python -m pta_replicator_tpu_torch report DIR [--json] [--min-ms X]
 
 The counterpart of ``python -m pta_replicator_tpu info|realize|likelihood|
 scenario``: the same arguments, guards, exit codes and JSON output, with
@@ -52,9 +53,17 @@ exits 1 on a disagreement or a broken sweep identity, writing the shrunk
 failing specs under ``--out-dir``; ``replay`` re-runs saved specs through
 the differential and exits 1 when one disagrees.
 
+``--telemetry DIR`` (on ``info``, ``realize``, ``scenario`` and
+``likelihood``) captures the run's spans and metrics into DIR, under a
+span named after the subcommand, in the JAX package's formats
+(``obs/__init__.py``); ``report DIR`` renders a capture of either package
+(``--json`` for the aggregate, ``--min-ms`` to hide short spans). The CLI's
+own spans are ``ingest``, ``freeze``, ``build_recipe``, ``compute`` and
+``write_output``, at the JAX CLI's places.
+
 Flags of modules not ported yet exit non-zero before any work:
-``--sharded`` and ``--mesh-shape`` (ROADMAP A.17), ``--telemetry``,
-``--device-trace`` and ``--faults`` (A.16).
+``--sharded`` and ``--mesh-shape`` (ROADMAP A.17), ``--device-trace``
+(A.16.4) and ``--faults`` (A.16.2).
 """
 from __future__ import annotations
 
@@ -75,15 +84,15 @@ def _parser() -> argparse.ArgumentParser:
         p.add_argument("--timdir", required=True)
         p.add_argument("--num-psrs", type=int, default=None)
         p.add_argument("--telemetry", default=None, metavar="DIR",
-                       help="not ported (ROADMAP A.16): exits non-zero")
+                       help=TELEMETRY_HELP)
         p.add_argument("--faults", default=None, metavar="SCHEDULE",
-                       help="not ported (ROADMAP A.16): exits non-zero")
+                       help="not ported (ROADMAP A.16.2): exits non-zero")
         p.add_argument("--faults-seed", type=int, default=0)
         p.add_argument("--device", default="cuda",
                        help="the torch device (default cuda; cpu on request)")
     p = sub.choices["realize"]
     p.add_argument("--device-trace", action="store_true",
-                   help="not ported (ROADMAP A.16): exits non-zero")
+                   help="not ported (ROADMAP A.16.4): exits non-zero")
     p.add_argument("--recipe", required=True, help="JSON recipe file")
     p.add_argument("--nreal", type=int, default=100)
     p.add_argument("--out", required=True)
@@ -157,8 +166,7 @@ def _parser() -> argparse.ArgumentParser:
                         "K-th scenario that carries a sweep plan (0 = off)")
     p.add_argument("--fast", action="store_true",
                    help="fuzz: the CI arm — 8 scenarios, sweep identity every 4th")
-    p.add_argument("--telemetry", default=None, metavar="DIR",
-                   help="not ported (ROADMAP A.16): exits non-zero")
+    p.add_argument("--telemetry", default=None, metavar="DIR", help=TELEMETRY_HELP)
     p.add_argument("--device", default="cuda",
                    help="compile, run, fuzz, replay: the torch device (default cuda; cpu "
                         "on request)")
@@ -204,13 +212,23 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("--deadline-ms", type=float, default=None,
                    help="per-request queue deadline: a request unserved past this raises "
                         "DeadlineExpired instead of being evaluated late")
-    p.add_argument("--telemetry", default=None, metavar="DIR",
-                   help="not ported (ROADMAP A.16): exits non-zero")
+    p.add_argument("--telemetry", default=None, metavar="DIR", help=TELEMETRY_HELP)
     p.add_argument("--out", default=None,
                    help="write the result JSON here instead of stdout")
     p.add_argument("--device", default="cuda",
                    help="the torch device (default cuda; cpu on request)")
+
+    p = sub.add_parser("report", help="print a captured --telemetry directory")
+    p.add_argument("dir", help="telemetry directory (events.jsonl + metrics.json)")
+    p.add_argument("--json", action="store_true",
+                   help="machine-readable aggregate instead of the tree")
+    p.add_argument("--min-ms", type=float, default=0.0,
+                   help="hide span paths with total wall below this")
     return ap
+
+
+TELEMETRY_HELP = ("capture the run's spans and metrics into DIR (events.jsonl, metrics.json, "
+                  "metrics.prom, chrome_trace.json, meta.json); read it with `report DIR`")
 
 
 def _save_npz(path: str, **arrays) -> None:
@@ -253,8 +271,6 @@ def _run_scenario(args):
     from .scenarios import SpecError, compile_spec, load_spec
     from .scenarios import fuzz as fz
     from .scenarios.compile import sweep_plan
-
-    _refuse_unported(args)
 
     def load_all():
         if not args.specs:
@@ -377,9 +393,8 @@ def _run_scenario(args):
 UNPORTED_FLAGS = (
     ("sharded", "--sharded", "A.17 (multi-GPU)"),
     ("mesh_shape", "--mesh-shape", "A.17 (multi-GPU)"),
-    ("telemetry", "--telemetry", "A.16 (observability)"),
-    ("device_trace", "--device-trace", "A.16 (observability)"),
-    ("faults", "--faults", "A.16 (fault injection)"),
+    ("device_trace", "--device-trace", "A.16.4 (device profiling)"),
+    ("faults", "--faults", "A.16.2 (fault injection)"),
 )
 
 
@@ -439,10 +454,10 @@ def _run_dataset(args):
 
     from .batch import freeze
     from .models.batched import deterministic_delays, realize
+    from .obs import names, span
     from .simulate import load_from_directories, make_ideal
 
     # every guard runs before ingest: a refused invocation loads nothing
-    _refuse_unported(args)
     if args.cmd == "realize":
         if args.fused_stream and not args.checkpoint:
             raise SystemExit(
@@ -458,9 +473,10 @@ def _run_dataset(args):
         if args.checkpoint and args.nreal % chunk:
             raise SystemExit(f"--nreal {args.nreal} must be a multiple of --chunk {chunk}")
     device = _device(args.device, args.cmd)
-    psrs = load_from_directories(args.pardir, args.timdir, num_psrs=args.num_psrs)
-    for psr in psrs:
-        make_ideal(psr)
+    with span(names.SPAN_INGEST, pardir=args.pardir):
+        psrs = load_from_directories(args.pardir, args.timdir, num_psrs=args.num_psrs)
+        for psr in psrs:
+            make_ideal(psr)
     batch = freeze(psrs, device=device)
     if args.cmd == "info":
         print(json.dumps({
@@ -473,7 +489,7 @@ def _run_dataset(args):
         }))
         return
 
-    with open(args.recipe) as fh:
+    with span(names.SPAN_BUILD_RECIPE), open(args.recipe) as fh:
         recipe = _build_recipe(json.load(fh), psrs)
     if args.gls_fit:
         args.full_fit = True
@@ -489,29 +505,31 @@ def _run_dataset(args):
                                      fit_gls=bool(args.gls_fit))
         mode, design_columns = ("gls" if args.gls_fit else "wls"), int(D.shape[-1])
     recipe = recipe.to(device)
-    # the deterministic delays (B.1's CW catalog, ...), once for realize
-    # and the datasets; a sweep builds its own
-    static = None
-    if not args.checkpoint or args.write_partim:
-        static = deterministic_delays(batch, recipe, device=device)
 
-    if args.checkpoint:
-        from .utils.sweep import sweep
+    with span(names.SPAN_COMPUTE, nreal=args.nreal, fit=bool(args.fit)):
+        # the deterministic delays (B.1's CW catalog, ...), once for realize
+        # and the datasets; a sweep builds its own
+        static = None
+        if not args.checkpoint or args.write_partim:
+            static = deterministic_delays(batch, recipe, device=device)
+        if args.checkpoint:
+            from .utils.sweep import sweep
 
-        out = sweep(args.seed, batch, recipe, args.nreal, args.checkpoint, chunk=chunk,
-                    reduce_fn=None, fit=args.fit, pipeline_depth=args.pipeline_depth,
-                    drain_timeout_s=args.drain_timeout if args.drain_timeout > 0 else None,
-                    chunk_retries=args.chunk_retries, fused_stream=args.fused_stream,
-                    progress=lambda d, n: print(f"chunk {d}/{n}", file=sys.stderr),
-                    device=device)
-    else:
-        generator = torch.Generator(device=device).manual_seed(args.seed)
-        out = realize(generator, batch, recipe, args.nreal, fit=args.fit, static=static,
-                      device=device).cpu().numpy()
+            out = sweep(args.seed, batch, recipe, args.nreal, args.checkpoint, chunk=chunk,
+                        reduce_fn=None, fit=args.fit, pipeline_depth=args.pipeline_depth,
+                        drain_timeout_s=args.drain_timeout if args.drain_timeout > 0 else None,
+                        chunk_retries=args.chunk_retries, fused_stream=args.fused_stream,
+                        progress=lambda d, n: print(f"chunk {d}/{n}", file=sys.stderr),
+                        device=device)
+        else:
+            generator = torch.Generator(device=device).manual_seed(args.seed)
+            out = realize(generator, batch, recipe, args.nreal, fit=args.fit, static=static,
+                          device=device).cpu().numpy()
 
-    np.savez(args.out, residuals=out, mask=batch.mask.cpu().numpy(),
-             names=np.array(batch.names), fit=np.array(mode),
-             design_names=np.array(json.dumps(design_names)))
+    with span(names.SPAN_WRITE_OUTPUT, out=args.out):
+        np.savez(args.out, residuals=out, mask=batch.mask.cpu().numpy(),
+                 names=np.array(batch.names), fit=np.array(mode),
+                 design_names=np.array(json.dumps(design_names)))
     summary = {
         "out": args.out,
         "shape": list(out.shape),
@@ -556,8 +574,8 @@ def _run_likelihood(args):
     import torch
 
     from . import likelihood as lk
+    from .obs import names, span
 
-    _refuse_unported(args)
     if not args.synthetic and not (args.pardir and args.timdir):
         raise SystemExit("likelihood needs a dataset: --pardir/--timdir or --synthetic")
     if args.synthetic:
@@ -568,7 +586,6 @@ def _run_likelihood(args):
     device = _device(args.device, args.cmd)
     # the JAX CLI freezes in JAX's default float (float64 under x64)
     dtype = torch.get_default_dtype()
-    # the JAX package's ingest, build_recipe and compute spans wait for A.16
     if args.synthetic:
         from .batch import synthetic_batch
 
@@ -581,13 +598,14 @@ def _run_likelihood(args):
         from .batch import freeze
         from .simulate import load_from_directories, make_ideal
 
-        psrs = load_from_directories(args.pardir, args.timdir, num_psrs=args.num_psrs)
-        for psr in psrs:
-            make_ideal(psr)
+        with span(names.SPAN_INGEST, pardir=args.pardir):
+            psrs = load_from_directories(args.pardir, args.timdir, num_psrs=args.num_psrs)
+            for psr in psrs:
+                make_ideal(psr)
         batch = freeze(psrs, dtype=dtype, device=device)
         locs = None
 
-    with open(args.recipe) as fh:
+    with span(names.SPAN_BUILD_RECIPE), open(args.recipe) as fh:
         recipe = _build_recipe(json.load(fh), psrs, locs=locs).to(device)
 
     if args.bank.endswith(".npy") and os.path.exists(args.bank):
@@ -603,31 +621,32 @@ def _run_likelihood(args):
 
     result = {"bank": args.bank, "nreal": bank.nreal, "npsr": batch.npsr}
     grid_axes = _axis_specs(args.grid, "grid")
-    if grid_axes:
-        grid, shape = lk.grid_cartesian(grid_axes)
-        # the bank streams chunk by chunk through the projection: the
-        # whole cube never sits on the card
-        ll = lk.bank_loglikelihood(bank, batch, recipe, grid=grid, device=device)
-        mean = ll.cpu().numpy().mean(axis=1)  # (G, R) -> (G,)
-        best = int(np.argmax(mean))
-        result["grid"] = {
-            "axes": sorted(grid_axes),
-            "shape": list(shape),
-            "loglikelihood_mean": [float(v) for v in mean],
-            "best": {
-                "index": best,
-                **{k: float(grid[k][best]) for k in grid},
-                "loglikelihood_mean": float(mean[best]),
-            },
-        }
-    if args.map_params:
-        mr = lk.map_fit(bank.row(args.real_index), batch, recipe,
-                        _axis_specs(args.map_params, "map"), device=device)
-        result["map"] = mr.as_dict()
-    if args.serve:
-        if not grid_axes:
-            raise SystemExit("--serve needs --grid axes to sample requests from")
-        result["serve"] = _serve_demo(args, bank, batch, recipe, grid_axes, device)
+    with span(names.SPAN_COMPUTE):
+        if grid_axes:
+            grid, shape = lk.grid_cartesian(grid_axes)
+            # the bank streams chunk by chunk through the projection: the
+            # whole cube never sits on the card
+            ll = lk.bank_loglikelihood(bank, batch, recipe, grid=grid, device=device)
+            mean = ll.cpu().numpy().mean(axis=1)  # (G, R) -> (G,)
+            best = int(np.argmax(mean))
+            result["grid"] = {
+                "axes": sorted(grid_axes),
+                "shape": list(shape),
+                "loglikelihood_mean": [float(v) for v in mean],
+                "best": {
+                    "index": best,
+                    **{k: float(grid[k][best]) for k in grid},
+                    "loglikelihood_mean": float(mean[best]),
+                },
+            }
+        if args.map_params:
+            mr = lk.map_fit(bank.row(args.real_index), batch, recipe,
+                            _axis_specs(args.map_params, "map"), device=device)
+            result["map"] = mr.as_dict()
+        if args.serve:
+            if not grid_axes:
+                raise SystemExit("--serve needs --grid axes to sample requests from")
+            result["serve"] = _serve_demo(args, bank, batch, recipe, grid_axes, device)
 
     payload = json.dumps(result, indent=1, sort_keys=True)
     if args.out:
@@ -690,13 +709,38 @@ def _serve_demo(args, bank, batch, recipe, grid_axes, device):
     return stats
 
 
-def main(argv=None):
-    args = _parser().parse_args(sys.argv[1:] if argv is None else list(argv))
+def _run_command(args):
     if args.cmd == "scenario":
         return _run_scenario(args)
     if args.cmd == "likelihood":
         return _run_likelihood(args)
     return _run_dataset(args)
+
+
+def main(argv=None):
+    args = _parser().parse_args(sys.argv[1:] if argv is None else list(argv))
+    if args.cmd == "report":
+        from .obs.report import print_report
+
+        print_report(args.dir, min_ms=args.min_ms, as_json=args.json)
+        return
+    # every refusal comes before any work, a capture's included
+    _refuse_unported(args)
+    if not args.telemetry:
+        return _run_command(args)
+
+    # capture mode: spans and metrics stream into the telemetry directory,
+    # whose files are written even when the run raises
+    from . import obs
+
+    obs.start_capture(args.telemetry)
+    try:
+        with obs.span(args.cmd):
+            return _run_command(args)
+    finally:
+        obs.finish_capture(context={
+            "argv": list(argv) if argv is not None else sys.argv[1:],
+        })
 
 
 if __name__ == "__main__":

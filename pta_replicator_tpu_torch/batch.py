@@ -171,7 +171,23 @@ def freeze(psrs: List, flagid: str = "f", coarsegrain: float = 0.1,
     each epoch's backend is that of its time-first TOA. Epochs leave
     longdouble only here: ``tref_mjd`` is subtracted from the float64 MJDs
     and the difference scaled to seconds on the host, before any tensor
-    exists. Index tensors are int64 (int32 in the JAX package)."""
+    exists. Index tensors are int64 (int32 in the JAX package).
+
+    Runs under a ``freeze`` span with the ``batch.freezes`` and
+    ``batch.toas_frozen`` counters (counted from the host TOA sets)."""
+    from .obs import counter, span
+
+    with span("freeze", npsr=len(psrs)) as sp:
+        batch = _freeze_impl(psrs, flagid, coarsegrain, tref_mjd, dtype, device)
+        sp["ntoa_max"] = batch.ntoa_max
+        sp["max_epochs"] = batch.max_epochs
+        counter("batch.freezes").inc()
+        counter("batch.toas_frozen").inc(int(sum(p.toas.ntoas for p in psrs)))
+        return batch
+
+
+def _freeze_impl(psrs: List, flagid: str, coarsegrain: float, tref_mjd: Optional[float],
+                 dtype, device) -> PulsarBatch:
     device = resolve_device(device)
     npsr = len(psrs)
     ntoas = np.array([p.toas.ntoas for p in psrs], dtype=np.int64)

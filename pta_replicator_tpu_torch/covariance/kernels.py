@@ -185,3 +185,50 @@ def kron_sample_map(Lt, Lf, Z):
     sampling map ``Lt Z Lf^T`` (epoch-major vec convention)."""
     Y = torch.einsum("pij,...pjc->...pic", Lt, Z)
     return torch.einsum("...pic,pkc->...pik", Y, Lf)
+
+
+# --------------------------------------------- eager telemetry entries
+
+#: running tallies behind the ``cov.blocked_fraction`` gauge: structured
+#: (banded, Kronecker, low-rank) solves against every solve the eager
+#: entries below priced
+_SOLVE_TALLY = {"total": 0, "structured": 0}
+
+
+def solve_eager(op, x, s2=None):
+    """Solve ``C z = x`` through a covariance op under the ``cov_solve``
+    span, counting it in ``cov.solves`` and the ``cov.blocked_fraction``
+    gauge: the instrumented entry of host-driven callers.
+
+    The span measures the host: on the card it closes when the solve's
+    kernels are queued, and the caller's readback is the fence (nothing
+    here waits for the card)."""
+    from ..obs import counter, gauge, names, span
+
+    structured = type(op).__name__ != "DenseCov"
+    with span(names.SPAN_COV_SOLVE, kind=type(op).__name__, structured=structured):
+        out = op.solve(x, s2=s2)
+    counter(names.COV_SOLVES).inc()
+    _SOLVE_TALLY["total"] += 1
+    _SOLVE_TALLY["structured"] += int(structured)
+    gauge(names.COV_BLOCKED_FRACTION).set(_SOLVE_TALLY["structured"] / _SOLVE_TALLY["total"])
+    return out
+
+
+def sample_eager(op, draws, s2=None):
+    """One correlated-noise realization through a covariance op under the
+    ``cov_sample`` span: the fuzz harness's batched-side entry.
+
+    ``draws`` is the op's standard normals by family name (the shapes of
+    ``op.draw_shapes()``), or a ``torch.Generator`` to draw them from, in
+    float64 on the generator's device (the JAX package's function takes a
+    key in its place). As :func:`solve_eager`, the span waits for nothing
+    on the card."""
+    from ..obs import names, span
+
+    with span(names.SPAN_COV_SAMPLE, kind=type(op).__name__):
+        if isinstance(draws, torch.Generator):
+            draws = {name: torch.randn(shape, generator=draws, dtype=torch.float64,
+                                       device=draws.device)
+                     for name, shape in op.draw_shapes().items()}
+        return op.sample(draws, s2=s2)

@@ -20,8 +20,9 @@ full). Fatal is everything else, and on the card in particular:
 * ``torch.cuda.OutOfMemoryError``, as the reference holds OOM fatal (the
   remedy is a smaller chunk, not the same one again).
 
-The reference's fault-injection events (``faults.retry``) come with the
-port's observability layer (ROADMAP.md item A.16).
+Every absorbed retry emits a ``faults.retry`` event (:func:`retry_event`)
+into the capture's event stream. Fault injection (``--faults``) is ROADMAP
+A.16.2.
 """
 from __future__ import annotations
 
@@ -106,3 +107,13 @@ def backoff_delay(attempt: int, policy: RetryPolicy = DEFAULT_POLICY) -> float:
     if policy.jitter <= 0:
         return base
     return base * (1.0 + policy.jitter * (2.0 * random.random() - 1.0))
+
+
+def retry_event(scope: str, exc: BaseException, **attrs) -> None:
+    """Record one absorbed retry as a ``faults.retry`` event: ``scope``
+    names whose retry it was (``sweep``, ``prefetch``), ``attrs`` where
+    (the attempt, the chunk or tile), and the error is kept to 200
+    characters."""
+    from ..obs import event, names
+
+    event(names.EVENT_FAULT_RETRY, scope=scope, **attrs, error=repr(exc)[:200])

@@ -10,6 +10,7 @@ every line verbatim for lossless round-tripping via :func:`ParModel.write`.
 """
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass, field
 from typing import Optional
 
@@ -349,9 +350,16 @@ class ParModel:
 
 
 def read_par(path: str) -> ParModel:
-    """Parse a ``.par`` file into a :class:`ParModel`."""
-    with open(path) as fh:
-        return parse_par_lines(fh.read().splitlines(), path=path)
+    """Parse a ``.par`` file into a :class:`ParModel` (a ``read_par`` span
+    and the ``io.par.files`` counter)."""
+    from ..obs import counter, span
+
+    with span("read_par", file=os.path.basename(path)) as sp:
+        with open(path) as fh:
+            model = parse_par_lines(fh.read().splitlines(), path=path)
+        sp["nparams"] = len(model.params)
+        counter("io.par.files").inc()
+    return model
 
 
 def parse_par_lines(lines, path: Optional[str] = None) -> ParModel:

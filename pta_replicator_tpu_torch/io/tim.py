@@ -208,13 +208,25 @@ _READS_LOCK = threading.Lock()
 
 def read_tim(path: str, use_native: bool = True) -> TOAData:
     """Parse a Tempo2 ``FORMAT 1`` tim file (with SKIP/NOSKIP, INCLUDE,
-    TIME, EFAC, EQUAD command handling).
+    TIME, EFAC, EQUAD command handling), under a ``read_tim`` span with the
+    ``io.tim.files`` and ``io.tim.toas`` counters.
 
     Plain files go through the native C++ tokenizer (csrc/fast_tim.cpp,
     built at first use; a failed build raises); files with stateful
     directives, or every file with ``use_native=False``, go through the
     Python parser. :data:`reads` counts the files each parser read.
     """
+    from ..obs import counter, span
+
+    with span("read_tim", file=os.path.basename(path)) as sp:
+        toas = _read_tim_impl(path, use_native, sp)
+        sp["ntoa"] = toas.ntoas
+        counter("io.tim.files").inc()
+        counter("io.tim.toas").inc(toas.ntoas)
+    return toas
+
+
+def _read_tim_impl(path: str, use_native: bool, span_attrs: dict) -> TOAData:
     if use_native:
         from .native import fast_read_tim
 
@@ -223,6 +235,7 @@ def read_tim(path: str, use_native: bool = True) -> TOAData:
             mjd, errs, freqs, labels, obs, flag_strs = fast
             with _READS_LOCK:
                 reads["native"] += 1
+            span_attrs["parser"] = "native"
             return TOAData(
                 mjd=mjd,
                 errors_s=errs,
@@ -235,6 +248,7 @@ def read_tim(path: str, use_native: bool = True) -> TOAData:
     _parse_tim_into(path, st)
     with _READS_LOCK:
         reads["python"] += 1
+    span_attrs["parser"] = "python"
     return TOAData(
         mjd=np.array(st.mjds, dtype=np.longdouble),
         errors_s=np.array(st.errs, dtype=np.float64),

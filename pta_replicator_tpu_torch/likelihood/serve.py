@@ -13,8 +13,9 @@ own (R,) log-likelihood row.
 Admission control: a bounded queue (``max_queue``) refuses a request
 with :class:`ServerSaturated` instead of growing, and a request still
 queued past its deadline raises :class:`DeadlineExpired` instead of
-being served late. The reference's spans, traces and engine retry belong
-to the port's observability layer (ROADMAP.md item A.16).
+being served late. The bank's projection runs under the
+``likelihood_project`` span; the reference's request spans, trace hops,
+``likelihood.*`` SLO counters and engine retry belong to ROADMAP A.16.4.
 """
 from __future__ import annotations
 
@@ -131,15 +132,26 @@ class RealizationBank:
         return np.concatenate(blocks, axis=0)
 
 
-def project_bank(bank: RealizationBank, reduced: gp.ReducedGP,
-                 batch: PulsarBatch) -> gp.GPProjection:
-    """Project a whole bank through the ReducedGP precompute, staging one
-    chunk at a time onto the batch's device: ((R, Np), (R, Np, Q))."""
-    parts = [
-        reduced.project(torch.as_tensor(block).to(device=batch.device, dtype=reduced.TNT.dtype),
-                        batch)
-        for block in bank.iter_chunks()
-    ]
+def project_bank(bank: RealizationBank, reduced: gp.ReducedGP, batch: PulsarBatch,
+                 prefetch_depth: int = 2) -> gp.GPProjection:
+    """Project a whole bank through the ReducedGP precompute:
+    ((R, Np), (R, Np, Q)) on the batch's device, under the
+    ``likelihood_project`` span. The chunks stream through the prefetch
+    layer (``parallel/prefetch.py::prefetch_to_device``): the next chunk
+    loads from disk and stages to the card on a worker thread while the
+    current one projects, at most ``prefetch_depth`` chunks ahead. A bank
+    of tensors is handed over as it is, and moved here."""
+    from ..obs import names, span
+    from ..parallel.prefetch import prefetch_to_device
+
+    place = (lambda block: block) if isinstance(bank.dtype, torch.dtype) else None
+    parts = []
+    with span(names.SPAN_LIKELIHOOD_PROJECT, nreal=bank.nreal) as sp:
+        for block in prefetch_to_device(bank.iter_chunks(), depth=prefetch_depth,
+                                        device=batch.device, place=place):
+            block = block.to(device=batch.device, dtype=reduced.TNT.dtype)
+            parts.append(reduced.project(block, batch))
+        sp["chunks"] = len(parts)
     return gp.GPProjection(rNr=torch.cat([p.rNr for p in parts]),
                            d=torch.cat([p.d for p in parts]))
 

@@ -133,9 +133,12 @@ def woodbury_knob(T, precision: str = "highest", cache_path: Optional[str] = Non
     """The cached knob of the fused assembly of basis ``T`` (Np, Nt, Q):
     ``{"tile": n}`` on the CPU, ``{"nsplit": n}`` on the card, or ``{}``
     when nothing is tuned for this fingerprint. A pure lookup."""
-    _route, knob, key = _key(T, precision)
+    from ..obs import counter, names
+
+    route, knob, key = _key(T, precision)
     entry = load_cache(cache_path).get(key)
     if isinstance(entry, dict) and isinstance(entry.get(knob), int):
+        counter(names.TUNER_CACHE_HITS, backend=route).inc()
         return {knob: int(entry[knob])}
     return {}
 
@@ -171,7 +174,12 @@ def autotune(T, w, r, precision: str = "highest", candidates: Optional[Sequence[
     their device, and cache the fastest (``write``). The candidates are
     :data:`WOODBURY_CANDIDATES` tiles on the CPU (median host time) and
     ``ops/gp.py::woodbury_split_candidates`` split counts on the card
-    (CUDA-event time), unless given. Returns the choice record cached."""
+    (CUDA-event time), unless given. Returns the choice record cached.
+    The search runs under a ``gp_tune`` span and counts in
+    ``tuner.searches``; :func:`woodbury_knob` counts its hits in
+    ``tuner.cache_hits``."""
+    from ..obs import counter, names, span
+
     route, knob, key = _key(T, precision)
     npsr, ntoa, q = T.shape
     if candidates is None:
@@ -181,15 +189,18 @@ def autotune(T, w, r, precision: str = "highest", candidates: Optional[Sequence[
         else:
             candidates = WOODBURY_CANDIDATES
     scored = []
-    for value in candidates:
-        kw = {knob: int(value)}
-        run = lambda: ops_gp.fused_woodbury_update(T, w, r, precision=precision, **kw)
-        seconds = _cuda_s(run, reps) if route == "cuda" else _median_s(run, reps)
-        scored.append({knob: int(value), "seconds": seconds})
+    bucket = shape_bucket(npsr, ntoa, q if route == "cuda" else None)
+    with span(names.SPAN_GP_TUNE, backend=route, bucket=bucket):
+        counter(names.TUNER_SEARCHES, backend=route).inc()
+        for value in candidates:
+            kw = {knob: int(value)}
+            run = lambda: ops_gp.fused_woodbury_update(T, w, r, precision=precision, **kw)
+            seconds = _cuda_s(run, reps) if route == "cuda" else _median_s(run, reps)
+            scored.append({knob: int(value), "seconds": seconds})
     best = min(scored, key=lambda s: s["seconds"])
     choice = {
         knob: best[knob], "route": route,
-        "bucket": shape_bucket(npsr, ntoa, q if route == "cuda" else None),
+        "bucket": bucket,
         "device_kind": device_kind(T.device), "dtype": str(T.dtype).replace("torch.", ""),
         "precision": precision, "seconds": best["seconds"],
         "candidates": [int(c) for c in candidates], "scored": scored,

@@ -408,12 +408,16 @@ def cw_stream_response(batch: PulsarBatch, tiles, evolve: bool, psr_term: bool =
     width is a multiple of ``chunk``. The reference computes this path
     with its scan backend (``_cw_tile_response``); the port runs B.1,
     which computes the same function. ``stats`` receives the prefetcher's
-    stats (the worker's build-and-stage seconds, the consumer's wait)."""
+    stats (the worker's build-and-stage seconds, the consumer's wait).
+    Runs under a ``cw_stream_response`` span; the ``cw_stream.tiles_done``
+    gauge counts the tiles launched (host counts, no readback)."""
+    from ..obs import gauge, names, span
     from ..parallel.prefetch import prefetch_to_device
 
     if tiles_per_step < 1:
         raise ValueError(f"tiles_per_step must be >= 1 (got {tiles_per_step})")
     width = [None]  # set by the stream's first tile
+    macro_tiles = []  # tiles joined into each macro, appended by the worker
 
     def macros():
         """Join ``tiles_per_step`` tiles per macro (on the prefetch worker,
@@ -434,17 +438,30 @@ def cw_stream_response(batch: PulsarBatch, tiles, evolve: bool, psr_term: bool =
             buf_s.append(src)
             buf_p.append(psr)
             if len(buf_s) == tiles_per_step:
+                macro_tiles.append(len(buf_s))
                 yield np.concatenate(buf_s, axis=-1), np.concatenate(buf_p, axis=-1)
                 buf_s, buf_p = [], []
         if buf_s:
+            macro_tiles.append(len(buf_s))
             yield np.concatenate(buf_s, axis=-1), np.concatenate(buf_p, axis=-1)
 
     u = batch.toas_s - _as(batch.start_s, batch)
     acc = torch.zeros_like(batch.toas_s)
-    for src, psr in prefetch_to_device(macros(), depth=prefetch_depth, device=batch.device,
-                                       stall_timeout_s=stall_timeout_s, stats=stats):
-        acc = cw_catalog_response(u, src, psr, psr_term=psr_term, evolve=evolve,
-                                  chunk=chunk, out=acc)
+    with span(names.SPAN_CW_STREAM_RESPONSE, depth=prefetch_depth) as sp:
+        # the gauge counts tiles, not macros (the unit of the JAX package's)
+        gauge(names.CW_STREAM_TILES_DONE).set(0)
+        nmacros = ntiles = 0
+        for src, psr in prefetch_to_device(macros(), depth=prefetch_depth,
+                                           device=batch.device,
+                                           stall_timeout_s=stall_timeout_s, stats=stats):
+            acc = cw_catalog_response(u, src, psr, psr_term=psr_term, evolve=evolve,
+                                      chunk=chunk, out=acc)
+            ntiles += macro_tiles[nmacros]
+            nmacros += 1
+            gauge(names.CW_STREAM_TILES_DONE).set(ntiles)
+        sp["macros"] = nmacros
+        sp["tiles"] = ntiles
+        sp["tiles_per_step"] = tiles_per_step
     return acc * batch.mask
 
 

@@ -17,7 +17,7 @@ assembly (``likelihood/gp.py::require_precision_ready``).
   (:data:`NUMERICS_SCHEMA_VERSION`), so a capture written by either
   package is read by the other.
 
-Not ported here (ROADMAP A.16): the collector mode, drift sampling
+Not ported here (ROADMAP A.16.3): the collector mode, drift sampling
 (``sample_drift``, ``on_drain``, ``scan_block``), the heartbeat block, and
 the counters, gauges and events ``_record`` emits. A capture of this
 module holds no drift samples, so a site that maps to a drift family
@@ -188,7 +188,7 @@ def snapshot() -> dict:
         "schema_version": NUMERICS_SCHEMA_VERSION,
         "armed": _ARMED,
         "sites": sites,
-        "drift": {},  # nothing here samples drift (A.16)
+        "drift": {},  # nothing here samples drift (A.16.3)
         "nonfinite_total": sum(s["nonfinite"] for s in sites.values()),
         "episodes_active": episodes_active,
     }

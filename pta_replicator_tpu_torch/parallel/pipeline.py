@@ -24,7 +24,12 @@ result's memory to a later chunk while the copy still reads it. The
 pinned buffers form a ring of ``depth + 1``; a buffer returns to the ring
 (:meth:`PinnedReadback.release`) only after the writer has serialized it.
 
-Not ported here: the reference's spans, gauges and fault sites (A.16).
+Telemetry: ``dispatch`` / ``drain`` / ``io_write`` spans per chunk (the
+worker spans nest under the span that started the pipeline), the
+``sweep.inflight_chunks`` and ``sweep.last_dispatched_chunk`` gauges and
+the ``pipeline.drain_timeouts`` counter. The dispatch span measures the
+launch (kernels run asynchronously); the drain span closes after the
+readback's own wait. The fault sites are ROADMAP A.16.2.
 """
 from __future__ import annotations
 
@@ -35,6 +40,7 @@ from typing import Callable, Iterable, Optional
 import numpy as np
 import torch
 
+from ..obs import gauge, names
 from .stages import DrainTimeout, Stage, StageGraph  # noqa: F401 — DrainTimeout re-exported
 
 
@@ -144,11 +150,17 @@ class PinnedReadback:
         self._closed.set()
 
 
+def dispatch_on_done(i, _out) -> None:
+    """How far ahead of the drained and written chunks the dispatcher
+    runs."""
+    gauge(names.SWEEP_LAST_DISPATCHED_CHUNK).set(i)
+
+
 def drain_stage(fetch: Callable, depth: int) -> Stage:
     """The host-readback stage: waits for the result, frees the window
     slot, feeds the writer through a depth-bounded edge."""
-    return Stage("drain", fn=lambda i, dev, sp: fetch(dev), releases_window=True,
-                 out_maxsize=depth, heartbeat_label="host readback",
+    return Stage("drain", fn=lambda i, dev, sp: fetch(dev), span=names.SPAN_DRAIN,
+                 releases_window=True, out_maxsize=depth, heartbeat_label="host readback",
                  thread_name="sweep-drain")
 
 
@@ -163,13 +175,14 @@ def io_write_stage(write: Callable, release: Optional[Callable] = None) -> Stage
             if release is not None:
                 release(block)
 
-    return Stage("io_write", fn=fn, heartbeat_label="checkpoint write",
-                 thread_name="sweep-io")
+    return Stage("io_write", fn=fn, span=names.SPAN_IO_WRITE,
+                 span_attrs=lambda i, block: {"nbytes": int(block.nbytes)},
+                 heartbeat_label="checkpoint write", thread_name="sweep-io")
 
 
 def pipeline_stats(g: dict) -> dict:
     """The graph's stats under the sweep pipeline's names (the reference's
-    keys, without ``occupancy``: ROADMAP.md item A.16)."""
+    keys, without ``occupancy``: ROADMAP A.16.4)."""
     return {
         "chunks": g["items"],
         "max_inflight": g["max_inflight"],
@@ -204,9 +217,12 @@ def run_pipelined(indices: Iterable[int], dispatch: Callable[[int], object],
             "synchronous loop — run it inline, there is nothing to overlap"
         )
     graph = StageGraph(
-        [Stage("dispatch", fn=lambda i, _p, sp: dispatch(i), heartbeat=False),
+        [Stage("dispatch", fn=lambda i, _p, sp: dispatch(i), span=names.SPAN_DISPATCH,
+               on_done=dispatch_on_done, heartbeat=False),
          drain_stage(fetch, depth), io_write_stage(write, release)],
-        window=depth, drain_timeout_s=drain_timeout_s, mark_item=_mark_chunk,
+        window=depth, drain_timeout_s=drain_timeout_s,
+        timeout_counter=names.PIPELINE_DRAIN_TIMEOUTS,
+        inflight_gauge=names.SWEEP_INFLIGHT_CHUNKS, mark_item=_mark_chunk,
         name="sweep",
     )
     return pipeline_stats(graph.run(indices))

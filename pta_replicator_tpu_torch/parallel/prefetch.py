@@ -32,8 +32,15 @@ The cache (:func:`save_plane_tiles` / :func:`load_plane_tiles`) writes a
 tile stream into one ``np.load``-compatible archive, member by member,
 stamped with a workload fingerprint, in the reference's format.
 
-Not ported here: ``prefetch_to_mesh`` (ROADMAP.md item A.17) and the
-reference's spans, gauges and fault sites (A.16).
+Telemetry: a ``cw_stream_stage`` span per tile (its build and staging, on
+the worker, nested under the consumer's span), the
+``cw_stream.bytes_staged`` counter, the ``cw_stream.stage_retries``
+counter with a ``faults.retry`` event per absorbed retry, and the
+``cw_stream.prefetch_stall_s`` gauge: the consumer's cumulative wait for a
+tile, i.e. how far the host build (not the card) holds the stream back.
+
+Not ported here: ``prefetch_to_mesh`` (ROADMAP.md item A.17) and the fault
+sites (A.16.2).
 """
 from __future__ import annotations
 
@@ -46,7 +53,8 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from ..faults.retry import is_transient
+from ..faults.retry import is_transient, retry_event
+from ..obs import counter, names
 from .stages import DrainTimeout, Stage, StageGraph  # noqa: F401 — DrainTimeout re-exported
 
 
@@ -100,14 +108,17 @@ class _CudaStager:
         return (tuple(out) if seq else out[0]), event
 
 
-def _stage_with_retry(stage_once: Callable):
+def _stage_with_retry(stage_once: Callable, tile: int):
     """One staging operation; a transient failure is retried once in
-    place, a second failure or a fatal one re-raises unchanged."""
+    place (counted in ``cw_stream.stage_retries``, with a ``faults.retry``
+    event), a second failure or a fatal one re-raises unchanged."""
     try:
         return stage_once()
     except BaseException as exc:  # noqa: BLE001 — classified, then re-raised
         if not is_transient(exc):
             raise
+        counter(names.CW_STREAM_STAGE_RETRIES).inc()
+        retry_event("prefetch", exc, tile=tile, attempt=1)
         return stage_once()
 
 
@@ -143,13 +154,21 @@ def prefetch_to_device(tiles: Iterable, *, depth: int = 2, device="cuda",
         user_place = place
         place = lambda i, tile: user_place(tile)
 
+    def stage(i, tile, sp):
+        nbytes = sum(int(getattr(x, "nbytes", 0))
+                     for x in (tile if isinstance(tile, (tuple, list)) else (tile,)))
+        staged = _stage_with_retry(lambda: place(i, tile), i)
+        sp["nbytes"] = nbytes
+        counter(names.CW_STREAM_BYTES_STAGED).inc(nbytes)
+        return staged
+
     graph = StageGraph(
-        [Stage("cw_stream_stage",
-               fn=lambda i, tile, sp: _stage_with_retry(lambda: place(i, tile)),
-               heartbeat_label="host->device tile staging",
+        [Stage("cw_stream_stage", fn=stage, span=names.SPAN_CW_STREAM_STAGE,
+               index_attr="tile", heartbeat_label="host->device tile staging",
                context=(lambda: torch.cuda.device(device)) if device.type == "cuda" else None,
                thread_name="cw-stream-prefetch")],
         window=depth, drain_timeout_s=stall_timeout_s,
+        stall_gauge=names.CW_STREAM_PREFETCH_STALL_S,
         stall_what="host->device tile staging", name="cw-stream",
     )
     staged = graph.iterate(tiles)

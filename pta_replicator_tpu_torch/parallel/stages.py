@@ -21,7 +21,15 @@ FIFO queues. The executor provides, once for every graph:
   with the failing item attached through ``mark_item`` (caller mode);
 * **stop and drain without stranded items**, and a bounded quiesce of the
   sink before an error re-raises (a retry must not race a live writer);
-* **per-stage busy seconds** in the stats.
+* **per-stage busy seconds** in the stats;
+* **telemetry**: a stage that declares ``span`` runs each operation under
+  that span (``index_attr`` carries the item index), and the executor
+  keeps the ``stages.busy_s{stage=}`` and ``stages.edge_inflight{edge=}``
+  gauges (items queued per edge) and bumps ``stages.drain_timeouts``.
+  Worker threads take the caller's span ancestry (``TRACER.inherit``), so
+  their spans nest under the span that started the graph. A declaration
+  may keep its own metric names (``timeout_counter``, ``inflight_gauge``,
+  ``stall_gauge``); gauges are set from host numbers only.
 
 On the card, PyTorch's current stream and device are per thread. A stage
 whose worker thread must compute on a given stream declares ``context``
@@ -35,10 +43,9 @@ the stats) and :meth:`StageGraph.iterate` (generator mode: the source
 group runs on a worker thread, which pulls the ``items`` iterator, and
 the caller consumes the results in order).
 
-Not ported here: the reference's spans, gauges, fault-injection sites
-and trace handoff (ROADMAP.md item A.16), the stats' ``occupancy`` block
-(A.16), the per-device ``replicas`` fan-out stage and ``fan_out`` (A.17,
-multi-device).
+Not ported here: the fault-injection sites (ROADMAP A.16.2), the chunk
+trace contexts and the stats' ``occupancy`` block (A.16.4), the
+per-device ``replicas`` fan-out stage and ``fan_out`` (A.17, multi-device).
 """
 from __future__ import annotations
 
@@ -48,6 +55,8 @@ import threading
 import time
 from dataclasses import dataclass
 from typing import Any, Callable, Iterable, Iterator, List, Optional, Sequence, Tuple
+
+from ..obs import TRACER, counter, gauge, names, span
 
 _STOP = object()  # queue sentinel: no more items
 
@@ -85,11 +94,18 @@ class Stage:
 
     ``fn(i, payload, sp)`` processes item ``i``: ``payload`` is the
     previous stage's result (for a source stage, the item pulled from the
-    input), ``sp`` a dict of the item's attributes that a stage may stamp
-    measurements into (the reference's span attributes)."""
+    input), ``sp`` the stage span's attribute dict (a plain dict when
+    ``span`` is None), so a stage can stamp measurements
+    (``sp["nbytes"] = ...``) without owning the span."""
 
     name: str
     fn: Callable
+    #: span opened around each operation (None: the fn opens its own)
+    span: Optional[str] = None
+    #: extra span attributes from the item: ``(i, payload) -> dict``
+    span_attrs: Optional[Callable] = None
+    #: the span attribute carrying the item index (``chunk``, ``tile``)
+    index_attr: str = "chunk"
     #: "thread" (its own worker thread and input queue) or "inline" (runs
     #: on the previous stage's thread, in its loop step)
     placement: str = "thread"
@@ -110,6 +126,9 @@ class Stage:
     context: Optional[Callable] = None
     #: worker thread name (default "<graph name>-<stage name>")
     thread_name: Optional[str] = None
+    #: hook ``(i, result) -> None`` after the span closed and the busy time
+    #: was counted (counters, progress gauges)
+    on_done: Optional[Callable] = None
 
     @property
     def what(self) -> str:
@@ -130,10 +149,15 @@ class StageGraph:
     ``window`` bounds the items in flight between the acquiring stage and
     the releasing stage (caller mode) or the consumer (generator mode).
     ``mark_item(exc, i)`` attaches the failing item's index to a stage's
-    exception (caller mode)."""
+    exception (caller mode). ``timeout_counter``, ``inflight_gauge`` and
+    ``stall_gauge`` keep a declaration's own metric names beside the
+    executor's ``stages.*`` ones."""
 
     def __init__(self, stages: Sequence[Stage], *, window: Optional[int] = None,
                  drain_timeout_s: Optional[float] = 900.0,
+                 timeout_counter: Optional[str] = None,
+                 inflight_gauge: Optional[str] = None,
+                 stall_gauge: Optional[str] = None,
                  stall_what: str = "staging", mark_item: Optional[Callable] = None,
                  name: str = "stage_graph"):
         if not stages:
@@ -147,6 +171,9 @@ class StageGraph:
         self._acquirer = acquirers[0] if acquirers else stages[0]
         self.window = window
         self.drain_timeout_s = drain_timeout_s
+        self.timeout_counter = timeout_counter
+        self.inflight_gauge = inflight_gauge
+        self.stall_gauge = stall_gauge
         self.stall_what = stall_what
         self.mark_item = mark_item
         self.name = name
@@ -156,6 +183,7 @@ class StageGraph:
         self._lock = threading.Lock()
         self._window = threading.Semaphore(window) if window is not None else None
         self._inflight = 0
+        self._timeout_fired = False  # the deadline counters count once a graph
         self._busy = {s.name: 0.0 for s in self._stages}
         self._beats: List[Tuple[Stage, list]] = []
         self._stats = {"items": 0, "max_inflight": 0, "window_wait_s": 0.0, "stall_s": 0.0}
@@ -188,6 +216,8 @@ class StageGraph:
         with self._lock:
             self._inflight += delta
             self._stats["max_inflight"] = max(self._stats["max_inflight"], self._inflight)
+            if self.inflight_gauge:
+                gauge(self.inflight_gauge).set(self._inflight)
 
     def _new_beat(self, stage: Stage) -> list:
         box = [None]
@@ -195,6 +225,18 @@ class StageGraph:
             with self._lock:
                 self._beats.append((stage, box))
         return box
+
+    def _bump_timeout_counters(self) -> bool:
+        """Count one deadline episode: True for the one waiter that claims
+        it (several blocked waiters poll the heartbeats at once)."""
+        with self._lock:
+            if self._timeout_fired:
+                return False
+            self._timeout_fired = True
+        counter(names.STAGES_DRAIN_TIMEOUTS).inc()
+        if self.timeout_counter:
+            counter(self.timeout_counter).inc()
+        return True
 
     def _check_deadline(self) -> None:
         """Caller mode: fail the graph on the first overdue heartbeat."""
@@ -204,6 +246,8 @@ class StageGraph:
             beats = list(self._beats)
         for stage, box in beats:
             if stage_overdue(box, self.drain_timeout_s):
+                if not self._bump_timeout_counters():
+                    return  # a concurrent waiter claimed it
                 self._fail(stage.name, DrainTimeout(
                     f"{stage.what} exceeded {self.drain_timeout_s:.0f}s — device or "
                     "filesystem wedged"))
@@ -226,17 +270,39 @@ class StageGraph:
                 self._check_deadline()
         return False
 
+    @staticmethod
+    def _edge_gauge(label: str, q: queue.Queue) -> None:
+        gauge(names.STAGES_EDGE_INFLIGHT, edge=label).set(q.qsize())
+
+    def _account(self, stage: Stage, dt: float) -> None:
+        with self._lock:
+            self._busy[stage.name] += dt
+            busy = self._busy[stage.name]
+        gauge(names.STAGES_BUSY_S, stage=stage.name).set(round(busy, 6))
+
+    @staticmethod
+    def _call(stage: Stage, i, payload, attrs: dict) -> Any:
+        """``stage.fn`` under the stage's span (when it declares one)."""
+        if stage.span_attrs is not None:
+            attrs.update(stage.span_attrs(i, payload))
+        if stage.span is None:
+            return stage.fn(i, payload, attrs)
+        with span(stage.span, **attrs) as sp:
+            return stage.fn(i, payload, sp)
+
     def _execute(self, stage: Stage, i, payload, box) -> Any:
-        """One stage operation with its heartbeat and busy accounting;
-        exceptions clear the heartbeat and re-raise unchanged."""
+        """One stage operation: heartbeat, span, busy accounting and
+        ``on_done``; exceptions clear the heartbeat and re-raise
+        unchanged."""
         box[0] = time.monotonic()
         try:
-            out = stage.fn(i, payload, {"chunk": i})
+            out = self._call(stage, i, payload, {stage.index_attr: i})
             dt = time.monotonic() - box[0]
         finally:
             box[0] = None
-        with self._lock:
-            self._busy[stage.name] += dt
+        self._account(stage, dt)
+        if stage.on_done is not None:
+            stage.on_done(i, out)
         return out
 
     def _run_windowed(self, stage: Stage, i, payload, box) -> Any:
@@ -284,7 +350,10 @@ class StageGraph:
         groups = self._groups()
         queues = [queue.Queue(maxsize=groups[g][-1].out_maxsize)
                   for g in range(len(groups) - 1)]
+        edges = [f"{groups[g][-1].name}->{groups[g + 1][0].name}"
+                 for g in range(len(groups) - 1)]
         stop = self._stop
+        stack = TRACER.current_stack()  # worker spans nest under the caller's
         boxes = {id(st): self._new_beat(st) for grp in groups for st in grp}
         # the caller runs the source group itself: a wedged source is a
         # wedged caller, which nothing downstream can observe
@@ -295,12 +364,13 @@ class StageGraph:
         def thread_main(g: int) -> None:
             in_q = queues[g - 1]
             sink = g == len(groups) - 1
-            with self._context(groups[g][0]):
+            with TRACER.inherit(stack), self._context(groups[g][0]):
                 while True:
                     item = in_q.get()
                     if item is _STOP or stop.is_set():
                         break
                     i, payload = item
+                    self._edge_gauge(edges[g - 1], in_q)
                     failed = False
                     for st in groups[g]:
                         try:
@@ -319,6 +389,8 @@ class StageGraph:
                             self._stats["items"] += 1
                     elif not self._forward(queues[g], (i, payload)):
                         break
+                    else:
+                        self._edge_gauge(edges[g], queues[g])
             if not sink:
                 stop_aware_put(queues[g], _STOP, stop)
                 if stop.is_set():  # wake a downstream stage parked on get()
@@ -356,6 +428,7 @@ class StageGraph:
                 if queues:
                     if not self._forward(queues[0], (i, payload)):
                         break
+                    self._edge_gauge(edges[0], queues[0])
                 else:
                     with self._lock:
                         self._stats["items"] += 1
@@ -393,6 +466,8 @@ class StageGraph:
                             self.drain_timeout_s if self.drain_timeout_s is not None else 900.0)
                     elif time.monotonic() > quiesce_deadline:
                         break
+            if self.inflight_gauge:
+                gauge(self.inflight_gauge).set(0)
         if self._errors:
             raise self._errors[0][1]
         return self._finish_stats(time.monotonic() - t_start)
@@ -418,8 +493,10 @@ class StageGraph:
                 "them placement='inline'"
             )
         stop = self._stop
+        stack = TRACER.current_stack()  # worker spans nest under the consumer's
         src_group = groups[0]
         head = src_group[0]
+        out_edge = f"{src_group[-1].name}->consumer"
         boxes = {id(st): self._new_beat(st) for st in src_group}
         # unbounded: the window bounds it, and the end-of-stream sentinel
         # can always be delivered, even while stopping
@@ -427,7 +504,7 @@ class StageGraph:
 
         def source_main() -> None:
             box = boxes[id(head)]
-            with self._context(head):
+            with TRACER.inherit(stack), self._context(head):
                 it = iter(items)
                 i = 0
                 while not stop.is_set():
@@ -437,21 +514,39 @@ class StageGraph:
                                 break
                         if stop.is_set():
                             break
-                    try:
-                        # pulling the item is the source stage's work (the
-                        # host build of a tile), so it runs under its
-                        # heartbeat
-                        box[0] = time.monotonic()
+                    eos = False
+
+                    def pull_and_run(sp):
+                        """Pulling the item is the source stage's work (the
+                        host build of a tile), so it runs under its
+                        heartbeat and inside its span."""
+                        nonlocal eos
                         try:
                             raw = next(it)
                         except StopIteration:
+                            if head.span is not None:
+                                sp["eos"] = True
+                            eos = True
+                            return None
+                        if head.span_attrs is not None:
+                            sp.update(head.span_attrs(i, raw))
+                        return head.fn(i, raw, sp)
+
+                    try:
+                        box[0] = time.monotonic()
+                        if head.span is not None:
+                            with span(head.span, **{head.index_attr: i}) as sp:
+                                out = pull_and_run(sp)
+                        else:
+                            out = pull_and_run({head.index_attr: i})
+                        if eos:
                             box[0] = None
                             break
-                        out = head.fn(i, raw, {"chunk": i})
                         dt = time.monotonic() - box[0]
                         box[0] = None
-                        with self._lock:
-                            self._busy[head.name] += dt
+                        self._account(head, dt)
+                        if head.on_done is not None:
+                            head.on_done(i, out)
                         for st in src_group[1:]:
                             out = self._execute(st, i, out, boxes[id(st)])
                     except BaseException as exc:  # noqa: BLE001 — re-raised on the consumer
@@ -460,6 +555,7 @@ class StageGraph:
                         break
                     if not stop_aware_put(out_q, (i, out), stop):
                         break
+                    self._edge_gauge(out_edge, out_q)
                     i += 1
             out_q.put_nowait(_STOP)  # the consumer may be parked on get()
 
@@ -474,6 +570,7 @@ class StageGraph:
                     return out_q.get(timeout=0.1)
                 except queue.Empty:
                     if self._overdue_any():
+                        self._bump_timeout_counters()
                         raise DrainTimeout(
                             f"{self.stall_what} exceeded {self.drain_timeout_s:.0f}s — "
                             "device wedged"
@@ -487,6 +584,9 @@ class StageGraph:
                     break
                 with self._lock:
                     self._stats["stall_s"] += time.monotonic() - t_wait
+                    stall = self._stats["stall_s"]
+                if self.stall_gauge:
+                    gauge(self.stall_gauge).set(round(stall, 6))
                 yield item[1]
                 if self._window is not None:
                     self._window.release()

@@ -252,13 +252,19 @@ def compile_spec(spec: ScenarioSpec, validate: bool = True, dtype=None,
     Deterministic: the same spec compiles to the same batch and recipe
     bits in any process and on any device, and to the JAX package's arrays
     at the same batch dtype. ``dtype`` is the batch's (default float32);
-    the recipe's arrays stay float64 (each op casts them at use)."""
+    the recipe's arrays stay float64 (each op casts them at use). Runs
+    under a ``scenario_compile`` span with the ``scenario.compiled``
+    counter."""
+    from ..obs import counter, names, span
+
     device = resolve_device(device)
     if validate:
         spec.validate()
-    # the JAX package's scenario_compile span and scenario.compiled counter
-    # wait for the port's observability layer (ROADMAP A.16)
-    return _compile_inner(spec, torch.float32 if dtype is None else dtype, device)
+    with span(names.SPAN_SCENARIO_COMPILE, scenario=spec.name,
+              spec_hash=spec.content_hash):
+        out = _compile_inner(spec, torch.float32 if dtype is None else dtype, device)
+        counter(names.SCENARIO_COMPILED).inc()
+        return out
 
 
 def _compile_inner(spec, dtype, device):

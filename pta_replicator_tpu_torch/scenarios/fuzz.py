@@ -47,10 +47,9 @@ and simplifies sizes while the failure persists (compile-time draws are
 other's untouched), and writes the minimal failing spec as a replayable
 JSON file (``scenario replay FILE``).
 
-The JAX package's ``scenario_fuzz_case`` span and its
+Telemetry: a ``scenario_fuzz_case`` span per differential, and the
 ``scenario.fuzz_cases``, ``scenario.fuzz_disagreements`` and
-``scenario.shrink_steps`` counters wait for the port's observability layer
-(ROADMAP A.16).
+``scenario.shrink_steps`` counters.
 """
 from __future__ import annotations
 
@@ -64,6 +63,7 @@ from typing import Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from ..obs import counter, names, span
 from ..utils.prng import fold_in, key_bits, prng_key
 from .compile import CompiledScenario, compile_spec, spec_families
 from .spec import ScenarioSpec
@@ -197,7 +197,9 @@ def batched_family_delays(compiled: CompiledScenario, draws: dict) -> Dict[str, 
         out["transient"] = _np(B.transient_delays(batch, int(recipe.transient_psr),
                                                   recipe.transient_waveform, grid[0], grid[1]))
     if recipe.noise_cov is not None:
-        sample = recipe.noise_cov.sample(draws, s2=recipe_cov_s2(recipe, batch.dtype))
+        from ..covariance.kernels import sample_eager
+
+        sample = sample_eager(recipe.noise_cov, draws, s2=recipe_cov_s2(recipe, batch.dtype))
         out["covariance"] = _np(sample.to(batch.dtype) * batch.mask)
     return out
 
@@ -455,51 +457,52 @@ def run_scenario(compiled: CompiledScenario, perturb: Optional[dict] = None,
     replayable; it never runs unless requested."""
     res = DiffResult(spec=compiled.spec, spec_hash=compiled.spec_hash,
                      families=compiled.families)
-    # the JAX package's scenario_fuzz_case span waits for ROADMAP A.16
-    if draws is None:
-        draws = realization_draws(compiled)
-    dev = batched_family_delays(compiled, draws)
-    oracle = oracle_family_delays(compiled, draws)
-    total_dev = batched_total(compiled, draws)
-    if perturb:
-        fam = perturb["family"]
-        scale = float(perturb.get("scale", 1.01))
-        if fam in dev:
-            delta = (scale - 1.0) * dev[fam]
-            dev[fam] = dev[fam] + delta
-            total_dev = total_dev + delta
+    with span(names.SPAN_SCENARIO_FUZZ_CASE, spec_hash=compiled.spec_hash):
+        if draws is None:
+            draws = realization_draws(compiled)
+        dev = batched_family_delays(compiled, draws)
+        oracle = oracle_family_delays(compiled, draws)
+        total_dev = batched_total(compiled, draws)
+        if perturb:
+            fam = perturb["family"]
+            scale = float(perturb.get("scale", 1.01))
+            if fam in dev:
+                delta = (scale - 1.0) * dev[fam]
+                dev[fam] = dev[fam] + delta
+                total_dev = total_dev + delta
 
-    missing = set(dev) ^ set(oracle)
-    if missing:  # a family one side skipped is itself a bug
-        for fam in missing:
-            res.verdicts[fam] = {
-                "rel": float("inf"), "tol": 0.0, "ok": False,
-                "note": "family present on only one side",
-            }
-        res.agree = False
-    for fam in sorted(set(dev) & set(oracle)):
-        rel = _rel(dev[fam], oracle[fam])
-        tol = FAMILY_TOLERANCES[fam]
+        missing = set(dev) ^ set(oracle)
+        if missing:  # a family one side skipped is itself a bug
+            for fam in missing:
+                res.verdicts[fam] = {
+                    "rel": float("inf"), "tol": 0.0, "ok": False,
+                    "note": "family present on only one side",
+                }
+            res.agree = False
+        for fam in sorted(set(dev) & set(oracle)):
+            rel = _rel(dev[fam], oracle[fam])
+            tol = FAMILY_TOLERANCES[fam]
+            ok = rel <= tol
+            res.verdicts[fam] = {"rel": rel, "tol": tol, "ok": ok}
+            if rel > res.worst_rel:
+                res.worst_rel, res.worst_family = rel, fam
+            res.agree = res.agree and ok
+
+        # the engine total vs the summed oracle (catches cross-family
+        # assembly bugs the per-family comparisons cannot)
+        total_oracle = np.zeros_like(total_dev)
+        for fam in oracle:
+            total_oracle = total_oracle + oracle[fam]
+        rel = _rel(total_dev, total_oracle)
+        tol = FAMILY_TOLERANCES["total"]
         ok = rel <= tol
-        res.verdicts[fam] = {"rel": rel, "tol": tol, "ok": ok}
+        res.verdicts["total"] = {"rel": rel, "tol": tol, "ok": ok}
         if rel > res.worst_rel:
-            res.worst_rel, res.worst_family = rel, fam
+            res.worst_rel, res.worst_family = rel, "total"
         res.agree = res.agree and ok
-
-    # the engine total vs the summed oracle (catches cross-family
-    # assembly bugs the per-family comparisons cannot)
-    total_oracle = np.zeros_like(total_dev)
-    for fam in oracle:
-        total_oracle = total_oracle + oracle[fam]
-    rel = _rel(total_dev, total_oracle)
-    tol = FAMILY_TOLERANCES["total"]
-    ok = rel <= tol
-    res.verdicts["total"] = {"rel": rel, "tol": tol, "ok": ok}
-    if rel > res.worst_rel:
-        res.worst_rel, res.worst_family = rel, "total"
-    res.agree = res.agree and ok
-    # the scenario.fuzz_cases and scenario.fuzz_disagreements counters wait
-    # for ROADMAP A.16
+        counter(names.SCENARIO_FUZZ_CASES).inc()
+        if not res.agree:
+            counter(names.SCENARIO_FUZZ_DISAGREEMENTS).inc()
     return res
 
 
@@ -731,7 +734,7 @@ def shrink(spec: ScenarioSpec, fails: Callable[[ScenarioSpec], bool],
             except Exception:
                 continue
             steps += 1
-            # the scenario.shrink_steps counter waits for ROADMAP A.16
+            counter(names.SCENARIO_SHRINK_STEPS).inc()
             if steps >= max_steps:
                 break
             try:

@@ -25,6 +25,7 @@ import numpy as np
 
 from .constants import DAY_IN_SEC, RAD_TO_MAS
 from .io.par import ParModel, read_par
+from .obs import TRACER, counter, span, traced
 from .io.tim import TOAData, fabricate_toas, read_tim, write_tim
 from .timing.fit import design_matrix, gls_fit, wls_fit
 from .timing.model import SpindownTiming, TimingModel, phase_residuals
@@ -99,6 +100,7 @@ class SimulatedPulsar:
                 k += 1
             name = f"{signal_name}_{k}"
             param_dict = dict(param_dict, disambiguated_from=signal_name)
+            counter("simulate.ledger_disambiguated").inc()
         self.added_signals[name] = param_dict
         if dt is not None:
             self.added_signals_time[name] = np.asarray(dt, dtype=np.float64)
@@ -113,6 +115,7 @@ class SimulatedPulsar:
         self.update_residuals()
         return name
 
+    @traced("oracle_fit")
     def fit(
         self,
         fitter: str = "auto",
@@ -715,25 +718,37 @@ def load_from_directories(
 
     if workers is None:
         workers = min(8, len(pairs)) or 1
-    if workers <= 1 or len(pairs) <= 1:
-        return [load_one(pt) for pt in pairs]
+    with span("load_pulsars", npsr=len(pairs), workers=workers):
+        counter("simulate.pulsars_loaded").inc(len(pairs))
+        if workers <= 1 or len(pairs) <= 1:
+            return [load_one(pt) for pt in pairs]
 
-    from concurrent.futures import ThreadPoolExecutor
+        from concurrent.futures import ThreadPoolExecutor
 
-    with ThreadPoolExecutor(max_workers=workers) as pool:
-        return list(pool.map(load_one, pairs))
+        # span nesting is thread-local: the pool's workers take the
+        # load_pulsars ancestry, so their read_par/read_tim spans nest
+        # under it
+        parent = TRACER.current_stack()
+
+        def load_nested(pt):
+            with TRACER.inherit(parent):
+                return load_one(pt)
+
+        with ThreadPoolExecutor(max_workers=workers) as pool:
+            return list(pool.map(load_nested, pairs))
 
 
 def make_ideal(psr: SimulatedPulsar, iterations: int = 2) -> None:
     """Zero the residuals by absorbing them into the TOAs, then initialize
     the provenance ledger (reference analog simulate.py:193-202)."""
-    for _ in range(iterations):
-        res = phase_residuals(
-            psr.model, psr.toas.mjd, psr.toas.errors_s,
-            freqs_mhz=psr.toas.freqs_mhz, flags=psr.toas.flags,
-            observatories=psr.toas.observatories,
-        )
-        psr.toas.adjust_seconds(-res)
-    psr.added_signals = {}
-    psr.added_signals_time = {}
-    psr.update_residuals()
+    with span("make_ideal", psr=psr.name, iterations=iterations):
+        for _ in range(iterations):
+            res = phase_residuals(
+                psr.model, psr.toas.mjd, psr.toas.errors_s,
+                freqs_mhz=psr.toas.freqs_mhz, flags=psr.toas.flags,
+                observatories=psr.toas.observatories,
+            )
+            psr.toas.adjust_seconds(-res)
+        psr.added_signals = {}
+        psr.added_signals_time = {}
+        psr.update_residuals()

@@ -17,6 +17,8 @@ from __future__ import annotations
 
 import numpy as np
 
+from ..obs.trace import traced as _traced
+
 
 def design_matrix(toas_s: np.ndarray, f0: float, nspin: int = 2):
     """Timing design matrix in time units, columns [1, dt, dt^2/2, dt^3/6][:nspin+1] / F0-scaled.
@@ -196,29 +198,33 @@ def design_tensor(psrs, ntoa_max=None, nspin: int = 2, include="auto"):
     ``names[i]`` the column labels of pulsar ``i``; the caller moves the
     tensor to the card (``Recipe(fit_design=...)``).
     """
+    from ..obs import span
     from .components import full_design_matrix
 
-    mats, names = [], []
-    for psr in psrs:
-        M, nm = full_design_matrix(
-            psr.par,
-            psr.toas.get_mjds(),
-            freqs_mhz=psr.toas.freqs_mhz,
-            f0=psr.model.f0,
-            nspin=nspin,
-            include=include,
-            flags=psr.toas.flags,
-        )
-        mats.append(np.asarray(M, np.float64))
-        names.append(nm)
-    nt = ntoa_max or max(m.shape[0] for m in mats)
-    kmax = max(m.shape[1] for m in mats)
-    out = np.zeros((len(mats), nt, kmax))
-    for i, m in enumerate(mats):
-        out[i, : m.shape[0], : m.shape[1]] = m
-    return out, names
+    with span("design_tensor", npsr=len(psrs), nspin=nspin) as sp:
+        mats, names = [], []
+        for psr in psrs:
+            M, nm = full_design_matrix(
+                psr.par,
+                psr.toas.get_mjds(),
+                freqs_mhz=psr.toas.freqs_mhz,
+                f0=psr.model.f0,
+                nspin=nspin,
+                include=include,
+                flags=psr.toas.flags,
+            )
+            mats.append(np.asarray(M, np.float64))
+            names.append(nm)
+        nt = ntoa_max or max(m.shape[0] for m in mats)
+        kmax = max(m.shape[1] for m in mats)
+        sp["kmax"] = kmax
+        out = np.zeros((len(mats), nt, kmax))
+        for i, m in enumerate(mats):
+            out[i, : m.shape[0], : m.shape[1]] = m
+        return out, names
 
 
+@_traced("covariance_from_recipe")
 def covariance_from_recipe(psr, recipe, coarsegrain: float = 0.1, psr_index=None,
                            backend_names=None, flagid: str = "f"):
     """The dense float64 noise covariance of one oracle pulsar from the

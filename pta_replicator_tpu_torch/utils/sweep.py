@@ -40,9 +40,19 @@ bitwise reproducible only on one stream. Only copies run on side
 streams. So depth 1, depth 2 and ``fused_stream`` write byte-identical
 checkpoints and return equal arrays.
 
+Telemetry: the ``static_delays`` span; at depth 1 a ``sweep_chunk`` span
+per chunk holding its ``readback_fence`` (the host copy, which waits for
+the chunk's kernels) and an ``io_write`` span; at depth >= 2 one
+``sweep_pipeline`` span (the pipeline's stats as attributes) holding the
+stages' ``dispatch`` / ``drain`` / ``io_write`` spans (``static_build``
+too when fused); the ``sweep.chunks_total``, ``sweep.chunks_done``
+gauges, the ``sweep.realizations`` counter, and the
+``sweep.chunk_retries`` counter with a ``faults.retry`` event per
+supervised retry. None of it waits for the card.
+
 Not ported here: the multi-device ``mesh`` and the sharded-archive writer
-(ROADMAP.md item A.17), the spans, gauges and fault sites (A.16), and the
-numerics observatory's drain hook (A.16).
+(ROADMAP.md item A.17), the fault sites (A.16.2), the chunk trace contexts
+(A.16.4) and the numerics observatory's drain hook (A.16.3).
 """
 from __future__ import annotations
 
@@ -423,7 +433,9 @@ def sweep(seed: int, batch, recipe, nreal: int, checkpoint_path: str, chunk: int
     factor) is built once per sweep and handed to every chunk, at every
     depth, as the deterministic delays are; its bits are a rebuild's. The
     sidecar's fingerprint hashes the design's bytes with the recipe's."""
-    from ..faults.retry import DEFAULT_POLICY, backoff_delay, is_transient
+    from ..faults.retry import DEFAULT_POLICY, backoff_delay, is_transient, retry_event
+    from ..obs import counter, names
+    from ..parallel.pipeline import failed_chunk
 
     if fused_stream and pipeline_depth < 2:
         raise ValueError(
@@ -453,6 +465,10 @@ def sweep(seed: int, batch, recipe, nreal: int, checkpoint_path: str, chunk: int
             attempts += 1
             if attempts > chunk_retries:
                 raise
+            counter(names.SWEEP_CHUNK_RETRIES).inc()
+            fail_chunk = failed_chunk(exc)
+            retry_event("sweep", exc, attempt=attempts, done=done,
+                        chunk=done if fail_chunk is None else fail_chunk)
             time.sleep(backoff_delay(attempts, policy))
 
 
@@ -460,9 +476,10 @@ def _sweep_impl(seed, batch, recipe, nreal: int, checkpoint_path: str, chunk: in
                 reduce_fn, fit: bool, progress, pipeline_depth: int, drain_timeout_s,
                 durable: bool, provenance, fused_stream: bool, noise, device, stats):
     from ..models.batched import deterministic_delays, fit_system, realize
+    from ..obs import counter, gauge, names, span
     from ..parallel.pipeline import (
-        PinnedReadback, _mark_chunk, drain_stage, host_copy, io_write_stage, pipeline_stats,
-        run_pipelined,
+        PinnedReadback, _mark_chunk, dispatch_on_done, drain_stage, host_copy, io_write_stage,
+        pipeline_stats, run_pipelined,
     )
     from ..parallel.stages import Stage, StageGraph
 
@@ -510,16 +527,24 @@ def _sweep_impl(seed, batch, recipe, nreal: int, checkpoint_path: str, chunk: in
 
     blocks = [_load_chunk(checkpoint_path, i) for i in range(done)]
 
+    def static_delays():
+        with span(names.SPAN_STATIC_DELAYS, npsr=batch.npsr):
+            return deterministic_delays(batch, recipe, device=device)
+
     # the deterministic delays depend only on (batch, recipe): once per
     # sweep, except in the fused graph, which rebuilds them per chunk
     static = None
     if done < nchunks and not fused_stream:
-        static = deterministic_delays(batch, recipe, device=device)
+        static = static_delays()
     # so does the design refit's assembly (with C0's factor inside it):
     # once per sweep, at every depth
     system = None
     if done < nchunks and fit and recipe.fit_design is not None:
         system = fit_system(batch, recipe)
+
+    # chunk progress, seeded with a resumed sweep's completed chunks
+    gauge(names.SWEEP_CHUNKS_TOTAL).set(nchunks)
+    gauge(names.SWEEP_CHUNKS_DONE).set(done)
 
     # every computing stage runs on the caller's current stream
     compute_stream = torch.cuda.current_stream(device) if device.type == "cuda" else None
@@ -554,6 +579,8 @@ def _sweep_impl(seed, batch, recipe, nreal: int, checkpoint_path: str, chunk: in
                 fh.write(payload)
 
         _atomic_write(write_meta, meta_path, ".json", durable=durable)
+        counter(names.SWEEP_REALIZATIONS).inc(chunk)
+        gauge(names.SWEEP_CHUNKS_DONE).set(i + 1)
         if progress is not None:
             progress(i + 1, nchunks)
 
@@ -562,14 +589,20 @@ def _sweep_impl(seed, batch, recipe, nreal: int, checkpoint_path: str, chunk: in
         # stage graph as the pipelined path, run inline on the caller's
         # thread: failing chunks are marked for the supervised retry
         def compute_sync(i, _payload, _sp):
-            return host_copy(realize_chunk(i, static))
+            with span(names.SPAN_SWEEP_CHUNK, chunk=i, nreal=chunk):
+                out = realize_chunk(i, static)
+                # the host copy waits for the chunk's kernels: the fence
+                with span(names.SPAN_READBACK_FENCE):
+                    return host_copy(out)
 
         def write_sync(i, block, _sp):
             write_chunk(i, block)
             blocks.append(block)
 
         StageGraph([Stage("sweep_chunk", fn=compute_sync, placement="inline", heartbeat=False),
-                    Stage("io_write", fn=write_sync, placement="inline", heartbeat=False)],
+                    Stage("io_write", fn=write_sync, span=names.SPAN_IO_WRITE,
+                          span_attrs=lambda i, block: {"nbytes": int(block.nbytes)},
+                          placement="inline", heartbeat=False)],
                    mark_item=_mark_chunk, name="sweep-sync").run(range(done, nchunks))
     elif done < nchunks:
         # the writer thread writes each chunk file and keeps the block; the
@@ -587,27 +620,34 @@ def _sweep_impl(seed, batch, recipe, nreal: int, checkpoint_path: str, chunk: in
             blocks.append(np.array(block) if readback is not None else block)
 
         try:
-            if fused_stream:
-                graph = StageGraph(
-                    [Stage("static_build",
-                           fn=lambda i, _p, sp: deterministic_delays(batch, recipe, device=device),
-                           # one built-ahead static beyond the dispatcher's
-                           out_maxsize=1, heartbeat=False),
-                     Stage("dispatch", fn=lambda i, static_i, sp: mark(realize_chunk(i, static_i)),
-                           acquires_window=True, heartbeat_label="chunk dispatch",
-                           context=compute_context, thread_name="sweep-dispatch"),
-                     drain_stage(fetch, pipeline_depth),
-                     io_write_stage(write_and_keep, release)],
-                    window=pipeline_depth, drain_timeout_s=drain_timeout_s,
-                    mark_item=_mark_chunk, name="sweep-fused",
-                )
-                run_stats = pipeline_stats(graph.run(range(done, nchunks)))
-            else:
-                run_stats = run_pipelined(
-                    range(done, nchunks), lambda i: mark(realize_chunk(i, static)),
-                    write_and_keep, depth=pipeline_depth, fetch=fetch,
-                    release=release, drain_timeout_s=drain_timeout_s,
-                )
+            with span(names.SPAN_SWEEP_PIPELINE, depth=pipeline_depth, chunks=nchunks - done,
+                      fused=fused_stream) as sp:
+                if fused_stream:
+                    graph = StageGraph(
+                        [Stage("static_build", fn=lambda i, _p, sp: static_delays(),
+                               span=names.SPAN_STATIC_BUILD,
+                               # one built-ahead static beyond the dispatcher's
+                               out_maxsize=1, heartbeat=False),
+                         Stage("dispatch",
+                               fn=lambda i, static_i, sp: mark(realize_chunk(i, static_i)),
+                               span=names.SPAN_DISPATCH, on_done=dispatch_on_done,
+                               acquires_window=True, heartbeat_label="chunk dispatch",
+                               context=compute_context, thread_name="sweep-dispatch"),
+                         drain_stage(fetch, pipeline_depth),
+                         io_write_stage(write_and_keep, release)],
+                        window=pipeline_depth, drain_timeout_s=drain_timeout_s,
+                        timeout_counter=names.PIPELINE_DRAIN_TIMEOUTS,
+                        inflight_gauge=names.SWEEP_INFLIGHT_CHUNKS,
+                        mark_item=_mark_chunk, name="sweep-fused",
+                    )
+                    run_stats = pipeline_stats(graph.run(range(done, nchunks)))
+                else:
+                    run_stats = run_pipelined(
+                        range(done, nchunks), lambda i: mark(realize_chunk(i, static)),
+                        write_and_keep, depth=pipeline_depth, fetch=fetch,
+                        release=release, drain_timeout_s=drain_timeout_s,
+                    )
+                sp.update(run_stats)
         finally:
             if readback is not None:
                 readback.close()

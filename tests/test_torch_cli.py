@@ -3,8 +3,8 @@ cpu``): validate, compile and run print the JAX CLI's JSON summary keys
 with equal values where the draws do not enter; run stamps the spec's
 provenance into the sidecar and resumes a finished checkpoint with the
 same bytes; fuzz and replay print the JAX CLI's report keys and exit 1 on
-a disagreement; the JAX CLI's guards; ``--telemetry`` refused naming
-ROADMAP A.16; no fall-back to the CPU without a card."""
+a disagreement; the JAX CLI's guards; no fall-back to the CPU without a
+card. (``--telemetry`` is tests/test_torch_telemetry_cli.py's.)"""
 import json
 import subprocess
 import sys
@@ -146,15 +146,6 @@ def test_fuzz_takes_no_spec_as_the_jax_cli(spec_path):
         jax_main(["scenario", "fuzz", spec_path])
 
 
-@pytest.mark.parametrize("argv", [
-    ["scenario", "fuzz", "--fast"],
-    ["scenario", "validate", "{spec}"],
-    ["likelihood", "--bank", "b.npz", "--recipe", "r.json", "--synthetic", "4x128"],
-])
-def test_telemetry_is_refused_naming_the_roadmap(spec_path, argv):
-    argv = [a.format(spec=spec_path) for a in argv] + ["--telemetry", "t", "--device", "cpu"]
-    with pytest.raises(SystemExit, match=r"--telemetry: not ported yet \(ROADMAP A\.16"):
-        main(argv)
 
 
 def test_no_card_is_an_error_not_a_fall_back_to_the_cpu(spec_path, monkeypatch):

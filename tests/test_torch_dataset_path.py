@@ -233,15 +233,20 @@ def test_checkpointed_write_partim_datasets_carry_their_cube_rows(dirs, tmp_path
 
 
 @pytest.mark.parametrize("flag,item", [
-    (["--sharded"], "A.17"), (["--mesh-shape", "2x2"], "A.17"), (["--telemetry", "t"], "A.16"),
-    (["--device-trace"], "A.16"), (["--faults", "drain:raise@chunk=1"], "A.16"),
+    (["--sharded"], "A.17"), (["--mesh-shape", "2x2"], "A.17"),
+    (["--device-trace"], r"A\.16\.4"), (["--faults", "drain:raise@chunk=1"], r"A\.16\.2"),
 ])
 def test_flags_of_unported_modules_exit_before_ingest(tmp_path, flag, item):
     missing = str(tmp_path / "no-such-dir")
     with pytest.raises(SystemExit, match=item):
         main(["realize", "--pardir", missing, "--timdir", missing, "--recipe", "r.json",
               "--out", "o.npz", "--device", "cpu", *flag])
-    if flag[0] in ("--telemetry", "--faults"):
+    # refused before a capture starts, too
+    with pytest.raises(SystemExit, match=item):
+        main(["realize", "--pardir", missing, "--timdir", missing, "--recipe", "r.json",
+              "--out", "o.npz", "--device", "cpu", "--telemetry", str(tmp_path / "t"), *flag])
+    assert not (tmp_path / "t").exists()
+    if flag[0] == "--faults":
         with pytest.raises(SystemExit, match=item):
             main(["info", "--pardir", missing, "--timdir", missing, *flag])
 
