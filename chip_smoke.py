@@ -69,13 +69,25 @@ decomposition, and holds the card's batched engine against it: B.1 on
 the oracle's CW catalog, the burst, memory and transient, and the GLS
 refit of the full timing design on the nested Woodbury, on B.4/B.5
 (banded) and on the dense rung with B.2, against the dense oracle; then
-`SimulatedPulsar.fit` and `write_partim` (`oracle_path`). It prints one JSON line per phase. The
+`SimulatedPulsar.fit` and `write_partim` (`oracle_path`). Fault injection
+runs at the flagship width: the full-cube sweep under seeded drain raises,
+stalls past the drain deadline and torn checkpoint writes, a lost device,
+a fatal fault and no retry budget, the streamed 10,000-source catalog
+under a lost device, and the CLI armed by `--faults` and `PTA_FAULTS`
+(`chaos`), then the server under a flapped engine call and a flood past
+its queue bound (`chaos_server`); the numerics observatory holds armed
+cubes bitwise the disarmed ones, the armed sweep's rate and synchronizing
+calls, a planted overflow and a planted NaN at their sites, drift on
+every chunk against the host f64 oracle, and the `cov.*` probe sites on
+B.4 and B.2 against the CPU (`numerics_observatory`). It prints one JSON line per phase. The
 line before the last is the kernels line, the last the result line.
 Without a CUDA device, or without the port beside it, it exits non-zero
 and prints no result; any failed check raises.
 """
+import collections
 import dataclasses
 import json
+import os
 import shutil
 import subprocess
 import sys
@@ -191,14 +203,15 @@ COV_KERNELS = ("cov_syrk_update", "tridiag_factor_solve_fwd", "tridiag_solve_fwd
                "tridiag_factor_solve_bwd")
 
 #: the sweep phase: chunk, realizations (10 chunks), seed, runs of each
-#: mode, the chunk after which (b) aborts, and (c)'s full cubes (three
-#: 422 MB chunks); (d)'s bank vs the in-memory array, float64, entry by
-#: entry relative (the same residuals; ~1e-15 apart at most)
+#: mode, the chunk after which (b) aborts, and (c)'s full cubes (two
+#: 422 MB chunks, cut from three to keep the script's time); (d)'s bank
+#: vs the in-memory array, float64, entry by entry relative (the same
+#: residuals; ~1e-15 apart at most)
 SWEEP_CHUNK, SWEEP_NREAL, SWEEP_SEED, SWEEP_REPS = 200, 2000, 9, 2
 SWEEP_MODES = {"depth1": dict(pipeline_depth=1), "depth2": dict(pipeline_depth=2),
                "fused": dict(pipeline_depth=2, fused_stream=True)}
 SWEEP_ABORT_AFTER = 4
-CUBE_NREAL = 600
+CUBE_NREAL = 400
 TOL_BANK = 1e-12
 #: the streamed catalog: sources per plane tile, calls timed per mode, and
 #: the large catalog (the reference's CW ladder runs to 1e5 sources)
@@ -2376,13 +2389,14 @@ def phase_scenario_population(workdir):
     return counts["cw_catalog_response"], rows[torch.float32], compiled
 
 
-def _module_cli(*args, timeout=600):
+def _module_cli(*args, timeout=600, env=None):
     """``python -m pta_replicator_tpu_torch ARGS`` in a fresh interpreter
-    on the card: (exit code, stdout, stderr, host seconds)."""
+    on the card (``env``: its environment, default this one's): (exit
+    code, stdout, stderr, host seconds)."""
     t0 = time.perf_counter()
     proc = subprocess.run([sys.executable, "-m", "pta_replicator_tpu_torch", *args],
                           cwd=str(Path(__file__).resolve().parent), capture_output=True,
-                          text=True, timeout=timeout)
+                          text=True, timeout=timeout, env=env)
     return proc.returncode, proc.stdout, proc.stderr, time.perf_counter() - t0
 
 
@@ -2823,9 +2837,9 @@ def _telemetry_sweep(batch, recipe, path, directory=None):
     return TELEMETRY_SWEEP["nreal"] / seconds, finish_s
 
 
-def _sync_calls(run):
-    """The CUDA runtime's synchronizing calls during ``run()`` under
-    torch.profiler, by name, and B.1's launches."""
+def _sync_calls(run, calls=SYNC_CALLS):
+    """The CUDA runtime's synchronizing calls (or other ``calls``) during
+    ``run()`` under torch.profiler, by name, and B.1's launches."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -2833,7 +2847,7 @@ def _sync_calls(run):
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         run()
         torch.cuda.synchronize()
-    counts = {name: 0 for name in SYNC_CALLS}
+    counts = {name: 0 for name in calls}
     for evt in prof.key_averages():
         if evt.key in counts:
             counts[evt.key] += evt.count
@@ -2891,9 +2905,13 @@ def phase_telemetry(workdir, smi):
     lk_args = ["likelihood", "--bank", str(workdir / "tel_ck.npz"), "--recipe", recipe_path,
                *common, *sum((["--grid", g] for g in TELEMETRY_GRID), []), "--out",
                str(workdir / "tel_likelihood.json"), "--telemetry", str(tel_lk)]
-    calls["likelihood"] = _module_cli(*lk_args, timeout=900)
-    calls["report_json"] = _module_cli("report", str(tel), "--json")
-    calls["report"] = _module_cli("report", str(tel))
+    # the three read finished files: at once
+    later = {"likelihood": lk_args, "report_json": ["report", str(tel), "--json"],
+             "report": ["report", str(tel)]}
+    with ThreadPoolExecutor(max_workers=len(later)) as pool:
+        futures = {name: pool.submit(_module_cli, *args, timeout=900)
+                   for name, args in later.items()}
+        calls.update({name: f.result() for name, f in futures.items()})
     for name in ("likelihood", "report_json", "report"):
         code, _out, err, _s = calls[name]
         require(code == 0, f"telemetry CLI {name}: exit {code}: {err[-3000:]}")
@@ -2989,6 +3007,610 @@ def phase_telemetry(workdir, smi):
     return b1["with"]
 
 
+#: the chaos phase: the flagship sweep's full cubes (4 chunks of 200, a
+#: ~1.7 GB checkpoint), the drain deadline, the stall past it, the two
+#: seeded arms' seeds, the retry budget (one more than the arms' three
+#: faults could take from one chunk) and a fast backoff (the default's
+#: 0.5 s and more would only add sleep to the overhead it reports)
+CHAOS_NREAL, CHAOS_CHUNK = 800, 200
+CHAOS_DEADLINE_S, CHAOS_STALL_S = 3.0, 4.0
+CHAOS_ARM_SEEDS = (11, 12)
+CHAOS_RETRIES = 3
+CHAOS_POLICY = dict(max_attempts=4, base_delay_s=0.05, multiplier=2.0, max_delay_s=0.5,
+                    jitter=0.0)
+#: the faulted server: requests, and the flood past its queue bound
+#: while a stalled engine call (a fault) holds the worker, with a deadline
+#: shorter than the stall
+CHAOS_SERVER_REQUESTS, CHAOS_FLOOD, CHAOS_MAX_QUEUE = 16, 96, 4
+CHAOS_DEADLINE_MS, CHAOS_ENGINE_STALL_S = 50.0, 0.3
+#: the CLI arm's schedule
+CHAOS_CLI_SCHEDULE = "drain:raise@chunk=1;checkpoint_write:torn@call=2"
+
+
+def _chaos_schedule(seed, nchunks):
+    """A seeded arm: a transient raise at one chunk's drain, a stall past
+    the deadline at another's, and a torn write of the last chunk's file
+    or sidecar (chunk c writes calls 2c+1 and 2c+2; a failure lets the
+    write in flight finish, so the count holds). The drains run ahead of
+    the full-cube writer, so a torn write of an earlier chunk could fire
+    in the same attempt as a later drain fault, and two faults would take
+    one retry; the last chunk's writes come after every drain."""
+    import random
+
+    rng = random.Random(seed)
+    k_raise, k_stall = rng.sample(range(nchunks), 2)
+    call = 2 * (nchunks - 1) + 1 + rng.randrange(2)
+    return (f"drain:raise@chunk={k_raise};drain:stall={CHAOS_STALL_S:g}@chunk={k_stall};"
+            f"checkpoint_write:torn@call={call}")
+
+
+def _metric(name):
+    from pta_replicator_tpu_torch.obs import counter
+
+    return counter(name).value
+
+
+def _chaos_sweep(batch, recipe, path, schedule=None, **kw):
+    """One full-cube sweep of CHAOS_NREAL under ``schedule`` (None: no
+    fault): (result or the exception it raised, wall s, faults fired,
+    chunk retries, drain timeouts)."""
+    from pta_replicator_tpu_torch.faults import RetryPolicy
+    from pta_replicator_tpu_torch.faults import inject
+    from pta_replicator_tpu_torch.obs import names
+
+    r0, t0 = _metric(names.SWEEP_CHUNK_RETRIES), _metric(names.PIPELINE_DRAIN_TIMEOUTS)
+    kw.setdefault("chunk_retries", CHAOS_RETRIES)
+    if schedule is not None:
+        inject.arm(schedule)
+    start = time.perf_counter()
+    try:
+        out = sweep(SWEEP_SEED, batch, recipe, CHAOS_NREAL, str(path), chunk=CHAOS_CHUNK,
+                    reduce_fn=None, fit=True, drain_timeout_s=CHAOS_DEADLINE_S,
+                    retry_policy=RetryPolicy(**CHAOS_POLICY), **kw)
+    except Exception as exc:  # the fail-fast arms' outcome, checked by the caller
+        out = exc
+    finally:
+        wall = time.perf_counter() - start
+        fired = inject.fired()
+        inject.disarm()
+    return (out, wall, fired, _metric(names.SWEEP_CHUNK_RETRIES) - r0,
+            _metric(names.PIPELINE_DRAIN_TIMEOUTS) - t0)
+
+
+def _drop_checkpoint(path, nchunks):
+    sweep_mod._cleanup_chunks(str(path), nchunks)
+    for p in (Path(path), Path(str(path) + ".meta.json")):
+        p.unlink(missing_ok=True)
+
+
+def _chaos_sweeps(batch, recipe, workdir):
+    """The sweep's arms (see phase_chaos); the B.1 launches of the fault-
+    free run and of each arm."""
+    from pta_replicator_tpu_torch.faults import inject
+
+    nchunks = CHAOS_NREAL // CHAOS_CHUNK
+    path = workdir / "chaos.npz"
+    runs, b1 = {}, {}
+    # warm (the allocator, the pinned ring's buffers: one chunk is enough),
+    # then the fault-free reference whose wall the arms' overheads are read
+    # against
+    sweep(SWEEP_SEED, batch, recipe, CHAOS_CHUNK, str(path), chunk=CHAOS_CHUNK, reduce_fn=None,
+          fit=True)
+    _drop_checkpoint(path, 1)
+    launches.clear()
+    ref, ref_wall, _f, ref_retries, _t = _chaos_sweep(batch, recipe, path)
+    b1["fault_free"] = launches.get("cw_catalog_response", 0)
+    require(isinstance(ref, np.ndarray), f"chaos: the fault-free sweep failed: {ref!r}")
+    ref_members = _npz_members(path)
+    ref_bytes = ref.tobytes()
+    _drop_checkpoint(path, nchunks)
+    arms = {f"seed{s}": (_chaos_schedule(s, nchunks), {}) for s in CHAOS_ARM_SEEDS}
+    arms["device_lost"] = ("drain:device_lost@chunk=1", {})
+    for name, (schedule, kw) in arms.items():
+        launches.clear()
+        out, wall, fired, retries, timeouts = _chaos_sweep(batch, recipe, path, schedule, **kw)
+        b1[name] = launches.get("cw_catalog_response", 0)
+        want = sorted(s.spec_str() for s in inject.parse_schedule(schedule))
+        ok = isinstance(out, np.ndarray)
+        runs[name] = dict(schedule=schedule, recovered=ok, wall_s=wall,
+                          fault_overhead=wall / ref_wall - 1.0, chunk_retries=retries,
+                          drain_timeouts=timeouts, fired=[f["spec"] for f in fired],
+                          checkpoint_members_equal=ok and _npz_members(path) == ref_members,
+                          cube_equal=ok and out.tobytes() == ref_bytes)
+        _drop_checkpoint(path, nchunks)
+        nfaults = len(want)
+        require(ok, f"chaos {name}: the sweep did not recover: {out!r}")
+        require(runs[name]["checkpoint_members_equal"] and runs[name]["cube_equal"],
+                f"chaos {name}: the recovered checkpoint differs from the fault-free one")
+        require(retries == nfaults, f"chaos {name}: {retries} retries for {nfaults} faults")
+        require(sorted(runs[name]["fired"]) == want,
+                f"chaos {name}: fired {runs[name]['fired']} != the schedule {want}")
+        if "stall" in schedule:
+            require(timeouts >= 1, f"chaos {name}: the stall tripped no drain deadline")
+    for name, schedule, kw in (("fatal", "drain:fatal@chunk=1", {}),
+                               ("fail_fast", "drain:raise@chunk=1", {"chunk_retries": 0})):
+        out, wall, fired, retries, _t = _chaos_sweep(batch, recipe, path, schedule, **kw)
+        _drop_checkpoint(path, nchunks)
+        runs[name] = dict(schedule=schedule, raised=type(out).__name__, wall_s=wall,
+                          chunk_retries=retries, fired=[f["spec"] for f in fired])
+        require(isinstance(out, inject.InjectedFault) and retries == 0 and len(fired) == 1,
+                f"chaos {name}: want InjectedFault with 0 retries, got {runs[name]}")
+    return dict(fault_free_wall_s=ref_wall, fault_free_retries=ref_retries, arms=runs,
+                b1_launches=b1)
+
+
+def _chaos_prefetch():
+    """The streamed 10,000-source catalog under a lost device at the
+    second staging, against the fault-free streamed call."""
+    from pta_replicator_tpu_torch.faults import inject
+    from pta_replicator_tpu_torch.obs import names
+
+    batch, recipe = flagship_workload(**POPULATION)
+    streamed = dataclasses.replace(recipe, cgw_stream_chunk=SOURCES_PER_TILE,
+                                   cgw_prefetch_depth=2)
+    want = deterministic_delays(batch, streamed)
+    r0 = _metric(names.CW_STREAM_STAGE_RETRIES)
+    launches.clear()
+    with inject.armed("cw_stream_stage:device_lost@call=2"):
+        got = deterministic_delays(batch, streamed)
+        torch.cuda.synchronize()
+        fired = inject.fired()
+    counts = dict(launches)
+    row = dict(shape=[batch.npsr, batch.ntoa_max, POPULATION["ncw"]], tile=SOURCES_PER_TILE,
+               bitwise_equal=bool(torch.equal(got, want)),
+               stage_retries=_metric(names.CW_STREAM_STAGE_RETRIES) - r0,
+               fired=[f["spec"] for f in fired],
+               accumulate_launches=counts.get("cw_catalog_accumulate", 0),
+               fold_launches=counts.get("cw_fold_planes", 0))
+    del batch, recipe, streamed, want, got
+    torch.cuda.empty_cache()
+    require(row["bitwise_equal"] and row["stage_retries"] == 1 and len(row["fired"]) == 1,
+            f"chaos prefetch: {row}")
+    require(row["accumulate_launches"] > 0, f"chaos prefetch: no accumulating launch: {row}")
+    return row
+
+
+def _chaos_cli(workdir):
+    """``realize --checkpoint`` on the dataset under CHAOS_CLI_SCHEDULE,
+    by ``--faults`` and by ``PTA_FAULTS``, each with ``--telemetry``,
+    against phase telemetry's fault-free call of the same arguments."""
+    import os
+
+    from pta_replicator_tpu_torch.obs import report as obs_report
+
+    common = ["--pardir", str(workdir / "par"), "--timdir", str(workdir / "tim")]
+    args = ["realize", *common, "--recipe", str(workdir / "recipe.json"), "--nreal",
+            str(TELEMETRY_NREAL), "--chunk", str(TELEMETRY_CHUNK), "--fit", "--seed",
+            str(DATASET_SEED)]
+    env = dict(os.environ, PTA_FAULTS=CHAOS_CLI_SCHEDULE)
+    runs = {
+        "flag": (args + ["--out", str(workdir / "chaos_flag.npz"), "--checkpoint",
+                         str(workdir / "chaos_flag_ck.npz"), "--telemetry",
+                         str(workdir / "chaos_tel_flag"), "--faults", CHAOS_CLI_SCHEDULE], None),
+        "env": (args + ["--out", str(workdir / "chaos_env.npz"), "--checkpoint",
+                        str(workdir / "chaos_env_ck.npz"), "--telemetry",
+                        str(workdir / "chaos_tel_env")], env),
+    }
+    with ThreadPoolExecutor(max_workers=len(runs)) as pool:
+        futures = {n: pool.submit(_module_cli, *a, timeout=900, env=e) for n, (a, e) in runs.items()}
+        calls = {n: f.result() for n, f in futures.items()}
+    want_cube = _npz_members(workdir / "plain_cube.npz")
+    want_ck = _npz_members(workdir / "plain_ck.npz")
+    out = {}
+    for name, (code, _o, err, seconds) in calls.items():
+        require(code == 0, f"chaos CLI {name}: exit {code}: {err[-3000:]}")
+        cap = _capture(workdir / f"chaos_tel_{name}")
+        data_events = [r for r in obs_report.load_telemetry(str(workdir / f"chaos_tel_{name}"))[
+            "events"] if r.get("type") == "event" and r.get("name") == "faults.fired"]
+        metrics = json.loads((workdir / f"chaos_tel_{name}" / "metrics.json").read_text())
+        injected = {f"{m['labels']['site']}:{m['labels']['kind']}": m["value"]
+                    for m in metrics.get("faults.injected", [])}
+        out[name] = dict(seconds=seconds,
+                         cube_members_equal=_npz_members(workdir / f"chaos_{name}.npz") == want_cube,
+                         checkpoint_members_equal=(_npz_members(workdir / f"chaos_{name}_ck.npz")
+                                                   == want_ck),
+                         faults_injected=injected,
+                         faults_fired=sorted(e["attrs"]["site"] for e in data_events),
+                         chunk_retries=cap["metrics"].get("sweep.chunk_retries"))
+        require(out[name]["cube_members_equal"] and out[name]["checkpoint_members_equal"],
+                f"chaos CLI {name}: the cube or checkpoint differs from the fault-free call")
+        require(injected == {"drain:raise": 1, "checkpoint_write:torn": 1}
+                and out[name]["faults_fired"] == ["checkpoint_write", "drain"],
+                f"chaos CLI {name}: the capture's faults {out[name]}")
+    return out
+
+
+def phase_chaos(workdir, batch, recipe, smi):
+    """Fault injection on the card (A.16.2), the counterpart of the JAX
+    package's benchmarks/chaos_sweep.py. (1) The flagship sweep (68 x 7,758,
+    float32, fit, full cubes, CHAOS_NREAL in chunks of CHAOS_CHUNK, depth 2,
+    drain deadline CHAOS_DEADLINE_S) fault-free, then two seeded arms (a
+    drain raise, a drain stall past the deadline and a torn checkpoint
+    write, each on its own chunk), a lost device at chunk 1's drain, a
+    fatal fault and a transient one with no retry budget. Gates: every
+    recovering arm's checkpoint equal member for member to the fault-free
+    one and its cube bit for bit, its chunk retries equal to its faults,
+    ``fired()`` equal to its schedule, the stall arms' drain timeouts >= 1;
+    the fatal and fail-fast arms raise InjectedFault after 0 retries. Each
+    arm's wall over the fault-free wall, less one, is reported
+    (``fault_overhead``, not gated). (2) The streamed 10,000-source catalog
+    under a lost device at the second staging: bitwise the fault-free
+    streamed call, one staging retry, B.1's accumulating launches counted.
+    (3) ``realize --checkpoint`` on the dataset under CHAOS_CLI_SCHEDULE by
+    ``--faults`` and by ``PTA_FAULTS``, with a capture each: cube and
+    checkpoint equal member for member to phase telemetry's fault-free
+    call, the captures holding ``faults.injected{site,kind}`` and the
+    ``faults.fired`` events. Returns B.1's launches in the phase."""
+    t0 = time.perf_counter()
+    sweeps = _chaos_sweeps(batch, recipe, workdir)
+    part_s = {"sweeps": time.perf_counter() - t0}
+    prefetch = _chaos_prefetch()
+    part_s["prefetch"] = time.perf_counter() - t0 - part_s["sweeps"]
+    cli = _chaos_cli(workdir)
+    part_s["cli"] = time.perf_counter() - t0 - part_s["sweeps"] - part_s["prefetch"]
+    emit("chaos", nvidia_smi=smi, nreal=CHAOS_NREAL, chunk=CHAOS_CHUNK,
+         deadline_s=CHAOS_DEADLINE_S, stall_s=CHAOS_STALL_S, policy=CHAOS_POLICY,
+         sweep=sweeps, prefetch=prefetch, cli=cli, part_s=part_s,
+         seconds=time.perf_counter() - t0)
+    return (sum(sweeps["b1_launches"].values()), prefetch["accumulate_launches"],
+            prefetch["fold_launches"])
+
+
+def phase_chaos_server(bank, batch, recipe, design):
+    """The float64 LikelihoodServer on the flagship bank under a transient
+    fault at its second engine call, against the fault-free server on the
+    same requests (the server prices with the composed ReducedGP build in
+    both packages: no Woodbury kernel launches here, counted). Then a
+    flood of CHAOS_FLOOD requests past ``max_queue`` with a deadline
+    shorter than one evaluation. Gates: every future resolves and equals
+    the fault-free server's bit for bit; one retry absorbed; the flood
+    rejects and expires requests, and no future is left pending after
+    ``stop()``."""
+    from pta_replicator_tpu_torch.faults import inject
+
+    grid, _ = lk.grid_cartesian(LIKELIHOOD_GRID)
+    axes = tuple(sorted(LIKELIHOOD_GRID))
+    point = lambda i: {k: float(grid[k][i]) for k in axes}
+
+    def serve(schedule):
+        inject.arm(schedule)
+        try:
+            with lk.LikelihoodServer(lk.RealizationBank.from_array(bank), batch, recipe, axes,
+                                     design=design, max_batch=SERVER_BATCH) as server:
+                futures = [server.submit(**point(i)) for i in range(CHAOS_SERVER_REQUESTS)]
+                rows = [f.result(timeout=600) for f in futures]
+            return rows, inject.fired()
+        finally:
+            inject.disarm()
+
+    launches.clear()
+    clean, _ = serve("likelihood_batch:raise@call=100000")
+    t0 = time.perf_counter()
+    flapped, fired = serve("likelihood_batch:raise@call=2")
+    flapped_s = time.perf_counter() - t0
+    b3 = launches.get("fused_woodbury_update", 0)
+    equal = all(np.array_equal(a, b) for a, b in zip(flapped, clean))
+    # the flood: the first request's engine call stalls (a fault), and once
+    # the worker is inside it, CHAOS_FLOOD requests arrive: the queue bound
+    # rejects the surplus, and the queued ones outlive their deadline
+    server = lk.LikelihoodServer(lk.RealizationBank.from_array(bank), batch, recipe, axes,
+                                 design=design, max_batch=SERVER_BATCH, max_delay_s=0.0,
+                                 max_queue=CHAOS_MAX_QUEUE,
+                                 request_deadline_s=CHAOS_DEADLINE_MS / 1e3).start()
+    inject.arm(f"likelihood_batch:stall={CHAOS_ENGINE_STALL_S:g}@call=1")
+    futures, rejected = [], 0
+    try:
+        first = server.submit(**point(0))
+        t_wait = time.perf_counter()
+        while not inject.fired() and time.perf_counter() - t_wait < 60:
+            time.sleep(0.001)
+        for i in range(CHAOS_FLOOD):
+            try:
+                futures.append(server.submit(**point(i % len(grid[axes[0]]))))
+            except lk.ServerSaturated:
+                rejected += 1
+    finally:
+        server.stop()
+        inject.disarm()
+    first_ok = first.done() and first.exception() is None
+    pending = sum(not f.done() for f in futures + [first])
+    expired = sum(f.done() and isinstance(f.exception(), lk.DeadlineExpired) for f in futures)
+    stats = server.stats()
+    row = dict(requests=CHAOS_SERVER_REQUESTS, fired=[f["spec"] for f in fired],
+               rows_equal_fault_free=equal, flapped_s=flapped_s, b3_launches=b3,
+               flood=CHAOS_FLOOD, max_queue=CHAOS_MAX_QUEUE, deadline_ms=CHAOS_DEADLINE_MS,
+               engine_stall_s=CHAOS_ENGINE_STALL_S, first_resolved=first_ok,
+               rejected=rejected, expired=expired, pending_after_stop=pending,
+               served=stats["requests"], stats_rejected=stats["rejected"],
+               stats_expired=stats["deadline_expired"])
+    emit("chaos_server", **row)
+    require(equal and len(fired) == 1, f"chaos server: the faulted server {row}")
+    require(first_ok and rejected > 0 and expired > 0 and pending == 0,
+            f"chaos server: the flood {row}")
+    return b3
+
+
+#: the numerics observatory phase: the identity sweeps' full cubes, the
+#: overhead arm's reduced sweeps (the telemetry phase's shape: 10 chunks,
+#: none sampled at the default 1-in-16 rate from the default seed's offset
+#: 12), its rate floor, the drift arm's sweep, and the planted faults
+NUMERICS_IDENTITY_NREAL, NUMERICS_DRIFT_NREAL, NUMERICS_CHUNK = 400, 400, 200
+#: the overhead arm's reduced sweeps: 12 chunks of 200, the most that the
+#: default rate (1 in 16) from the default seed (offset 12) samples none of
+NUMERICS_OVERHEAD_NREAL, NUMERICS_OVERHEAD_REPS, NUMERICS_RATE_FLOOR = 2400, 5, 0.95
+#: the CUDA runtime calls counted beside the synchronizing ones
+NUMERICS_RUNTIME_CALLS = SYNC_CALLS + ("cudaLaunchKernel", "cudaMemcpyAsync", "cudaEventRecord",
+                                       "cudaHostAlloc")
+#: the drift arm's replay against cube row 0 (float32, the same delays
+#: summed in another batch shape), relative RMS
+TOL_REPLAY = 1e-5
+
+
+def _numerics_sweep(batch, recipe, path, nreal, armed, drift_every=None, **kw):
+    """One sweep (``armed``: the observatory armed at ``drift_every``),
+    its checkpoint dropped: (result, wall s)."""
+    if armed:
+        numerics.reset()
+        numerics.arm(drift_every=drift_every)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        out = sweep(SWEEP_SEED, batch, recipe, nreal, str(path), chunk=NUMERICS_CHUNK, **kw)
+    finally:
+        wall = time.perf_counter() - t0
+        if armed:
+            numerics.flush()
+    _drop_checkpoint(path, nreal // NUMERICS_CHUNK)
+    return out, wall
+
+
+def _numerics_cov(batch, recipe):
+    """Config B's banded factor (B.4) and config D's blocked factor (B.2)
+    armed on the card and on the CPU from the same matrices: each cov.*
+    site's ledger, and the kernels' launches."""
+    from pta_replicator_tpu_torch.covariance.structure import banded_c0_blocks, dense_c0
+
+    out = {}
+    b64 = batch.astype(torch.float64)
+    r64 = recipe.astype(torch.float64)
+    rb = _config_b(b64, r64, torch.float64)
+    sigma2, _ = _safe_sigma2(b64, rb)
+    D, E = banded_c0_blocks(rb.noise_cov, sigma2, recipe_cov_s2(rb, torch.float64), torch.float64)
+    bd, rd = flagship_workload(**DENSE_SHAPE, dtype=torch.float64)
+    rd = _config_d(bd, rd)
+    sigma2d, ecorr2d = _safe_sigma2(bd, rd)
+    C = dense_c0(bd, sigma2d, ecorr2d, rd.noise_cov, recipe_cov_s2(rd, torch.float64),
+                 torch.float64)
+    for where in ("card", "cpu"):
+        numerics.reset()
+        numerics.arm()
+        launches.clear()
+        t = (lambda x: x) if where == "card" else (lambda x: x.cpu())
+        cov_kernels.block_tridiag_cholesky(t(D), t(E))
+        cov_kernels.blocked_cholesky(t(C), block=DENSE_BLOCK)
+        torch.cuda.synchronize()
+        out[where] = dict(sites={s: {k: r[k] for k in ("calls", "elements", "nonfinite",
+                                                        "max_abs")}
+                                 for s, r in numerics.snapshot()["sites"].items()},
+                          launches=dict(launches))
+    numerics.reset()
+    del D, E, C, bd, rd, b64, r64, rb
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_numerics_observatory(workdir, batch, recipe, smi):
+    """The numerics observatory on the card (A.16.3), the counterpart of the
+    JAX package's benchmarks/numerics_probe.py, on the flagship (68 x 7,758,
+    float32, fit). Overhead, first (after an ``os.sync``): the reduced
+    sweep (NUMERICS_OVERHEAD_NREAL x 200, default drift rate, no chunk
+    sampled) NUMERICS_OVERHEAD_REPS times armed and disarmed in ABBA order,
+    then once each under torch.profiler: the armed median rate >=
+    NUMERICS_RATE_FLOOR x the disarmed, and at most one synchronizing CUDA
+    call more a chunk. Identity: the full-cube sweep disarmed, armed
+    (default drift rate) and disarmed after an arm/disarm cycle, bit for
+    bit.
+    Planted overflow: ``log10_equad = 25`` in float32 is named at
+    ``realization.white`` and at no other probe site. Planted NaN:
+    ``drain:nan@chunk=1`` is named at ``drain`` alone with
+    ``numerics.nonfinite`` 1. Drift: drift_every 1 on a 400 x 200 sweep
+    without the fit, under a capture: every family's worst drift within
+    the fuzz tolerances, samples = chunks, the replayed draws rebuild cube
+    row 0 of each chunk (TOL_REPLAY), the oracle's seconds a sample
+    reported (the capture's drift-sample spans less the batched side's
+    time); ``numerics report`` renders the capture, and the verdict
+    reads drift for the realization sites. Covariance: config B's banded
+    factor (B.4) and config D's blocked factor (B.2) armed on the card and
+    on the CPU: each cov.* site's calls and elements equal. Returns the
+    kernels' launches in the phase."""
+    from pta_replicator_tpu_torch import obs
+    from pta_replicator_tpu_torch.faults import inject
+    from pta_replicator_tpu_torch.obs import names
+    from pta_replicator_tpu_torch.scenarios import fuzz
+
+    t_phase = time.perf_counter()
+    path = workdir / "numerics.npz"
+    counts = collections.Counter()
+    row = dict(nvidia_smi=smi)
+
+    part_s = {}
+    # overhead, first: before the phase's full-cube writes leave dirty
+    # pages for the host to flush under the timed sweeps
+    os.sync()
+    t_part = time.perf_counter()
+    kw = dict(fit=True, pipeline_depth=TELEMETRY_SWEEP["pipeline_depth"])
+    nreal = NUMERICS_OVERHEAD_NREAL
+    nchunks = nreal // NUMERICS_CHUNK
+    launches.clear()
+    for mode in (False, True):  # warm both
+        _numerics_sweep(batch, recipe, path, nreal, mode, **kw)
+        numerics.reset()
+    rates = {"armed": [], "disarmed": []}
+    for k in range(NUMERICS_OVERHEAD_REPS):
+        # alternating order (ABBA), so that neither mode always runs first
+        for mode in (("armed", "disarmed") if k % 2 == 0 else ("disarmed", "armed")):
+            _, wall = _numerics_sweep(batch, recipe, path, nreal, mode == "armed", **kw)
+            rates[mode].append(nreal / wall)
+            numerics.reset()
+    # each adjacent pair's ratio too: a burst of host load hits both sides
+    paired = [a / d for a, d in zip(rates["armed"], rates["disarmed"])]
+    counts.update(launches)
+    runtime = {}
+    for mode in ("armed", "disarmed"):
+        # _sync_calls clears the launch counts, then holds its run's
+        runtime[mode], _b1 = _sync_calls(
+            lambda: _numerics_sweep(batch, recipe, path, nreal, mode == "armed", **kw),
+            calls=NUMERICS_RUNTIME_CALLS)
+        counts.update(launches)
+        numerics.reset()
+    syncs = {m: {k: v for k, v in c.items() if k in SYNC_CALLS} for m, c in runtime.items()}
+    median = {k: float(np.median(v)) for k, v in rates.items()}
+    extra_syncs = sum(syncs["armed"].values()) - sum(syncs["disarmed"].values())
+    row["overhead"] = dict(nreal=nreal, chunk=NUMERICS_CHUNK, chunks=nchunks,
+                           drift_every=numerics.DRIFT_EVERY,
+                           drift_offset=numerics.drift_offset(numerics.DRIFT_EVERY, 0),
+                           rates=rates, median=median,
+                           ratio=median["armed"] / median["disarmed"],
+                           paired_ratios=paired,
+                           floor=NUMERICS_RATE_FLOOR, sync_calls=syncs, extra_syncs=extra_syncs,
+                           runtime_calls=runtime)
+    require(row["overhead"]["ratio"] >= NUMERICS_RATE_FLOOR,
+            f"numerics: armed sweep rate {row['overhead']}")
+    require(extra_syncs <= nchunks, f"numerics: synchronizing calls armed {syncs}")
+
+    part_s["overhead"] = time.perf_counter() - t_part
+    # identity
+    t_part = time.perf_counter()
+    launches.clear()
+    cubes = {}
+    cubes["disarmed"], _ = _numerics_sweep(batch, recipe, path, NUMERICS_IDENTITY_NREAL, False,
+                                           reduce_fn=None, fit=True)
+    cubes["armed"], _ = _numerics_sweep(batch, recipe, path, NUMERICS_IDENTITY_NREAL, True,
+                                        reduce_fn=None, fit=True)
+    identity_ledger = numerics.snapshot()
+    numerics.disarm()
+    cubes["after_cycle"], _ = _numerics_sweep(batch, recipe, path, NUMERICS_IDENTITY_NREAL,
+                                              False, reduce_fn=None, fit=True)
+    counts.update(launches)
+    row["identity"] = dict(
+        equal=cubes["armed"].tobytes() == cubes["disarmed"].tobytes()
+        == cubes["after_cycle"].tobytes(),
+        sites={s: {k: r[k] for k in ("calls", "elements", "nonfinite", "headroom_bits")}
+               for s, r in identity_ledger["sites"].items()})
+    del cubes
+    numerics.reset()
+    require(row["identity"]["equal"], "numerics: an armed or cycled sweep changed the cube")
+    require(identity_ledger["sites"].get("realization.white", {}).get("calls")
+            == NUMERICS_IDENTITY_NREAL // NUMERICS_CHUNK,
+            f"numerics: the armed sweep's ledger {identity_ledger['sites']}")
+    part_s["identity"] = time.perf_counter() - t_part
+    # planted overflow
+    t_part = time.perf_counter()
+    launches.clear()
+    equad = dataclasses.replace(recipe, log10_equad=torch.full_like(recipe.log10_equad, 25.0))
+    numerics.reset()
+    numerics.arm()
+    realize(torch.Generator(device="cuda").manual_seed(1), batch, equad, NUMERICS_CHUNK, fit=True)
+    numerics.flush()
+    overflow = {s: r["nonfinite"] for s, r in numerics.snapshot()["sites"].items()}
+    counts.update(launches)
+    numerics.reset()
+    row["overflow"] = overflow
+    require({s for s, n in overflow.items() if n} == {"realization.white"}
+            and len(overflow) >= 4, f"numerics: planted overflow named at {overflow}")
+
+    # planted NaN
+    launches.clear()
+    n0 = _metric(names.NUMERICS_NONFINITE)
+    inject.arm("drain:nan@chunk=1")
+    try:
+        cube, _ = _numerics_sweep(batch, recipe, path, NUMERICS_IDENTITY_NREAL, True,
+                                  reduce_fn=None, fit=True)
+    finally:
+        inject.disarm()
+    nan_sites = {s: r["nonfinite"] for s, r in numerics.snapshot()["sites"].items()}
+    counts.update(launches)
+    row["nan"] = dict(sites=nan_sites, nonfinite_counter=_metric(names.NUMERICS_NONFINITE) - n0,
+                      cube_nans=int(np.isnan(cube).sum()))
+    del cube
+    numerics.reset()
+    require({s for s, n in nan_sites.items() if n} == {"drain"} and nan_sites["drain"] == 1
+            and row["nan"]["nonfinite_counter"] == 1 and row["nan"]["cube_nans"] == 1,
+            f"numerics: planted NaN {row['nan']}")
+
+    part_s["planted"] = time.perf_counter() - t_part
+    # drift, under a capture
+    t_part = time.perf_counter()
+    launches.clear()
+    tel = workdir / "numerics_tel"
+    obs.start_capture(str(tel))
+    try:
+        cube, drift_wall = _numerics_sweep(batch, recipe, path, NUMERICS_DRIFT_NREAL, True,
+                                           drift_every=1, reduce_fn=None, fit=False)
+        drift = numerics.snapshot()["drift"]
+        verdict = numerics.ladder_verdict()
+    finally:
+        obs.finish_capture(context={"phase": "numerics_observatory"})
+        obs.configure(None)
+        obs.reset_all()
+    counts.update(launches)
+    drift_spans = [a for p, a in _capture(tel)["spans"].items()
+                   if p.endswith(names.SPAN_NUMERICS_DRIFT)]
+    sample_s = (sum(a["total_s"] for a in drift_spans)
+                / max(1, sum(a["calls"] for a in drift_spans)))
+    static = deterministic_delays(batch, recipe)
+    replay = []
+    for i in range(NUMERICS_DRIFT_NREAL // NUMERICS_CHUNK):
+        draws = numerics.replay_draws(batch, recipe, SWEEP_SEED, i, NUMERICS_CHUNK)
+        got = B.residualize(B.realization_delays(batch, recipe, draws) + static, batch)
+        replay.append(rel_rms(got, torch.from_numpy(cube[i * NUMERICS_CHUNK]).cuda()))
+    del cube
+    shim = numerics._DriftShim(batch, recipe)
+    t0 = time.perf_counter()
+    fuzz.batched_family_delays(shim, draws)
+    torch.cuda.synchronize()
+    batched_s = time.perf_counter() - t0
+    code, report_out, err, _s = _module_cli("numerics", "report", str(tel))
+    realization_sites = [s for s in verdict if s.startswith("realization.")]
+    row["drift"] = dict(nreal=NUMERICS_DRIFT_NREAL, chunk=NUMERICS_CHUNK, families=drift,
+                        sweep_wall_s=drift_wall, replay_rel_rms=replay, tol_replay=TOL_REPLAY,
+                        sample_s=sample_s, batched_s_per_sample=batched_s,
+                        oracle_s_per_sample=sample_s - batched_s,
+                        report_exit=code, report_lines=len(report_out.splitlines()),
+                        verdict={s: verdict[s] for s in realization_sites})
+    numerics.reset()
+    nsamples = NUMERICS_DRIFT_NREAL // NUMERICS_CHUNK
+    require(drift and all(d["samples"] == nsamples and d["worst"] <= d["tolerance"]
+                          for d in drift.values()), f"numerics: drift {drift}")
+    require(max(replay) <= TOL_REPLAY, f"numerics: replay vs cube row 0 {replay}")
+    require(code == 0 and "realization.white" in report_out and "drift vs" in report_out,
+            f"numerics report: exit {code}: {err[-2000:]}")
+    require(realization_sites and all(
+        not any("no drift samples" in r for r in verdict[s]["reasons"])
+        for s in realization_sites), f"numerics: the verdict {row['drift']['verdict']}")
+
+    part_s["drift"] = time.perf_counter() - t_part
+    # covariance
+    t_part = time.perf_counter()
+    cov = _numerics_cov(batch, recipe)
+    counts.update(cov["card"]["launches"])
+    row["covariance"] = cov
+    shape_of = lambda sites: {s: (r["calls"], r["elements"]) for s, r in sites.items()}
+    require(shape_of(cov["card"]["sites"]) == shape_of(cov["cpu"]["sites"])
+            and {"cov.tridiag_pivot", "cov.blocked_pivot"} <= set(cov["card"]["sites"])
+            and all(r["nonfinite"] == 0 for r in cov["card"]["sites"].values()),
+            f"numerics: cov sites card {cov['card']['sites']} vs cpu {cov['cpu']['sites']}")
+    require(cov["card"]["launches"].get("tridiag_factor_solve_fwd", 0) > 0
+            and cov["card"]["launches"].get("cov_syrk_update", 0) > 0,
+            f"numerics: covariance launches {cov['card']['launches']}")
+    part_s["covariance"] = time.perf_counter() - t_part
+    row["launches"] = dict(counts)
+    row["part_s"] = part_s
+    row["seconds"] = time.perf_counter() - t_phase
+    emit("numerics_observatory", **row)
+    return dict(counts)
+
+
 def fuzz_cover_n():
     """The smallest n whose specs ``sample_spec(0, 0..n-1)`` carry every
     token of REQUIRED_COVERAGE (``spec_families``) and hold a scenario the
@@ -3062,11 +3684,15 @@ def phase_fuzz(workdir):
                for f in planted["failures"] if "replay_file" in f}
 
     cli = {}
-    cli["fuzz_fast"] = _module_cli("scenario", "fuzz", "--fast", "--out-dir",
-                                   str(workdir / "cli_failures"))
     replay_file = planted["failures"][0]["replay_file"] if planted["failures"] else None
-    cli["replay"] = (_module_cli("scenario", "replay", replay_file) if replay_file
-                     else (None, "", "no minimal spec to replay", 0.0))
+    with ThreadPoolExecutor(max_workers=2) as pool:  # two independent interpreters
+        fast_call = pool.submit(_module_cli, "scenario", "fuzz", "--fast", "--out-dir",
+                                str(workdir / "cli_failures"))
+        replay_call = (pool.submit(_module_cli, "scenario", "replay", replay_file)
+                       if replay_file else None)
+        cli["fuzz_fast"] = fast_call.result()
+        cli["replay"] = (replay_call.result() if replay_call is not None
+                         else (None, "", "no minimal spec to replay", 0.0))
     fast = json.loads(cli["fuzz_fast"][1]) if cli["fuzz_fast"][0] == 0 else {}
     torch.cuda.synchronize()
     launches.clear()
@@ -3683,6 +4309,8 @@ def main():
     try:
         dataset_count, dataset_row = phase_dataset_path(workdir, smi)
         telemetry_count = phase_telemetry(workdir, smi)
+        chaos_b1, chaos_accumulate, chaos_fold = phase_chaos(workdir, batch, recipe, smi)
+        numerics_counts = phase_numerics_observatory(workdir, batch, recipe, smi)
         phase_likelihood_cli(workdir)
         oracle_cw_counts, oracle_gls_counts = phase_oracle_path(workdir, smi)
     finally:
@@ -3711,6 +4339,7 @@ def main():
     phase_likelihood_float32(bank, batch, recipe, ll)
     bf16_count = phase_likelihood_bf16(bank, batch64, recipe64, design, ll)
     phase_likelihood_server(bank, batch64, recipe64, design, ll)
+    chaos_server_b3 = phase_chaos_server(bank, batch64, recipe64, design)
     phase_likelihood_card_vs_cpu(SMALL)
     del bank
     torch.cuda.empty_cache()
@@ -3749,6 +4378,9 @@ def main():
         "scenario_catalog": _width_row({**scenario_row, "library_ms": None}),
         "dataset_launches": dataset_count,
         "telemetry_launches": telemetry_count,
+        "chaos_launches": chaos_b1, "chaos_accumulate_launches": chaos_accumulate,
+        "chaos_fold_launches": chaos_fold,
+        "numerics_launches": numerics_counts.get("cw_catalog_response", 0),
         "dataset_catalog": _width_row({**dataset_row, "library_ms": None}),
         "oracle_launches": oracle_cw_counts["cw_catalog_response"],
         "oracle_fold_launches": oracle_cw_counts["cw_fold_planes"],
@@ -3765,6 +4397,7 @@ def main():
         "library_ms": woodbury_row["library_ms"], **NO_ISSUE_ACCOUNT,
         "gls_bank_launches": gls_bank_count, "gls_bank_q286": _width_row(gls_bank_row),
         "fuzz_launches": fuzz_counts.get("fused_woodbury_update", 0),
+        "chaos_server_launches": chaos_server_b3,
     }, {
         "name": "fused_woodbury_update_bf16", "route": "cuda",
         "source": "pta_replicator_tpu_torch/csrc/fused_woodbury.cu",
@@ -3789,13 +4422,15 @@ def main():
                              cov_rows["cov_syrk_update", f64],
                              fuzz_counts.get("cov_syrk_update", 0)),
          "gls_fit_launches": fit_syrk_count,
-         "oracle_gls_launches": oracle_gls_counts["dense"]["cov_syrk_update"]},
+         "oracle_gls_launches": oracle_gls_counts["dense"]["cov_syrk_update"],
+         "numerics_launches": numerics_counts.get("cov_syrk_update", 0)},
         {**_cov_kernel_entry("tridiag_factor_solve_fwd", "pta_replicator_tpu_torch/csrc/block_tridiag.cu",
                              "pta_replicator_tpu/ops/pallas_gp.py:428",
                              tridiag_counts["tridiag_factor_solve_fwd"], cov_rows["factor", f64],
                              fuzz_counts.get("tridiag_factor_solve_fwd", 0)),
          "gls_fit_launches": fit_tridiag_counts["tridiag_factor_solve_fwd"],
-         "oracle_gls_launches": oracle_gls_counts["banded"]["tridiag_factor_solve_fwd"]},
+         "oracle_gls_launches": oracle_gls_counts["banded"]["tridiag_factor_solve_fwd"],
+         "numerics_launches": numerics_counts.get("tridiag_factor_solve_fwd", 0)},
         {**_cov_kernel_entry("tridiag_solve_fwd", "pta_replicator_tpu_torch/csrc/block_tridiag.cu",
                              "pta_replicator_tpu/ops/pallas_gp.py:428",
                              tridiag_counts["tridiag_solve_fwd"], cov_rows["solve", f64],

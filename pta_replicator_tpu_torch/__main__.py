@@ -18,6 +18,7 @@ realization bank, and the declarative scenario path.
         [--out-dir DIR] [--sweep-every K] [--device cuda]
     python -m pta_replicator_tpu_torch scenario replay SPEC [SPEC ...] [--device cuda]
     python -m pta_replicator_tpu_torch report DIR [--json] [--min-ms X]
+    python -m pta_replicator_tpu_torch numerics report DIR
 
 The counterpart of ``python -m pta_replicator_tpu info|realize|likelihood|
 scenario``: the same arguments, guards, exit codes and JSON output, with
@@ -61,9 +62,18 @@ span named after the subcommand, in the JAX package's formats
 own spans are ``ingest``, ``freeze``, ``build_recipe``, ``compute`` and
 ``write_output``, at the JAX CLI's places.
 
+``--faults SCHEDULE`` (every subcommand; ``--faults-seed`` seeds its
+``p=`` triggers) arms a fault-injection schedule before any work and
+before a capture starts (``faults/inject.py``; e.g. ``'drain:raise@chunk=1;
+checkpoint_write:torn@call=2'``); without it, ``PTA_FAULTS`` (seed
+``PTA_FAULTS_SEED``) arms one. A malformed schedule exits non-zero with
+the parser's message before any work. ``numerics report DIR`` renders a
+capture's ``numerics.json`` (either package's; ``PTA_NUMERICS=1`` arms
+the observatory for a ``--telemetry`` capture).
+
 Flags of modules not ported yet exit non-zero before any work:
-``--sharded`` and ``--mesh-shape`` (ROADMAP A.17), ``--device-trace``
-(A.16.4) and ``--faults`` (A.16.2).
+``--sharded`` and ``--mesh-shape`` (ROADMAP A.17) and ``--device-trace``
+(A.16.4).
 """
 from __future__ import annotations
 
@@ -85,9 +95,6 @@ def _parser() -> argparse.ArgumentParser:
         p.add_argument("--num-psrs", type=int, default=None)
         p.add_argument("--telemetry", default=None, metavar="DIR",
                        help=TELEMETRY_HELP)
-        p.add_argument("--faults", default=None, metavar="SCHEDULE",
-                       help="not ported (ROADMAP A.16.2): exits non-zero")
-        p.add_argument("--faults-seed", type=int, default=0)
         p.add_argument("--device", default="cuda",
                        help="the torch device (default cuda; cpu on request)")
     p = sub.choices["realize"]
@@ -224,6 +231,18 @@ def _parser() -> argparse.ArgumentParser:
                    help="machine-readable aggregate instead of the tree")
     p.add_argument("--min-ms", type=float, default=0.0,
                    help="hide span paths with total wall below this")
+    p = sub.add_parser(
+        "numerics", help="render a capture's precision ledger (numerics.json): per-site "
+                         "non-finite counts, |max| watermarks, overflow headroom in bits, "
+                         "shadow-oracle drift per family, and the bf16 readiness verdict")
+    p.add_argument("action", choices=("report",), help="report: pretty-print DIR/numerics.json")
+    p.add_argument("dir", help="the run's --telemetry directory")
+    for p in sub.choices.values():
+        p.add_argument("--faults", default=None, metavar="SCHEDULE",
+                       help="arm a fault-injection schedule, e.g. 'drain:raise@chunk=2;"
+                            "checkpoint_write:torn@call=3' (env: PTA_FAULTS)")
+        p.add_argument("--faults-seed", type=int, default=0,
+                       help="seed of the schedule's p= triggers (env: PTA_FAULTS_SEED)")
     return ap
 
 
@@ -394,7 +413,6 @@ UNPORTED_FLAGS = (
     ("sharded", "--sharded", "A.17 (multi-GPU)"),
     ("mesh_shape", "--mesh-shape", "A.17 (multi-GPU)"),
     ("device_trace", "--device-trace", "A.16.4 (device profiling)"),
-    ("faults", "--faults", "A.16.2 (fault injection)"),
 )
 
 
@@ -717,12 +735,44 @@ def _run_command(args):
     return _run_dataset(args)
 
 
+def _arm_faults(args) -> None:
+    """Arm ``--faults`` (or ``PTA_FAULTS``); a malformed schedule exits
+    with the parser's message."""
+    from .faults import inject
+
+    try:
+        if args.faults:
+            inject.arm(args.faults, seed=args.faults_seed)
+        else:
+            inject.arm_from_env()
+    except ValueError as exc:
+        raise SystemExit(f"{args.cmd} --faults: {exc}")
+
+
 def main(argv=None):
     args = _parser().parse_args(sys.argv[1:] if argv is None else list(argv))
+    from .faults import inject
+
+    saved = inject._STATE
+    try:
+        _arm_faults(args)
+        return _main(args, argv)
+    finally:
+        # an in-process caller gets its own fault state back
+        inject._STATE = saved
+
+
+def _main(args, argv):
     if args.cmd == "report":
         from .obs.report import print_report
 
         print_report(args.dir, min_ms=args.min_ms, as_json=args.json)
+        return
+    if args.cmd == "numerics":
+        # no torch needed: the ledger carries its drift tolerances
+        from .obs import numerics
+
+        print(numerics.render_report(args.dir))
         return
     # every refusal comes before any work, a capture's included
     _refuse_unported(args)

@@ -25,12 +25,20 @@ a CUDA tensor and their plain versions on a CPU one. A kernel that fails
 to build or launch raises.
 
 A failed factorization gives NaN entries, as the reference's does, not an
-exception (``torch.linalg.cholesky_ex``, no host synchronisation).
+exception (``torch.linalg.cholesky_ex``, no host synchronisation). The
+numerics observatory's probes (``obs/numerics.py``; identity, and nothing
+read, while disarmed) name a factor that went indefinite at its own site:
+``cov.blocked_pivot`` (each diagonal block of the blocked factor),
+``cov.dense_cholesky`` (the library factor), ``cov.tridiag_pivot`` (each
+block column of the banded factor), ``cov.tridiag_mxu_pivot`` and
+``cov.tridiag_mxu_solve`` (the fused factor and solve), ``cov.kron_epoch``
+and ``cov.kron_channel``.
 """
 from __future__ import annotations
 
 import torch
 
+from ..obs import numerics
 from ..ops import cw as ops_cw
 from ..ops import gp as ops_gp
 
@@ -75,7 +83,7 @@ def blocked_cholesky(A, block: int = 128):
         W[:, idx, idx] = 1.0
     for k in range(nb):
         k0, k1 = k * block, (k + 1) * block
-        Lkk = _cholesky(W[:, k0:k1, k0:k1])
+        Lkk = numerics.probe_cholesky("cov.blocked_pivot", _cholesky(W[:, k0:k1, k0:k1]))
         W[:, k0:k1, k0:k1] = Lkk
         if k1 < nb * block:
             P = _lower_solve_right(Lkk, W[:, k1:, k0:k1]).contiguous()
@@ -92,7 +100,7 @@ def dense_cholesky(A, block: int = 128):
     CUDA tensor, the library Cholesky on a CPU one."""
     if A.device.type == "cuda":
         return blocked_cholesky(A, block=block)
-    return _cholesky(A)
+    return numerics.probe_cholesky("cov.dense_cholesky", _cholesky(A))
 
 
 def cholesky_solve(L, X):
@@ -112,7 +120,8 @@ def block_tridiag_cholesky(D, E):
     (``M[0]`` is zero). O(Nt b^2) instead of the dense O(Nt^3): the
     forward factor sweep without right-hand sides."""
     Ld, M, _ = ops_gp.tridiag_forward(D, E)
-    return Ld, M
+    # one record a block column, as the reference's probe in its scan step
+    return numerics.probe_cholesky_steps("cov.tridiag_pivot", Ld), M
 
 
 def block_tridiag_logdet(Ld):
@@ -132,7 +141,9 @@ def block_tridiag_factor_solve(D, E, X):
     Z)``, the factor of :func:`block_tridiag_cholesky` and the solution of
     ``(L L^T) Z = X``: one forward sweep factors and forward-substitutes,
     then the backward sweep."""
-    return ops_gp.tridiag_factor_solve(D, E, X)
+    Ld, M, Z = ops_gp.tridiag_factor_solve(D, E, X)
+    return (numerics.probe_cholesky("cov.tridiag_mxu_pivot", Ld), M,
+            numerics.probe("cov.tridiag_mxu_solve", Z))
 
 
 def block_tridiag_matvec(D, E, X):
@@ -160,7 +171,9 @@ def kron_cholesky(Ct, Cf):
     ne, ne) epoch-level temporal factor, (Np, nc, nc) channel factor): the
     Kronecker product of the lower factors is the dense factor under the
     epoch-major TOA ordering."""
-    return _cholesky(Ct), _cholesky(Cf)
+    # either factor indefinite breaks the whole product: two sites
+    return (numerics.probe_cholesky("cov.kron_epoch", _cholesky(Ct)),
+            numerics.probe_cholesky("cov.kron_channel", _cholesky(Cf)))
 
 
 def kron_solve(Lt, Lf, X):

@@ -507,7 +507,11 @@ class LowRankCov(CovOp):
         G = self.base.solve(self.U)  # base^-1 U, (Np, Nt, R)
         S = torch.einsum("pnr,pns->prs", self.U, G)
         S = S + torch.diag_embed(1.0 / self.phi)
-        return G, K._cholesky(S)
+        # the (R, R) Woodbury core inherits phi's conditioning: a NaN
+        # factor is named at this probe site (identity while disarmed)
+        from ..obs import numerics
+
+        return G, numerics.probe_cholesky("cov.lowrank_woodbury", K._cholesky(S))
 
     def solve(self, x, s2=None):
         s2 = _s2_arr(s2, self.U)

@@ -2,13 +2,16 @@
 
 Counterpart of ``pta_replicator_tpu/faults/retry.py``: the policy
 (:class:`RetryPolicy`), the classifier (:func:`is_transient`) and the
-jittered exponential backoff (:func:`backoff_delay`). The sweep retries a
-transient chunk failure by resuming from its checkpoint sidecar, and the
-prefetcher retries a transient staging failure once in place; both
-classify through :func:`is_transient`.
+jittered exponential backoff (:func:`backoff_delay`) and the in-place
+retry helper (:func:`retry_call`). The sweep retries a transient chunk
+failure by resuming from its checkpoint sidecar, the prefetcher retries a
+transient staging failure once in place, and the server retries a
+transient engine call once through :func:`retry_call`; all classify
+through :func:`is_transient`.
 
 Transient means "the same operation, retried as it is, can plausibly
-succeed": a stage wedged past its deadline (``DrainTimeout``), a dropped
+succeed": an injected fault marked transient (``inject.InjectedFault``,
+whose ``transient`` decides), a stage wedged past its deadline (``DrainTimeout``), a dropped
 connection, an interrupted or timed-out syscall, a full disk (``ENOSPC``:
 space is often reclaimed, and the bounded budget stops a disk that stays
 full). Fatal is everything else, and on the card in particular:
@@ -21,16 +24,19 @@ full). Fatal is everything else, and on the card in particular:
   remedy is a smaller chunk, not the same one again).
 
 Every absorbed retry emits a ``faults.retry`` event (:func:`retry_event`)
-into the capture's event stream. Fault injection (``--faults``) is ROADMAP
-A.16.2.
+into the capture's event stream.
 """
 from __future__ import annotations
 
 import errno
 import random
+import time
 from dataclasses import dataclass
+from typing import Callable
 
 import torch
+
+from .inject import InjectedFault
 
 
 @dataclass(frozen=True)
@@ -85,6 +91,8 @@ def is_transient(exc: BaseException) -> bool:
     # the executors that import both would otherwise cycle
     from ..parallel.stages import DrainTimeout
 
+    if isinstance(exc, InjectedFault):
+        return exc.transient
     if isinstance(exc, DrainTimeout):
         return True
     if isinstance(exc, ConnectionError):
@@ -107,6 +115,25 @@ def backoff_delay(attempt: int, policy: RetryPolicy = DEFAULT_POLICY) -> float:
     if policy.jitter <= 0:
         return base
     return base * (1.0 + policy.jitter * (2.0 * random.random() - 1.0))
+
+
+def retry_call(fn: Callable, *, policy: RetryPolicy = DEFAULT_POLICY,
+               classify: Callable[[BaseException], bool] = is_transient,
+               sleep: Callable[[float], None] = time.sleep, scope: str = "retry_call"):
+    """Call ``fn()`` under ``policy``: a fatal error re-raises at once and
+    unchanged; a transient one backs off (``sleep``) and calls again until
+    the attempts are spent (then the last error re-raises). Each retry
+    emits a ``faults.retry`` event (``scope``: whose retry)."""
+    attempt = 1
+    while True:
+        try:
+            return fn()
+        except BaseException as exc:  # noqa: BLE001 — classified, then re-raised
+            if attempt >= policy.max_attempts or not classify(exc):
+                raise
+            retry_event(scope, exc, attempt=attempt)
+            sleep(backoff_delay(attempt, policy))
+            attempt += 1
 
 
 def retry_event(scope: str, exc: BaseException, **attrs) -> None:

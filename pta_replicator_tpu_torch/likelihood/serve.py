@@ -13,9 +13,12 @@ own (R,) log-likelihood row.
 Admission control: a bounded queue (``max_queue``) refuses a request
 with :class:`ServerSaturated` instead of growing, and a request still
 queued past its deadline raises :class:`DeadlineExpired` instead of
-being served late. The bank's projection runs under the
-``likelihood_project`` span; the reference's request spans, trace hops,
-``likelihood.*`` SLO counters and engine retry belong to ROADMAP A.16.4.
+being served late. A transient failure of the engine call (the fault
+site ``likelihood_batch``, ``faults/inject.py``) is retried once in
+place, so one flapped call does not fail ``max_batch`` futures; a fatal
+one fails them at once. The bank's projection runs under the
+``likelihood_project`` span; the reference's request spans, trace hops
+and ``likelihood.*`` SLO counters belong to ROADMAP A.16.4.
 """
 from __future__ import annotations
 
@@ -32,11 +35,17 @@ import torch
 
 from ..batch import PulsarBatch
 from ..device import resolve_device
+from ..faults import inject as faults
+from ..faults.retry import RetryPolicy, is_transient, retry_call
 from ..models.batched import Recipe
 from . import gp
 from .infer import _check_axes, _reduced_points, _reducible
 
 _STOP = object()
+
+#: one in-place retry of a transient engine failure (it costs
+#: milliseconds); fatal errors fail every future of the batch at once
+_ENGINE_RETRY = RetryPolicy(max_attempts=2, base_delay_s=0.05, max_delay_s=1.0)
 
 #: request latencies and batch fills kept for the summaries of
 #: :meth:`LikelihoodServer.stats`
@@ -337,11 +346,16 @@ class LikelihoodServer:
         # pad to the fixed batch: the padding rows repeat the last request
         theta = np.concatenate([theta, np.repeat(theta[-1:], self.max_batch - nb, axis=0)])
         t0 = time.monotonic()
-        try:
-            out = _reduced_points(
+
+        def _eval():
+            faults.fire(faults.SITE_SERVER_ENGINE, requests=nb)
+            return _reduced_points(
                 torch.as_tensor(theta, dtype=self.batch.dtype, device=self.batch.device),
                 self.axes, self._reduced, self._proj, self.batch, self.recipe,
             ).cpu().numpy()
+
+        try:
+            out = retry_call(_eval, policy=_ENGINE_RETRY, classify=is_transient, scope="serve")
         except Exception as exc:  # delivered to every future of the batch
             for r in reqs:
                 if r.future.set_running_or_notify_cancel():

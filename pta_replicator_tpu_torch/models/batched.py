@@ -462,7 +462,11 @@ def cw_stream_response(batch: PulsarBatch, tiles, evolve: bool, psr_term: bool =
         sp["macros"] = nmacros
         sp["tiles"] = ntiles
         sp["tiles_per_step"] = tiles_per_step
-    return acc * batch.mask
+    # the streamed accumulator's health (site cw.stream_tile; identity,
+    # and nothing read, while the observatory is disarmed)
+    from ..obs import numerics
+
+    return numerics.probe("cw.stream_tile", acc * batch.mask)
 
 
 def cgw_catalog_delays_streamed(batch: PulsarBatch, gwtheta, gwphi, mc, dist, fgw,
@@ -848,48 +852,58 @@ def draw_noise(generator, batch: PulsarBatch, recipe: Recipe, nreal: int,
 def realization_delays(batch: PulsarBatch, recipe: Recipe, draws: dict):
     """(..., Np, Nt) summed stochastic delays of the enabled families,
     from explicit ``draws`` (:func:`draw_noise`), whose leading axes are
-    the realization axes."""
+    the realization axes.
+
+    Each family's output passes through an identity probe
+    (``obs/numerics.py::probe_realizations``, sites ``realization.white``,
+    ``.ecorr``, ``.red``, ``.chromatic``, ``.gwb``, ``.covariance``), so an
+    overflow is named at the family that produced it. Disarmed the probe
+    returns its argument; inside ``realize`` it reads nothing."""
+    from ..obs import numerics
+
+    probe = numerics.probe_realizations
     total = torch.zeros_like(batch.toas_s)
     if recipe.efac is not None or recipe.log10_equad is not None:
-        total = total + white_noise_delays(
+        total = total + probe("realization.white", white_noise_delays(
             None, batch, efac=recipe.efac if recipe.efac is not None else 1.0,
             log10_equad=recipe.log10_equad, tnequad=recipe.tnequad,
             eps=draws["white"],
-        )
+        ))
     if recipe.log10_ecorr is not None:
-        total = total + jitter_delays(None, batch, recipe.log10_ecorr, eps=draws["ecorr"])
+        total = total + probe("realization.ecorr", jitter_delays(
+            None, batch, recipe.log10_ecorr, eps=draws["ecorr"]))
     if recipe.rn_log10_amplitude is not None:
-        total = total + red_noise_delays(
+        total = total + probe("realization.red", red_noise_delays(
             None, batch, recipe.rn_log10_amplitude, recipe.rn_gamma,
             nmodes=recipe.rn_nmodes, modes=recipe.rn_modes, logf=recipe.rn_logf,
             fmin=recipe.rn_fmin, fmax=recipe.rn_fmax,
             phase_shift=draws.get("red_phase"),
             libstempo_convention=recipe.rn_libstempo,
             tspan_s=recipe.rn_tspan_s, eps=draws["red"],
-        )
+        ))
     if recipe.chrom_log10_amplitude is not None:
-        total = total + chromatic_noise_delays(
+        total = total + probe("realization.chromatic", chromatic_noise_delays(
             None, batch, recipe.chrom_log10_amplitude, recipe.chrom_gamma,
             chromatic_index=(recipe.chrom_index if recipe.chrom_index is not None else 2.0),
             nmodes=recipe.chrom_nmodes, ref_freq_mhz=recipe.chrom_ref_freq_mhz,
             eps=draws["chromatic"],
-        )
+        ))
     if _gwb_enabled(recipe):
         if recipe.orf_cholesky is None:
             # uncorrelated common process: ORF = 2 I
             orf_chol = math.sqrt(2.0) * torch.eye(batch.npsr, dtype=batch.dtype, device=batch.device)
         else:
             orf_chol = recipe.orf_cholesky
-        total = total + gwb_delays(
+        total = total + probe("realization.gwb", gwb_delays(
             None, batch, recipe.gwb_log10_amplitude, recipe.gwb_gamma, orf_chol,
             npts=recipe.gwb_npts, howml=recipe.gwb_howml,
             turnover=recipe.gwb_turnover, f0=recipe.gwb_f0,
             beta=recipe.gwb_beta, power=recipe.gwb_power,
             user_spectrum=recipe.gwb_user_spectrum, eps=draws["gwb"],
-        )
+        ))
     if recipe.noise_cov is not None:
         sample = recipe.noise_cov.sample(draws, s2=recipe_cov_s2(recipe, batch.dtype))
-        total = total + sample.to(batch.dtype) * batch.mask
+        total = total + probe("realization.covariance", sample.to(batch.dtype) * batch.mask)
     return total
 
 
@@ -1033,14 +1047,21 @@ def realize(generator, batch: PulsarBatch, recipe: Recipe, nreal: int,
     :func:`fit_system` (with ``fit`` and ``recipe.fit_design``): a caller
     that realizes in chunks computes both once and passes them to every
     chunk; without them each call builds its own, once. Returns without
-    synchronizing; read the result back to wait for it."""
+    synchronizing; read the result back to wait for it (the numerics
+    observatory's probes, armed, queue their stats without reading them:
+    ``obs/numerics.py``'s collector mode)."""
     device = resolve_device(device)
     _require_ieee_float32(device)
     batch, recipe = batch.to(device), recipe.to(device)
     if static is None:
         static = deterministic_delays(batch, recipe, device=device)
     draws = draw_noise(generator, batch, recipe, nreal, noise)
-    return realize_block(draws, batch, recipe, fit, static, nreal, system=system)
+    from ..obs import numerics
+
+    # armed, the families' probes stage their stats on the card and the
+    # block queues them for the sweep's drain: no read to the host here
+    with numerics.collecting(nreal):
+        return realize_block(draws, batch, recipe, fit, static, nreal, system=system)
 
 
 # ---------------------------------------------------- the GP noise model
@@ -1248,18 +1269,26 @@ def white_ecorr_solver(batch: PulsarBatch, sigma2, ecorr2, dtype,
     combination (Kronecker, dense or low-rank extras, or banded + ECORR)
     materializes C0 and pays one blocked dense Cholesky. ``winv`` stays
     the white diagonal's inverse even then."""
+    # probes (identity; sites solver.winv and solver.logdet_c0): N^-1
+    # overflows float32 first when a sigma2 underflows, and logdet_c0 is the
+    # scalar that would turn a pulsar's likelihood NaN, so a corrupt solve
+    # is named here, not at the downstream log L
+    from ..obs import numerics
+
     if extra is not None:
         if not isinstance(extra, CovOp):
             raise TypeError(f"extra must be a covariance CovOp, got {type(extra).__name__}")
-        winv = torch.where(batch.mask > 0, 1.0 / sigma2, 0.0).to(dtype)
+        winv = numerics.probe("solver.winv",
+                              torch.where(batch.mask > 0, 1.0 / sigma2, 0.0).to(dtype))
         safe_sigma2 = torch.where(batch.mask > 0, sigma2, 1.0)
         if isinstance(extra, BandedCov) and ecorr2 is None:
             c0inv_mat, logdet_c0 = banded_combined_solver(extra, safe_sigma2, extra_s2, dtype)
         else:
             c0inv_mat, logdet_c0 = dense_combined_solver(
                 batch, safe_sigma2, ecorr2, extra, extra_s2, dtype)
-        return winv, c0inv_mat, logdet_c0
+        return winv, c0inv_mat, numerics.probe("solver.logdet_c0", logdet_c0)
     winv, seg_sum, gain, logdet_c0 = white_ecorr_parts(batch, sigma2, ecorr2, dtype)
+    winv = numerics.probe("solver.winv", winv)
 
     def c0inv_mat(X):
         """(N + ECORR)^-1 X, per-epoch Woodbury."""
@@ -1269,7 +1298,7 @@ def white_ecorr_solver(batch: PulsarBatch, sigma2, ecorr2, dtype,
         picked = pick_epochs(gain[..., None] * seg_sum(y), batch)
         return y - winv[..., None] * picked
 
-    return winv, c0inv_mat, logdet_c0
+    return winv, c0inv_mat, numerics.probe("solver.logdet_c0", logdet_c0)
 
 
 # ------------------------------------------------------ the design refit

@@ -74,7 +74,9 @@ def start_capture(directory: str) -> None:
     metrics registry are reset, ``events.jsonl`` is truncated
     (``configure``) and an earlier run's artifacts are removed, so the
     directory describes exactly one run. ``PTA_NUMERICS=1`` arms the
-    numerics ledger for the capture."""
+    numerics observatory for the capture, sampling drift on one chunk in
+    ``PTA_NUMERICS_DRIFT_EVERY`` (default 16) from the seeded offset of
+    ``PTA_NUMERICS_SEED`` (``obs/numerics.py::arm_from_env``)."""
     from . import numerics
 
     TRACER.reset()

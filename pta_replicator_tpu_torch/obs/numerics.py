@@ -1,38 +1,61 @@
-"""The precision ledger of the numerics observatory.
+"""The numerics observatory: tensor-health probes, the drain-side
+non-finite scan, shadow-oracle drift samples and the precision ledger.
 
-Counterpart of the ledger half of ``pta_replicator_tpu/obs/numerics.py``:
-health probes on the likelihood's tensors, the per-site rollup they feed,
-its ``numerics.json`` capture and the bf16-readiness verdict read from it
-(``ladder_verdict``), which gates the bf16 rung of the fused Woodbury
-assembly (``likelihood/gp.py::require_precision_ready``).
+Counterpart of ``pta_replicator_tpu/obs/numerics.py``.
 
 * :func:`probe` and :func:`probe_cholesky` are identity on the data
   path. Disarmed (the default) they are literally ``return x``: no
-  reduction and no host synchronisation. Armed, they reduce the raveled
-  leading :data:`PROBE_SAMPLE_CAP` elements to a non-finite count, max
-  |x| and min non-zero |x| and read them to the host (one synchronisation
-  a call, paid only when armed), as the reference's callback mode does.
-* :func:`snapshot`, :func:`write`, :func:`ladder_verdict` and
-  :func:`render_report` keep the reference's JSON schema
-  (:data:`NUMERICS_SCHEMA_VERSION`), so a capture written by either
-  package is read by the other.
+  reduction and no host synchronisation. Armed, outside a collector, they
+  reduce the raveled leading :data:`PROBE_SAMPLE_CAP` elements to a
+  non-finite count, max |x| and min non-zero |x| and read the three to
+  the host (one synchronisation a call), as the reference's callback mode
+  does: the likelihood's, the fits' and the covariance factors' probes.
+  :func:`probe_cholesky_steps` reads a block-tridiagonal factor's pivots
+  block column by block column (one record a column from one read), as
+  the reference's probe inside its scan step records them.
+* **Collector mode** (:class:`collecting`, entered by
+  ``models/batched.py::realize`` while armed): :func:`probe_realizations`
+  keeps each family's leading :data:`PROBE_SAMPLE_CAP_COLLECT`-element
+  slab of every realization on the device and reads nothing. When the
+  block ends, the slabs are reduced together and the sites' scalars
+  copied into pinned host memory behind a CUDA event and queued
+  (:func:`stash_step_stats`); the sweep's drain
+  folds the queued entries whose event has completed
+  (``torch.cuda.Event.query``, which does not wait) and :func:`flush`
+  folds the rest. One call a site a block, ``elements`` = slab x
+  realizations, as the reference's collector records them.
+* :func:`on_drain` is the sweep's per-chunk drain hook: it folds the ready
+  stats, scans the fetched block on the host for non-finites
+  (:func:`scan_block`, the only layer that sees a fault-injected ``nan``)
+  and, on one chunk in ``drift_every`` (seeded, :func:`should_sample`),
+  replays realization 0 of the chunk through the fuzz harness's batched
+  families and its host float64 oracle (:func:`sample_drift`), recording
+  each family's relative drift.
+* :func:`snapshot`, :func:`write`, :func:`heartbeat_block`,
+  :func:`ladder_verdict` and :func:`render_report` keep the reference's
+  JSON schema (:data:`NUMERICS_SCHEMA_VERSION`), so a capture written by
+  either package is read by the other. The report needs no torch.
 
-Not ported here (ROADMAP A.16.3): the collector mode, drift sampling
-(``sample_drift``, ``on_drain``, ``scan_block``), the heartbeat block, and
-the counters, gauges and events ``_record`` emits. A capture of this
-module holds no drift samples, so a site that maps to a drift family
-(``realization.*``, ``cw.*``) reads as not ready.
+Every fold emits the reference's metrics: ``numerics.nonfinite`` (with
+and without ``site=``), the ``numerics.headroom_bits`` and
+``numerics.max_abs`` gauges, ``numerics.drift{family=}`` and the
+``numerics.nonfinite_episode`` event.
 """
 from __future__ import annotations
 
 import json
 import math
 import os
+import random
 import threading
 from pathlib import Path
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
-import torch
+import numpy as np
+
+from . import names
+from .metrics import counter, gauge
+from .trace import event
 
 NUMERICS_SCHEMA_VERSION = 1
 
@@ -44,24 +67,54 @@ LADDER_HEADROOM_BITS = 8.0
 #: episode clears
 EPISODE_CLEAR_AFTER = 3
 
-#: elements a probe reduces: the leading ones of the raveled tensor
+#: the default shadow-oracle sampling rate: one chunk in N
+DRIFT_EVERY = 16
+
+#: elements a per-call probe reduces: the leading ones of the raveled tensor
 PROBE_SAMPLE_CAP = 65536
+
+#: a collector's slab of ONE realization's family output: its leading
+#: pulsars' rows, cut to this many elements (pulsar 0's first 1,024 TOAs
+#: at the flagship), the reference's Collector.add
+PROBE_SAMPLE_CAP_COLLECT = 1024
+
+#: queued blocks of un-fetched stats past which the oldest is folded
+#: (waiting for it) so that the queue stays bounded
+_PENDING_MAX = 512
 
 _LOCK = threading.RLock()
 _ARMED = False
+_DRIFT_EVERY = DRIFT_EVERY
+_DRIFT_SEED = 0
 #: per-probe-site rollups; bounded by the static set of probe sites
 _SITES: Dict[str, dict] = {}
+#: per-family worst relative drift against the f64 oracle
+_DRIFT: Dict[str, dict] = {}
+#: queued collector blocks: (sites, host stats (n, 3), event or None,
+#: element counts, (max_log2, dtype) per site)
+_PENDING: List[tuple] = []
+#: the active collector of this thread
+_TLS = threading.local()
+#: pinned host buffers of folded blocks, by (shape, dtype), reused by
+#: the next blocks' copies (bounded by the queue's length)
+_PINNED: Dict[tuple, list] = {}
 
 
 def is_armed() -> bool:
     return _ARMED
 
 
-def arm() -> None:
-    """Arm the ledger: probes start accumulating."""
-    global _ARMED
+def arm(drift_every: Optional[int] = None, drift_seed: int = 0) -> None:
+    """Arm the observatory: probes record, the drain scans and samples
+    drift. ``drift_every`` sets the 1-in-N sampling rate (None keeps the
+    current one, :data:`DRIFT_EVERY` at first), ``drift_seed`` the seeded
+    chunk offset."""
+    global _ARMED, _DRIFT_EVERY, _DRIFT_SEED
     with _LOCK:
         _ARMED = True
+        if drift_every is not None:
+            _DRIFT_EVERY = max(1, int(drift_every))
+        _DRIFT_SEED = int(drift_seed)
 
 
 def disarm() -> None:
@@ -73,21 +126,30 @@ def disarm() -> None:
 
 
 def arm_from_env(env: Optional[dict] = None) -> bool:
-    """Arm when ``PTA_NUMERICS`` is ``1``, ``true`` or ``on``; returns
-    whether it armed."""
+    """Arm when ``PTA_NUMERICS`` is ``1``, ``true`` or ``on``, with the
+    rate ``PTA_NUMERICS_DRIFT_EVERY`` and the seed ``PTA_NUMERICS_SEED``;
+    returns whether it armed."""
     env = os.environ if env is None else env
     if env.get("PTA_NUMERICS", "").strip() not in ("1", "true", "on"):
         return False
-    arm()
+    every = env.get("PTA_NUMERICS_DRIFT_EVERY")
+    arm(drift_every=int(every) if every else None,
+        drift_seed=int(env.get("PTA_NUMERICS_SEED", "0") or 0))
     return True
 
 
 def reset() -> None:
-    """Clear the ledger and disarm."""
-    global _ARMED
+    """Clear the ledger, the drift and the queued stats, put the sampling
+    rate and seed back to their defaults (the reference keeps the last
+    rate), and disarm."""
+    global _ARMED, _DRIFT_EVERY, _DRIFT_SEED
     with _LOCK:
         _ARMED = False
+        _DRIFT_EVERY = DRIFT_EVERY
+        _DRIFT_SEED = 0
         _SITES.clear()
+        _DRIFT.clear()
+        _PENDING.clear()
 
 
 # ----------------------------------------------------------------- probes
@@ -97,26 +159,48 @@ def _dtype_name(dtype) -> str:
     return str(dtype).replace("torch.", "")
 
 
+def _max_log2(dtype) -> float:
+    import torch
+
+    return math.log2(float(torch.finfo(dtype).max))
+
+
+def _row_stats(rows):
+    """The three statistics of each row of ``rows`` (n, L), L > 0: (n, 3)
+    float64 on its device."""
+    import torch
+
+    finite = torch.isfinite(rows)
+    ax = rows.abs()
+    # the count in float64: exact past a half-precision dtype's 2**8 or 2**11
+    return torch.stack([
+        torch.sum(~finite, dim=1, dtype=torch.float64),
+        torch.amax(torch.where(finite, ax, 0.0), dim=1).double(),
+        torch.amin(torch.where(finite & (ax > 0), ax, math.inf), dim=1).double(),
+    ], dim=1)
+
+
+def _floating(x) -> bool:
+    import torch
+
+    return torch.is_tensor(x) and x.is_floating_point()
+
+
 def probe(name: str, x):
     """Tensor-health probe at site ``name``: returns ``x`` itself.
 
     Armed, a floating ``x`` is reduced over its leading
-    :data:`PROBE_SAMPLE_CAP` raveled elements (non-finite count, max |x|
-    over the finite ones, min non-zero |x|) and the three numbers are read
+    :data:`PROBE_SAMPLE_CAP` raveled elements and the three numbers are read
     to the host and recorded. The reduction runs on a detached view, so
     gradients pass through the probe untouched."""
-    if not _ARMED or not torch.is_tensor(x) or not x.is_floating_point():
+    if not _ARMED or not _floating(x):
         return x
-    s = x.detach().reshape(-1)[:PROBE_SAMPLE_CAP]
-    finite = torch.isfinite(s)
-    ax = s.abs()
-    nf, amax, amin = torch.stack([  # one read to the host
-        torch.sum(~finite).to(s.dtype),
-        torch.cat([torch.where(finite, ax, 0.0), s.new_zeros(1)]).max(),
-        torch.cat([torch.where(finite & (ax > 0), ax, math.inf), s.new_full((1,), math.inf)]).min(),
-    ]).tolist()
-    _record(name, int(s.numel()), math.log2(float(torch.finfo(x.dtype).max)),
-            _dtype_name(x.dtype), int(nf), amax, amin)
+    s = x.detach().reshape(1, -1)[:, :PROBE_SAMPLE_CAP]
+    if s.numel():
+        nf, amax, amin = _row_stats(s)[0].tolist()  # one read to the host
+    else:
+        nf, amax, amin = 0, 0.0, math.inf
+    _record(name, int(s.numel()), _max_log2(x.dtype), _dtype_name(x.dtype), int(nf), amax, amin)
     return x
 
 
@@ -126,16 +210,209 @@ def probe_cholesky(name: str, L):
     returns ``L`` itself."""
     if not _ARMED:
         return L
+    import torch
+
     probe(name, torch.diagonal(L, dim1=-2, dim2=-1))
     return L
 
 
-def _record(site: str, elements: int, max_log2: float, dtype: str,
-            nonfinite: int, absmax: float, minnz: float) -> None:
-    """Fold one probe call into the site's rollup."""
+def probe_cholesky_steps(name: str, Ld):
+    """Probe the diagonal blocks ``Ld`` (Np, nb, b, b) of a block-column
+    factorization one block column at a time: ``nb`` records of the (Np,
+    b) diagonal each (its leading :data:`PROBE_SAMPLE_CAP` elements), from
+    one read to the host. The reference probes inside its scan step, so a
+    late block column driven indefinite is named at its own record.
+    Returns ``Ld`` itself."""
+    if not _ARMED or not _floating(Ld):
+        return Ld
+    import torch
+
+    d = torch.diagonal(Ld.detach(), dim1=-2, dim2=-1).transpose(0, 1)  # (nb, Np, b)
+    s = d.reshape(d.shape[0], -1)[:, :PROBE_SAMPLE_CAP]
+    rows = _row_stats(s).tolist()  # one read to the host
+    max_log2, dtype = _max_log2(Ld.dtype), _dtype_name(Ld.dtype)
+    for nf, amax, amin in rows:
+        _record(name, int(s.shape[1]), max_log2, dtype, int(nf), amax, amin)
+    return Ld
+
+
+# --------------------------------------------------------- collector mode
+
+def _slab(x, lead: int):
+    """The reference collector's slab of each realization's output: ``x``
+    (leading ``lead`` realization axes) cut along its first per-realization
+    axis, then its last, to at most :data:`PROBE_SAMPLE_CAP_COLLECT`
+    elements a realization."""
+    shape = tuple(x.shape[lead:])
+    cap = PROBE_SAMPLE_CAP_COLLECT
+    size = math.prod(shape)
+    if len(shape) >= 1 and size > cap:
+        inner = max(1, size // shape[0])
+        x = x[(slice(None),) * lead + (slice(0, max(1, cap // inner)),)]
+        shape = tuple(x.shape[lead:])
+        size = math.prod(shape)
+        if size > cap:
+            per_row = max(1, size // shape[-1])
+            x = x[..., : max(1, cap // per_row)]
+    return x
+
+
+class Collector:
+    """The slabs of one collecting block: per probe call, the site and a
+    flat copy of its slab (every realization's), reduced together when the
+    block ends (one set of reductions for every site, not one a site); and
+    per site the slab's elements a realization, log2 of its dtype's
+    largest value and the dtype's name."""
+
+    def __init__(self):
+        self.slabs: List[tuple] = []
+        self.meta: Dict[str, tuple] = {}
+
+    def add(self, name: str, x, lead: int) -> None:
+        s = _slab(x.detach(), lead)
+        if s.numel() == 0:
+            return
+        self.meta[name] = (math.prod(s.shape[lead:]), _max_log2(x.dtype), _dtype_name(x.dtype))
+        self.slabs.append((name, s.reshape(-1)))
+
+
+class collecting:
+    """Context manager: while it is active on this thread,
+    :func:`probe_realizations` stages its stats in a :class:`Collector`
+    (``nreal`` realizations a block); on a clean exit the block's stats are
+    queued for the drain (:func:`stash_step_stats`). Inactive unless
+    armed."""
+
+    def __init__(self, nreal: int):
+        self._nreal = int(nreal)
+        self._col = None
+
+    def __enter__(self):
+        if _ARMED:
+            self._prev = getattr(_TLS, "collector", None)
+            self._col = _TLS.collector = Collector()
+        return self._col
+
+    def __exit__(self, exc_type, *exc):
+        if self._col is None:
+            return False
+        _TLS.collector = self._prev
+        if exc_type is None:
+            stash_step_stats(self._col, self._nreal)
+        return False
+
+
+def probe_realizations(name: str, x):
+    """Probe a family's output ``x`` (..., Np, Nt), whose leading axes are
+    realizations: staged in the thread's collector (no host read) inside
+    :class:`collecting`, else the per-call :func:`probe`. Returns ``x``."""
+    if not _ARMED or not _floating(x):
+        return x
+    col = getattr(_TLS, "collector", None)
+    if col is None:
+        return probe(name, x)
+    col.add(name, x, max(0, x.ndim - 2))
+    return x
+
+
+def stash_step_stats(col: Collector, nreal: int) -> None:
+    """Queue a collector's stats without reading them: the slabs are
+    reduced on their device (one stacked reduction when they share a size
+    and dtype, as the families' outputs do) and, on the card, copied into
+    pinned host memory on the current stream behind a CUDA event (no
+    synchronisation); the drain folds them once the event has completed."""
+    if not col.slabs:
+        return
+    import torch
+
+    sites = [name for name, _ in col.slabs]
+    slabs = [s for _, s in col.slabs]
+    if len({(s.numel(), s.dtype) for s in slabs}) == 1:
+        dev = _row_stats(torch.stack(slabs))
+    else:
+        dev = torch.cat([_row_stats(s.reshape(1, -1)) for s in slabs])
+    ev = None
+    if dev.device.type == "cuda":
+        with _LOCK:
+            free = _PINNED.get((tuple(dev.shape), dev.dtype))
+            host = free.pop() if free else None
+        if host is None:
+            host = torch.empty(dev.shape, dtype=dev.dtype, pin_memory=True)
+        host.copy_(dev, non_blocking=True)
+        ev = torch.cuda.Event()
+        ev.record(torch.cuda.current_stream(dev.device))
+    else:
+        host = dev
+    counts = {s: col.meta[s][0] * max(1, int(nreal)) for s in col.meta}
+    item = (sites, host, ev, counts, {s: col.meta[s][1:] for s in col.meta})
+    with _LOCK:
+        _PENDING.append(item)
+        overflow = len(_PENDING) - _PENDING_MAX
+        oldest = _PENDING[:overflow] if overflow > 0 else []
+        if overflow > 0:
+            del _PENDING[:overflow]
+    for old in oldest:
+        _fold_pending(old)
+
+
+def _fold_pending(item) -> None:
+    """Record one queued block: a site probed twice in it is merged into
+    one call (the counts summed, the extremes kept), as the reference
+    merges it in the graph."""
+    sites, host, ev, counts, meta = item
+    if ev is not None and not ev.query():
+        ev.synchronize()
+    merged: Dict[str, list] = {}
+    for site, (nf, amax, amin) in zip(sites, host.tolist()):
+        m = merged.get(site)
+        if m is None:
+            merged[site] = [nf, amax, amin]
+        else:
+            m[0] += nf
+            m[1] = max(m[1], amax)
+            m[2] = min(m[2], amin)
+    if ev is not None:
+        with _LOCK:
+            free = _PINNED.setdefault((tuple(host.shape), host.dtype), [])
+            if len(free) < _PENDING_MAX:
+                free.append(host)
+    for site, (nf, amax, amin) in merged.items():
+        max_log2, dtype = meta[site]
+        _record(site, counts[site], max_log2, dtype, int(nf), amax, amin)
+
+
+def _drain_pending(only_ready: bool = False) -> None:
+    """Fold queued collector stats into the ledger, oldest first. With
+    ``only_ready`` stop at the first whose event has not completed (never
+    wait for a chunk the pipeline has not finished)."""
+    while True:
+        with _LOCK:
+            if not _PENDING:
+                return
+            item = _PENDING[0]
+            if only_ready and item[2] is not None and not item[2].query():
+                return
+            del _PENDING[0]
+        _fold_pending(item)
+
+
+def flush() -> None:
+    """Fold every queued collector block, waiting for those still in
+    flight (the end of a sweep; tests)."""
     if not _ARMED:
         return
-    headroom = max_log2 - math.log2(absmax) if absmax > 0.0 else math.inf
+    _drain_pending()
+
+
+def _record(site: str, elements: int, max_log2: float, dtype: str,
+            nonfinite: int, absmax: float, minnz: float) -> None:
+    """Fold one probe call into the site's rollup and emit its metrics."""
+    if not _ARMED:
+        return
+    nf = int(nonfinite)
+    amax, amin = float(absmax), float(minnz)
+    headroom = max_log2 - math.log2(amax) if amax > 0.0 else math.inf
+    opened = False
     with _LOCK:
         rec = _SITES.get(site)
         if rec is None:
@@ -148,26 +425,157 @@ def _record(site: str, elements: int, max_log2: float, dtype: str,
             }
         rec["calls"] += 1
         rec["elements"] += int(elements)
-        rec["max_abs"] = max(rec["max_abs"], absmax)
-        rec["min_nonzero"] = min(rec["min_nonzero"], minnz)
+        rec["max_abs"] = max(rec["max_abs"], amax)
+        rec["min_nonzero"] = min(rec["min_nonzero"], amin)
         rec["headroom_bits"] = min(rec["headroom_bits"], headroom)
         rec["dtype"] = dtype
-        if nonfinite:
-            rec["nonfinite"] += int(nonfinite)
+        if nf:
+            rec["nonfinite"] += nf
             rec["clean_streak"] = 0
             if not rec["episode_active"]:
                 rec["episode_active"] = True
                 rec["episodes"] += 1
+                opened = True
         else:
             rec["clean_streak"] += 1
             if rec["episode_active"] and rec["clean_streak"] >= EPISODE_CLEAR_AFTER:
                 rec["episode_active"] = False
+        worst_headroom, max_abs = rec["headroom_bits"], rec["max_abs"]
+    if nf:
+        counter(names.NUMERICS_NONFINITE).inc(nf)
+        counter(names.NUMERICS_NONFINITE, site=site).inc(nf)
+    if opened:
+        event(names.EVENT_NUMERICS_EPISODE, site=site, count=nf)
+    if math.isfinite(headroom):
+        gauge(names.NUMERICS_HEADROOM_BITS, site=site).set(min(headroom, worst_headroom))
+    gauge(names.NUMERICS_MAX_ABS, site=site).set(max_abs)
+
+
+# ------------------------------------------------ drain hook and nan scan
+
+def scan_block(site: str, block) -> int:
+    """Host-side non-finite scan of a fetched chunk block (a numpy array
+    or a tensor, read whole): the last line of defense, after every probe
+    (a fault-injected ``nan`` is only visible here). Records at ``site``
+    and returns the non-finite count."""
+    if not _ARMED:
+        return 0
+    if not isinstance(block, np.ndarray) and hasattr(block, "detach"):
+        block = block.detach().cpu().numpy()
+    arr = np.asarray(block)
+    if not np.issubdtype(arr.dtype, np.floating):
+        return 0
+    finite = np.isfinite(arr)
+    nf = int(arr.size - np.count_nonzero(finite))
+    ax = np.abs(arr)
+    # masked reductions: no boolean-indexed copy of a full cube
+    amax = float(np.max(ax, where=finite, initial=0.0))
+    amin = float(np.min(ax, where=finite & (ax > 0), initial=np.inf))
+    _record(site, int(arr.size), float(math.log2(float(np.finfo(arr.dtype).max))),
+            str(arr.dtype), nf, amax, amin)
+    return nf
+
+
+def drift_offset(every: Optional[int] = None, seed: Optional[int] = None) -> int:
+    """The seeded chunk offset the sampler fires on (a resumed sweep
+    samples the same chunks)."""
+    every = _DRIFT_EVERY if every is None else max(1, int(every))
+    seed = _DRIFT_SEED if seed is None else int(seed)
+    return random.Random(seed * 1_000_003).randrange(every)
+
+
+def should_sample(chunk_index: int) -> bool:
+    """True when the armed sampler replays this chunk's realization 0
+    through the f64 oracle (one chunk in ``drift_every``, seeded)."""
+    if not _ARMED:
+        return False
+    return int(chunk_index) % _DRIFT_EVERY == drift_offset()
+
+
+class _DriftShim:
+    """The surface of a compiled scenario that the fuzz harness's family
+    functions read (``batch``, ``recipe``)."""
+
+    def __init__(self, batch, recipe):
+        self.batch = batch
+        self.recipe = recipe
+
+
+def replay_draws(batch, recipe, seed: int, chunk_index: int, nreal: int, noise=None) -> dict:
+    """Realization 0's draws of sweep chunk ``chunk_index`` (``nreal``
+    realizations a chunk): chunk ``i``'s ``noise(i)`` when the sweep was
+    given one, else its generator redrawn from ``chunk_seed(seed, i)``,
+    exactly the draws behind cube row 0 of the chunk."""
+    import torch
+
+    from ..models.batched import draw_noise
+    from ..utils.sweep import chunk_seed
+
+    if noise is not None:
+        draws = draw_noise(None, batch, recipe, nreal, noise(int(chunk_index)))
+    else:
+        generator = torch.Generator(device=batch.device).manual_seed(
+            chunk_seed(seed, int(chunk_index)))
+        draws = draw_noise(generator, batch, recipe, nreal)
+    return {k: v[0] for k, v in draws.items()}
+
+
+def sample_drift(batch, recipe, draws: dict) -> Dict[str, float]:
+    """Replay ONE realization's ``draws`` through the batched families and
+    the host float64 oracle of ``scenarios/fuzz.py`` and record each
+    family's relative drift (max |deviation| over the oracle's RMS) in the
+    ledger and the ``numerics.drift{family=}`` gauge."""
+    from ..scenarios import fuzz
+
+    shim = _DriftShim(batch, recipe)
+    dev = fuzz.batched_family_delays(shim, draws)
+    oracle = fuzz.oracle_family_delays(shim, draws)
+    out: Dict[str, float] = {}
+    for family, dev_arr in dev.items():
+        if family not in oracle:
+            continue
+        rel = fuzz._rel(dev_arr, oracle[family])
+        out[family] = rel
+        tol = fuzz.FAMILY_TOLERANCES.get(family)
+        with _LOCK:
+            rec = _DRIFT.get(family)
+            if rec is None:
+                rec = _DRIFT[family] = {"worst": 0.0, "samples": 0, "tolerance": tol}
+            rec["worst"] = max(rec["worst"], rel)
+            rec["samples"] += 1
+            rec["tolerance"] = tol
+        gauge(names.NUMERICS_DRIFT, family=family).set(rel)
+    return out
+
+
+def on_drain(chunk_index: int, block=None, *, batch=None, recipe=None, seed=None,
+             nreal: Optional[int] = None, noise=None, site: str = "drain") -> None:
+    """The sweep's per-chunk drain hook (disarmed: one flag check).
+
+    Armed: fold the collector stats whose event completed (never waiting
+    for a chunk still in flight), scan the fetched ``block`` at ``site``,
+    and on a sampled chunk, when the sweep passed its inputs (``batch``,
+    ``recipe``, ``seed``, ``nreal`` = the chunk's realizations, ``noise``),
+    replay realization 0 of the chunk through the shadow oracle."""
+    if not _ARMED:
+        return
+    _drain_pending(only_ready=True)
+    if block is not None:
+        scan_block(site, block)
+    if (batch is not None and recipe is not None and (seed is not None or noise is not None)
+            and nreal and should_sample(chunk_index)):
+        from .trace import span
+
+        with span(names.SPAN_NUMERICS_DRIFT, chunk=int(chunk_index)):
+            sample_drift(batch, recipe,
+                         replay_draws(batch, recipe, seed, chunk_index, nreal, noise))
 
 
 # ------------------------------------------------------------ persistence
 
 def snapshot() -> dict:
     """The ledger as a JSON-ready document (the ``numerics.json`` shape)."""
+    _drain_pending(only_ready=True)
     with _LOCK:
         sites = {}
         for site, rec in _SITES.items():
@@ -183,14 +591,31 @@ def snapshot() -> dict:
                                   if math.isfinite(rec["headroom_bits"]) else None),
                 "dtype": rec["dtype"],
             }
+        drift = {family: dict(rec) for family, rec in _DRIFT.items()}
         episodes_active = sorted(site for site, rec in _SITES.items() if rec["episode_active"])
     return {
         "schema_version": NUMERICS_SCHEMA_VERSION,
         "armed": _ARMED,
         "sites": sites,
-        "drift": {},  # nothing here samples drift (A.16.3)
+        "drift": drift,
         "nonfinite_total": sum(s["nonfinite"] for s in sites.values()),
         "episodes_active": episodes_active,
+    }
+
+
+def heartbeat_block() -> dict:
+    """The compact block a heartbeat embeds: armed, the non-finite total,
+    the open episodes and the worst headroom."""
+    with _LOCK:
+        nonfinite = sum(r["nonfinite"] for r in _SITES.values())
+        active = sum(1 for r in _SITES.values() if r["episode_active"])
+        headrooms = [r["headroom_bits"] for r in _SITES.values()
+                     if math.isfinite(r["headroom_bits"])]
+    return {
+        "armed": _ARMED,
+        "nonfinite": nonfinite,
+        "episodes_active": active,
+        "worst_headroom_bits": min(headrooms) if headrooms else None,
     }
 
 
@@ -249,7 +674,7 @@ def ladder_verdict(doc: Optional[dict] = None,
 
 def render_report(directory: str) -> str:
     """The ledger of ``DIR/numerics.json`` as text: the per-site table,
-    the drift by family, and the bf16 verdict."""
+    the drift by family, and the bf16 verdict (no torch needed)."""
     path = os.path.join(os.fspath(directory), "numerics.json")
     try:
         with open(path) as fh:

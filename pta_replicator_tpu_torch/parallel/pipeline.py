@@ -29,7 +29,8 @@ worker spans nest under the span that started the pipeline), the
 ``sweep.inflight_chunks`` and ``sweep.last_dispatched_chunk`` gauges and
 the ``pipeline.drain_timeouts`` counter. The dispatch span measures the
 launch (kernels run asynchronously); the drain span closes after the
-readback's own wait. The fault sites are ROADMAP A.16.2.
+readback's own wait. Each stage's fault site (``dispatch``, ``drain``,
+``io_write``; ``faults/inject.py``) fires inside its span.
 """
 from __future__ import annotations
 
@@ -40,6 +41,7 @@ from typing import Callable, Iterable, Optional
 import numpy as np
 import torch
 
+from ..faults import inject as faults
 from ..obs import gauge, names
 from .stages import DrainTimeout, Stage, StageGraph  # noqa: F401 — DrainTimeout re-exported
 
@@ -160,7 +162,7 @@ def drain_stage(fetch: Callable, depth: int) -> Stage:
     """The host-readback stage: waits for the result, frees the window
     slot, feeds the writer through a depth-bounded edge."""
     return Stage("drain", fn=lambda i, dev, sp: fetch(dev), span=names.SPAN_DRAIN,
-                 releases_window=True, out_maxsize=depth, heartbeat_label="host readback",
+                 fault_site=faults.SITE_DRAIN, releases_window=True, out_maxsize=depth, heartbeat_label="host readback",
                  thread_name="sweep-drain")
 
 
@@ -177,6 +179,7 @@ def io_write_stage(write: Callable, release: Optional[Callable] = None) -> Stage
 
     return Stage("io_write", fn=fn, span=names.SPAN_IO_WRITE,
                  span_attrs=lambda i, block: {"nbytes": int(block.nbytes)},
+                 fault_site=faults.SITE_IO_WRITE,
                  heartbeat_label="checkpoint write", thread_name="sweep-io")
 
 
@@ -218,7 +221,7 @@ def run_pipelined(indices: Iterable[int], dispatch: Callable[[int], object],
         )
     graph = StageGraph(
         [Stage("dispatch", fn=lambda i, _p, sp: dispatch(i), span=names.SPAN_DISPATCH,
-               on_done=dispatch_on_done, heartbeat=False),
+               fault_site=faults.SITE_DISPATCH, on_done=dispatch_on_done, heartbeat=False),
          drain_stage(fetch, depth), io_write_stage(write, release)],
         window=depth, drain_timeout_s=drain_timeout_s,
         timeout_counter=names.PIPELINE_DRAIN_TIMEOUTS,

@@ -39,8 +39,10 @@ counter with a ``faults.retry`` event per absorbed retry, and the
 ``cw_stream.prefetch_stall_s`` gauge: the consumer's cumulative wait for a
 tile, i.e. how far the host build (not the card) holds the stream back.
 
-Not ported here: ``prefetch_to_mesh`` (ROADMAP.md item A.17) and the fault
-sites (A.16.2).
+The fault site ``cw_stream_stage`` (``faults/inject.py``) fires inside each
+staging attempt, so an injected transient fault on a tile is absorbed by
+the in-place retry. Not ported here: ``prefetch_to_mesh`` (ROADMAP.md
+item A.17).
 """
 from __future__ import annotations
 
@@ -53,6 +55,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..faults import inject as faults
 from ..faults.retry import is_transient, retry_event
 from ..obs import counter, names
 from .stages import DrainTimeout, Stage, StageGraph  # noqa: F401 — DrainTimeout re-exported
@@ -157,7 +160,11 @@ def prefetch_to_device(tiles: Iterable, *, depth: int = 2, device="cuda",
     def stage(i, tile, sp):
         nbytes = sum(int(getattr(x, "nbytes", 0))
                      for x in (tile if isinstance(tile, (tuple, list)) else (tile,)))
-        staged = _stage_with_retry(lambda: place(i, tile), i)
+        def stage_once():
+            faults.fire(faults.SITE_PREFETCH_STAGE, tile=i)
+            return place(i, tile)
+
+        staged = _stage_with_retry(stage_once, i)
         sp["nbytes"] = nbytes
         counter(names.CW_STREAM_BYTES_STAGED).inc(nbytes)
         return staged

@@ -43,9 +43,14 @@ the stats) and :meth:`StageGraph.iterate` (generator mode: the source
 group runs on a worker thread, which pulls the ``items`` iterator, and
 the caller consumes the results in order).
 
-Not ported here: the fault-injection sites (ROADMAP A.16.2), the chunk
-trace contexts and the stats' ``occupancy`` block (A.16.4), the
-per-device ``replicas`` fan-out stage and ``fan_out`` (A.17, multi-device).
+**Fault sites**: a stage that declares ``fault_site`` fires
+``faults.fire(site, <index_attr>=i)`` inside its span, before ``fn``, so
+a chaos schedule's fault is attributed to the stage it perturbs
+(``faults/inject.py``; one ``None`` check while disarmed).
+
+Not ported here: the chunk trace contexts and the stats' ``occupancy``
+block (A.16.4), the per-device ``replicas`` fan-out stage and ``fan_out``
+(A.17, multi-device).
 """
 from __future__ import annotations
 
@@ -56,6 +61,7 @@ import time
 from dataclasses import dataclass
 from typing import Any, Callable, Iterable, Iterator, List, Optional, Sequence, Tuple
 
+from ..faults import inject as faults
 from ..obs import TRACER, counter, gauge, names, span
 
 _STOP = object()  # queue sentinel: no more items
@@ -104,8 +110,10 @@ class Stage:
     span: Optional[str] = None
     #: extra span attributes from the item: ``(i, payload) -> dict``
     span_attrs: Optional[Callable] = None
-    #: the span attribute carrying the item index (``chunk``, ``tile``)
+    #: the span and fault attribute carrying the item index (``chunk``, ``tile``)
     index_attr: str = "chunk"
+    #: ``faults.fire`` site fired inside the span, before ``fn``
+    fault_site: Optional[str] = None
     #: "thread" (its own worker thread and input queue) or "inline" (runs
     #: on the previous stage's thread, in its loop step)
     placement: str = "thread"
@@ -286,8 +294,12 @@ class StageGraph:
         if stage.span_attrs is not None:
             attrs.update(stage.span_attrs(i, payload))
         if stage.span is None:
+            if stage.fault_site:
+                faults.fire(stage.fault_site, **{stage.index_attr: i})
             return stage.fn(i, payload, attrs)
         with span(stage.span, **attrs) as sp:
+            if stage.fault_site:
+                faults.fire(stage.fault_site, **{stage.index_attr: i})
             return stage.fn(i, payload, sp)
 
     def _execute(self, stage: Stage, i, payload, box) -> Any:
@@ -530,6 +542,8 @@ class StageGraph:
                             return None
                         if head.span_attrs is not None:
                             sp.update(head.span_attrs(i, raw))
+                        if head.fault_site:
+                            faults.fire(head.fault_site, **{head.index_attr: i})
                         return head.fn(i, raw, sp)
 
                     try:

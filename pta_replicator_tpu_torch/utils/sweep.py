@@ -50,9 +50,18 @@ gauges, the ``sweep.realizations`` counter, and the
 ``sweep.chunk_retries`` counter with a ``faults.retry`` event per
 supervised retry. None of it waits for the card.
 
+Fault sites (``faults/inject.py``, one ``None`` check while disarmed):
+``dispatch``, ``drain`` and ``io_write`` in the stages' spans at every
+depth, ``checkpoint_write`` on each temporary file after it is written and
+before its rename (where ``torn`` truncates it) and ``checkpoint_fsync`` in
+the durable path. The drain seam (:func:`_drain_seam`) runs the ``nan``
+poison and the numerics observatory's drain hook (``obs/numerics.py::
+on_drain``: the queued probe stats, the host non-finite scan, the sampled
+drift replay) on the one reader thread, in chunk order, before a block
+reaches ``io_write``; the sweep's end folds the probe stats still queued.
+
 Not ported here: the multi-device ``mesh`` and the sharded-archive writer
-(ROADMAP.md item A.17), the fault sites (A.16.2), the chunk trace contexts
-(A.16.4) and the numerics observatory's drain hook (A.16.3).
+(ROADMAP.md item A.17) and the chunk trace contexts (A.16.4).
 """
 from __future__ import annotations
 
@@ -71,6 +80,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..faults import inject as faults
 
 
 def _default_reduce(res, batch):
@@ -208,6 +218,7 @@ def _cleanup_chunks(checkpoint_path: str, nchunks: int) -> None:
 
 
 def _fsync_path(path: str) -> None:
+    faults.fire(faults.SITE_CHECKPOINT_FSYNC, path=path)
     fd = os.open(path, os.O_RDONLY)
     try:
         os.fsync(fd)
@@ -233,6 +244,10 @@ def _atomic_write(write_fn, final_path: str, suffix: str, durable: bool = False)
     os.close(fd)
     try:
         write_fn(tmp)
+        # written, not yet renamed: a torn fault truncates the temporary
+        # file and raises, the artifact an interrupted write leaves; the
+        # final path is untouched and the retry overwrites cleanly
+        faults.fire(faults.SITE_CHECKPOINT_WRITE, path=tmp)
         _durable_replace(tmp, final_path, durable)
     finally:
         if os.path.exists(tmp):
@@ -371,6 +386,31 @@ def iter_checkpoint_chunks(checkpoint_path: str):
         i += 1
 
 
+def _drain_seam(fetch: Callable, release: Optional[Callable], start: int, **inputs) -> Callable:
+    """The reader's fetch with the drain site's data hooks: the ``nan``
+    poison (``faults.poison``: one element of a copy of the block) and the
+    numerics drain hook (``numerics.on_drain``, given the sweep's
+    ``inputs`` for the drift replay). The drain stage runs on one reader
+    thread in chunk order, so a counter gives each block's chunk index.
+    A poisoned copy replaces a readback buffer, which goes back to its
+    ring at once. Disarmed, both hooks are one check each."""
+    from ..obs import numerics
+
+    nxt = [int(start)]
+
+    def fetch_hooked(out):
+        i = nxt[0]
+        nxt[0] = i + 1
+        block = fetch(out)
+        poisoned = faults.poison(faults.SITE_DRAIN, block, chunk=i)
+        if poisoned is not block and release is not None:
+            release(block)
+        numerics.on_drain(i, poisoned, **inputs)
+        return poisoned
+
+    return fetch_hooked
+
+
 def _read_done_marker(meta_path: str) -> int:
     """Completed chunks per the sidecar; 0 when it is absent or torn."""
     try:
@@ -476,7 +516,7 @@ def _sweep_impl(seed, batch, recipe, nreal: int, checkpoint_path: str, chunk: in
                 reduce_fn, fit: bool, progress, pipeline_depth: int, drain_timeout_s,
                 durable: bool, provenance, fused_stream: bool, noise, device, stats):
     from ..models.batched import deterministic_delays, fit_system, realize
-    from ..obs import counter, gauge, names, span
+    from ..obs import counter, gauge, names, numerics, span
     from ..parallel.pipeline import (
         PinnedReadback, _mark_chunk, dispatch_on_done, drain_stage, host_copy, io_write_stage,
         pipeline_stats, run_pipelined,
@@ -584,16 +624,24 @@ def _sweep_impl(seed, batch, recipe, nreal: int, checkpoint_path: str, chunk: in
         if progress is not None:
             progress(i + 1, nchunks)
 
+    # what the drain hook's drift replay needs to redraw a chunk's row 0
+    drain_inputs = dict(batch=batch, recipe=recipe, seed=seed, nreal=chunk, noise=noise)
+
     if pipeline_depth <= 1:
         # the synchronous loop: dispatch, read back, write. It is the same
         # stage graph as the pipelined path, run inline on the caller's
-        # thread: failing chunks are marked for the supervised retry
+        # thread, with the same fault sites and drain hooks: failing
+        # chunks are marked for the supervised retry
+        fetch_sync = _drain_seam(host_copy, None, done, **drain_inputs)
+
         def compute_sync(i, _payload, _sp):
             with span(names.SPAN_SWEEP_CHUNK, chunk=i, nreal=chunk):
+                faults.fire(faults.SITE_DISPATCH, chunk=i)
                 out = realize_chunk(i, static)
                 # the host copy waits for the chunk's kernels: the fence
                 with span(names.SPAN_READBACK_FENCE):
-                    return host_copy(out)
+                    faults.fire(faults.SITE_DRAIN, chunk=i)
+                    return fetch_sync(out)
 
         def write_sync(i, block, _sp):
             write_chunk(i, block)
@@ -602,7 +650,8 @@ def _sweep_impl(seed, batch, recipe, nreal: int, checkpoint_path: str, chunk: in
         StageGraph([Stage("sweep_chunk", fn=compute_sync, placement="inline", heartbeat=False),
                     Stage("io_write", fn=write_sync, span=names.SPAN_IO_WRITE,
                           span_attrs=lambda i, block: {"nbytes": int(block.nbytes)},
-                          placement="inline", heartbeat=False)],
+                          fault_site=faults.SITE_IO_WRITE, placement="inline",
+                          heartbeat=False)],
                    mark_item=_mark_chunk, name="sweep-sync").run(range(done, nchunks))
     elif done < nchunks:
         # the writer thread writes each chunk file and keeps the block; the
@@ -611,8 +660,9 @@ def _sweep_impl(seed, batch, recipe, nreal: int, checkpoint_path: str, chunk: in
         readback = (PinnedReadback(device, pipeline_depth + 1)
                     if device.type == "cuda" else None)
         mark = readback.mark if readback is not None else (lambda out: out)
-        fetch = readback.fetch if readback is not None else host_copy
         release = readback.release if readback is not None else None
+        fetch = _drain_seam(readback.fetch if readback is not None else host_copy, release,
+                            done, **drain_inputs)
 
         def write_and_keep(i: int, block) -> None:
             write_chunk(i, block)
@@ -630,8 +680,8 @@ def _sweep_impl(seed, batch, recipe, nreal: int, checkpoint_path: str, chunk: in
                                out_maxsize=1, heartbeat=False),
                          Stage("dispatch",
                                fn=lambda i, static_i, sp: mark(realize_chunk(i, static_i)),
-                               span=names.SPAN_DISPATCH, on_done=dispatch_on_done,
-                               acquires_window=True, heartbeat_label="chunk dispatch",
+                               span=names.SPAN_DISPATCH, fault_site=faults.SITE_DISPATCH,
+                               on_done=dispatch_on_done, acquires_window=True, heartbeat_label="chunk dispatch",
                                context=compute_context, thread_name="sweep-dispatch"),
                          drain_stage(fetch, pipeline_depth),
                          io_write_stage(write_and_keep, release)],
@@ -656,6 +706,9 @@ def _sweep_impl(seed, batch, recipe, nreal: int, checkpoint_path: str, chunk: in
             if readback is not None:
                 stats["d2h_ms"] = list(readback.d2h_ms)
 
+    # the probe stats still queued (the last chunks'), folded before the
+    # sweep returns
+    numerics.flush()
     # consolidate into the single npz
     _consolidate(checkpoint_path, blocks, durable)
     _cleanup_chunks(checkpoint_path, nchunks)

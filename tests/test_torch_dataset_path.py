@@ -234,7 +234,7 @@ def test_checkpointed_write_partim_datasets_carry_their_cube_rows(dirs, tmp_path
 
 @pytest.mark.parametrize("flag,item", [
     (["--sharded"], "A.17"), (["--mesh-shape", "2x2"], "A.17"),
-    (["--device-trace"], r"A\.16\.4"), (["--faults", "drain:raise@chunk=1"], r"A\.16\.2"),
+    (["--device-trace"], r"A\.16\.4"),
 ])
 def test_flags_of_unported_modules_exit_before_ingest(tmp_path, flag, item):
     missing = str(tmp_path / "no-such-dir")
@@ -246,9 +246,33 @@ def test_flags_of_unported_modules_exit_before_ingest(tmp_path, flag, item):
         main(["realize", "--pardir", missing, "--timdir", missing, "--recipe", "r.json",
               "--out", "o.npz", "--device", "cpu", "--telemetry", str(tmp_path / "t"), *flag])
     assert not (tmp_path / "t").exists()
-    if flag[0] == "--faults":
-        with pytest.raises(SystemExit, match=item):
-            main(["info", "--pardir", missing, "--timdir", missing, *flag])
+
+
+@pytest.mark.parametrize("cmd", ["realize", "info"])
+def test_faults_arms_before_ingest_and_a_bad_schedule_exits_naming_it(tmp_path, monkeypatch, cmd):
+    """``--faults`` works since the fault injection was ported: it arms the
+    schedule before ingest (the missing directory fails after it), and a
+    malformed schedule exits before any work, naming the bad spec."""
+    from pta_replicator_tpu_torch.faults import inject
+
+    missing = str(tmp_path / "no-such-dir")
+    base = [cmd, "--pardir", missing, "--timdir", missing, "--device", "cpu"]
+    if cmd == "realize":
+        base += ["--recipe", "r.json", "--out", "o.npz"]
+    armed = []
+
+    def fail_ingest(*a, **k):
+        armed.append([s.spec_str() for s in inject._STATE.specs] if inject.is_armed() else None)
+        raise FileNotFoundError(missing)
+
+    monkeypatch.setattr("pta_replicator_tpu_torch.simulate.load_from_directories", fail_ingest)
+    with pytest.raises(FileNotFoundError):
+        main(base + ["--faults", "drain:raise@chunk=1;checkpoint_write:torn@call=2"])
+    assert armed == [["drain:raise@chunk=1", "checkpoint_write:torn@call=2"]]
+    assert not inject.is_armed()  # an in-process caller gets its state back
+    with pytest.raises(SystemExit, match=r"bad fault spec 'drain:explode@chunk=1'"):
+        main(base + ["--faults", "drain:explode@chunk=1", "--telemetry", str(tmp_path / "t")])
+    assert len(armed) == 1 and not (tmp_path / "t").exists()
 
 
 def test_the_jax_cli_guards_hold_before_ingest(tmp_path):
