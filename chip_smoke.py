@@ -79,7 +79,16 @@ its queue bound (`chaos_server`); the numerics observatory holds armed
 cubes bitwise the disarmed ones, the armed sweep's rate and synchronizing
 calls, a planted overflow and a planted NaN at their sites, drift on
 every chunk against the host f64 oracle, and the `cov.*` probe sites on
-B.4 and B.2 against the CPU (`numerics_observatory`). It prints one JSON line per phase. The
+B.4 and B.2 against the CPU (`numerics_observatory`). The live-run surface
+holds the flagship sweep's rate with the flight recorder heartbeating and
+an objective armed against none (equal synchronizing calls, B.1 launches
+and outputs), runs the dataset CLI's `realize --telemetry` beside `watch
+--serve 0` (its HTTP routes polled, the final heartbeat, series, SLO and
+report read) and SIGTERMs a held one (its postmortem read back), every arm
+restoring the process state it found (`live_run`); then the server under a
+tight objective with a planted engine stall: one trace a request, /readyz
+200 before the burn and 503 during it, rows bitwise the uncaptured
+server's (`live_run_server`). It prints one JSON line per phase. The
 line before the last is the kernels line, the last the result line.
 Without a CUDA device, or without the port beside it, it exits non-zero
 and prints no result; any failed check raises.
@@ -92,6 +101,7 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -372,8 +382,14 @@ TRIDIAG_COUNTER = {"factor": "tridiag_factor_solve_fwd", "factor_solve": "tridia
                    "solve": "tridiag_solve_fwd", "backward": "tridiag_factor_solve_bwd"}
 
 
+#: the script's start: each phase line carries its seconds since (``at_s``),
+#: so the script's time is read phase by phase
+_T_START = time.perf_counter()
+
+
 def emit(phase, **fields):
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    print(json.dumps({"phase": phase, **fields, "at_s": time.perf_counter() - _T_START}),
+          flush=True)
 
 
 def require(ok, message):
@@ -2752,7 +2768,9 @@ def phase_dataset_path(workdir, smi):
 #: calls are held with and without a capture
 TELEMETRY_NREAL, TELEMETRY_CHUNK = 400, 200
 TELEMETRY_SWEEP = dict(nreal=2000, chunk=200, pipeline_depth=2)
-TELEMETRY_REPS = 3
+#: captured / uncaptured pairs (ABBA; 0.2 s sweeps on a host whose
+#: single-sweep rates spread by 10%: five pairs for a stable median)
+TELEMETRY_REPS = 5
 #: the capture's median sweep rate over the rate without, at least
 TELEMETRY_RATE_FLOOR = 0.90
 TELEMETRY_GRID = ["gwb_log10_amplitude=-14.6:-13.6:3"]
@@ -2864,8 +2882,9 @@ def phase_telemetry(workdir, smi):
     ``likelihood --telemetry`` over the capture run's bank (a 3-point GWB
     axis), and ``report DIR --json`` and ``report DIR``. (2) In process, at
     the flagship shape of that dataset (68 x 7,758, chunk 200, 2,000
-    realizations, depth 2, the default reduce): the sweep 3 times with a
-    capture and 3 without, alternating, then once each under
+    realizations, depth 2, the default reduce): after a warm-up of each,
+    the sweep TELEMETRY_REPS times with a capture and as many without in
+    ABBA order, then once each under
     torch.profiler, counting the CUDA runtime's synchronizing calls and
     B.1's launches. Gates: the checkpoints and cubes with and without the
     capture equal member for member, byte for byte; the span paths and
@@ -2943,13 +2962,18 @@ def phase_telemetry(workdir, smi):
     del psrs
     path = workdir / "tel_sweep.npz"
     _telemetry_sweep(batch, recipe, path)  # warm: the allocator, the build cache
+    _telemetry_sweep(batch, recipe, path, workdir / "tel_sweep_warm")  # and a capture's start
     rates = {"with": [], "without": []}
     finish_s = []
     for k in range(TELEMETRY_REPS):
-        r, f = _telemetry_sweep(batch, recipe, path, workdir / f"tel_sweep_{k}")
-        rates["with"].append(r)
-        finish_s.append(f)
-        rates["without"].append(_telemetry_sweep(batch, recipe, path)[0])
+        # alternating order (ABBA), so that neither mode always runs first
+        for mode in (("with", "without") if k % 2 == 0 else ("without", "with")):
+            if mode == "with":
+                r, f = _telemetry_sweep(batch, recipe, path, workdir / f"tel_sweep_{k}")
+                finish_s.append(f)
+            else:
+                r = _telemetry_sweep(batch, recipe, path)[0]
+            rates[mode].append(r)
     syncs, b1 = {}, {}
     syncs["with"], b1["with"] = _sync_calls(
         lambda: _telemetry_sweep(batch, recipe, path, workdir / "tel_sweep_profiled"))
@@ -3331,13 +3355,22 @@ def phase_chaos_server(bank, batch, recipe, design):
 
 
 #: the numerics observatory phase: the identity sweeps' full cubes, the
-#: overhead arm's reduced sweeps (the telemetry phase's shape: 10 chunks,
-#: none sampled at the default 1-in-16 rate from the default seed's offset
-#: 12), its rate floor, the drift arm's sweep, and the planted faults
-NUMERICS_IDENTITY_NREAL, NUMERICS_DRIFT_NREAL, NUMERICS_CHUNK = 400, 400, 200
-#: the overhead arm's reduced sweeps: 12 chunks of 200, the most that the
-#: default rate (1 in 16) from the default seed (offset 12) samples none of
-NUMERICS_OVERHEAD_NREAL, NUMERICS_OVERHEAD_REPS, NUMERICS_RATE_FLOOR = 2400, 5, 0.95
+#: drift arm's sweep (one chunk, for the script's time: one oracle
+#: sample), and the chunk
+NUMERICS_IDENTITY_NREAL, NUMERICS_DRIFT_NREAL, NUMERICS_CHUNK = 400, 200, 200
+#: the overhead arm's reduced sweeps, its pairs and its rate floor: 60
+#: chunks of 200, about 1 s a sweep on the card. A burst of load on the
+#: card's host is short: 0.2 s sweeps (12 chunks, the most the default
+#: 1-in-16 rate samples none of) spread 5-14% from one to the next, 1.3 s
+#: sweeps 1-3% on the same hosts. Armed at a 1-in-128 drift rate, whose
+#: offset from the default seed (98) samples none of the 60 chunks: every
+#: chunk does the armed work of an unsampled chunk at the default rate,
+#: and the oracle replay is the drift arm's to time
+NUMERICS_OVERHEAD_NREAL, NUMERICS_OVERHEAD_REPS, NUMERICS_RATE_FLOOR = 12_000, 9, 0.95
+NUMERICS_OVERHEAD_DRIFT_EVERY = 128
+#: the warm-up and the profiled sweeps: 12 chunks, as the live arm's are
+#: shorter than its timed ones (the profiler's accounting is slow)
+NUMERICS_OVERHEAD_SHORT_NREAL = 2400
 #: the CUDA runtime calls counted beside the synchronizing ones
 NUMERICS_RUNTIME_CALLS = SYNC_CALLS + ("cudaLaunchKernel", "cudaMemcpyAsync", "cudaEventRecord",
                                        "cudaHostAlloc")
@@ -3403,9 +3436,11 @@ def phase_numerics_observatory(workdir, batch, recipe, smi):
     """The numerics observatory on the card (A.16.3), the counterpart of the
     JAX package's benchmarks/numerics_probe.py, on the flagship (68 x 7,758,
     float32, fit). Overhead, first (after an ``os.sync``): the reduced
-    sweep (NUMERICS_OVERHEAD_NREAL x 200, default drift rate, no chunk
-    sampled) NUMERICS_OVERHEAD_REPS times armed and disarmed in ABBA order,
-    then once each under torch.profiler: the armed median rate >=
+    sweep (NUMERICS_OVERHEAD_NREAL x 200, drift rate
+    NUMERICS_OVERHEAD_DRIFT_EVERY, no chunk sampled)
+    NUMERICS_OVERHEAD_REPS times armed and disarmed in ABBA order,
+    then once each under torch.profiler (NUMERICS_OVERHEAD_SHORT_NREAL
+    realizations): the armed median rate >=
     NUMERICS_RATE_FLOOR x the disarmed, and at most one synchronizing CUDA
     call more a chunk. Identity: the full-cube sweep disarmed, armed
     (default drift rate) and disarmed after an arm/disarm cycle, bit for
@@ -3413,7 +3448,7 @@ def phase_numerics_observatory(workdir, batch, recipe, smi):
     Planted overflow: ``log10_equad = 25`` in float32 is named at
     ``realization.white`` and at no other probe site. Planted NaN:
     ``drain:nan@chunk=1`` is named at ``drain`` alone with
-    ``numerics.nonfinite`` 1. Drift: drift_every 1 on a 400 x 200 sweep
+    ``numerics.nonfinite`` 1. Drift: drift_every 1 on a 200 x 200 sweep
     without the fit, under a capture: every family's worst drift within
     the fuzz tolerances, samples = chunks, the replayed draws rebuild cube
     row 0 of each chunk (TOL_REPLAY), the oracle's seconds a sample
@@ -3439,11 +3474,18 @@ def phase_numerics_observatory(workdir, batch, recipe, smi):
     os.sync()
     t_part = time.perf_counter()
     kw = dict(fit=True, pipeline_depth=TELEMETRY_SWEEP["pipeline_depth"])
-    nreal = NUMERICS_OVERHEAD_NREAL
-    nchunks = nreal // NUMERICS_CHUNK
+    nreal, short = NUMERICS_OVERHEAD_NREAL, NUMERICS_OVERHEAD_SHORT_NREAL
+    nchunks, short_chunks = nreal // NUMERICS_CHUNK, short // NUMERICS_CHUNK
+    every = NUMERICS_OVERHEAD_DRIFT_EVERY
+    offset = numerics.drift_offset(every, 0)
+    require(offset >= nchunks, f"numerics: the overhead sweeps would sample chunk {offset}")
+    kw["drift_every"] = every
+    # the Python threads alive under the timed sweeps (an earlier phase's
+    # leftover would take the interpreter lock from the dispatching thread)
+    threads = sorted(t.name for t in threading.enumerate())
     launches.clear()
     for mode in (False, True):  # warm both
-        _numerics_sweep(batch, recipe, path, nreal, mode, **kw)
+        _numerics_sweep(batch, recipe, path, short, mode, **kw)
         numerics.reset()
     rates = {"armed": [], "disarmed": []}
     for k in range(NUMERICS_OVERHEAD_REPS):
@@ -3459,7 +3501,7 @@ def phase_numerics_observatory(workdir, batch, recipe, smi):
     for mode in ("armed", "disarmed"):
         # _sync_calls clears the launch counts, then holds its run's
         runtime[mode], _b1 = _sync_calls(
-            lambda: _numerics_sweep(batch, recipe, path, nreal, mode == "armed", **kw),
+            lambda: _numerics_sweep(batch, recipe, path, short, mode == "armed", **kw),
             calls=NUMERICS_RUNTIME_CALLS)
         counts.update(launches)
         numerics.reset()
@@ -3467,16 +3509,16 @@ def phase_numerics_observatory(workdir, batch, recipe, smi):
     median = {k: float(np.median(v)) for k, v in rates.items()}
     extra_syncs = sum(syncs["armed"].values()) - sum(syncs["disarmed"].values())
     row["overhead"] = dict(nreal=nreal, chunk=NUMERICS_CHUNK, chunks=nchunks,
-                           drift_every=numerics.DRIFT_EVERY,
-                           drift_offset=numerics.drift_offset(numerics.DRIFT_EVERY, 0),
+                           profiled_nreal=short,
+                           drift_every=every, drift_offset=offset,
                            rates=rates, median=median,
                            ratio=median["armed"] / median["disarmed"],
                            paired_ratios=paired,
                            floor=NUMERICS_RATE_FLOOR, sync_calls=syncs, extra_syncs=extra_syncs,
-                           runtime_calls=runtime)
+                           runtime_calls=runtime, threads=threads)
     require(row["overhead"]["ratio"] >= NUMERICS_RATE_FLOOR,
             f"numerics: armed sweep rate {row['overhead']}")
-    require(extra_syncs <= nchunks, f"numerics: synchronizing calls armed {syncs}")
+    require(extra_syncs <= short_chunks, f"numerics: synchronizing calls armed {syncs}")
 
     part_s["overhead"] = time.perf_counter() - t_part
     # identity
@@ -3570,7 +3612,10 @@ def phase_numerics_observatory(workdir, batch, recipe, smi):
     fuzz.batched_family_delays(shim, draws)
     torch.cuda.synchronize()
     batched_s = time.perf_counter() - t0
-    code, report_out, err, _s = _module_cli("numerics", "report", str(tel))
+    # through the CLI's entry point in process (a fresh interpreter would
+    # add its imports' seconds to the script's time)
+    code, report_out = _cli_in_process("numerics", "report", str(tel))
+    err = report_out
     realization_sites = [s for s in verdict if s.startswith("realization.")]
     row["drift"] = dict(nreal=NUMERICS_DRIFT_NREAL, chunk=NUMERICS_CHUNK, families=drift,
                         sweep_wall_s=drift_wall, replay_rel_rms=replay, tol_replay=TOL_REPLAY,
@@ -3609,6 +3654,480 @@ def phase_numerics_observatory(workdir, batch, recipe, smi):
     row["seconds"] = time.perf_counter() - t_phase
     emit("numerics_observatory", **row)
     return dict(counts)
+
+
+#: the live-run phase (A.16.4a). Overhead: reduced sweeps on the flagship
+#: (75 chunks of 200, 1.1-1.5 s a sweep on the card, so a heartbeat every
+#: LIVE_HEARTBEAT_S ticks 7-9 times in each) in LIVE_OVERHEAD_PAIRS ABBA
+#: pairs, the rate floor, the heartbeats each armed sweep must see, and the
+#: latency objective armed there. The flagship sweep is host-dispatch bound,
+#: so each tick's hold on the interpreter lock is taken from the dispatching
+#: thread: the interval is a reasonable live cadence, not the shortest
+LIVE_OVERHEAD_NREAL, LIVE_OVERHEAD_PAIRS, LIVE_RATE_FLOOR = 15_000, 7, 0.95
+LIVE_HEARTBEAT_S, LIVE_MIN_HEARTBEATS = 0.16, 5
+#: the warm-up and the profiled sweeps: about half as long (about four
+#: ticks), since the profiler's own accounting costs seconds per thousand
+#: launches
+LIVE_SHORT_NREAL = 8_000
+LIVE_SLO = "sweep=dispatch:p99_ms<=1000@99%"
+#: the CLI arms: PTA_SLO of both calls, the drain stall that holds the
+#: killed call in its second chunk, the watch's poll and the arms' limit
+LIVE_CLI_SLO = "sweep=dispatch:p99_ms<=5000@99%;drain=drain:p99_ms<=60000@99%"
+LIVE_KILL_STALL_S, LIVE_WATCH_INTERVAL_S, LIVE_CLI_TIMEOUT_S = 300, 0.5, 600
+LIVE_ROUTES = ("/healthz", "/readyz", "/progress", "/metrics")
+#: the report sections a finished capture renders
+LIVE_SECTIONS = ("utilization (stage occupancy):", "slo (error budgets",
+                 "series (sampled by the flight recorder):", "latency percentiles")
+#: the server arm: requests served one by one under the objective, then one
+#: more whose engine call stalls past it (a fast burn: 1 bad in 5 > 14.4%)
+LIVE_SERVER_FAST, LIVE_SERVER_SLO_MS, LIVE_SERVER_STALL_S = 4, 500, 2.0
+LIVE_SERVER_HEARTBEAT_S = 0.05
+
+
+def _http_get(url):
+    """(status, body) of a GET on the loopback server."""
+    import urllib.error
+    import urllib.request
+
+    try:
+        with urllib.request.urlopen(url, timeout=10) as resp:
+            return resp.status, resp.read()
+    except urllib.error.HTTPError as err:
+        return err.code, err.read()
+    except OSError:
+        return None, b""
+
+
+def _read_json(path):
+    try:
+        return json.loads(Path(path).read_text())
+    except (OSError, json.JSONDecodeError):
+        return None
+
+
+class _ProcessState:
+    """The signal handlers and the excepthook as a phase found them, put
+    back when it ends, with any flight recorder stopped and the capture
+    closed: a later phase sees the process as it was."""
+
+    def __enter__(self):
+        import signal
+
+        self.handlers = {s: signal.getsignal(s) for s in (signal.SIGTERM, signal.SIGINT)}
+        self.hook = sys.excepthook
+        return self
+
+    def __exit__(self, *exc):
+        import signal
+
+        from pta_replicator_tpu_torch import obs
+
+        obs.configure(None)
+        obs.reset_all()  # stops a recorder still sampling, takes its hooks down
+        for s, h in self.handlers.items():
+            signal.signal(s, h)
+        sys.excepthook = self.hook
+        return False
+
+
+def _live_sweep(batch, recipe, path, nreal, directory=None):
+    """One reduced flagship sweep (fit, depth 2), under a capture into
+    ``directory`` when given (flight recorder every LIVE_HEARTBEAT_S,
+    LIVE_SLO armed, crash hooks on): (result, wall s of the sweep call,
+    heartbeats the recorder wrote during the call, the occupancy block the
+    sweep stamped into its ``sweep_pipeline`` span, or None)."""
+    from pta_replicator_tpu_torch import obs
+    from pta_replicator_tpu_torch.obs import flightrec
+
+    if directory is not None:
+        obs.start_capture(str(directory), heartbeat_interval_s=LIVE_HEARTBEAT_S, slo=LIVE_SLO)
+    beats, occupancy = 0, None
+    try:
+        torch.cuda.synchronize()
+        w0, t0 = time.time(), time.perf_counter()
+        out = sweep(SWEEP_SEED, batch, recipe, nreal, str(path), chunk=NUMERICS_CHUNK, fit=True,
+                    pipeline_depth=TELEMETRY_SWEEP["pipeline_depth"], device=batch.device)
+        wall, w1 = time.perf_counter() - t0, time.time()
+        if directory is not None:
+            # one proc.rss_bytes sample a sampler tick, each tick a heartbeat
+            snap = flightrec.active().series.snapshot(recent=100_000)
+            beats = sum(w0 <= t <= w1 for s in snap["series"] if s["name"] == "proc.rss_bytes"
+                        for t, _v in s["samples"])
+            occupancy = next((r["attrs"].get("occupancy") for r in obs.TRACER.events()
+                              if r.get("name") == "sweep_pipeline"), None)
+    finally:
+        if directory is not None:
+            obs.finish_capture(context={"phase": "live_run"})
+            obs.configure(None)
+            obs.reset_all()
+    _drop_checkpoint(path, nreal // NUMERICS_CHUNK)
+    return out, wall, beats, occupancy
+
+
+def _cli_in_process(*args):
+    """``python -m pta_replicator_tpu_torch ARGS`` through ``main`` in this
+    process: (exit code, stdout)."""
+    import contextlib
+    import io
+
+    from pta_replicator_tpu_torch.__main__ import main as cli_main
+
+    out = io.StringIO()
+    code = 0
+    with contextlib.redirect_stdout(out):
+        try:
+            cli_main(list(args))
+        except SystemExit as exc:
+            code = exc.code if isinstance(exc.code, int) else 1
+    return code, out.getvalue()
+
+
+def _live_overhead(batch, recipe, workdir, counts):
+    """The armed / disarmed sweep rates in ABBA pairs, then one of each
+    under torch.profiler: the gates' numbers."""
+    path = workdir / "live.npz"
+    nreal = LIVE_OVERHEAD_NREAL
+    launches.clear()
+    part_s, t_part = {}, time.perf_counter()
+    for directory in (None, workdir / "live_warm"):  # warm both
+        _live_sweep(batch, recipe, path, LIVE_SHORT_NREAL, directory)
+    part_s["warm"] = time.perf_counter() - t_part
+    t_part = time.perf_counter()
+    rates, beats, outs, occupancy = {"armed": [], "disarmed": []}, [], {}, None
+    for k in range(LIVE_OVERHEAD_PAIRS):
+        for mode in (("armed", "disarmed") if k % 2 == 0 else ("disarmed", "armed")):
+            armed = mode == "armed"
+            out, wall, n, occ = _live_sweep(batch, recipe, path, nreal,
+                                            workdir / f"live_{k}" if armed else None)
+            rates[mode].append(nreal / wall)
+            if armed:
+                beats.append(n)
+                occupancy = occupancy or occ
+            outs.setdefault(mode, out)
+    counts.update(launches)
+    part_s["pairs"] = time.perf_counter() - t_part
+    t_part = time.perf_counter()
+    runtime, b1, profiled_beats = {}, {}, []
+    for mode in ("armed", "disarmed"):
+        directory = workdir / "live_profiled" if mode == "armed" else None
+        runtime[mode], b1[mode] = _sync_calls(
+            lambda: profiled_beats.append(
+                _live_sweep(batch, recipe, path, LIVE_SHORT_NREAL, directory)[2]),
+            calls=NUMERICS_RUNTIME_CALLS)
+        counts.update(launches)
+    part_s["profiled"] = time.perf_counter() - t_part
+    syncs = {m: {k: v for k, v in c.items() if k in SYNC_CALLS} for m, c in runtime.items()}
+    median = {k: float(np.median(v)) for k, v in rates.items()}
+    return dict(nreal=nreal, chunk=NUMERICS_CHUNK, heartbeat_interval_s=LIVE_HEARTBEAT_S,
+                slo=LIVE_SLO, rates=rates, median=median,
+                ratio=median["armed"] / median["disarmed"],
+                paired_ratios=[a / d for a, d in zip(rates["armed"], rates["disarmed"])],
+                floor=LIVE_RATE_FLOOR, heartbeats=beats, sync_calls=syncs,
+                runtime_calls=runtime, b1_launches=b1, profiled_nreal=LIVE_SHORT_NREAL,
+                profiled_heartbeats=profiled_beats[0], part_s=part_s,
+                sweep_occupancy=occupancy,
+                outputs_equal=outs["armed"].tobytes() == outs["disarmed"].tobytes())
+
+
+class _LiveCliArms:
+    """The CLI arms, run in the background while the next phase runs (they
+    wait mostly on their interpreters and the dataset's ingest):
+    ``realize --checkpoint --telemetry`` on the dataset with PTA_SLO set,
+    watched by ``watch DIR --serve 0`` in a second process whose routes a
+    monitor thread polls; beside it the same call held by a drain stall in
+    its second chunk and SIGTERMed once its heartbeat shows a chunk done.
+    :meth:`finish` joins them and reads the finished capture (``report``)
+    and the killed one (``postmortem``)."""
+
+    def __init__(self, workdir):
+        self.workdir = workdir
+        common = ["--pardir", str(workdir / "par"), "--timdir", str(workdir / "tim")]
+        base = ["realize", *common, "--recipe", str(workdir / "recipe.json"), "--nreal",
+                str(TELEMETRY_NREAL), "--chunk", str(TELEMETRY_CHUNK), "--fit", "--seed",
+                str(DATASET_SEED)]
+        self.live, self.killed = workdir / "live_cli", workdir / "live_kill"
+        env = dict(os.environ, PTA_SLO=LIVE_CLI_SLO)
+
+        def start(args):
+            return subprocess.Popen([sys.executable, "-m", "pta_replicator_tpu_torch", *args],
+                                    cwd=str(Path(__file__).resolve().parent), env=env,
+                                    stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+        self.seen = {r: collections.Counter() for r in LIVE_ROUTES}
+        self.killed_at, self.url, self.error = None, None, None
+        self.t0 = time.perf_counter()
+        self.procs = {"watch": start(["watch", str(self.live), "--serve", "0", "--interval",
+                                      str(LIVE_WATCH_INTERVAL_S)])}
+        self.procs["realize"] = start(base + ["--out", str(workdir / "live_cube.npz"),
+                                              "--checkpoint", str(workdir / "live_ck.npz"),
+                                              "--telemetry", str(self.live)])
+        self.procs["kill"] = start(base + ["--out", str(workdir / "kill_cube.npz"),
+                                           "--checkpoint", str(workdir / "kill_ck.npz"),
+                                           "--telemetry", str(self.killed), "--faults",
+                                           f"drain:stall={LIVE_KILL_STALL_S}@chunk=1"])
+        self.monitor = threading.Thread(target=self._monitor, name="live-cli-monitor",
+                                        daemon=True)
+        self.monitor.start()
+
+    def _monitor(self):
+        import re
+        import signal
+
+        try:
+            line = self.procs["watch"].stderr.readline()
+            match = re.search(r"serving (http://127\.0\.0\.1:\d+)/", line)
+            if match is None:
+                raise RuntimeError(f"watch --serve printed {line!r}")
+            self.url = match.group(1)
+            while any(p.poll() is None for p in self.procs.values()):
+                if time.perf_counter() - self.t0 > LIVE_CLI_TIMEOUT_S:
+                    raise RuntimeError(f"CLI arms past {LIVE_CLI_TIMEOUT_S} s")
+                if self.procs["watch"].poll() is None:
+                    for route in LIVE_ROUTES:
+                        self.seen[route][str(_http_get(self.url + route)[0])] += 1
+                hb = _read_json(self.killed / "progress.json") or {}
+                if self.killed_at is None and (hb.get("sweep") or {}).get("chunks_done", 0) >= 1:
+                    self.procs["kill"].send_signal(signal.SIGTERM)
+                    self.killed_at = time.perf_counter() - self.t0
+                time.sleep(0.2)
+        except Exception as exc:  # reported by finish(), which kills what is left
+            self.error = repr(exc)
+        self.cli_s = time.perf_counter() - self.t0
+
+    def kill(self):
+        """Stop every process of the arms (the phase between failed)."""
+        for p in self.procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait(timeout=30)
+
+    def finish(self):
+        from pta_replicator_tpu_torch.obs import occupancy
+        from pta_replicator_tpu_torch.obs import report as obs_report
+        from pta_replicator_tpu_torch.obs.series import load_series
+
+        try:
+            self.monitor.join(timeout=LIVE_CLI_TIMEOUT_S)
+            outs = {name: p.communicate(timeout=60) for name, p in self.procs.items()}
+        finally:
+            self.kill()
+        require(self.error is None, f"live_run: CLI arms: {self.error}")
+        codes = {name: p.returncode for name, p in self.procs.items()}
+        live, killed = self.live, self.killed
+        # the two reading subcommands through the CLI's entry point, in
+        # process (an interpreter each would add seconds of imports)
+        reads = {name: _cli_in_process(*args) for name, args in
+                 (("report", ["report", str(live)]), ("postmortem", ["postmortem", str(killed)]))}
+        hb = _read_json(live / "progress.json") or {}
+        pm = _read_json(killed / "postmortem.json") or {}
+        series = load_series(str(live / "series.jsonl")) if (live / "series.jsonl").exists() else {}
+        report_text = reads["report"][1]
+        utilization = occupancy.analyze(obs_report.load_telemetry(str(live))["events"])
+        return dict(
+            cli_s=self.cli_s, exit_codes=codes, killed_at_s=self.killed_at, routes=self.seen,
+            watch_lines=len(outs["watch"][0].splitlines()),
+            watch_finished="FINISHED" in outs["watch"][0],
+            heartbeat=dict(finished=hb.get("finished"), sweep=hb.get("sweep"),
+                           occupancy=hb.get("occupancy"), slo=hb.get("slo"),
+                           device_memory=hb.get("device_memory"), jax=hb.get("jax"),
+                           trends=len(hb.get("trends") or {})),
+            series=dict(series=len(series.get("series") or []),
+                        quantiles=len(series.get("quantiles") or [])),
+            report_exit=reads["report"][0],
+            report_sections={s: s in report_text for s in LIVE_SECTIONS},
+            report_lines=len(report_text.splitlines()), utilization=utilization,
+            postmortem_exit=reads["postmortem"][0],
+            postmortem_lines=len(reads["postmortem"][1].splitlines()),
+            killed=dict(reason=pm.get("reason"), ring=len(pm.get("ring") or []),
+                        open_spans=(pm.get("heartbeat") or {}).get("open_spans"),
+                        chunks_done=((pm.get("heartbeat") or {}).get("sweep") or {}).get(
+                            "chunks_done")),
+            stderr_tail={n: o[1][-1500:] for n, o in outs.items() if codes[n] not in (0, None)},
+        )
+
+
+def phase_live_run(workdir, batch, recipe, smi):
+    """The live-run surface on the card (A.16.4a), on the flagship (68 x
+    7,758, float32, fit, chunk 200) and the dataset path's par/tim.
+    (1) Overhead, first (after an ``os.sync``): the reduced in-process sweep
+    under a capture (the flight recorder every LIVE_HEARTBEAT_S, a latency
+    objective armed) against none, LIVE_OVERHEAD_PAIRS ABBA pairs, then one
+    of each under torch.profiler. Gates: the armed median rate >=
+    LIVE_RATE_FLOOR x the disarmed; the synchronizing CUDA calls equal;
+    B.1's launches equal; the reduced outputs equal bit for bit; at least
+    LIVE_MIN_HEARTBEATS heartbeats each armed sweep. Then the CLI arms start
+    in the background (:class:`_LiveCliArms`), and the caller runs the next
+    phase before :func:`phase_live_run_cli` joins them. Returns the row so
+    far, the arms and the kernels' launches."""
+    t_phase = time.perf_counter()
+    counts = collections.Counter()
+    row = dict(nvidia_smi=smi)
+    with _ProcessState():
+        os.sync()
+        t_part = time.perf_counter()
+        row["overhead"] = _live_overhead(batch, recipe, workdir, counts)
+        row["part_s"] = {"overhead": time.perf_counter() - t_part}
+    ov = row["overhead"]
+    require(ov["ratio"] >= LIVE_RATE_FLOOR, f"live_run: armed sweep rate {ov}")
+    require(ov["sync_calls"]["armed"] == ov["sync_calls"]["disarmed"],
+            f"live_run: synchronizing calls {ov['sync_calls']}")
+    require(ov["b1_launches"]["armed"] == ov["b1_launches"]["disarmed"] > 0,
+            f"live_run: B.1 launches {ov['b1_launches']}")
+    require(ov["outputs_equal"], "live_run: a capture changed the sweep's output")
+    require(min(ov["heartbeats"]) >= LIVE_MIN_HEARTBEATS,
+            f"live_run: heartbeats a sweep {ov['heartbeats']}")
+    row["launches"] = dict(counts)
+    row["seconds_in_process"] = time.perf_counter() - t_phase
+    return row, _LiveCliArms(workdir), dict(counts)
+
+
+def phase_live_run_cli(row, arms):
+    """The live-run phase's CLI arms joined and held (they ran beside the
+    phase between). Gates: the watch exits 0 when the run finishes; the
+    final heartbeat finished, chunks_done = chunks_total, with an occupancy
+    verdict and the card's memory (peak > 0); series.jsonl loads;
+    ``report`` renders LIVE_SECTIONS; /healthz, /readyz, /progress and
+    /metrics each answered 200; the killed call's postmortem.json has
+    reason SIGTERM, a non-empty ring and the sweep's open spans, its exit
+    status is a re-raised SIGTERM's, and ``postmortem DIR`` exits 0."""
+    import signal
+
+    t_part = time.perf_counter()
+    cli = arms.finish()
+    row["cli"] = cli
+    row["part_s"]["cli_join"] = time.perf_counter() - t_part
+    emit("live_run", **row)
+    hb = cli["heartbeat"]
+    sweep_block = hb["sweep"] or {}
+    name = torch.cuda.get_device_name(0)
+    require(cli["exit_codes"]["watch"] == 0 and cli["exit_codes"]["realize"] == 0
+            and cli["watch_finished"], f"live_run: CLI {cli['exit_codes']} {cli['stderr_tail']}")
+    require(hb["finished"] is True and sweep_block.get("chunks_total")
+            and sweep_block.get("chunks_done") == sweep_block.get("chunks_total")
+            and (hb["occupancy"] or {}).get("bottleneck"), f"live_run: heartbeat {hb}")
+    require(any(name in m["device"] and m.get("peak_bytes_in_use", 0) > 0
+                for m in hb["device_memory"] or []), f"live_run: device_memory {hb}")
+    require(cli["series"]["series"] > 0, f"live_run: series.jsonl {cli['series']}")
+    require(cli["report_exit"] == 0 and all(cli["report_sections"].values()),
+            f"live_run: report {cli['report_sections']}")
+    require(all(cli["routes"][r].get("200", 0) > 0 for r in LIVE_ROUTES),
+            f"live_run: routes seen {cli['routes']}")
+    killed = cli["killed"]
+    require(cli["exit_codes"]["kill"] == -signal.SIGTERM and killed["reason"] == "SIGTERM"
+            and killed["ring"] > 0
+            and any("sweep_pipeline" in s for s in (killed["open_spans"] or {}).values()),
+            f"live_run: killed run {cli['exit_codes']} {killed}")
+    require(cli["postmortem_exit"] == 0, f"live_run: postmortem exit {cli['postmortem_exit']}")
+
+
+def phase_live_run_server(bank, batch, recipe, design):
+    """The live-run phase's server arm: the float64 LikelihoodServer on the
+    flagship bank under a capture with a tight latency objective on
+    ``likelihood_batch`` and the capture served on loopback. LIVE_SERVER_FAST
+    requests one by one, then one whose engine call a
+    ``likelihood_batch:stall`` fault holds past the objective. Gates: one
+    trace a request with the JAX hop spans (submit, queue wait, resolve, the
+    batch span linking it); ``likelihood.requests`` = the requests sent;
+    /readyz 200 before the stall and 503 during the fast burn; the rows
+    bitwise the uncaptured server's. Returns the Woodbury kernel's launches
+    (the server prices with the composed build: none)."""
+    from pta_replicator_tpu_torch import obs
+    from pta_replicator_tpu_torch.faults import inject
+    from pta_replicator_tpu_torch.obs import report as obs_report
+    from pta_replicator_tpu_torch.obs.serve import serve_directory, serve_url
+
+    t_phase = time.perf_counter()
+    grid, _ = lk.grid_cartesian(LIKELIHOOD_GRID)
+    axes = tuple(sorted(LIKELIHOOD_GRID))
+    point = lambda i: {k: float(grid[k][i]) for k in axes}
+    n = LIVE_SERVER_FAST + 1
+
+    def make():
+        return lk.LikelihoodServer(lk.RealizationBank.from_array(bank), batch, recipe, axes,
+                                   design=design, max_batch=SERVER_BATCH, device=batch.device)
+
+    launches.clear()
+    with make() as server:
+        clean = [server.submit(**point(i)).result(timeout=600) for i in range(n)]
+    d = Path(tempfile.mkdtemp(prefix="chip_smoke_live_server_"))
+    slo = f"serve=likelihood_batch:p99_ms<={LIVE_SERVER_SLO_MS}@99%"
+    readyz, futures, rows, http = {}, [], [], None
+
+    def wait_readyz(code, timeout=15.0):
+        t_wait = time.perf_counter()
+        while time.perf_counter() - t_wait < timeout:
+            got, body = _http_get(serve_url(http, "/readyz"))
+            if got == code and (d / "slo.json").exists():
+                return got, json.loads(body)
+            time.sleep(0.05)
+        got, body = _http_get(serve_url(http, "/readyz"))
+        return got, _json_or_text(body)
+
+    try:
+        with _ProcessState():
+            obs.start_capture(str(d), heartbeat_interval_s=LIVE_SERVER_HEARTBEAT_S, slo=slo)
+            try:
+                http = serve_directory(str(d), 0, background=True)
+                server = make().start()
+                try:
+                    for i in range(LIVE_SERVER_FAST):
+                        futures.append(server.submit(**point(i)))
+                        rows.append(futures[-1].result(timeout=600))
+                    readyz["before"] = wait_readyz(200)
+                    inject.arm(f"likelihood_batch:stall={LIVE_SERVER_STALL_S:g}@call=1")
+                    futures.append(server.submit(**point(LIVE_SERVER_FAST)))
+                    rows.append(futures[-1].result(timeout=600))
+                    inject.disarm()
+                    readyz["during"] = wait_readyz(503)
+                finally:
+                    inject.disarm()
+                    server.stop()
+                stats = server.stats()
+            finally:
+                if http is not None:
+                    http.shutdown()
+                    http.server_close()
+                obs.finish_capture(context={"phase": "live_run_server"})
+        data = obs_report.load_telemetry(str(d))
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    b3 = launches.get("fused_woodbury_update", 0)
+    spans = collections.defaultdict(list)
+    for rec in data["events"]:
+        if rec.get("type") == "span":
+            spans[rec["name"]].append(rec)
+    traces = {}
+    for f in futures:
+        tid = f.trace_id
+        traces[tid] = dict(
+            submit=sum(r.get("trace_id") == tid for r in spans["likelihood_submit"]),
+            queue_wait=sum(r.get("trace_id") == tid for r in spans["likelihood_queue_wait"]),
+            resolve=sum(r.get("trace_id") == tid for r in spans["likelihood_resolve"]),
+            batch=sum(tid in (r.get("links") or []) for r in spans["likelihood_batch"]))
+    requests = ((data["metrics"] or {}).get("likelihood.requests") or [{}])[0].get("value")
+    equal = len(rows) == n and all(np.array_equal(a, b) for a, b in zip(rows, clean))
+    row = dict(requests=n, objective=slo, stall_s=LIVE_SERVER_STALL_S,
+               readyz={k: [v[0], v[1]] for k, v in readyz.items()},
+               traces=list(traces.values()), likelihood_requests=requests,
+               batch_ms=[round(1e3 * r["wall_s"], 3) for r in spans["likelihood_batch"]],
+               slo=data["slo"], rows_equal_uncaptured=equal, b3_launches=b3,
+               latency=stats["latency"], seconds=time.perf_counter() - t_phase)
+    emit("live_run_server", **row)
+    require(all(t == dict(submit=1, queue_wait=1, resolve=1, batch=1) for t in traces.values())
+            and len(traces) == n, f"live_run_server: traces {traces}")
+    require(requests == n, f"live_run_server: likelihood.requests {requests} != {n}")
+    require(readyz["before"][0] == 200 and readyz["during"][0] == 503
+            and readyz["during"][1].get("state") == "slo-breach",
+            f"live_run_server: /readyz {readyz}")
+    require(equal, "live_run_server: rows differ from the uncaptured server's")
+    return b3
+
+
+def _json_or_text(body):
+    try:
+        return json.loads(body)
+    except (ValueError, TypeError):
+        return {"text": body[:200].decode(errors="replace") if isinstance(body, bytes) else body}
 
 
 def fuzz_cover_n():
@@ -4311,7 +4830,14 @@ def main():
         telemetry_count = phase_telemetry(workdir, smi)
         chaos_b1, chaos_accumulate, chaos_fold = phase_chaos(workdir, batch, recipe, smi)
         numerics_counts = phase_numerics_observatory(workdir, batch, recipe, smi)
-        phase_likelihood_cli(workdir)
+        live_row, live_arms, live_counts = phase_live_run(workdir, batch, recipe, smi)
+        # the live-run CLI arms run beside the likelihood CLI's phase
+        try:
+            phase_likelihood_cli(workdir)
+        except BaseException:
+            live_arms.kill()
+            raise
+        phase_live_run_cli(live_row, live_arms)
         oracle_cw_counts, oracle_gls_counts = phase_oracle_path(workdir, smi)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
@@ -4340,6 +4866,7 @@ def main():
     bf16_count = phase_likelihood_bf16(bank, batch64, recipe64, design, ll)
     phase_likelihood_server(bank, batch64, recipe64, design, ll)
     chaos_server_b3 = phase_chaos_server(bank, batch64, recipe64, design)
+    live_server_b3 = phase_live_run_server(bank, batch64, recipe64, design)
     phase_likelihood_card_vs_cpu(SMALL)
     del bank
     torch.cuda.empty_cache()
@@ -4381,6 +4908,8 @@ def main():
         "chaos_launches": chaos_b1, "chaos_accumulate_launches": chaos_accumulate,
         "chaos_fold_launches": chaos_fold,
         "numerics_launches": numerics_counts.get("cw_catalog_response", 0),
+        "live_run_launches": live_counts.get("cw_catalog_response", 0),
+        "live_run_fold_launches": live_counts.get("cw_fold_planes", 0),
         "dataset_catalog": _width_row({**dataset_row, "library_ms": None}),
         "oracle_launches": oracle_cw_counts["cw_catalog_response"],
         "oracle_fold_launches": oracle_cw_counts["cw_fold_planes"],
@@ -4398,6 +4927,7 @@ def main():
         "gls_bank_launches": gls_bank_count, "gls_bank_q286": _width_row(gls_bank_row),
         "fuzz_launches": fuzz_counts.get("fused_woodbury_update", 0),
         "chaos_server_launches": chaos_server_b3,
+        "live_run_server_launches": live_server_b3,
     }, {
         "name": "fused_woodbury_update_bf16", "route": "cuda",
         "source": "pta_replicator_tpu_torch/csrc/fused_woodbury.cu",

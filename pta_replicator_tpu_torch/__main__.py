@@ -18,6 +18,9 @@ realization bank, and the declarative scenario path.
         [--out-dir DIR] [--sweep-every K] [--device cuda]
     python -m pta_replicator_tpu_torch scenario replay SPEC [SPEC ...] [--device cuda]
     python -m pta_replicator_tpu_torch report DIR [--json] [--min-ms X]
+    python -m pta_replicator_tpu_torch watch DIR [--interval S] [--once] [--serve PORT]
+        [--bind HOST]
+    python -m pta_replicator_tpu_torch postmortem DIR
     python -m pta_replicator_tpu_torch numerics report DIR
 
 The counterpart of ``python -m pta_replicator_tpu info|realize|likelihood|
@@ -60,7 +63,15 @@ span named after the subcommand, in the JAX package's formats
 (``obs/__init__.py``); ``report DIR`` renders a capture of either package
 (``--json`` for the aggregate, ``--min-ms`` to hide short spans). The CLI's
 own spans are ``ingest``, ``freeze``, ``build_recipe``, ``compute`` and
-``write_output``, at the JAX CLI's places.
+``write_output``, at the JAX CLI's places. A capture runs the flight
+recorder: ``progress.json`` every second, ``series.jsonl`` and, with
+``PTA_SLO`` set, ``slo.json``; SIGTERM, SIGINT or an exception leave
+``postmortem.json``. ``watch DIR`` prints one line per heartbeat and exits
+0 when the run finishes, 2 when it left a postmortem, 3 with ``--once``
+and no heartbeat; ``--serve PORT`` (0: an ephemeral port) serves
+``/metrics``, ``/progress``, ``/series``, ``/slo``, ``/healthz`` and
+``/readyz`` on ``--bind`` (default 127.0.0.1) while it watches.
+``postmortem DIR`` renders the black box.
 
 ``--faults SCHEDULE`` (every subcommand; ``--faults-seed`` seeds its
 ``p=`` triggers) arms a fault-injection schedule before any work and
@@ -73,7 +84,7 @@ the observatory for a ``--telemetry`` capture).
 
 Flags of modules not ported yet exit non-zero before any work:
 ``--sharded`` and ``--mesh-shape`` (ROADMAP A.17) and ``--device-trace``
-(A.16.4).
+(A.16.4b).
 """
 from __future__ import annotations
 
@@ -99,7 +110,7 @@ def _parser() -> argparse.ArgumentParser:
                        help="the torch device (default cuda; cpu on request)")
     p = sub.choices["realize"]
     p.add_argument("--device-trace", action="store_true",
-                   help="not ported (ROADMAP A.16.4): exits non-zero")
+                   help="not ported (ROADMAP A.16.4b): exits non-zero")
     p.add_argument("--recipe", required=True, help="JSON recipe file")
     p.add_argument("--nreal", type=int, default=100)
     p.add_argument("--out", required=True)
@@ -232,6 +243,25 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("--min-ms", type=float, default=0.0,
                    help="hide span paths with total wall below this")
     p = sub.add_parser(
+        "watch", help="tail a live run's progress.json heartbeat (one line per tick, with the "
+                      "stage-occupancy bottleneck verdict; exits when the run finishes or "
+                      "leaves a postmortem)")
+    p.add_argument("dir", help="the run's --telemetry directory")
+    p.add_argument("--interval", type=float, default=2.0, metavar="S",
+                   help="poll period in seconds (default 2)")
+    p.add_argument("--once", action="store_true",
+                   help="print the current heartbeat and exit (exit 3 when there is none)")
+    p.add_argument("--serve", type=int, default=None, metavar="PORT",
+                   help="also serve the live run over HTTP while watching: /metrics, "
+                        "/progress, /series, /slo, /healthz and /readyz (503 on a fast-burn "
+                        "SLO breach); read-only; port 0 picks an ephemeral port (printed)")
+    p.add_argument("--bind", default="127.0.0.1", metavar="HOST",
+                   help="interface for --serve (default loopback)")
+    p = sub.add_parser(
+        "postmortem", help="render the black box a killed or crashed run left in its "
+                           "telemetry directory")
+    p.add_argument("dir", help="the run's --telemetry directory")
+    p = sub.add_parser(
         "numerics", help="render a capture's precision ledger (numerics.json): per-site "
                          "non-finite counts, |max| watermarks, overflow headroom in bits, "
                          "shadow-oracle drift per family, and the bf16 readiness verdict")
@@ -247,7 +277,9 @@ def _parser() -> argparse.ArgumentParser:
 
 
 TELEMETRY_HELP = ("capture the run's spans and metrics into DIR (events.jsonl, metrics.json, "
-                  "metrics.prom, chrome_trace.json, meta.json); read it with `report DIR`")
+                  "metrics.prom, chrome_trace.json, meta.json) with the flight recorder's "
+                  "progress.json heartbeat (postmortem.json if killed); read it with "
+                  "`report DIR`, follow it with `watch DIR`")
 
 
 def _save_npz(path: str, **arrays) -> None:
@@ -412,7 +444,7 @@ def _run_scenario(args):
 UNPORTED_FLAGS = (
     ("sharded", "--sharded", "A.17 (multi-GPU)"),
     ("mesh_shape", "--mesh-shape", "A.17 (multi-GPU)"),
-    ("device_trace", "--device-trace", "A.16.4 (device profiling)"),
+    ("device_trace", "--device-trace", "A.16.4b (device profiling)"),
 )
 
 
@@ -762,6 +794,29 @@ def main(argv=None):
         inject._STATE = saved
 
 
+def _watch(args):
+    """``watch DIR``: the JAX CLI's exit codes (0 finished, 2 postmortem,
+    3 ``--once`` without a heartbeat), with the HTTP server of ``--serve``
+    alive for the watch."""
+    from .obs.report import watch_progress
+
+    server = None
+    if args.serve is not None:
+        from .obs.serve import serve_directory, serve_url
+
+        server = serve_directory(args.dir, args.serve, host=args.bind, background=True)
+        print(f"serving {serve_url(server)} (/metrics /progress /series /slo /readyz)",
+              file=sys.stderr, flush=True)
+    try:
+        rc = watch_progress(args.dir, interval=args.interval, once=args.once)
+    finally:
+        if server is not None:
+            server.shutdown()
+            server.server_close()
+    if rc:
+        raise SystemExit(rc)
+
+
 def _main(args, argv):
     if args.cmd == "report":
         from .obs.report import print_report
@@ -773,6 +828,13 @@ def _main(args, argv):
         from .obs import numerics
 
         print(numerics.render_report(args.dir))
+        return
+    if args.cmd == "watch":
+        return _watch(args)
+    if args.cmd == "postmortem":
+        from .obs.report import print_postmortem
+
+        print_postmortem(args.dir)
         return
     # every refusal comes before any work, a capture's included
     _refuse_unported(args)

@@ -17,12 +17,27 @@ being served late. A transient failure of the engine call (the fault
 site ``likelihood_batch``, ``faults/inject.py``) is retried once in
 place, so one flapped call does not fail ``max_batch`` futures; a fatal
 one fails them at once. The bank's projection runs under the
-``likelihood_project`` span; the reference's request spans, trace hops
-and ``likelihood.*`` SLO counters belong to ROADMAP A.16.4.
+``likelihood_project`` span.
+
+Telemetry, name for name the reference's: the worker runs under a
+``likelihood_serve`` span and each coalesced evaluation under a
+``likelihood_batch`` span; the ``likelihood.requests``, ``.batches``,
+``.batch_size``, ``.evals``, ``.coalesce_efficiency``, ``.queue_depth``,
+``.rejected`` and ``.deadline_expired`` metrics, the
+``likelihood.rejected`` and ``likelihood.deadline_expired`` events and the
+``trace.open_requests`` gauge. Every request gets a
+:class:`~..obs.trace.TraceContext` at submit (``future.trace_id``): the
+``likelihood_submit`` span on the client's thread, the
+``likelihood_queue_wait`` and ``likelihood_resolve`` spans recorded on the
+worker, and the ``likelihood_batch`` span that served it (its ``links``)
+share that trace id, and an unresolved request stays in the open-request
+registry a postmortem flushes. Request latencies and batch fills feed the
+streaming P-squared estimators of ``obs/series.py``, so :meth:`stats`
+keeps fixed memory however long the server runs. None of it waits for the
+card beyond the readback the answer needs.
 """
 from __future__ import annotations
 
-import collections
 import queue
 import threading
 import time
@@ -38,6 +53,15 @@ from ..device import resolve_device
 from ..faults import inject as faults
 from ..faults.retry import RetryPolicy, is_transient, retry_call
 from ..models.batched import Recipe
+from ..obs import TRACER, counter, event, gauge, names, span
+from ..obs.series import SpanQuantiles
+from ..obs.trace import (
+    adopt,
+    new_trace_context,
+    open_request_count,
+    register_open_request,
+    resolve_open_request,
+)
 from . import gp
 from .infer import _check_axes, _reduced_points, _reducible
 
@@ -46,10 +70,6 @@ _STOP = object()
 #: one in-place retry of a transient engine failure (it costs
 #: milliseconds); fatal errors fail every future of the batch at once
 _ENGINE_RETRY = RetryPolicy(max_attempts=2, base_delay_s=0.05, max_delay_s=1.0)
-
-#: request latencies and batch fills kept for the summaries of
-#: :meth:`LikelihoodServer.stats`
-LATENCY_WINDOW = 10_000
 
 
 class ServerSaturated(RuntimeError):
@@ -150,7 +170,6 @@ def project_bank(bank: RealizationBank, reduced: gp.ReducedGP, batch: PulsarBatc
     loads from disk and stages to the card on a worker thread while the
     current one projects, at most ``prefetch_depth`` chunks ahead. A bank
     of tensors is handed over as it is, and moved here."""
-    from ..obs import names, span
     from ..parallel.prefetch import prefetch_to_device
 
     place = (lambda block: block) if isinstance(bank.dtype, torch.dtype) else None
@@ -170,6 +189,8 @@ class _Request:
     theta: np.ndarray
     future: Future
     t_submit: float  # monotonic
+    t_submit_wall: float  # wall clock, the queue-wait span's t0
+    ctx: object  # the request's TraceContext
     deadline: Optional[float] = None  # monotonic; None = no deadline
 
 
@@ -266,24 +287,44 @@ class LikelihoodServer:
             )
         theta = np.asarray([float(params[k]) for k in self.axes])
         fut: Future = Future()
+        ctx = new_trace_context()
+        fut.trace_id = ctx.trace_id
         now = time.monotonic()
         if deadline_s is None:
             deadline_s = self.request_deadline_s
         deadline = None if deadline_s is None else now + float(deadline_s)
         # the enqueue is atomic with the closing check and the admission
         # count: stop() flips _closing under this lock before posting the
-        # sentinel, so every admitted request precedes it in the queue
-        with self._lock:
-            if self._worker is None or self._closing:
-                raise RuntimeError("server not started (or stopping)")
-            if self.max_queue is not None and self._pending >= self.max_queue:
-                self._rejected += 1
+        # sentinel, so every admitted request precedes it in the queue. The
+        # submit span wraps the admission, so a refused request leaves a
+        # span with its trace id too
+        with adopt(ctx), span(names.SPAN_LIKELIHOOD_SUBMIT) as sp:
+            with self._lock:
+                if self._worker is None or self._closing:
+                    raise RuntimeError("server not started (or stopping)")
+                rejected = self.max_queue is not None and self._pending >= self.max_queue
+                if rejected:
+                    self._rejected += 1
+                else:
+                    self._pending += 1
+                    # registered before it is queued: the worker cannot
+                    # resolve a request before its registration
+                    register_open_request(ctx, kind="likelihood_request",
+                                          params={k: float(params[k]) for k in self.axes})
+                    self._queue.put(_Request(theta, fut, now, time.time(), ctx, deadline))
+            # telemetry outside the admission lock: under saturation every
+            # submit lands here, and the event is a write to the sink
+            if rejected:
+                counter(names.LIKELIHOOD_REJECTED).inc()
+                sp["rejected"] = True
+                event(names.EVENT_LIKELIHOOD_REJECTED, max_queue=self.max_queue)
                 raise ServerSaturated(
                     f"request queue at max_queue={self.max_queue} — load shed; "
-                    "back off and resubmit"
+                    f"back off and resubmit (trace {ctx.trace_id})"
                 )
-            self._pending += 1
-            self._queue.put(_Request(theta, fut, now, deadline))
+        gauge(names.TRACE_OPEN_REQUESTS).set(open_request_count())
+        counter(names.LIKELIHOOD_REQUESTS).inc()
+        gauge(names.LIKELIHOOD_QUEUE_DEPTH).set(self._queue.qsize())
         return fut
 
     def evaluate(self, **params) -> np.ndarray:
@@ -293,46 +334,59 @@ class LikelihoodServer:
     # ---------------------------------------------------------- worker
 
     def _run(self) -> None:
-        stopping = False
-        while not stopping:
-            item = self._queue.get()
-            if item is _STOP:
-                break
-            reqs = [item]
-            deadline = item.t_submit + self.max_delay_s
-            while len(reqs) < self.max_batch:
-                # queued backlog coalesces unconditionally; the deadline
-                # bounds only the wait for requests not yet arrived
-                try:
-                    nxt = self._queue.get_nowait()
-                except queue.Empty:
-                    remaining = deadline - time.monotonic()
-                    if remaining <= 0:
-                        break
-                    try:
-                        nxt = self._queue.get(timeout=remaining)
-                    except queue.Empty:
-                        break
-                if nxt is _STOP:
-                    stopping = True
+        with span(names.SPAN_LIKELIHOOD_SERVE, max_batch=self.max_batch,
+                  max_delay_s=self.max_delay_s):
+            stopping = False
+            while not stopping:
+                item = self._queue.get()
+                if item is _STOP:
                     break
-                reqs.append(nxt)
-            self._serve_batch(reqs)
+                reqs = [item]
+                deadline = item.t_submit + self.max_delay_s
+                while len(reqs) < self.max_batch:
+                    # queued backlog coalesces unconditionally; the deadline
+                    # bounds only the wait for requests not yet arrived
+                    try:
+                        nxt = self._queue.get_nowait()
+                    except queue.Empty:
+                        remaining = deadline - time.monotonic()
+                        if remaining <= 0:
+                            break
+                        try:
+                            nxt = self._queue.get(timeout=remaining)
+                        except queue.Empty:
+                            break
+                    if nxt is _STOP:
+                        stopping = True
+                        break
+                    reqs.append(nxt)
+                self._serve_batch(reqs)
 
     def _expire(self, reqs) -> list:
-        """Fail the requests whose deadline passed while queued; return
+        """Fail the requests whose deadline passed while queued (their
+        trace closes with the queue-wait span and an expiry event); return
         the others."""
         now = time.monotonic()
         live = [r for r in reqs if r.deadline is None or now <= r.deadline]
         expired = [r for r in reqs if r.deadline is not None and now > r.deadline]
+        if not expired:
+            return live
         with self._lock:
             self._deadline_expired += len(expired)
+        counter(names.LIKELIHOOD_DEADLINE_EXPIRED).inc(len(expired))
         for r in expired:
+            with adopt(r.ctx):
+                TRACER.record_span(names.SPAN_LIKELIHOOD_QUEUE_WAIT, r.t_submit_wall,
+                                   now - r.t_submit, expired=True)
+                event(names.EVENT_LIKELIHOOD_DEADLINE_EXPIRED,
+                      waited_s=round(now - r.t_submit, 6))
+            resolve_open_request(r.ctx)
             if r.future.set_running_or_notify_cancel():
                 r.future.set_exception(DeadlineExpired(
                     f"request expired after {now - r.t_submit:.3f}s in the queue "
-                    f"(deadline {r.deadline - r.t_submit:.3f}s)"
+                    f"(deadline {r.deadline - r.t_submit:.3f}s) (trace {r.ctx.trace_id})"
                 ))
+        gauge(names.TRACE_OPEN_REQUESTS).set(open_request_count())
         return live
 
     def _serve_batch(self, reqs) -> None:
@@ -340,8 +394,16 @@ class LikelihoodServer:
             self._pending -= len(reqs)
         reqs = self._expire(reqs)
         if not reqs:
+            gauge(names.LIKELIHOOD_QUEUE_DEPTH).set(self._queue.qsize())
             return
         nb = len(reqs)
+        # each request's queue residence ends at the dequeue (recorded
+        # here: its two ends lie on two threads)
+        t_deq = time.monotonic()
+        for r in reqs:
+            with adopt(r.ctx):
+                TRACER.record_span(names.SPAN_LIKELIHOOD_QUEUE_WAIT, r.t_submit_wall,
+                                   max(0.0, t_deq - r.t_submit))
         theta = np.stack([r.theta for r in reqs])
         # pad to the fixed batch: the padding rows repeat the last request
         theta = np.concatenate([theta, np.repeat(theta[-1:], self.max_batch - nb, axis=0)])
@@ -355,31 +417,59 @@ class LikelihoodServer:
             ).cpu().numpy()
 
         try:
-            out = retry_call(_eval, policy=_ENGINE_RETRY, classify=is_transient, scope="serve")
+            # links: the one batch span names the trace of every request it
+            # serves
+            with span(names.SPAN_LIKELIHOOD_BATCH, links=[r.ctx.trace_id for r in reqs],
+                      requests=nb, capacity=self.max_batch):
+                out = retry_call(_eval, policy=_ENGINE_RETRY, classify=is_transient,
+                                 scope="serve")
         except Exception as exc:  # delivered to every future of the batch
+            fail_wall = time.time()
             for r in reqs:
+                # the trace closes on the failure path too
+                with adopt(r.ctx):
+                    TRACER.record_span(names.SPAN_LIKELIHOOD_RESOLVE, fail_wall, 0.0,
+                                       error=repr(exc)[:200])
+                resolve_open_request(r.ctx)
                 if r.future.set_running_or_notify_cancel():
                     r.future.set_exception(exc)
+            gauge(names.TRACE_OPEN_REQUESTS).set(open_request_count())
             return
         done = time.monotonic()
         with self._lock:
             self._requests += nb
             self._batches += 1
             self._busy_s += done - t0
-            self._latency.extend(done - r.t_submit for r in reqs)
-            self._batch_fill.append(nb)
+            self._batch_fill.observe(nb)
+            for r in reqs:
+                self._latency.observe(done - r.t_submit)
+            eff = self._requests / (self._batches * self.max_batch)
+        counter(names.LIKELIHOOD_BATCHES).inc()
+        counter(names.LIKELIHOOD_EVALS).inc(nb * self.nreal)
+        gauge(names.LIKELIHOOD_BATCH_SIZE).set(nb)
+        gauge(names.LIKELIHOOD_COALESCE_EFFICIENCY).set(round(eff, 6))
+        gauge(names.LIKELIHOOD_QUEUE_DEPTH).set(self._queue.qsize())
+        done_wall = time.time()
         for k, r in enumerate(reqs):
             if r.future.set_running_or_notify_cancel():
                 r.future.set_result(out[k])
+            # the resolution closes the trace: from the engine's end to
+            # this future's result
+            with adopt(r.ctx):
+                TRACER.record_span(names.SPAN_LIKELIHOOD_RESOLVE, done_wall,
+                                   max(0.0, time.monotonic() - done),
+                                   latency_s=round(done - r.t_submit, 6))
+            resolve_open_request(r.ctx)
+        gauge(names.TRACE_OPEN_REQUESTS).set(open_request_count())
 
     # ------------------------------------------------------------ SLOs
 
     def reset_stats(self) -> None:
-        """Zero the counts, the latency window and the throughput clock
-        (so a measurement can leave out the warm-up)."""
+        """Zero the counts, the percentile estimators and the throughput
+        clock (so a measurement can leave out the warm-up)."""
         with self._lock:
-            self._latency = collections.deque(maxlen=LATENCY_WINDOW)
-            self._batch_fill = collections.deque(maxlen=LATENCY_WINDOW)
+            self._latency = SpanQuantiles()
+            self._batch_fill = SpanQuantiles()
             self._requests = 0
             self._batches = 0
             self._busy_s = 0.0
@@ -390,13 +480,12 @@ class LikelihoodServer:
     def stats(self) -> dict:
         """The SLO block, with the JAX package's keys: request and batch
         counts, coalescing efficiency, throughput since the last reset,
-        and the latency and batch-fill summaries (count since the reset;
-        min, max and percentiles over the last :data:`LATENCY_WINDOW`
-        requests and batches)."""
+        and the latency and batch-fill summaries (count, min, max and the
+        streaming p50/p95/p99 since the reset)."""
         with self._lock:
             requests, batches = self._requests, self._batches
-            latency = np.asarray(self._latency)
-            fill = np.asarray(self._batch_fill, np.float64)
+            latency = self._latency.summary()
+            fill = self._batch_fill.summary()
             busy_s, rejected = self._busy_s, self._rejected
             expired = self._deadline_expired
             elapsed = time.monotonic() - self._started_at
@@ -412,21 +501,17 @@ class LikelihoodServer:
             "evals": evals,
             "evals_per_s": evals / elapsed if elapsed > 0 else 0.0,
             "requests_per_s": requests / elapsed if elapsed > 0 else 0.0,
-            "device_busy_s": busy_s,
+            "device_busy_s": round(busy_s, 6),
             "rejected": rejected,
             "deadline_expired": expired,
             "max_queue": self.max_queue,
             "request_deadline_s": self.request_deadline_s,
-            "latency": _summary(latency, requests),
-            "batch_fill": _summary(fill, batches),
+            "latency": _finite(latency),
+            "batch_fill": _finite(fill),
         }
 
 
-def _summary(values: np.ndarray, count: int) -> dict:
-    """count, min, max, p50, p95 and p99 of ``values`` (the count alone
-    when there are none)."""
-    if values.size == 0:
-        return {"count": count}
-    out = {"count": count, "min": float(values.min()), "max": float(values.max())}
-    out.update({f"p{q}": float(np.percentile(values, q)) for q in (50, 95, 99)})
-    return out
+def _finite(summary: dict) -> dict:
+    """A :meth:`SpanQuantiles.summary` less its empty entries (no value
+    yet, or the infinite min/max of an empty estimator)."""
+    return {k: v for k, v in summary.items() if v is not None and np.isfinite(v)}

@@ -23,14 +23,19 @@ CLI's ``--telemetry DIR`` flag does the capture itself. A capture's files
 have the JAX package's formats, so either package's ``report`` reads
 either package's capture.
 
-Spans and metrics are host-side: nothing here synchronizes the card, and
-gauges hold host numbers. ``meta.json`` records the card's memory from the
-caching allocator's counters (``torch.cuda.memory_allocated`` and
-``max_memory_allocated``), which read host-side state.
+A capture runs the flight recorder by default (``obs/flightrec.py``): a
+``progress.json`` heartbeat every ``heartbeat_interval_s`` with stage
+occupancy, series trends and the SLO verdict, the watchdog, and
+``postmortem.json`` when the run is killed or raises; ``watch DIR`` tails
+it and ``watch --serve PORT`` serves it (``obs/serve.py``).
 
-Not ported yet (ROADMAP A.16.4): the flight recorder (``progress.json``,
-``postmortem.json``), the series and SLO modules, stage occupancy, the
-critical path, and device profiling.
+Spans and metrics are host-side: nothing here synchronizes the card, and
+gauges hold host numbers. ``meta.json`` and the heartbeat record the card's
+memory from the caching allocator's counters (``torch.cuda.memory_allocated``
+and ``max_memory_allocated``), which read host-side state.
+
+Not ported yet (ROADMAP A.16.4b): the critical path, the merged timeline
+and device profiling.
 """
 from __future__ import annotations
 
@@ -39,7 +44,8 @@ import os
 import sys
 import time
 
-from . import metrics, names, trace
+from . import flightrec, metrics, names, numerics, occupancy, serve, series, slo, trace
+from .flightrec import FlightRecorder, StallWarning, device_memory_snapshot
 from .metrics import REGISTRY, counter, gauge, histogram
 from .trace import (
     TRACER,
@@ -58,6 +64,8 @@ __all__ = [
     "REGISTRY", "TRACER", "start_capture", "finish_capture",
     "telemetry_summary", "reset_all", "device_memory_snapshot", "metrics",
     "trace", "names", "TraceContext", "adopt", "carry", "current_trace",
+    "flightrec", "FlightRecorder", "StallWarning", "numerics", "occupancy",
+    "serve", "series", "slo",
 ]
 
 #: artifacts of an earlier run that a new capture into the same directory
@@ -67,43 +75,54 @@ STALE_ARTIFACTS = ("progress.json", "postmortem.json", "series.json", "series.js
                    "numerics.json")
 
 
-def start_capture(directory: str) -> None:
+def start_capture(
+    directory: str,
+    *,
+    flight_recorder: bool = True,
+    heartbeat_interval_s: float = 1.0,
+    stall_timeout_s: float = 300.0,
+    crash_hooks: bool = True,
+    slo: object = None,
+) -> None:
     """Begin streaming telemetry to ``directory``.
 
-    The capture starts from a clean slate: the tracer's buffers and the
-    metrics registry are reset, ``events.jsonl`` is truncated
+    The capture starts from a clean slate: a flight recorder still
+    sampling from an earlier capture is stopped, the tracer's buffers and
+    the metrics registry are reset, ``events.jsonl`` is truncated
     (``configure``) and an earlier run's artifacts are removed, so the
     directory describes exactly one run. ``PTA_NUMERICS=1`` arms the
     numerics observatory for the capture, sampling drift on one chunk in
     ``PTA_NUMERICS_DRIFT_EVERY`` (default 16) from the seeded offset of
-    ``PTA_NUMERICS_SEED`` (``obs/numerics.py::arm_from_env``)."""
-    from . import numerics
+    ``PTA_NUMERICS_SEED`` (``obs/numerics.py::arm_from_env``).
 
+    ``flight_recorder`` (default on) starts the sampler of
+    ``obs/flightrec.py``: a ``progress.json`` heartbeat every
+    ``heartbeat_interval_s``, a :class:`StallWarning` watchdog at
+    ``stall_timeout_s`` (None disables it), and, with ``crash_hooks`` on
+    the main thread, SIGTERM/SIGINT and excepthook chaining that writes
+    ``postmortem.json`` before the process dies. ``slo`` declares the
+    capture's objectives (the ``obs/slo.py`` grammar, a list of specs or
+    ``Objective`` objects; default: ``PTA_SLO``), scored into the
+    heartbeat and ``slo.json``. :func:`finish_capture` stops it."""
+    stale = flightrec.active()
+    if stale is not None:
+        # back-to-back captures: the earlier recorder must not keep
+        # heartbeating into the old directory
+        stale.stop(finished=False)
     TRACER.reset()
     REGISTRY.reset()
     trace.configure(directory)
-    for stale in STALE_ARTIFACTS:
+    for artifact in STALE_ARTIFACTS:
         try:
-            os.remove(os.path.join(directory, stale))
+            os.remove(os.path.join(directory, artifact))
         except FileNotFoundError:
             pass
     numerics.arm_from_env()
-
-
-def device_memory_snapshot() -> list:
-    """One entry per visible CUDA device with the JAX snapshot's keys:
-    ``device``, ``platform``, ``bytes_in_use`` and ``peak_bytes_in_use``,
-    from the caching allocator's counters. ``[]`` where torch has no card
-    (a CPU run) or was never imported."""
-    torch = sys.modules.get("torch")
-    if torch is None or not torch.cuda.is_available() or not torch.cuda.is_initialized():
-        return []
-    return [{
-        "device": f"cuda:{i} ({torch.cuda.get_device_name(i)})",
-        "platform": "gpu",
-        "bytes_in_use": int(torch.cuda.memory_allocated(i)),
-        "peak_bytes_in_use": int(torch.cuda.max_memory_allocated(i)),
-    } for i in range(torch.cuda.device_count())]
+    if flight_recorder:
+        FlightRecorder(directory, interval_s=heartbeat_interval_s,
+                       stall_timeout_s=stall_timeout_s, slo_objectives=slo).start()
+        if crash_hooks:
+            flightrec.install_crash_hooks()
 
 
 def finish_capture(context: dict = None) -> None:
@@ -112,13 +131,22 @@ def finish_capture(context: dict = None) -> None:
     ``meta.json``, and ``numerics.json`` when the numerics ledger is armed.
     ``events.jsonl`` was written live; this flushes it.
 
-    Without a prior :func:`start_capture` this is a no-op, so teardown
-    paths may call it unconditionally. A write that fails raises."""
-    from . import numerics
-
+    The flight recorder stops first with a final heartbeat (``finished``
+    true unless an exception is propagating, when ``postmortem.json`` is
+    written before it), and the crash hooks are taken down, so the process
+    keeps no handler of the capture's. Without a prior
+    :func:`start_capture` this is a no-op, so teardown paths may call it
+    unconditionally. A write that fails raises."""
     directory = TRACER.directory
     if directory is None:
         return
+    rec = flightrec.active()
+    if rec is not None:
+        exc = sys.exc_info()[1]
+        if exc is not None:
+            rec.write_postmortem("exception", exc=exc)
+        rec.stop(finished=exc is None)
+    flightrec.uninstall_crash_hooks()
     TRACER.flush()
     with open(os.path.join(directory, "metrics.json"), "w") as fh:
         json.dump(REGISTRY.to_json(), fh, indent=1, sort_keys=True)
@@ -160,10 +188,13 @@ def telemetry_summary() -> dict:
 
 
 def reset_all() -> None:
-    """Clear the global tracer's buffers, the metrics registry and the
+    """Stop a flight recorder still sampling, take its crash hooks down, and
+    clear the global tracer's buffers, the metrics registry and the
     numerics ledger (tests)."""
-    from . import numerics
-
+    rec = flightrec.active()
+    if rec is not None:
+        rec.stop(finished=False)
+    flightrec.uninstall_crash_hooks()
     TRACER.reset()
     REGISTRY.reset()
     numerics.reset()

@@ -43,6 +43,7 @@ and without ``site=``), the ``numerics.headroom_bits`` and
 """
 from __future__ import annotations
 
+import functools
 import json
 import math
 import os
@@ -154,11 +155,13 @@ def reset() -> None:
 
 # ----------------------------------------------------------------- probes
 
+@functools.lru_cache(maxsize=None)
 def _dtype_name(dtype) -> str:
     """numpy's name of a torch dtype (``float64``), as JAX writes it."""
     return str(dtype).replace("torch.", "")
 
 
+@functools.lru_cache(maxsize=None)
 def _max_log2(dtype) -> float:
     import torch
 
@@ -167,17 +170,20 @@ def _max_log2(dtype) -> float:
 
 def _row_stats(rows):
     """The three statistics of each row of ``rows`` (n, L), L > 0: (n, 3)
-    float64 on its device."""
+    float64 on its device: the non-finite count, the largest finite |x|
+    (0 without one) and the smallest non-zero finite |x| (inf without
+    one). Twelve kernels: ``|x| < inf`` is the finite mask (false for a
+    NaN), and ``|x| > 0`` alone masks the minimum, an infinite |x| being
+    the fill itself (``torch.isfinite`` costs four kernels)."""
     import torch
 
-    finite = torch.isfinite(rows)
     ax = rows.abs()
+    finite = ax < math.inf
+    ext = torch.stack([torch.amax(torch.where(finite, ax, 0.0), dim=1),
+                       torch.amin(torch.where(ax > 0, ax, math.inf), dim=1)], dim=1)
     # the count in float64: exact past a half-precision dtype's 2**8 or 2**11
-    return torch.stack([
-        torch.sum(~finite, dim=1, dtype=torch.float64),
-        torch.amax(torch.where(finite, ax, 0.0), dim=1).double(),
-        torch.amin(torch.where(finite & (ax > 0), ax, math.inf), dim=1).double(),
-    ], dim=1)
+    nonfinite = torch.sum(~finite, dim=1, dtype=torch.float64)
+    return torch.cat([nonfinite[:, None], ext.double()], dim=1)
 
 
 def _floating(x) -> bool:
@@ -243,26 +249,38 @@ def _slab(x, lead: int):
     (leading ``lead`` realization axes) cut along its first per-realization
     axis, then its last, to at most :data:`PROBE_SAMPLE_CAP_COLLECT`
     elements a realization."""
-    shape = tuple(x.shape[lead:])
-    cap = PROBE_SAMPLE_CAP_COLLECT
-    size = math.prod(shape)
-    if len(shape) >= 1 and size > cap:
-        inner = max(1, size // shape[0])
-        x = x[(slice(None),) * lead + (slice(0, max(1, cap // inner)),)]
-        shape = tuple(x.shape[lead:])
-        size = math.prod(shape)
-        if size > cap:
-            per_row = max(1, size // shape[-1])
-            x = x[..., : max(1, cap // per_row)]
+    for index in _slab_cuts(tuple(x.shape), lead):
+        x = x[index]
     return x
 
 
+@functools.lru_cache(maxsize=256)
+def _slab_cuts(shape: tuple, lead: int) -> tuple:
+    """The indexings, applied in turn, that cut a ``shape`` output to its
+    :func:`_slab` (a sweep's chunks repeat one shape: worked out once)."""
+    shape = shape[lead:]
+    cap = PROBE_SAMPLE_CAP_COLLECT
+    size = math.prod(shape)
+    cuts = []
+    if len(shape) >= 1 and size > cap:
+        inner = max(1, size // shape[0])
+        keep = max(1, cap // inner)
+        cuts.append((slice(None),) * lead + (slice(0, keep),))
+        shape = (min(keep, shape[0]),) + shape[1:]
+        size = math.prod(shape)
+        if size > cap:
+            per_row = max(1, size // shape[-1])
+            cuts.append((Ellipsis, slice(0, max(1, cap // per_row))))
+    return tuple(cuts)
+
+
 class Collector:
-    """The slabs of one collecting block: per probe call, the site and a
-    flat copy of its slab (every realization's), reduced together when the
-    block ends (one set of reductions for every site, not one a site); and
-    per site the slab's elements a realization, log2 of its dtype's
-    largest value and the dtype's name."""
+    """The slabs of one collecting block: per probe call, the site and its
+    slab (every realization's; a view, copied once when the block's slabs
+    are stacked), reduced together when the block ends (one set of
+    reductions for every site, not one a site); and per site the slab's
+    elements a realization, log2 of its dtype's largest value and the
+    dtype's name."""
 
     def __init__(self):
         self.slabs: List[tuple] = []
@@ -273,7 +291,7 @@ class Collector:
         if s.numel() == 0:
             return
         self.meta[name] = (math.prod(s.shape[lead:]), _max_log2(x.dtype), _dtype_name(x.dtype))
-        self.slabs.append((name, s.reshape(-1)))
+        self.slabs.append((name, s))
 
 
 class collecting:
@@ -327,8 +345,11 @@ def stash_step_stats(col: Collector, nreal: int) -> None:
 
     sites = [name for name, _ in col.slabs]
     slabs = [s for _, s in col.slabs]
-    if len({(s.numel(), s.dtype) for s in slabs}) == 1:
-        dev = _row_stats(torch.stack(slabs))
+    if len({(s.shape, s.dtype) for s in slabs}) == 1:
+        # the views stacked: one copy of each, the only copy of the slabs
+        dev = _row_stats(torch.stack(slabs).reshape(len(slabs), -1))
+    elif len({(s.numel(), s.dtype) for s in slabs}) == 1:
+        dev = _row_stats(torch.stack([s.reshape(-1) for s in slabs]))
     else:
         dev = torch.cat([_row_stats(s.reshape(1, -1)) for s in slabs])
     ev = None

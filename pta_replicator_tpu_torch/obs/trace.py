@@ -46,6 +46,8 @@ import threading
 import time
 from typing import Dict, List, Optional
 
+from .occupancy import STAGE_SORT_ORDER
+
 SCHEMA_VERSION = 1
 
 #: Required fields (and their JSON types) of each record kind in
@@ -89,14 +91,6 @@ TRACE_FIELDS = {
 TRACE_ID_HEX = 32
 SPAN_ID_HEX = 16
 
-#: the stage spans of the staged executors in dataflow order: each gets
-#: a named track of its own in :meth:`Tracer.chrome_trace` (the JAX
-#: package's ``obs.occupancy.STAGE_SORT_ORDER`` followed by the rest of
-#: its stage table, which the port's occupancy module will own, A.16.4)
-STAGE_SORT_ORDER = (
-    "static_build", "dispatch", "drain", "io_write", "shard_write",
-    "cw_stream_stage", "sweep_chunk", "readback_fence",
-)
 
 
 # ---------------------------------------------------------------------
@@ -626,7 +620,7 @@ class Tracer:
         """The buffered spans as a ``chrome://tracing`` / Perfetto JSON
         object (phase-"X" complete events, microsecond timestamps).
 
-        Stage spans of the staged executors (:data:`STAGE_SORT_ORDER`:
+        Stage spans of the staged executors (``occupancy.STAGE_SORT_ORDER``:
         dispatch/drain/io_write/cw_stream_stage/...) are
         lifted onto one synthetic, named track per stage — so the
         pipeline's utilization reads as contiguous per-stage lanes
@@ -635,7 +629,7 @@ class Tracer:
 
         Each used stage track also carries an explicit
         ``thread_sort_index`` in dataflow order
-        (:data:`STAGE_SORT_ORDER`: dispatch -> drain -> io_write,
+        (``occupancy.STAGE_SORT_ORDER``: dispatch -> drain -> io_write,
         prefetch staging after), so viewers render the pipeline top to
         bottom in pipeline order rather than dict/tid order."""
         pid = os.getpid()

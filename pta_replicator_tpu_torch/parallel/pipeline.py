@@ -185,13 +185,14 @@ def io_write_stage(write: Callable, release: Optional[Callable] = None) -> Stage
 
 def pipeline_stats(g: dict) -> dict:
     """The graph's stats under the sweep pipeline's names (the reference's
-    keys, without ``occupancy``: ROADMAP A.16.4)."""
+    keys; the sweep stamps them into its ``sweep_pipeline`` span)."""
     return {
         "chunks": g["items"],
         "max_inflight": g["max_inflight"],
         "drain_wait_s": g["window_wait_s"],
         "wall_s": g["wall_s"],
         "stage_busy_s": g["stage_busy_s"],
+        "occupancy": g["occupancy"],
     }
 
 
@@ -208,7 +209,8 @@ def run_pipelined(indices: Iterable[int], dispatch: Callable[[int], object],
     :func:`host_copy`); ``write(i, block)`` runs on the writer thread in
     ``indices`` order, then ``release(block)``. Returns the stats
     (``chunks``, ``wall_s``, ``max_inflight``, ``drain_wait_s``: the time
-    the dispatcher waited on the full window, ``stage_busy_s``).
+    the dispatcher waited on the full window, ``stage_busy_s``,
+    ``occupancy``).
 
     A failing stage stops the pipeline and its exception re-raises here
     unchanged; a fetch or write past ``drain_timeout_s`` raises

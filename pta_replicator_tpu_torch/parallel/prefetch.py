@@ -172,6 +172,8 @@ def prefetch_to_device(tiles: Iterable, *, depth: int = 2, device="cuda",
     graph = StageGraph(
         [Stage("cw_stream_stage", fn=stage, span=names.SPAN_CW_STREAM_STAGE,
                index_attr="tile", heartbeat_label="host->device tile staging",
+               # the staging busy seconds as occupancy.busy_s, the JAX metric
+               busy_gauge=True,
                context=(lambda: torch.cuda.device(device)) if device.type == "cuda" else None,
                thread_name="cw-stream-prefetch")],
         window=depth, drain_timeout_s=stall_timeout_s,

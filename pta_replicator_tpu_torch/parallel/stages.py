@@ -21,7 +21,10 @@ FIFO queues. The executor provides, once for every graph:
   with the failing item attached through ``mark_item`` (caller mode);
 * **stop and drain without stranded items**, and a bounded quiesce of the
   sink before an error re-raises (a retry must not race a live writer);
-* **per-stage busy seconds** in the stats;
+* **per-stage busy seconds and occupancy** in the stats: each stage
+  accumulates the wall seconds of its operations, and the run's stats
+  carry ``obs.occupancy.overlap_stats`` of them (duty cycles, overlap
+  efficiency and the bottleneck verdict) as ``occupancy``;
 * **telemetry**: a stage that declares ``span`` runs each operation under
   that span (``index_attr`` carries the item index), and the executor
   keeps the ``stages.busy_s{stage=}`` and ``stages.edge_inflight{edge=}``
@@ -48,9 +51,8 @@ the caller consumes the results in order).
 a chaos schedule's fault is attributed to the stage it perturbs
 (``faults/inject.py``; one ``None`` check while disarmed).
 
-Not ported here: the chunk trace contexts and the stats' ``occupancy``
-block (A.16.4), the per-device ``replicas`` fan-out stage and ``fan_out``
-(A.17, multi-device).
+Not ported here: the chunk trace contexts (A.16.4b), the per-device
+``replicas`` fan-out stage and ``fan_out`` (A.17, multi-device).
 """
 from __future__ import annotations
 
@@ -62,7 +64,7 @@ from dataclasses import dataclass
 from typing import Any, Callable, Iterable, Iterator, List, Optional, Sequence, Tuple
 
 from ..faults import inject as faults
-from ..obs import TRACER, counter, gauge, names, span
+from ..obs import TRACER, counter, gauge, names, occupancy, span
 
 _STOP = object()  # queue sentinel: no more items
 
@@ -126,6 +128,9 @@ class Stage:
     releases_window: bool = False
     #: takes part in the DrainTimeout deadline scan
     heartbeat: bool = True
+    #: mirror the cumulative busy seconds to ``occupancy.busy_s{stage=}``
+    #: (the prefetch's contract; the run's stats carry them either way)
+    busy_gauge: bool = False
     #: what the DrainTimeout message calls this stage ("host readback")
     heartbeat_label: Optional[str] = None
     #: zero-argument callable returning a context manager that the stage's
@@ -287,6 +292,8 @@ class StageGraph:
             self._busy[stage.name] += dt
             busy = self._busy[stage.name]
         gauge(names.STAGES_BUSY_S, stage=stage.name).set(round(busy, 6))
+        if stage.busy_gauge:
+            gauge(names.OCCUPANCY_BUSY_S, stage=stage.name).set(round(busy, 6))
 
     @staticmethod
     def _call(stage: Stage, i, payload, attrs: dict) -> Any:
@@ -353,7 +360,7 @@ class StageGraph:
         ``items``; each thread-placed stage drains its input queue on its
         own daemon thread; the last stage is the sink. Returns the stats
         (also on ``self.stats``): ``items``, ``wall_s``, ``max_inflight``,
-        ``window_wait_s``, ``stall_s``, ``stage_busy_s``.
+        ``window_wait_s``, ``stall_s``, ``stage_busy_s``, ``occupancy``.
 
         A failing stage stops the graph and its exception re-raises
         unchanged here; an operation wedged past ``drain_timeout_s``
@@ -621,6 +628,10 @@ class StageGraph:
         stats["window_wait_s"] = round(stats["window_wait_s"], 6)
         stats["stall_s"] = round(stats["stall_s"], 6)
         with self._lock:
-            stats["stage_busy_s"] = {k: round(v, 6) for k, v in self._busy.items()}
+            busy = dict(self._busy)
+        stats["stage_busy_s"] = {k: round(v, 6) for k, v in busy.items()}
+        # this run's measured occupancy: duty cycles, overlap efficiency
+        # and the bottleneck verdict (the sweep stamps them into its span)
+        stats["occupancy"] = occupancy.overlap_stats(busy, wall_s)
         self.stats = stats
         return stats

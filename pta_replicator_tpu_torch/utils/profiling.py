@@ -8,7 +8,7 @@ which adds nesting, attributes and the capture sinks.
 pipeline, as plain torch functions.
 
 ``device_trace`` (a profiler capture of the card registered in the
-capture's ``meta.json``) belongs to the device profiling of ROADMAP A.16.4
+capture's ``meta.json``) belongs to the device profiling of ROADMAP A.16.4b
 and raises here.
 """
 from __future__ import annotations
@@ -60,7 +60,7 @@ def reset() -> None:
 def device_trace(logdir: str):
     """A profiler capture of the card: not ported yet."""
     raise NotImplementedError(
-        "device_trace is not ported yet (ROADMAP A.16.4, device profiling); "
+        "device_trace is not ported yet (ROADMAP A.16.4b, device profiling); "
         "the JAX package's utils.profiling.device_trace has it"
     )
 

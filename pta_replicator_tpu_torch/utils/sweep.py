@@ -61,7 +61,7 @@ drift replay) on the one reader thread, in chunk order, before a block
 reaches ``io_write``; the sweep's end folds the probe stats still queued.
 
 Not ported here: the multi-device ``mesh`` and the sharded-archive writer
-(ROADMAP.md item A.17) and the chunk trace contexts (A.16.4).
+(ROADMAP.md item A.17) and the chunk trace contexts (A.16.4b).
 """
 from __future__ import annotations
 

@@ -234,7 +234,7 @@ def test_checkpointed_write_partim_datasets_carry_their_cube_rows(dirs, tmp_path
 
 @pytest.mark.parametrize("flag,item", [
     (["--sharded"], "A.17"), (["--mesh-shape", "2x2"], "A.17"),
-    (["--device-trace"], r"A\.16\.4"),
+    (["--device-trace"], r"A\.16\.4b"),
 ])
 def test_flags_of_unported_modules_exit_before_ingest(tmp_path, flag, item):
     missing = str(tmp_path / "no-such-dir")

@@ -224,7 +224,9 @@ def test_a_capture_writes_the_jax_formats(tmp_path, monkeypatch):
     files = {p.name for p in d.iterdir()}
     assert {"events.jsonl", "metrics.json", "metrics.prom", "chrome_trace.json",
             "meta.json", "numerics.json"} <= files
-    assert not {"progress.json", "critpath.json"} & files
+    # the stale files went; progress.json is this capture's final heartbeat
+    assert "critpath.json" not in files
+    assert json.loads((d / "progress.json").read_text())["finished"] is True
     meta = json.loads((d / "meta.json").read_text())
     assert meta["device_memory"] == [] and meta["argv"] == ["realize"]
     assert meta["torch_version"] == torch.__version__
@@ -249,11 +251,11 @@ def test_the_report_names_the_artifacts_it_does_not_render(tmp_path):
     (tmp_path / "events.jsonl").write_text(
         '{"type": "span", "name": "a", "path": "a", "t0": 1.0, "wall_s": 0.5, "cpu_s": 0.1, '
         '"tid": 1, "seq": 0, "attrs": {}}\n')
-    for name in ("progress.json", "series.jsonl", "slo.json"):
+    for name in ("progress.json", "series.jsonl", "slo.json", "critpath.json"):
         (tmp_path / name).write_text("{}")
     text = treport.render_report(str(tmp_path))
-    assert ("not rendered by the port (ROADMAP A.16.4): progress.json, series.jsonl, slo.json"
-            in text)
+    # the live-run artifacts render now; the critical path alone does not
+    assert "not rendered by the port (ROADMAP A.16.4b): critpath.json\n" in text
     empty = tmp_path / "empty"
     empty.mkdir()
     assert "no telemetry data" in treport.render_report(str(empty))
@@ -272,7 +274,7 @@ def test_the_profiling_shims_delegate_to_the_tracer():
     assert t["demo"]["calls"] == 2 and t["sub"]["calls"] == 1 and t["demo"]["total_s"] >= 0
     assert "demo/sub" in obs.TRACER.summary()
     assert tprof.vm_rss_mb() > 0
-    with pytest.raises(NotImplementedError, match="A.16.4"):
+    with pytest.raises(NotImplementedError, match=r"A\.16\.4b"):
         tprof.device_trace("d")
 
 

@@ -53,13 +53,13 @@ def test_run_orders_bounds_and_stats():
     assert peak[0] <= 3
     assert stats["items"] == 10 and stats["max_inflight"] <= 3
     assert set(stats) == {"items", "wall_s", "max_inflight", "window_wait_s", "stall_s",
-                          "stage_busy_s"}
+                          "stage_busy_s", "occupancy"}
     assert set(stats["stage_busy_s"]) == {"produce", "transform", "sink"}
 
 
 def test_same_items_through_the_jax_graph():
     """The same declaration through both executors: the same output order,
-    and the JAX stats keys less its ``occupancy`` block (A.16)."""
+    and the JAX stats keys, the ``occupancy`` block's among them."""
     outs, keys = {}, {}
     for name, mod in (("port", port_stages), ("jax", jax_stages)):
         written, inflight, peak, lock = [], [0], [0], threading.Lock()
@@ -68,7 +68,7 @@ def test_same_items_through_the_jax_graph():
         outs[name], keys[name] = written, set(stats)
         assert peak[0] <= 2
     assert outs["port"] == outs["jax"] == [(i, i * 10) for i in range(7)]
-    assert keys["port"] == keys["jax"] - {"occupancy"}
+    assert keys["port"] == keys["jax"]
 
 
 def test_run_inline_is_synchronous():
@@ -279,7 +279,8 @@ def test_run_pipelined_orders_and_bounds():
                           drain_timeout_s=30.0)
     assert written == list(range(12)) and released == list(range(12))
     assert stats["chunks"] == 12 and peak[0] <= 3 and stats["max_inflight"] <= 3
-    assert set(stats) == {"chunks", "max_inflight", "drain_wait_s", "wall_s", "stage_busy_s"}
+    assert set(stats) == {"chunks", "max_inflight", "drain_wait_s", "wall_s", "stage_busy_s",
+                          "occupancy"}
 
 
 def test_run_pipelined_depth1_rejected():

@@ -32,11 +32,11 @@ from _torch_dataset import small_pulsars, write_with
 from test_torch_cli import SPEC
 from test_torch_fuzz import BASE, PERTURB
 
-#: metric groups the port does not emit: the JAX package's compile
-#: accounting (``jax.*``), and the flight recorder's and occupancy
-#: module's gauges (``obs.overhead_s``, ``proc.rss_bytes``,
-#: ``occupancy.*``: ROADMAP A.16.4)
-NOT_EMITTED = ("jax.", "occupancy.")
+#: metric groups left out of the comparison: the JAX package's compile
+#: accounting (``jax.*``, which the port does not emit), and the flight
+#: recorder's per-tick metrics (``obs.overhead_s``, ``proc.rss_bytes``),
+#: which exist only once its sampler has ticked, in either package
+NOT_EMITTED = ("jax.",)
 NOT_EMITTED_NAMES = ("obs.overhead_s", "proc.rss_bytes")
 #: counters whose values must be equal between the packages
 INTEGER_COUNTERS = ("io.par.files", "io.tim.files", "io.tim.toas", "batch.freezes",
@@ -136,10 +136,12 @@ def test_the_jax_schema_checker_and_loaders_read_a_port_capture(dataset, tmp_pat
         assert a["events"] == b["events"] and a["metrics"] == b["metrics"]
         assert a["meta"] == b["meta"]
         assert treport.aggregate_spans(a["events"]) == jreport.aggregate_spans(b["events"])
-    # the port's report renders the JAX capture, naming what it leaves out
+    # the port's report renders the JAX capture whole (it holds no
+    # critical path, the one artifact the port would name as not rendered)
     text = treport.render_report(str(jax_dir))
     assert "sweep_pipeline" in text and "jax accounting:" in text
-    assert "not rendered by the port (ROADMAP A.16.4): progress.json" in text
+    assert "not rendered by the port" not in text
+    assert "utilization (stage occupancy):" in text
 
 
 def _members(path):
