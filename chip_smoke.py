@@ -88,7 +88,15 @@ report read) and SIGTERMs a held one (its postmortem read back), every arm
 restoring the process state it found (`live_run`); then the server under a
 tight objective with a planted engine stall: one trace a request, /readyz
 200 before the burn and 503 during it, rows bitwise the uncaptured
-server's (`live_run_server`). It prints one JSON line per phase. The
+server's (`live_run_server`). Time attribution runs the flagship sweep
+under a capture and a torch.profiler device trace, with the tuner's search
+of B.3 in the same capture, then `critpath DIR` and `timeline DIR` over it:
+every chunk attributed and one trace a chunk, B.1's kernels on the merged
+timeline after the host spans that launched them, the report's critical
+path and roofline; a retried chunk's trace with both attempts; equal CUDA
+calls with a trace scope and without (`time_attribution`); and the dataset
+CLI's `realize --telemetry --device-trace` beside the likelihood CLI, read
+the same way (`time_attribution_cli`). It prints one JSON line per phase. The
 line before the last is the kernels line, the last the result line.
 Without a CUDA device, or without the port beside it, it exits non-zero
 and prints no result; any failed check raises.
@@ -419,12 +427,12 @@ def cuda_ms(fn, reps):
 
 def cw_bound(npsr, ntoa, nsrc, dtype, psr_term, evolve):
     """Least time for the CW response on this card: operations
-    (cw.OPS_PER_ELEMENT per element) over the peak rate of the dtype, or
-    bytes (times in, sum out, planes in; each once) over HBM bandwidth."""
+    (ops/cw.py::cw_catalog_operations) over the peak rate of the dtype, or
+    bytes (cw_catalog_bytes: times in, sum out, planes in; each once) over
+    HBM bandwidth."""
     size = torch.finfo(dtype).bits // 8
-    ops_ms = cw.OPS_PER_ELEMENT[(psr_term, evolve)] * npsr * ntoa * nsrc / PEAK_OPS[dtype] * 1e3
-    nbytes = size * (2 * npsr * ntoa + cw.NC_SRC * nsrc + cw.NC_PSR * npsr * nsrc)
-    bytes_ms = nbytes / PEAK_BYTES * 1e3
+    ops_ms = cw.cw_catalog_operations(npsr, ntoa, nsrc, psr_term, evolve) / PEAK_OPS[dtype] * 1e3
+    bytes_ms = cw.cw_catalog_bytes(npsr, ntoa, nsrc, size) / PEAK_BYTES * 1e3
     return max(ops_ms, bytes_ms), ("operations" if ops_ms >= bytes_ms else "bytes")
 
 
@@ -744,12 +752,11 @@ def _device_busy(fn):
 def woodbury_bound(npsr, ntoa, q, dtype):
     """Least time for the fused Woodbury assembly on this card: its
     operations (ops/gp.py::woodbury_operations) over the dtype's peak
-    rate, or its bytes (T, w, r read once, the three outputs written
-    once) over HBM bandwidth."""
+    rate, or its bytes (woodbury_bytes: T, w, r read once, the three
+    outputs written once) over HBM bandwidth."""
     size = torch.finfo(dtype).bits // 8
     ops_ms = ops_gp.woodbury_operations(npsr, ntoa, q) / WOODBURY_PEAK_OPS[dtype] * 1e3
-    nbytes = size * (npsr * ntoa * q + 2 * npsr * ntoa + npsr * q * q + npsr * q + npsr)
-    bytes_ms = nbytes / PEAK_BYTES * 1e3
+    bytes_ms = ops_gp.woodbury_bytes(npsr, ntoa, q, size) / PEAK_BYTES * 1e3
     return max(ops_ms, bytes_ms), ("operations" if ops_ms >= bytes_ms else "bytes")
 
 
@@ -826,12 +833,11 @@ def phase_woodbury_kernel(batch, recipe, design, basis):
 def woodbury_bf16_bound(npsr, ntoa, q, dtype):
     """Least time for the bf16 rung on this card: the full Gram of [T |
     r] (ops/gp.py::woodbury_operations, "bf16") at the bf16 tensor-core
-    peak, or its bytes (T, w, r read once in their dtype, the float32
-    outputs written once) over HBM bandwidth."""
+    peak, or its bytes (woodbury_bytes, "bf16": T, w, r read once in their
+    dtype, the float32 outputs written once) over HBM bandwidth."""
     size = torch.finfo(dtype).bits // 8
     ops_ms = ops_gp.woodbury_operations(npsr, ntoa, q, "bf16") / BF16_PEAK_OPS * 1e3
-    nbytes = size * (npsr * ntoa * q + 2 * npsr * ntoa) + 4 * (npsr * q * q + npsr * q + npsr)
-    bytes_ms = nbytes / PEAK_BYTES * 1e3
+    bytes_ms = ops_gp.woodbury_bytes(npsr, ntoa, q, size, "bf16") / PEAK_BYTES * 1e3
     return max(ops_ms, bytes_ms), ("operations" if ops_ms >= bytes_ms else "bytes")
 
 
@@ -3735,13 +3741,14 @@ def _live_sweep(batch, recipe, path, nreal, directory=None):
     ``directory`` when given (flight recorder every LIVE_HEARTBEAT_S,
     LIVE_SLO armed, crash hooks on): (result, wall s of the sweep call,
     heartbeats the recorder wrote during the call, the occupancy block the
-    sweep stamped into its ``sweep_pipeline`` span, or None)."""
+    sweep stamped into its ``sweep_pipeline`` span, or None, and the
+    sampler's thread CPU s, ``obs.overhead_s``, or None)."""
     from pta_replicator_tpu_torch import obs
     from pta_replicator_tpu_torch.obs import flightrec
 
     if directory is not None:
         obs.start_capture(str(directory), heartbeat_interval_s=LIVE_HEARTBEAT_S, slo=LIVE_SLO)
-    beats, occupancy = 0, None
+    beats, occupancy, sampler_s = 0, None, None
     try:
         torch.cuda.synchronize()
         w0, t0 = time.time(), time.perf_counter()
@@ -3755,13 +3762,14 @@ def _live_sweep(batch, recipe, path, nreal, directory=None):
                         for t, _v in s["samples"])
             occupancy = next((r["attrs"].get("occupancy") for r in obs.TRACER.events()
                               if r.get("name") == "sweep_pipeline"), None)
+            sampler_s = obs.REGISTRY.counter(obs.names.OBS_OVERHEAD_S).value
     finally:
         if directory is not None:
             obs.finish_capture(context={"phase": "live_run"})
             obs.configure(None)
             obs.reset_all()
     _drop_checkpoint(path, nreal // NUMERICS_CHUNK)
-    return out, wall, beats, occupancy
+    return out, wall, beats, occupancy, sampler_s
 
 
 def _cli_in_process(*args):
@@ -3794,14 +3802,16 @@ def _live_overhead(batch, recipe, workdir, counts):
     part_s["warm"] = time.perf_counter() - t_part
     t_part = time.perf_counter()
     rates, beats, outs, occupancy = {"armed": [], "disarmed": []}, [], {}, None
+    sampler_s = []
     for k in range(LIVE_OVERHEAD_PAIRS):
         for mode in (("armed", "disarmed") if k % 2 == 0 else ("disarmed", "armed")):
             armed = mode == "armed"
-            out, wall, n, occ = _live_sweep(batch, recipe, path, nreal,
-                                            workdir / f"live_{k}" if armed else None)
+            out, wall, n, occ, tick_s = _live_sweep(batch, recipe, path, nreal,
+                                                    workdir / f"live_{k}" if armed else None)
             rates[mode].append(nreal / wall)
             if armed:
                 beats.append(n)
+                sampler_s.append(tick_s)
                 occupancy = occupancy or occ
             outs.setdefault(mode, out)
     counts.update(launches)
@@ -3822,7 +3832,8 @@ def _live_overhead(batch, recipe, workdir, counts):
                 slo=LIVE_SLO, rates=rates, median=median,
                 ratio=median["armed"] / median["disarmed"],
                 paired_ratios=[a / d for a, d in zip(rates["armed"], rates["disarmed"])],
-                floor=LIVE_RATE_FLOOR, heartbeats=beats, sync_calls=syncs,
+                floor=LIVE_RATE_FLOOR, heartbeats=beats, sampler_cpu_s=sampler_s,
+                sync_calls=syncs,
                 runtime_calls=runtime, b1_launches=b1, profiled_nreal=LIVE_SHORT_NREAL,
                 profiled_heartbeats=profiled_beats[0], part_s=part_s,
                 sweep_occupancy=occupancy,
@@ -4128,6 +4139,441 @@ def _json_or_text(body):
         return json.loads(body)
     except (ValueError, TypeError):
         return {"text": body[:200].decode(errors="replace") if isinstance(body, bytes) else body}
+
+
+# ---------------------------------------------------------- time attribution
+
+#: the time-attribution phase (A.16.4b): the flagship sweep, reduced, fit,
+#: depth 2, in chunks of 200, under a capture and a device trace; the same
+#: sweep untraced (the rate reading) and under a capture with one seeded
+#: transient dispatch fault and one retry
+ATTRIBUTION_NREAL, ATTRIBUTION_CHUNK, ATTRIBUTION_DEPTH = 2000, 200, 2
+ATTRIBUTION_FAULT_SEED = 22
+ATTRIBUTION_RETRY = dict(max_attempts=2, base_delay_s=0.0, jitter=0.0)
+#: chunks of the run_pipelined arms (a trace scope and none) under torch.profiler
+ATTRIBUTION_PIPELINED_CHUNKS = 6
+#: B.1's two kernels, by the names CUPTI gives them
+B1_KERNELS = ("cw_fold_planes", "cw_catalog_kernel")
+#: the sections the report of the in-process capture renders
+ATTRIBUTION_SECTIONS = ("critical path (attribution over the phase window):",
+                        "roofline (per kernel label):", "device trace: device_trace")
+ATTRIBUTION_CLI_TIMEOUT_S = 600
+
+
+def _capture_problems(directory):
+    """The checks of the JAX package's scripts/check_telemetry_schema.py on
+    a capture, jax-free: every events.jsonl record against the port's
+    EVENT_SCHEMA (trace ids 32 hex digits, span ids 16), critpath.json's
+    schema version, numbers, stages and ranked verdict, and each
+    registered device trace's directory."""
+    from pta_replicator_tpu_torch.obs.critpath import CRITPATH_SCHEMA_VERSION
+    from pta_replicator_tpu_torch.obs.trace import EVENT_SCHEMA
+
+    problems = []
+    for k, rec in enumerate(_events_of(directory)):
+        schema = EVENT_SCHEMA.get(rec.get("type"))
+        if schema is None or any(not isinstance(rec.get(f), t) for f, t in schema.items()):
+            problems.append(f"events.jsonl:{k}: {rec}")
+        for field, nhex in (("trace_id", 32), ("span_id", 16), ("parent_id", 16)):
+            val = rec.get(field)
+            if val is not None and (len(val) != nhex or set(val) - set("0123456789abcdef")):
+                problems.append(f"events.jsonl:{k}: {field} {val!r}")
+    doc = _read_json(Path(directory) / "critpath.json")
+    if not isinstance(doc, dict) or not isinstance(doc.get("schema_version"), int) \
+            or doc["schema_version"] > CRITPATH_SCHEMA_VERSION:
+        return problems + [f"critpath.json: {str(doc)[:200]}"]
+    stages = doc.get("stages") or {}
+    for field in ("critical_path_s", "blocked_s", "attributed_fraction"):
+        if not isinstance(doc.get(field), (int, float)):
+            problems.append(f"critpath.json: {field}")
+    for name, st in stages.items():
+        if not all(isinstance(st.get(f), (int, float))
+                   for f in ("busy_s", "critical_s", "critical_share")):
+            problems.append(f"critpath.json: stage {name}")
+    verdict = doc.get("verdict") or {}
+    if not isinstance(verdict.get("summary"), str) or any(
+            r.get("stage") not in stages for r in verdict.get("ranked") or [None]):
+        problems.append(f"critpath.json: verdict {verdict}")
+    meta = _read_json(Path(directory) / "meta.json") or {}
+    for entry in meta.get("device_traces") or []:
+        if not (Path(directory) / entry).is_dir():
+            problems.append(f"meta.json: device trace {entry} missing")
+    return problems
+
+
+def _events_of(directory):
+    from pta_replicator_tpu_torch.obs.report import load_events
+
+    return load_events(str(Path(directory) / "events.jsonl"))
+
+
+def _chunk_chains(events, path):
+    """chunk -> (the stage names of its chain, the trace ids they carry),
+    and the trace id each chunk's scope gives."""
+    from pta_replicator_tpu_torch.obs.trace import chunk_trace_context
+
+    chains = {}
+    for e in events:
+        if e.get("type") == "span" and e.get("name") in ("dispatch", "drain", "io_write") \
+                and "chunk" in (e.get("attrs") or {}):
+            names_, ids = chains.setdefault(e["attrs"]["chunk"], (set(), set()))
+            names_.add(e["name"])
+            ids.add(e.get("trace_id"))
+    want = {i: chunk_trace_context(str(path), i).trace_id for i in chains}
+    return chains, want
+
+
+def _device_view(directory, doc):
+    """The merged timeline read for the gates: B.1's kernels, each with the
+    innermost host span holding its launch (the runtime call of the same
+    correlation id); the chunk flows; the open marker's readings; the
+    threads the profiler saw."""
+    from pta_replicator_tpu_torch.obs.devprof import OPEN_MARKER, WARMUP_LAUNCHES
+
+    events = doc["traceEvents"]
+    device = [e for e in events if isinstance(e.get("pid"), int) and e["pid"] >= 1 << 21]
+    host = sorted((e for e in events if e.get("cat") == "host" and e.get("ph") == "X"),
+                  key=lambda e: e["dur"])
+    kernels = [e for e in device if e.get("cat") == "kernel"]
+    runtime = [e for e in device if e.get("cat") in ("cuda_runtime", "cuda_driver")]
+    launch_of = {(e.get("args") or {}).get("correlation"): e for e in runtime}
+    b1 = []
+    for k in kernels:
+        which = next((n for n in B1_KERNELS if n in k["name"]), None)
+        if which is None:
+            continue
+        launch = launch_of.get((k.get("args") or {}).get("correlation"))
+        span = None if launch is None else next(
+            (h for h in host if h["ts"] <= launch["ts"] <= h["ts"] + h["dur"]), None)
+        b1.append(dict(kernel=which, ts=k["ts"],
+                       launch_ts=None if launch is None else launch["ts"],
+                       span=None if span is None else span["name"],
+                       span_ts=None if span is None else span["ts"]))
+    flows = collections.defaultdict(list)
+    for e in events:
+        if e.get("cat") == "chunk":
+            flows[e["id"]].append(e["ph"])
+    marker = [e for e in device if e.get("name") == OPEN_MARKER]
+    stamped = [e["ts"] for e in device if isinstance(e.get("ts"), (int, float))
+               and e.get("ph") != "M"]
+    span = next(r for r in _events_of(directory) if r.get("name") == "device_trace")
+    raw = {}
+    for f in (Path(directory) / "device_trace").glob("*.trace.json"):
+        raw = json.loads(f.read_text())
+    base_ns = raw.get("baseTimeNanoseconds")
+    raw_marker = [e["ts"] for e in raw.get("traceEvents", []) if e.get("name") == OPEN_MARKER]
+    first = min((e["ts"] for e in device if e.get("cat") == "kernel"
+                 and (not marker or e["ts"] >= marker[0]["ts"])), default=None)
+    # the session's warm-up kernels, before the marker: how many records of a
+    # session's first kernels the profiler lost (obs/devprof.py)
+    warmup = sum(1 for e in kernels if marker and e["ts"] < marker[0]["ts"])
+    # every kernel against its launch: negative where the device's clock
+    # runs behind the host's in the trace
+    lag = sorted(k["ts"] - launch_of[c]["ts"] for k in kernels
+                 if (c := (k.get("args") or {}).get("correlation")) in launch_of)
+    return dict(
+        device_events=doc["otherData"]["device_events"], kernels=len(kernels),
+        runtime_calls=len(runtime),
+        first_kernel_after_marker_ms=(first - marker[0]["ts"]) / 1e3
+        if marker and first is not None else None,
+        warmup_lost=WARMUP_LAUNCHES - warmup,
+        kernel_after_launch_ms=[lag[0] / 1e3, lag[len(lag) // 2] / 1e3] if lag else None,
+        b1=b1, flows={int(k): v for k, v in flows.items()},
+        marker_count=len(marker),
+        # how far the JAX rule (the earliest event at t_wall_open) would sit
+        # from the marker's anchor: the profiler's start-up before the marker
+        jax_rule_offset_ms=(marker[0]["ts"] - min(stamped)) / 1e3 if marker else None,
+        # the marker on the profiler's own wall clock (its base time) against
+        # t_wall_open, when the trace carries a base time
+        marker_vs_wall_open_ms=(base_ns / 1e6 + raw_marker[0] / 1e3
+                                - span["attrs"]["t_wall_open"] * 1e3)
+        if base_ns and raw_marker else None,
+        # the B.1 launches' least distance past the start of their host span
+        launch_slack_ms=min((b["launch_ts"] - b["span_ts"]) / 1e3 for b in b1
+                            if b["span_ts"] is not None) if any(
+                                b["span_ts"] is not None for b in b1) else None,
+        threads=dict(cuda_runtime=len({e.get("tid") for e in runtime}),
+                     cpu_op=len({e.get("tid") for e in device if e.get("cat") == "cpu_op"})),
+        trace_mb=sum(f.stat().st_size for f in (Path(directory) / "device_trace").iterdir())
+        / 2**20,
+    )
+
+
+def _attribution_gates(tag, directory, path, nchunks, view):
+    """The gates both arms share: the capture passes the schema checks;
+    critpath.json attributes every chunk, each chain dispatch -> drain ->
+    io_write under its own trace id; the merged timeline has device events
+    with both B.1 kernels, each starting no earlier than the host span whose
+    thread launched it began, and one flow chain a chunk."""
+    problems = _capture_problems(directory)
+    require(not problems, f"time_attribution {tag}: schema {problems[:5]}")
+    doc = _read_json(Path(directory) / "critpath.json")
+    require(doc["chunks"]["count"] == nchunks and doc["chunks"]["trace_coherent_fraction"] == 1.0,
+            f"time_attribution {tag}: critpath chunks {doc['chunks']}")
+    chains, want = _chunk_chains(_events_of(directory), path)
+    require(sorted(chains) == list(range(nchunks)) and all(
+        chains[i][0] == {"dispatch", "drain", "io_write"} and chains[i][1] == {want[i]}
+        for i in chains), f"time_attribution {tag}: chunk chains {chains} {want}")
+    require(view["device_events"] > 0 and view["marker_count"] == 1,
+            f"time_attribution {tag}: device events {view['device_events']}, "
+            f"markers {view['marker_count']}")
+    seen = {n for n in B1_KERNELS if any(n in b["kernel"] for b in view["b1"])}
+    require(seen == set(B1_KERNELS), f"time_attribution {tag}: B.1 kernels {view}")
+    require(all(b["span_ts"] is not None and b["ts"] >= b["span_ts"] for b in view["b1"]),
+            f"time_attribution {tag}: B.1 kernel before its host span {view['b1']}")
+    require(view["flows"] == {i: ["s", "t", "f"] for i in range(nchunks)},
+            f"time_attribution {tag}: chunk flows {view['flows']}")
+
+
+def _read_capture(tag, directory, path, nchunks):
+    """``critpath DIR`` and ``timeline DIR`` through the CLI's entry point in
+    this process, then the gates; the readings."""
+    t0 = time.perf_counter()
+    code_cp, text = _cli_in_process("critpath", str(directory))
+    code_tl, summary = _cli_in_process("timeline", str(directory))
+    read_s = time.perf_counter() - t0
+    require(code_cp == 0 and code_tl == 0, f"time_attribution {tag}: exits {code_cp} {code_tl}")
+    summary = json.loads(summary)
+    doc = json.loads(Path(summary["out"]).read_text())
+    require(doc["otherData"]["problems"] == [],
+            f"time_attribution {tag}: timeline problems {doc['otherData']['problems']}")
+    view = _device_view(directory, doc)
+    _attribution_gates(tag, directory, path, nchunks, view)
+    cp = _read_json(Path(directory) / "critpath.json")
+    del doc
+    return dict(read_s=read_s, verdict=cp["verdict"]["summary"],
+                attributed_fraction=cp["attributed_fraction"],
+                analyzer_overhead_s=cp["analyzer"]["overhead_s"],
+                timeline_summary={k: summary[k] for k in (
+                    "events", "host_spans", "flow_events", "device_events", "critpath_slices")},
+                **{k: v for k, v in view.items() if k != "b1"},
+                b1_kernels=len(view["b1"]), b1_spans=sorted({b["span"] for b in view["b1"]}))
+
+
+def _attribution_sweep(batch, recipe, path, directory=None, traced=False, schedule=None,
+                       then=None):
+    """The phase's flagship sweep, under a capture into ``directory`` when
+    given (with a device trace around the sweep when ``traced``, a fault
+    schedule armed when given, and ``then()`` run in the capture after the
+    sweep): its result, the sweep call's wall s, and the device trace's
+    open and close s (its close writes the trace)."""
+    import contextlib
+
+    from pta_replicator_tpu_torch import obs
+    from pta_replicator_tpu_torch.faults import RetryPolicy
+    from pta_replicator_tpu_torch.faults import inject
+
+    _drop_checkpoint(path, ATTRIBUTION_NREAL // ATTRIBUTION_CHUNK)
+    if directory is not None:
+        obs.start_capture(str(directory), flight_recorder=False)
+    if schedule is not None:
+        inject.arm(schedule)
+    try:
+        torch.cuda.synchronize()
+        with contextlib.ExitStack() as stack:
+            t_open = time.perf_counter()
+            if traced:
+                stack.enter_context(obs.devprof.device_trace(device=batch.device))
+            t0 = time.perf_counter()
+            out = sweep(SWEEP_SEED, batch, recipe, ATTRIBUTION_NREAL, str(path),
+                        chunk=ATTRIBUTION_CHUNK, fit=True, pipeline_depth=ATTRIBUTION_DEPTH,
+                        chunk_retries=1, retry_policy=RetryPolicy(**ATTRIBUTION_RETRY),
+                        device=batch.device)
+            wall = time.perf_counter() - t0
+            t_close = time.perf_counter()
+        trace_s = dict(open_s=t0 - t_open, close_s=time.perf_counter() - t_close)
+        if then is not None:
+            then()
+    finally:
+        inject.disarm()
+        if directory is not None:
+            obs.finish_capture(context={"phase": "time_attribution"})
+            obs.configure(None)
+    return out, wall, trace_s
+
+
+def _pipelined_arm(batch, recipe, static, traced):
+    """ATTRIBUTION_PIPELINED_CHUNKS reduced flagship chunks through
+    ``run_pipelined`` with a trace scope (``traced``), or through the same
+    three stages declared with none."""
+    from pta_replicator_tpu_torch.parallel.pipeline import (
+        PinnedReadback, dispatch_stage, drain_stage, io_write_stage, run_pipelined,
+    )
+    from pta_replicator_tpu_torch.parallel.stages import StageGraph
+
+    readback = PinnedReadback(batch.device, ATTRIBUTION_DEPTH + 1)
+
+    def dispatch(i):
+        gen = torch.Generator(device=batch.device).manual_seed(chunk_seed(SWEEP_SEED, i))
+        res = realize(gen, batch, recipe, ATTRIBUTION_CHUNK, fit=True, static=static,
+                      device=batch.device)
+        return readback.mark(sweep_mod._default_reduce(res, batch))
+
+    chunks = range(ATTRIBUTION_PIPELINED_CHUNKS)
+    try:
+        if traced:
+            run_pipelined(chunks, dispatch, lambda i, b: None, depth=ATTRIBUTION_DEPTH,
+                          fetch=readback.fetch, release=readback.release,
+                          trace_scope="time_attribution")
+        else:
+            StageGraph([dispatch_stage(dispatch), drain_stage(readback.fetch, ATTRIBUTION_DEPTH),
+                        io_write_stage(lambda i, b: None, readback.release)],
+                       window=ATTRIBUTION_DEPTH, name="sweep").run(chunks)
+    finally:
+        readback.close()
+
+
+class _AttributionCli:
+    """The phase's CLI arm, in the background beside the likelihood CLI:
+    ``realize --telemetry DIR --device-trace --checkpoint --nreal 400
+    --chunk 200 --fit`` on the dataset path's par/tim; :meth:`finish` joins
+    it and reads its capture with ``critpath DIR`` and ``timeline DIR``."""
+
+    def __init__(self, workdir):
+        self.dir, self.ck = workdir / "attribution_cli", workdir / "attribution_ck.npz"
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "pta_replicator_tpu_torch", "realize", "--pardir",
+             str(workdir / "par"), "--timdir", str(workdir / "tim"), "--recipe",
+             str(workdir / "recipe.json"), "--nreal", str(TELEMETRY_NREAL), "--chunk",
+             str(TELEMETRY_CHUNK), "--fit", "--seed", str(DATASET_SEED), "--out",
+             str(workdir / "attribution_cube.npz"), "--checkpoint", str(self.ck),
+             "--telemetry", str(self.dir), "--device-trace"],
+            cwd=str(Path(__file__).resolve().parent), stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True)
+
+    def kill(self):
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait(timeout=30)
+
+    def finish(self):
+        try:
+            out, err = self.proc.communicate(timeout=ATTRIBUTION_CLI_TIMEOUT_S)
+        finally:
+            self.kill()
+        cli_s = time.perf_counter() - self.t0
+        require(self.proc.returncode == 0,
+                f"time_attribution: CLI exit {self.proc.returncode}: {err[-1500:]}")
+        row = dict(cli_s=cli_s, **_read_capture("cli", self.dir, self.ck,
+                                                TELEMETRY_NREAL // TELEMETRY_CHUNK))
+        emit("time_attribution_cli", **row)
+        return row
+
+
+def phase_time_attribution(batch, recipe, batch64, recipe64, design, smi):
+    """Time attribution and device profiling on the card (A.16.4b). The
+    flagship sweep (68 x 7,758, float32, fit, reduced, ATTRIBUTION_NREAL in
+    chunks of 200 at depth 2) runs untraced (the rate reading), then under a
+    capture and ``devprof.device_trace``, with the tuner's search of B.3 at
+    the flagship's Q = 123 (float64) after it in the same capture; then
+    ``critpath DIR`` and ``timeline DIR`` over it through the CLI's entry
+    point in process. A second sweep, untraced, under a capture with one
+    seeded transient ``dispatch`` fault and one retry. Then run_pipelined
+    with a trace scope and the same stages without one, each under
+    torch.profiler. Gates: the schema checks (:func:`_capture_problems`);
+    critpath.json's chunks = the sweep's, each chain dispatch -> drain ->
+    io_write under its chunk's trace id; the merged timeline's device events
+    with B.1's two kernels, each starting no earlier than its launching host
+    span, and one flow chain a chunk; the retried chunk's trace holds two
+    dispatch attempts and the ``faults.retry`` event; the report renders the
+    critical path, the roofline and the device trace, with
+    ``fused_woodbury_update``'s % of roofline in (0, 100]; the traced and
+    untraced pipelines make equal ``cudaLaunchKernel`` and synchronizing
+    calls. Returns the kernels' launches on its main path (the traced sweep
+    and the tuner's search)."""
+    import random
+
+    from pta_replicator_tpu_torch.obs import report as obs_report
+    from pta_replicator_tpu_torch.obs.trace import chunk_trace_context
+
+    t_phase = time.perf_counter()
+    nchunks = ATTRIBUTION_NREAL // ATTRIBUTION_CHUNK
+    workdir = Path(tempfile.mkdtemp(prefix="chip_smoke_attribution_"))
+    path = workdir / "attribution.npz"
+    row = dict(nvidia_smi=smi, nreal=ATTRIBUTION_NREAL, chunk=ATTRIBUTION_CHUNK,
+               depth=ATTRIBUTION_DEPTH, part_s={})
+    T, w, r = _woodbury_operands(batch64, recipe64, design)
+    try:
+        with _ProcessState():
+            t_part = time.perf_counter()
+            _attribution_sweep(batch, recipe, path)  # warm
+            plain, plain_s, _ = _attribution_sweep(batch, recipe, path)
+            traced_dir = workdir / "traced"
+            choice = {}
+            launches.clear()
+            traced, traced_s, trace_s = _attribution_sweep(
+                batch, recipe, path, traced_dir, traced=True,
+                then=lambda: choice.update(tuner.autotune(
+                    T, w, r, reps=TUNER_REPS, write=False,
+                    cache_path=str(workdir / "tuner.json"))))
+            counts = dict(launches)
+            row["part_s"]["sweeps"] = time.perf_counter() - t_part
+            row["sweep"] = dict(plain_s=plain_s, traced_s=traced_s,
+                                traced_rate_over_plain=plain_s / traced_s, **trace_s,
+                                outputs_equal=bool(np.array_equal(plain, traced)),
+                                tuner_winner=choice.get("nsplit"))
+            t_part = time.perf_counter()
+            row["traced"] = _read_capture("in_process", traced_dir, path, nchunks)
+            report_text = obs_report.render_report(str(traced_dir))
+            metrics = _read_json(traced_dir / "metrics.json") or {}
+            row["roofline"] = {
+                inst["labels"]["label"]: inst["value"]
+                for inst in metrics.get("cuda.roofline.pct_of_roofline", [])}
+            row["report_sections"] = {s: s in report_text for s in ATTRIBUTION_SECTIONS}
+            row["part_s"]["read"] = time.perf_counter() - t_part
+
+            # the retry arm: one seeded transient dispatch fault, one retry
+            t_part = time.perf_counter()
+            k = random.Random(ATTRIBUTION_FAULT_SEED).randrange(1, nchunks)
+            retry_dir = workdir / "retried"
+            retried, _, _ = _attribution_sweep(batch, recipe, path, retry_dir,
+                                               schedule=f"dispatch:raise@chunk={k}")
+            events = _events_of(retry_dir)
+            want = chunk_trace_context(str(path), k).trace_id
+            row["retry"] = dict(
+                chunk=k, trace_id=want,
+                attempts=[e.get("trace_id") for e in events if e.get("name") == "dispatch"
+                          and (e.get("attrs") or {}).get("chunk") == k],
+                retry_events=[dict(trace_id=e.get("trace_id"), chunk=e["attrs"].get("chunk"))
+                              for e in events if e.get("type") == "event"
+                              and e.get("name") == "faults.retry"],
+                outputs_equal=bool(np.array_equal(retried, plain)))
+            row["part_s"]["retry"] = time.perf_counter() - t_part
+
+            # a trace scope adds no launch and no synchronizing call
+            t_part = time.perf_counter()
+            static = deterministic_delays(batch, recipe, device=batch.device)
+            row["pipelined"] = {
+                mode: _sync_calls(lambda t=traced_: _pipelined_arm(batch, recipe, static, t),
+                                  calls=NUMERICS_RUNTIME_CALLS)[0]
+                for mode, traced_ in (("scoped", True), ("unscoped", False))}
+            del static
+            row["part_s"]["pipelined"] = time.perf_counter() - t_part
+    finally:
+        del T, w, r
+        shutil.rmtree(workdir, ignore_errors=True)
+    row["launches"] = counts
+    row["seconds_in_process"] = time.perf_counter() - t_phase
+    emit("time_attribution", **row)
+    require(row["sweep"]["outputs_equal"], "time_attribution: the trace changed the sweep's output")
+    require(all(row["report_sections"].values()),
+            f"time_attribution: report sections {row['report_sections']}")
+    woodbury = {k: v for k, v in row["roofline"].items()
+                if k.startswith("fused_woodbury_update")}
+    require(woodbury and all(0 < v <= 100 for v in woodbury.values()),
+            f"time_attribution: fused_woodbury_update % of roofline {row['roofline']}")
+    retry = row["retry"]
+    require(retry["attempts"] == [retry["trace_id"]] * 2
+            and retry["retry_events"] == [dict(trace_id=retry["trace_id"], chunk=retry["chunk"])]
+            and retry["outputs_equal"], f"time_attribution: retried chunk {retry}")
+    scoped, unscoped = row["pipelined"]["scoped"], row["pipelined"]["unscoped"]
+    require(all(scoped[c] == unscoped[c] for c in ("cudaLaunchKernel", *SYNC_CALLS)),
+            f"time_attribution: trace scope changed the CUDA calls {row['pipelined']}")
+    require(counts.get("cw_catalog_response", 0) > 0 and counts.get("cw_fold_planes", 0) > 0
+            and counts.get("fused_woodbury_update", 0) > 0,
+            f"time_attribution: launches {counts}")
+    return counts
 
 
 def fuzz_cover_n():
@@ -4831,13 +5277,19 @@ def main():
         chaos_b1, chaos_accumulate, chaos_fold = phase_chaos(workdir, batch, recipe, smi)
         numerics_counts = phase_numerics_observatory(workdir, batch, recipe, smi)
         live_row, live_arms, live_counts = phase_live_run(workdir, batch, recipe, smi)
-        # the live-run CLI arms run beside the likelihood CLI's phase
+        # the live-run and time-attribution CLI arms run beside the likelihood
+        # CLI's phase
+        attribution_cli = _AttributionCli(workdir)
         try:
-            phase_likelihood_cli(workdir)
-        except BaseException:
-            live_arms.kill()
-            raise
-        phase_live_run_cli(live_row, live_arms)
+            try:
+                phase_likelihood_cli(workdir)
+            except BaseException:
+                live_arms.kill()
+                raise
+            phase_live_run_cli(live_row, live_arms)
+            attribution_cli.finish()
+        finally:
+            attribution_cli.kill()
         oracle_cw_counts, oracle_gls_counts = phase_oracle_path(workdir, smi)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
@@ -4871,6 +5323,7 @@ def main():
     del bank
     torch.cuda.empty_cache()
     phase_tuner_woodbury(batch64, recipe64, design)
+    attribution_counts = phase_time_attribution(batch, recipe, batch64, recipe64, design, smi)
     phase_map_fit(batch64, recipe64, torch.Generator(device=batch64.device).manual_seed(6))
     phase_map_fit_card_vs_cpu(SMALL)
     torch.cuda.empty_cache()
@@ -4910,6 +5363,8 @@ def main():
         "numerics_launches": numerics_counts.get("cw_catalog_response", 0),
         "live_run_launches": live_counts.get("cw_catalog_response", 0),
         "live_run_fold_launches": live_counts.get("cw_fold_planes", 0),
+        "time_attribution_launches": attribution_counts.get("cw_catalog_response", 0),
+        "time_attribution_fold_launches": attribution_counts.get("cw_fold_planes", 0),
         "dataset_catalog": _width_row({**dataset_row, "library_ms": None}),
         "oracle_launches": oracle_cw_counts["cw_catalog_response"],
         "oracle_fold_launches": oracle_cw_counts["cw_fold_planes"],
@@ -4928,6 +5383,7 @@ def main():
         "fuzz_launches": fuzz_counts.get("fused_woodbury_update", 0),
         "chaos_server_launches": chaos_server_b3,
         "live_run_server_launches": live_server_b3,
+        "time_attribution_tuner_launches": attribution_counts.get("fused_woodbury_update", 0),
     }, {
         "name": "fused_woodbury_update_bf16", "route": "cuda",
         "source": "pta_replicator_tpu_torch/csrc/fused_woodbury.cu",

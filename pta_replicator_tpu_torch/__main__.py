@@ -22,6 +22,8 @@ realization bank, and the declarative scenario path.
         [--bind HOST]
     python -m pta_replicator_tpu_torch postmortem DIR
     python -m pta_replicator_tpu_torch numerics report DIR
+    python -m pta_replicator_tpu_torch critpath DIR [--out PATH] [--json]
+    python -m pta_replicator_tpu_torch timeline DIR [--out PATH]
 
 The counterpart of ``python -m pta_replicator_tpu info|realize|likelihood|
 scenario``: the same arguments, guards, exit codes and JSON output, with
@@ -73,6 +75,18 @@ and no heartbeat; ``--serve PORT`` (0: an ephemeral port) serves
 ``/readyz`` on ``--bind`` (default 127.0.0.1) while it watches.
 ``postmortem DIR`` renders the black box.
 
+``realize --telemetry DIR --device-trace`` also profiles the run with
+torch.profiler (CPU and CUDA activities; CPU only with ``--device cpu``)
+into ``DIR/device_trace``, registered in ``meta.json``
+(``obs/devprof.py``); without ``--telemetry`` it exits non-zero before any
+work. After a run, ``critpath DIR`` writes ``DIR/critpath.json``, the
+critical-path attribution (per-stage exclusive seconds, the per-chunk
+chains, a ranked verdict; exit 2 when the capture has no stage spans),
+and prints its rendering (``--json``: the document); ``timeline DIR``
+writes ``DIR/timeline.json``, one Perfetto file of the host spans, the
+chunk flows, the critical path and the device traces on the wall clock,
+and prints its summary. Both read either package's capture.
+
 ``--faults SCHEDULE`` (every subcommand; ``--faults-seed`` seeds its
 ``p=`` triggers) arms a fault-injection schedule before any work and
 before a capture starts (``faults/inject.py``; e.g. ``'drain:raise@chunk=1;
@@ -83,8 +97,7 @@ capture's ``numerics.json`` (either package's; ``PTA_NUMERICS=1`` arms
 the observatory for a ``--telemetry`` capture).
 
 Flags of modules not ported yet exit non-zero before any work:
-``--sharded`` and ``--mesh-shape`` (ROADMAP A.17) and ``--device-trace``
-(A.16.4b).
+``--sharded`` and ``--mesh-shape`` (ROADMAP A.17).
 """
 from __future__ import annotations
 
@@ -110,7 +123,9 @@ def _parser() -> argparse.ArgumentParser:
                        help="the torch device (default cuda; cpu on request)")
     p = sub.choices["realize"]
     p.add_argument("--device-trace", action="store_true",
-                   help="not ported (ROADMAP A.16.4b): exits non-zero")
+                   help="also profile the run with torch.profiler (CPU and CUDA activities) "
+                        "into <telemetry dir>/device_trace, registered as a capture artifact "
+                        "in meta.json (merge it with `timeline DIR`); requires --telemetry")
     p.add_argument("--recipe", required=True, help="JSON recipe file")
     p.add_argument("--nreal", type=int, default=100)
     p.add_argument("--out", required=True)
@@ -267,6 +282,24 @@ def _parser() -> argparse.ArgumentParser:
                          "shadow-oracle drift per family, and the bf16 readiness verdict")
     p.add_argument("action", choices=("report",), help="report: pretty-print DIR/numerics.json")
     p.add_argument("dir", help="the run's --telemetry directory")
+    p = sub.add_parser(
+        "timeline", help="merge a capture's host spans, stage tracks, chunk flow links, the "
+                         "critical path and any registered torch.profiler device traces into "
+                         "ONE clock-aligned chrome://tracing file")
+    p.add_argument("dir", help="the run's --telemetry directory")
+    p.add_argument("--out", default=None, metavar="PATH",
+                   help="output path (default DIR/timeline.json)")
+    p = sub.add_parser(
+        "critpath", help="critical-path attribution over a finished capture: per-chunk span "
+                         "chains, busy/blocked/queue-wait decomposition, straggler spread and "
+                         "a ranked bottleneck verdict with estimated savings, written as "
+                         "DIR/critpath.json (served at /critpath, rendered in `report`, "
+                         "annotated in `timeline`)")
+    p.add_argument("dir", help="the run's --telemetry directory")
+    p.add_argument("--out", default=None, metavar="PATH",
+                   help="output path (default DIR/critpath.json)")
+    p.add_argument("--json", action="store_true",
+                   help="print the full critpath.json document instead of the rendered verdict")
     for p in sub.choices.values():
         p.add_argument("--faults", default=None, metavar="SCHEDULE",
                        help="arm a fault-injection schedule, e.g. 'drain:raise@chunk=2;"
@@ -444,7 +477,6 @@ def _run_scenario(args):
 UNPORTED_FLAGS = (
     ("sharded", "--sharded", "A.17 (multi-GPU)"),
     ("mesh_shape", "--mesh-shape", "A.17 (multi-GPU)"),
-    ("device_trace", "--device-trace", "A.16.4b (device profiling)"),
 )
 
 
@@ -817,6 +849,40 @@ def _watch(args):
         raise SystemExit(rc)
 
 
+def _timeline(args):
+    """``timeline DIR``: write the merged trace and print its summary; the
+    problems it met go to stderr."""
+    from .obs.timeline import build_timeline, write_timeline
+
+    doc = build_timeline(args.dir)
+    out = write_timeline(args.dir, out=args.out, doc=doc)
+    summary = dict(doc.get("otherData") or {})
+    summary["out"] = out
+    summary["events"] = len(doc.get("traceEvents") or [])
+    print(json.dumps(summary, indent=1, sort_keys=True))
+    for problem in summary.get("problems") or []:
+        print(f"warning: {problem}", file=sys.stderr)
+
+
+def _critpath(args):
+    """``critpath DIR``: attribute, write ``critpath.json`` and print the
+    rendering (``--json``: the document). Exit 2 on a capture with no stage
+    spans: unusable input, where 1 would read as a failed gate."""
+    from .obs import critpath
+
+    doc = critpath.analyze_capture(args.dir)
+    if doc is None:
+        print(f"critpath: {args.dir}: no stage spans to attribute (missing events.jsonl, "
+              "or the run never touched a staged executor)", file=sys.stderr)
+        raise SystemExit(2)
+    out = critpath.write_critpath(args.dir, out=args.out, doc=doc)
+    if args.json:
+        print(json.dumps(doc, indent=1, sort_keys=True))
+    else:
+        print(critpath.render_critpath(doc))
+    print(f"critpath: wrote {out}", file=sys.stderr)
+
+
 def _main(args, argv):
     if args.cmd == "report":
         from .obs.report import print_report
@@ -836,18 +902,30 @@ def _main(args, argv):
 
         print_postmortem(args.dir)
         return
+    if args.cmd == "timeline":
+        return _timeline(args)
+    if args.cmd == "critpath":
+        return _critpath(args)
     # every refusal comes before any work, a capture's included
     _refuse_unported(args)
+    device_trace = getattr(args, "device_trace", False)
+    if device_trace and not args.telemetry:
+        raise SystemExit("--device-trace requires --telemetry DIR (the trace is an "
+                         "artifact of the capture)")
     if not args.telemetry:
         return _run_command(args)
 
     # capture mode: spans and metrics stream into the telemetry directory,
     # whose files are written even when the run raises
+    import contextlib
+
     from . import obs
 
     obs.start_capture(args.telemetry)
     try:
-        with obs.span(args.cmd):
+        profiled = (obs.devprof.device_trace(device=_device(args.device, args.cmd))
+                    if device_trace else contextlib.nullcontext())
+        with obs.span(args.cmd), profiled:
             return _run_command(args)
     finally:
         obs.finish_capture(context={

@@ -177,8 +177,13 @@ def autotune(T, w, r, precision: str = "highest", candidates: Optional[Sequence[
     (CUDA-event time), unless given. Returns the choice record cached.
     The search runs under a ``gp_tune`` span and counts in
     ``tuner.searches``; :func:`woodbury_knob` counts its hits in
-    ``tuner.cache_hits``."""
-    from ..obs import counter, names, span
+    ``tuner.cache_hits``. The kernel's operations and bytes at the search
+    shape go to the ``cuda.cost.*`` gauges (label
+    ``fused_woodbury_update``), and each candidate's roofline position from
+    its time to ``cuda.roofline.*`` (label
+    ``fused_woodbury_update[<knob>=<value>]``), as the JAX tuner records
+    ``jax.cost.*`` and ``jax.roofline.*`` (``obs/devprof.py``)."""
+    from ..obs import counter, devprof, names, span
 
     route, knob, key = _key(T, precision)
     npsr, ntoa, q = T.shape
@@ -190,12 +195,20 @@ def autotune(T, w, r, precision: str = "highest", candidates: Optional[Sequence[
             candidates = WOODBURY_CANDIDATES
     scored = []
     bucket = shape_bucket(npsr, ntoa, q if route == "cuda" else None)
+    label = "fused_woodbury_update"
+    cost = devprof.record_kernel_cost(
+        label, ops_gp.woodbury_operations(npsr, ntoa, q, precision),
+        ops_gp.woodbury_bytes(npsr, ntoa, q, T.element_size(), precision))
     with span(names.SPAN_GP_TUNE, backend=route, bucket=bucket):
         counter(names.TUNER_SEARCHES, backend=route).inc()
         for value in candidates:
             kw = {knob: int(value)}
             run = lambda: ops_gp.fused_woodbury_update(T, w, r, precision=precision, **kw)
             seconds = _cuda_s(run, reps) if route == "cuda" else _median_s(run, reps)
+            devprof.roofline(f"{label}[{knob}={int(value)}]", flops=cost["flops"],
+                             bytes_accessed=cost["bytes_accessed"], elapsed_s=seconds,
+                             device_kind=device_kind(T.device),
+                             dtype="bfloat16" if precision == "bf16" else T.dtype)
             scored.append({knob: int(value), "seconds": seconds})
     best = min(scored, key=lambda s: s["seconds"])
     choice = {

@@ -1,5 +1,5 @@
-"""Telemetry of the port: spans, metrics, captures and their report, and
-the numerics ledger.
+"""Telemetry of the port: spans, metrics, captures and their report, the
+numerics ledger, time attribution and device profiling.
 
 Counterpart of ``pta_replicator_tpu/obs/__init__.py``. Library
 instrumentation uses exactly these entry points::
@@ -29,13 +29,18 @@ occupancy, series trends and the SLO verdict, the watchdog, and
 ``postmortem.json`` when the run is killed or raises; ``watch DIR`` tails
 it and ``watch --serve PORT`` serves it (``obs/serve.py``).
 
+After a run, ``critpath DIR`` attributes the wall time to the stages
+(``obs/critpath.py``: where the next second lives) and ``timeline DIR``
+merges the host spans, the chunk flows, the critical path and the device
+traces into one Perfetto file (``obs/timeline.py``). ``--device-trace``
+(``obs/devprof.py::device_trace``) profiles the card with torch.profiler
+inside a capture; ``devprof`` also records the hand kernels' costs and
+roofline positions (``cuda.cost.*``, ``cuda.roofline.*``).
+
 Spans and metrics are host-side: nothing here synchronizes the card, and
 gauges hold host numbers. ``meta.json`` and the heartbeat record the card's
 memory from the caching allocator's counters (``torch.cuda.memory_allocated``
 and ``max_memory_allocated``), which read host-side state.
-
-Not ported yet (ROADMAP A.16.4b): the critical path, the merged timeline
-and device profiling.
 """
 from __future__ import annotations
 
@@ -44,7 +49,20 @@ import os
 import sys
 import time
 
-from . import flightrec, metrics, names, numerics, occupancy, serve, series, slo, trace
+from . import (
+    critpath,
+    devprof,
+    flightrec,
+    metrics,
+    names,
+    numerics,
+    occupancy,
+    serve,
+    series,
+    slo,
+    timeline,
+    trace,
+)
 from .flightrec import FlightRecorder, StallWarning, device_memory_snapshot
 from .metrics import REGISTRY, counter, gauge, histogram
 from .trace import (
@@ -65,7 +83,7 @@ __all__ = [
     "telemetry_summary", "reset_all", "device_memory_snapshot", "metrics",
     "trace", "names", "TraceContext", "adopt", "carry", "current_trace",
     "flightrec", "FlightRecorder", "StallWarning", "numerics", "occupancy",
-    "serve", "series", "slo",
+    "serve", "series", "slo", "critpath", "timeline", "devprof",
 ]
 
 #: artifacts of an earlier run that a new capture into the same directory
@@ -111,6 +129,7 @@ def start_capture(
         stale.stop(finished=False)
     TRACER.reset()
     REGISTRY.reset()
+    devprof.reset()
     trace.configure(directory)
     for artifact in STALE_ARTIFACTS:
         try:
@@ -159,6 +178,9 @@ def finish_capture(context: dict = None) -> None:
         "dropped_events": TRACER.dropped,
         "device_memory": device_memory_snapshot(),
     }
+    traces = devprof.trace_dirs(relative_to=directory)
+    if traces:
+        meta["device_traces"] = traces
     torch = sys.modules.get("torch")
     if torch is not None:
         meta["torch_version"] = torch.__version__
@@ -189,12 +211,13 @@ def telemetry_summary() -> dict:
 
 def reset_all() -> None:
     """Stop a flight recorder still sampling, take its crash hooks down, and
-    clear the global tracer's buffers, the metrics registry and the
-    numerics ledger (tests)."""
+    clear the global tracer's buffers, the metrics registry, the registered
+    device traces and the numerics ledger (tests)."""
     rec = flightrec.active()
     if rec is not None:
         rec.stop(finished=False)
     flightrec.uninstall_crash_hooks()
     TRACER.reset()
     REGISTRY.reset()
+    devprof.reset()
     numerics.reset()

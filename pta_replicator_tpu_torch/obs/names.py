@@ -7,7 +7,10 @@ either package's capture. Producers import the constant
 (``gauge(names.SWEEP_CHUNKS_DONE)``) or use the literal string.
 
 The ``jax.*`` names stay registered (the report groups them), but the port
-emits none of them. The span/event record schema is a separate contract
+emits none of them. Its device accounting has names of its own: the
+``cuda.cost.*`` and ``cuda.roofline.*`` gauge families of
+``obs/devprof.py``, in place of ``jax.cost.*`` and ``jax.roofline.*``.
+The span/event record schema is a separate contract
 (:data:`.trace.EVENT_SCHEMA`).
 """
 from __future__ import annotations
@@ -407,13 +410,20 @@ JAX_COST_PREFIX = "jax.cost."
 #: roofline gauges derived from jax.cost.* + measured elapsed time
 #: (achieved FLOP/s, bytes/s, arithmetic intensity, % of roofline)
 JAX_ROOFLINE_PREFIX = "jax.roofline."
+#: the port's counterparts of the two families above (obs/devprof.py):
+#: a hand kernel's operation and byte counts per call, labeled by kernel
+#: (``record_kernel_cost``), and the roofline position of its measured
+#: time (``roofline``)
+CUDA_COST_PREFIX = "cuda.cost."
+CUDA_ROOFLINE_PREFIX = "cuda.roofline."
 METRIC_PREFIXES = (
     JAX_MEMORY_PREFIX, JAX_TRANSFER_PREFIX, JAX_COST_PREFIX,
-    JAX_ROOFLINE_PREFIX,
+    JAX_ROOFLINE_PREFIX, CUDA_COST_PREFIX, CUDA_ROOFLINE_PREFIX,
 )
 
 #: dotted-name groups the report renderer and postmortem filter key on
 JAX_PREFIX = "jax."
+CUDA_PREFIX = "cuda."
 SWEEP_PREFIX = "sweep."
 FLIGHTREC_PREFIX = "flightrec."
 PIPELINE_PREFIX = "pipeline."

@@ -14,19 +14,21 @@ directory (written by ``--telemetry DIR`` on the CLI, or by
 * ``postmortem.json``   the black box of a killed or crashed run
 * ``series.jsonl``      the decimated series and streaming percentiles
 * ``slo.json``          the SLO engine's verdict, when objectives were set
+* ``critpath.json``     the critical-path attribution (``critpath DIR``)
+* ``device_trace/``     a ``--device-trace`` profile, registered in
+                        ``meta.json``'s ``device_traces``
 
 The formats are the JAX package's, so this module reads a capture of
 either package. Every artifact is optional, and a truncated one loads as
 None with a note in ``data["problems"]``: loading never raises on bad data.
 The report's sections: the span tree, utilization (stage occupancy from
-the events), SLO, numerics, series sparklines and percentiles, the card's
-memory, the metrics, stalls, an unfinished run's last heartbeat and a
-postmortem's pointer. ``render_postmortem`` and ``watch_progress`` are the
-``postmortem`` and ``watch`` subcommands' bodies.
-
-The JAX package's captures may also hold ``critpath.json`` (its
-critical-path module, ROADMAP A.16.4b in the port); the report names it on
-one line instead of skipping it silently.
+the events), the critical path (``critpath.json`` when written, else
+attributed from the events), SLO, numerics, series sparklines and
+percentiles, the roofline (``cuda.roofline.*``, or a JAX capture's
+``jax.roofline.*``), the device traces, the card's memory, the metrics,
+stalls, an unfinished run's last heartbeat and a postmortem's pointer.
+``render_postmortem`` and ``watch_progress`` are the ``postmortem`` and
+``watch`` subcommands' bodies.
 """
 from __future__ import annotations
 
@@ -36,9 +38,6 @@ from typing import Dict, List, Optional, TextIO
 
 from . import names, occupancy
 from .series import load_series
-
-#: capture artifacts of modules the port has not ported (ROADMAP A.16.4b)
-NOT_RENDERED = ("critpath.json",)
 
 
 def load_events(path: str) -> List[dict]:
@@ -61,13 +60,12 @@ def load_telemetry(directory: str) -> dict:
     """Read every artifact of a telemetry directory that the port renders.
     Missing artifacts load as None (events: []); a corrupt or truncated
     JSON artifact also loads as None, with a note appended to
-    ``["problems"]``. ``["not_rendered"]`` lists the artifacts of
-    :data:`NOT_RENDERED` the directory holds."""
+    ``["problems"]``."""
     out = {
         "directory": directory, "events": [], "metrics": None,
         "meta": None, "progress": None, "postmortem": None,
-        "series": None, "slo": None, "numerics": None,
-        "not_rendered": [], "problems": [],
+        "series": None, "slo": None, "critpath": None, "numerics": None,
+        "problems": [],
     }
     if not os.path.isdir(directory):
         out["problems"].append(f"{directory}: not a directory")
@@ -87,6 +85,7 @@ def load_telemetry(directory: str) -> dict:
         ("progress", "progress.json"),
         ("postmortem", "postmortem.json"),
         ("slo", "slo.json"),
+        ("critpath", "critpath.json"),
         ("numerics", "numerics.json"),
     ):
         p = os.path.join(directory, fname)
@@ -97,8 +96,6 @@ def load_telemetry(directory: str) -> dict:
                 out[key] = json.load(fh)
         except (json.JSONDecodeError, OSError) as exc:
             out["problems"].append(f"{fname}: unreadable ({exc})")
-    out["not_rendered"] = [f for f in NOT_RENDERED
-                           if os.path.exists(os.path.join(directory, f))]
     return out
 
 
@@ -209,20 +206,29 @@ def _metric_rows(metrics: dict) -> List[str]:
 def render_report(
     directory: str, min_ms: float = 0.0, as_json: bool = False
 ) -> str:
-    """The ``report`` CLI body: span tree, utilization, SLO, numerics,
-    series, device memory, metrics, stalls and the run's end."""
+    """The ``report`` CLI body: span tree, utilization, critical path, SLO,
+    numerics, series, roofline, device traces and memory, metrics, stalls
+    and the run's end."""
+    from . import critpath as _critpath
+
     data = load_telemetry(directory)
     agg = aggregate_spans(data["events"])
     metrics = data["metrics"] or {}
     util = occupancy.analyze(data["events"])
+    # a written critpath.json wins (it carries the analyzer's own overhead
+    # stamp); else attribute from the events in hand. A newer writer's
+    # document is not misread: re-derived from the events instead
+    cp = data["critpath"]
+    if cp and cp.get("schema_version", 0) > _critpath.CRITPATH_SCHEMA_VERSION:
+        cp = None
+    cp = cp or _critpath.analyze(data["events"])
 
     if as_json:
         return json.dumps(
             {"spans": agg, "metrics": metrics, "meta": data["meta"],
              "progress": data["progress"], "postmortem": data["postmortem"],
              "series": data["series"], "slo": data["slo"],
-             "numerics": data["numerics"], "utilization": util,
-             "not_rendered": data["not_rendered"],
+             "numerics": data["numerics"], "critpath": cp, "utilization": util,
              "problems": data["problems"]},
             indent=1, sort_keys=True,
         )
@@ -239,11 +245,6 @@ def render_report(
             parts.append(ctx)
     for problem in data["problems"]:
         parts.append(f"  warning: {problem}")
-    if data["not_rendered"]:
-        parts.append(
-            f"  not rendered by the port (ROADMAP A.16.4b): "
-            f"{', '.join(data['not_rendered'])}"
-        )
     if not data["events"] and not metrics and not data["progress"] and \
             not data["postmortem"]:
         parts.append("")
@@ -261,6 +262,10 @@ def render_report(
         parts.append("")
         parts.append(render_utilization(util))
 
+    if cp:
+        parts.append("")
+        parts.append(_critpath.render_critpath(cp))
+
     for section in (render_slo(data["slo"]) if data["slo"] else "",
                     render_numerics(data["numerics"]) if data["numerics"] else ""):
         if section:
@@ -275,13 +280,29 @@ def render_report(
                 parts.append("")
                 parts.append(section)
 
+    # the roofline gauges render once, in their own section below
+    roofline_prefixes = (names.JAX_ROOFLINE_PREFIX, names.CUDA_ROOFLINE_PREFIX)
     jax_rows = _metric_rows(
-        {k: v for k, v in metrics.items() if k.startswith(names.JAX_PREFIX)}
+        {k: v for k, v in metrics.items()
+         if k.startswith(names.JAX_PREFIX) and not k.startswith(roofline_prefixes)}
     )
     if jax_rows:
         parts.append("")
         parts.append("jax accounting:")
         parts.extend(jax_rows)
+    roof_rows = _roofline_rows(metrics)
+    if roof_rows:
+        parts.append("")
+        parts.append("roofline (per kernel label):")
+        parts.extend(roof_rows)
+    traces = meta.get("device_traces") or []
+    if traces:
+        parts.append("")
+        for trace_dir in traces:
+            parts.append(
+                f"device trace: {trace_dir} (torch.profiler chrome trace — "
+                "merge it with `timeline DIR`, open in Perfetto)"
+            )
     mem = meta.get("device_memory") or []
     for snap in mem:
         if "bytes_in_use" in snap:
@@ -295,7 +316,7 @@ def render_report(
 
     other_rows = _metric_rows(
         {k: v for k, v in metrics.items()
-         if not k.startswith(names.JAX_PREFIX)}
+         if not k.startswith((names.JAX_PREFIX, *roofline_prefixes))}
     )
     if other_rows:
         parts.append("")
@@ -518,6 +539,44 @@ def render_utilization(util: dict) -> str:
     if util.get("bottleneck"):
         lines.append(f"  bottleneck: {util['bottleneck']}")
     return "\n".join(lines)
+
+
+def _roofline_rows(metrics: dict) -> List[str]:
+    """Per-label roofline lines from the ``cuda.roofline.*`` gauges (or a
+    JAX capture's ``jax.roofline.*``): achieved rate, intensity, and the
+    compute- or memory-bound verdict (derived here from the intensity and
+    the recorded ridge, so it works from metrics.json alone)."""
+    from . import devprof
+
+    per_label: Dict[str, dict] = {}
+    for name, insts in metrics.items():
+        for prefix in (names.CUDA_ROOFLINE_PREFIX, names.JAX_ROOFLINE_PREFIX):
+            if not name.startswith(prefix):
+                continue
+            key = name[len(prefix):]
+            for inst in insts:
+                label = (inst.get("labels") or {}).get("label", "?")
+                per_label.setdefault(label, {})[key] = inst.get("value")
+    rows = []
+    for label in sorted(per_label):
+        vals = per_label[label]
+        flops = vals.get("flops_per_s")
+        if not flops:
+            continue
+        row = f"  {label}: {flops / 1e12:.3f} TFLOP/s"
+        if vals.get("bytes_per_s"):
+            row += f", {vals['bytes_per_s'] / 1e9:.2f} GB/s"
+        if vals.get("intensity_flop_per_byte"):
+            row += f", {vals['intensity_flop_per_byte']:.1f} flop/B"
+        ridge = vals.get("ridge_intensity")
+        if ridge and vals.get("intensity_flop_per_byte"):
+            row += " -> " + devprof.classify(vals["intensity_flop_per_byte"], ridge)
+            if vals.get("pct_of_roofline") is not None:
+                row += f" ({vals['pct_of_roofline']:.1f}% of roofline)"
+        elif vals.get("pct_of_peak_flops") is not None:
+            row += f" ({vals['pct_of_peak_flops']:.1f}% of peak)"
+        rows.append(row)
+    return rows
 
 
 def _stall_count(metrics: dict, progress: Optional[dict]) -> int:

@@ -15,8 +15,8 @@ every tick; this module serves them over standard-library HTTP:
   episode);
 * ``/slo``, ``/numerics``, ``/postmortem``: ``slo.json``,
   ``numerics.json``, ``postmortem.json``;
-* ``/critpath``: ``critpath.json``, which the port does not write yet
-  (ROADMAP A.16.4b), so it answers 404 as any missing file does;
+* ``/critpath``: ``critpath.json``, the attribution ``critpath DIR``
+  writes (404 before it is written, as any missing file);
 * ``/``: a JSON index.
 
 Read-only: GET and HEAD only, every route a fixed file name inside the

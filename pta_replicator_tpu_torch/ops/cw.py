@@ -67,6 +67,19 @@ OPS_PER_ELEMENT = {
 }
 
 
+def cw_catalog_operations(npsr: int, ntoa: int, nsrc: int, psr_term: bool,
+                          evolve: bool) -> int:
+    """Floating-point operations of one response: :data:`OPS_PER_ELEMENT`
+    per (pulsar, TOA, source) element."""
+    return OPS_PER_ELEMENT[(psr_term, evolve)] * npsr * ntoa * nsrc
+
+
+def cw_catalog_bytes(npsr: int, ntoa: int, nsrc: int, itemsize: int) -> int:
+    """Bytes one response must move, each once: the times in and the sum
+    out ((Np, Nt) each), the (NC_SRC, Ns) and (NC_PSR, Np, Ns) planes in."""
+    return itemsize * (2 * npsr * ntoa + NC_SRC * nsrc + NC_PSR * npsr * nsrc)
+
+
 def cw_catalog_planes(phat, gwtheta, gwphi, mc, dist, fgw, phase0, psi, inc,
                       pdist=1.0, pphase=None, t_fold: float = 0.0,
                       evolve: bool = True, phase_approx: bool = False):

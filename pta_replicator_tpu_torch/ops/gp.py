@@ -109,6 +109,16 @@ def woodbury_operations(npsr: int, ntoa: int, q: int, precision: str = "highest"
     return npsr * ntoa * (q * (q + 1) + 4 * q + 3)
 
 
+def woodbury_bytes(npsr: int, ntoa: int, q: int, itemsize: int,
+                   precision: str = "highest") -> int:
+    """Bytes the assembly must move, each input read once and each output
+    written once: T, w and r in their dtype (``itemsize`` bytes), T^T W T,
+    T^T W r and r^T W r in it too, or in float32 for ``"bf16"``."""
+    out_size = 4 if precision == "bf16" else itemsize
+    return (itemsize * (npsr * ntoa * q + 2 * npsr * ntoa)
+            + out_size * (npsr * q * q + npsr * q + npsr))
+
+
 def _check_operands(T, w, r):
     if T.ndim != 3 or w.shape != T.shape[:2] or r.shape != T.shape[:2]:
         raise ValueError(

@@ -31,9 +31,20 @@ the ``pipeline.drain_timeouts`` counter. The dispatch span measures the
 launch (kernels run asynchronously); the drain span closes after the
 readback's own wait. Each stage's fault site (``dispatch``, ``drain``,
 ``io_write``; ``faults/inject.py``) fires inside its span.
+
+**Causal tracing**: every chunk gets a deterministic trace context from
+``(trace_scope, chunk index)`` (``obs.trace.chunk_trace_context``). The
+dispatch span opens under it on the caller's thread, and the context rides
+the queues, so the reader's ``drain`` span and the writer's ``io_write``
+span (and any ``faults.fired`` event inside them) carry the same trace id:
+one chunk's life is one trace in ``events.jsonl``. ``trace_scope``
+defaults to a per-call counter; the sweep passes its checkpoint path, so a
+supervised retry (a fresh call resuming from the sidecar) re-derives the
+same ids and a retried chunk's attempts land in one trace.
 """
 from __future__ import annotations
 
+import itertools
 import queue
 import threading
 from typing import Callable, Iterable, Optional
@@ -44,6 +55,9 @@ import torch
 from ..faults import inject as faults
 from ..obs import gauge, names
 from .stages import DrainTimeout, Stage, StageGraph  # noqa: F401 — DrainTimeout re-exported
+
+#: the default trace scope of each run_pipelined call
+_RUN_COUNT = itertools.count()
 
 
 def _mark_chunk(exc: BaseException, chunk: int) -> None:
@@ -158,6 +172,13 @@ def dispatch_on_done(i, _out) -> None:
     gauge(names.SWEEP_LAST_DISPATCHED_CHUNK).set(i)
 
 
+def dispatch_stage(dispatch: Callable[[int], object]) -> Stage:
+    """The dispatching stage, on the caller's thread (so outside the
+    deadline scan: a wedged caller has no observer)."""
+    return Stage("dispatch", fn=lambda i, _p, sp: dispatch(i), span=names.SPAN_DISPATCH,
+                 fault_site=faults.SITE_DISPATCH, on_done=dispatch_on_done, heartbeat=False)
+
+
 def drain_stage(fetch: Callable, depth: int) -> Stage:
     """The host-readback stage: waits for the result, frees the window
     slot, feeds the writer through a depth-bounded edge."""
@@ -199,7 +220,8 @@ def pipeline_stats(g: dict) -> dict:
 def run_pipelined(indices: Iterable[int], dispatch: Callable[[int], object],
                   write: Callable[[int, np.ndarray], None], *, depth: int = 2,
                   fetch: Callable = host_copy, release: Optional[Callable] = None,
-                  drain_timeout_s: Optional[float] = 900.0) -> dict:
+                  drain_timeout_s: Optional[float] = 900.0,
+                  trace_scope: Optional[str] = None) -> dict:
     """Run ``dispatch -> fetch -> write`` over ``indices`` with at most
     ``depth`` chunks in flight.
 
@@ -215,17 +237,18 @@ def run_pipelined(indices: Iterable[int], dispatch: Callable[[int], object],
     A failing stage stops the pipeline and its exception re-raises here
     unchanged; a fetch or write past ``drain_timeout_s`` raises
     :class:`DrainTimeout` (None: no deadline). Files written before an
-    error are valid completed chunks."""
+    error are valid completed chunks. Each chunk's stages run under its
+    trace context from ``(trace_scope, i)``; ``trace_scope`` defaults to a
+    per-call counter."""
     if depth < 2:
         raise ValueError(
             f"pipeline depth must be >= 2 (got {depth}); depth 1 is the "
             "synchronous loop — run it inline, there is nothing to overlap"
         )
+    scope = trace_scope if trace_scope is not None else f"pipeline:{next(_RUN_COUNT)}"
     graph = StageGraph(
-        [Stage("dispatch", fn=lambda i, _p, sp: dispatch(i), span=names.SPAN_DISPATCH,
-               fault_site=faults.SITE_DISPATCH, on_done=dispatch_on_done, heartbeat=False),
-         drain_stage(fetch, depth), io_write_stage(write, release)],
-        window=depth, drain_timeout_s=drain_timeout_s,
+        [dispatch_stage(dispatch), drain_stage(fetch, depth), io_write_stage(write, release)],
+        window=depth, drain_timeout_s=drain_timeout_s, trace_scope=scope,
         timeout_counter=names.PIPELINE_DRAIN_TIMEOUTS,
         inflight_gauge=names.SWEEP_INFLIGHT_CHUNKS, mark_item=_mark_chunk,
         name="sweep",

@@ -30,7 +30,15 @@ FIFO queues. The executor provides, once for every graph:
   keeps the ``stages.busy_s{stage=}`` and ``stages.edge_inflight{edge=}``
   gauges (items queued per edge) and bumps ``stages.drain_timeouts``.
   Worker threads take the caller's span ancestry (``TRACER.inherit``), so
-  their spans nest under the span that started the graph. A declaration
+  their spans nest under the span that started the graph;
+* **trace handoff across every thread boundary**: in caller mode a
+  ``trace_scope`` gives each item its deterministic
+  ``obs.trace.chunk_trace_context(scope, i)``, carried through every edge
+  and adopted by every stage of that item, so one chunk's spans and events
+  share one trace id (a retried or resumed sweep re-derives the same ids);
+  in generator mode the consumer's live context is carried onto the worker
+  (``carry()`` / ``adopt()``). Neither launches anything on the card. A
+  declaration
   may keep its own metric names (``timeout_counter``, ``inflight_gauge``,
   ``stall_gauge``); gauges are set from host numbers only.
 
@@ -51,8 +59,8 @@ the caller consumes the results in order).
 a chaos schedule's fault is attributed to the stage it perturbs
 (``faults/inject.py``; one ``None`` check while disarmed).
 
-Not ported here: the chunk trace contexts (A.16.4b), the per-device
-``replicas`` fan-out stage and ``fan_out`` (A.17, multi-device).
+Not ported here: the per-device ``replicas`` fan-out stage and
+``fan_out`` (A.17, multi-device).
 """
 from __future__ import annotations
 
@@ -65,6 +73,7 @@ from typing import Any, Callable, Iterable, Iterator, List, Optional, Sequence, 
 
 from ..faults import inject as faults
 from ..obs import TRACER, counter, gauge, names, occupancy, span
+from ..obs.trace import adopt, carry, chunk_trace_context
 
 _STOP = object()  # queue sentinel: no more items
 
@@ -161,6 +170,10 @@ class StageGraph:
 
     ``window`` bounds the items in flight between the acquiring stage and
     the releasing stage (caller mode) or the consumer (generator mode).
+    ``trace_scope`` derives each item's deterministic
+    :func:`~..obs.trace.chunk_trace_context`, carried through every edge and
+    adopted by every stage of that item (caller mode); generator mode
+    carries the consumer's live context onto its worker instead.
     ``mark_item(exc, i)`` attaches the failing item's index to a stage's
     exception (caller mode). ``timeout_counter``, ``inflight_gauge`` and
     ``stall_gauge`` keep a declaration's own metric names beside the
@@ -168,6 +181,7 @@ class StageGraph:
 
     def __init__(self, stages: Sequence[Stage], *, window: Optional[int] = None,
                  drain_timeout_s: Optional[float] = 900.0,
+                 trace_scope: Optional[str] = None,
                  timeout_counter: Optional[str] = None,
                  inflight_gauge: Optional[str] = None,
                  stall_gauge: Optional[str] = None,
@@ -184,6 +198,7 @@ class StageGraph:
         self._acquirer = acquirers[0] if acquirers else stages[0]
         self.window = window
         self.drain_timeout_s = drain_timeout_s
+        self.trace_scope = trace_scope
         self.timeout_counter = timeout_counter
         self.inflight_gauge = inflight_gauge
         self.stall_gauge = stall_gauge
@@ -309,13 +324,15 @@ class StageGraph:
                 faults.fire(stage.fault_site, **{stage.index_attr: i})
             return stage.fn(i, payload, sp)
 
-    def _execute(self, stage: Stage, i, payload, box) -> Any:
-        """One stage operation: heartbeat, span, busy accounting and
+    def _execute(self, stage: Stage, i, payload, ctx, box) -> Any:
+        """One stage operation: heartbeat, the item's trace context
+        (``ctx``, None: the thread's own), span, busy accounting and
         ``on_done``; exceptions clear the heartbeat and re-raise
         unchanged."""
         box[0] = time.monotonic()
         try:
-            out = self._call(stage, i, payload, {stage.index_attr: i})
+            with adopt(ctx) if ctx is not None else contextlib.nullcontext():
+                out = self._call(stage, i, payload, {stage.index_attr: i})
             dt = time.monotonic() - box[0]
         finally:
             box[0] = None
@@ -324,7 +341,7 @@ class StageGraph:
             stage.on_done(i, out)
         return out
 
-    def _run_windowed(self, stage: Stage, i, payload, box) -> Any:
+    def _run_windowed(self, stage: Stage, i, payload, ctx, box) -> Any:
         """One stage with its window ceremony; ``_ABANDONED`` when the
         graph stopped under the operation."""
         if self._window is not None and stage is self._acquirer:
@@ -337,7 +354,7 @@ class StageGraph:
                 self._stats["window_wait_s"] += time.monotonic() - t_wait
             if self._stop.is_set():
                 return _ABANDONED
-        out = self._execute(stage, i, payload, box)
+        out = self._execute(stage, i, payload, ctx, box)
         if self._window is not None and stage is self._acquirer:
             self._bump(+1)
         if stage.releases_window and self._window is not None:
@@ -388,12 +405,12 @@ class StageGraph:
                     item = in_q.get()
                     if item is _STOP or stop.is_set():
                         break
-                    i, payload = item
+                    i, payload, ctx = item
                     self._edge_gauge(edges[g - 1], in_q)
                     failed = False
                     for st in groups[g]:
                         try:
-                            payload = self._run_windowed(st, i, payload, boxes[id(st)])
+                            payload = self._run_windowed(st, i, payload, ctx, boxes[id(st)])
                         except BaseException as exc:  # noqa: BLE001 — re-raised on the caller
                             self._fail(st.name, exc, item=i)
                             failed = True
@@ -406,7 +423,7 @@ class StageGraph:
                     if sink:
                         with self._lock:
                             self._stats["items"] += 1
-                    elif not self._forward(queues[g], (i, payload)):
+                    elif not self._forward(queues[g], (i, payload, ctx)):
                         break
                     else:
                         self._edge_gauge(edges[g], queues[g])
@@ -430,11 +447,13 @@ class StageGraph:
             for i in items:
                 if stop.is_set():
                     break
+                ctx = (chunk_trace_context(self.trace_scope, i)
+                       if self.trace_scope is not None else None)
                 payload: Any = i
                 failed = False
                 for st in groups[0]:
                     try:
-                        payload = self._run_windowed(st, i, payload, boxes[id(st)])
+                        payload = self._run_windowed(st, i, payload, ctx, boxes[id(st)])
                     except BaseException as exc:  # noqa: BLE001 — re-raised below
                         self._fail(st.name, exc, item=i)
                         failed = True
@@ -445,7 +464,7 @@ class StageGraph:
                 if failed or stop.is_set():
                     break
                 if queues:
-                    if not self._forward(queues[0], (i, payload)):
+                    if not self._forward(queues[0], (i, payload, ctx)):
                         break
                     self._edge_gauge(edges[0], queues[0])
                 else:
@@ -504,7 +523,8 @@ class StageGraph:
         A stage exception re-raises unchanged here after every earlier
         item was yielded; a stage wedged past ``drain_timeout_s`` raises
         :class:`DrainTimeout`. Abandoning the iterator stops and joins the
-        worker promptly."""
+        worker promptly. The consumer's live trace context is carried onto
+        the worker (``carry()`` / ``adopt()``)."""
         groups = self._groups()
         if len(groups) != 1:
             raise ValueError(
@@ -513,6 +533,7 @@ class StageGraph:
             )
         stop = self._stop
         stack = TRACER.current_stack()  # worker spans nest under the consumer's
+        tctx = carry()  # None: untraced, and adopt(None) shields as a no-op
         src_group = groups[0]
         head = src_group[0]
         out_edge = f"{src_group[-1].name}->consumer"
@@ -523,7 +544,7 @@ class StageGraph:
 
         def source_main() -> None:
             box = boxes[id(head)]
-            with TRACER.inherit(stack), self._context(head):
+            with TRACER.inherit(stack), adopt(tctx), self._context(head):
                 it = iter(items)
                 i = 0
                 while not stop.is_set():
@@ -569,7 +590,7 @@ class StageGraph:
                         if head.on_done is not None:
                             head.on_done(i, out)
                         for st in src_group[1:]:
-                            out = self._execute(st, i, out, boxes[id(st)])
+                            out = self._execute(st, i, out, None, boxes[id(st)])
                     except BaseException as exc:  # noqa: BLE001 — re-raised on the consumer
                         box[0] = None
                         self._fail(head.name, exc, item=i)

@@ -7,12 +7,11 @@ which adds nesting, attributes and the capture sinks.
 :func:`injection_stage_fns` is the per-stage table of the injection
 pipeline, as plain torch functions.
 
-``device_trace`` (a profiler capture of the card registered in the
-capture's ``meta.json``) belongs to the device profiling of ROADMAP A.16.4b
-and raises here.
+``device_trace`` is the shim over :func:`..obs.devprof.device_trace`.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Dict
 
 from ..obs import trace as _trace
@@ -57,12 +56,19 @@ def reset() -> None:
     _trace.reset()
 
 
-def device_trace(logdir: str):
-    """A profiler capture of the card: not ported yet."""
-    raise NotImplementedError(
-        "device_trace is not ported yet (ROADMAP A.16.4b, device profiling); "
-        "the JAX package's utils.profiling.device_trace has it"
-    )
+@contextlib.contextmanager
+def device_trace(logdir: str, *, device="cuda"):
+    """Profile the block with torch.profiler into ``logdir``.
+
+    Shim over :func:`..obs.devprof.device_trace`, which manages the
+    capture: the ``device_trace`` span, the chrome trace file and its
+    registration as a capture artifact (``device_traces`` in meta.json).
+    New code calls the obs API directly, which can also default ``logdir``
+    into the active capture directory."""
+    from ..obs import devprof
+
+    with devprof.device_trace(logdir, device=device):
+        yield
 
 
 def injection_stage_fns(batch, recipe) -> dict:

@@ -48,7 +48,11 @@ stages' ``dispatch`` / ``drain`` / ``io_write`` spans (``static_build``
 too when fused); the ``sweep.chunks_total``, ``sweep.chunks_done``
 gauges, the ``sweep.realizations`` counter, and the
 ``sweep.chunk_retries`` counter with a ``faults.retry`` event per
-supervised retry. None of it waits for the card.
+supervised retry. Every chunk's stage spans, at every depth, carry the
+chunk's deterministic trace id (``obs.trace.chunk_trace_context`` scoped
+by the checkpoint path), and a retry's ``faults.retry`` event is stamped
+with the failing chunk's: a retried chunk is one trace with its attempts,
+and a resumed sweep keeps its chunks' ids. None of it waits for the card.
 
 Fault sites (``faults/inject.py``, one ``None`` check while disarmed):
 ``dispatch``, ``drain`` and ``io_write`` in the stages' spans at every
@@ -61,7 +65,7 @@ drift replay) on the one reader thread, in chunk order, before a block
 reaches ``io_write``; the sweep's end folds the probe stats still queued.
 
 Not ported here: the multi-device ``mesh`` and the sharded-archive writer
-(ROADMAP.md item A.17) and the chunk trace contexts (A.16.4b).
+(ROADMAP.md item A.17).
 """
 from __future__ import annotations
 
@@ -475,6 +479,7 @@ def sweep(seed: int, batch, recipe, nreal: int, checkpoint_path: str, chunk: int
     sidecar's fingerprint hashes the design's bytes with the recipe's."""
     from ..faults.retry import DEFAULT_POLICY, backoff_delay, is_transient, retry_event
     from ..obs import counter, names
+    from ..obs.trace import adopt, chunk_trace_context
     from ..parallel.pipeline import failed_chunk
 
     if fused_stream and pipeline_depth < 2:
@@ -506,9 +511,14 @@ def sweep(seed: int, batch, recipe, nreal: int, checkpoint_path: str, chunk: int
             if attempts > chunk_retries:
                 raise
             counter(names.SWEEP_CHUNK_RETRIES).inc()
+            # the stage that failed named its chunk; the sidecar's done
+            # marker (a depth-N failure may out-race the previous chunk's
+            # sidecar write) names it only for failures outside a stage.
+            # The event joins that chunk's trace, between its attempts
             fail_chunk = failed_chunk(exc)
-            retry_event("sweep", exc, attempt=attempts, done=done,
-                        chunk=done if fail_chunk is None else fail_chunk)
+            fail_chunk = done if fail_chunk is None else fail_chunk
+            with adopt(chunk_trace_context(checkpoint_path, fail_chunk)):
+                retry_event("sweep", exc, attempt=attempts, done=done, chunk=fail_chunk)
             time.sleep(backoff_delay(attempts, policy))
 
 
@@ -652,7 +662,8 @@ def _sweep_impl(seed, batch, recipe, nreal: int, checkpoint_path: str, chunk: in
                           span_attrs=lambda i, block: {"nbytes": int(block.nbytes)},
                           fault_site=faults.SITE_IO_WRITE, placement="inline",
                           heartbeat=False)],
-                   mark_item=_mark_chunk, name="sweep-sync").run(range(done, nchunks))
+                   trace_scope=checkpoint_path, mark_item=_mark_chunk,
+                   name="sweep-sync").run(range(done, nchunks))
     elif done < nchunks:
         # the writer thread writes each chunk file and keeps the block; the
         # archive and the result are assembled once, after the last chunk,
@@ -686,6 +697,7 @@ def _sweep_impl(seed, batch, recipe, nreal: int, checkpoint_path: str, chunk: in
                          drain_stage(fetch, pipeline_depth),
                          io_write_stage(write_and_keep, release)],
                         window=pipeline_depth, drain_timeout_s=drain_timeout_s,
+                        trace_scope=checkpoint_path,
                         timeout_counter=names.PIPELINE_DRAIN_TIMEOUTS,
                         inflight_gauge=names.SWEEP_INFLIGHT_CHUNKS,
                         mark_item=_mark_chunk, name="sweep-fused",
@@ -696,6 +708,9 @@ def _sweep_impl(seed, batch, recipe, nreal: int, checkpoint_path: str, chunk: in
                         range(done, nchunks), lambda i: mark(realize_chunk(i, static)),
                         write_and_keep, depth=pipeline_depth, fetch=fetch,
                         release=release, drain_timeout_s=drain_timeout_s,
+                        # scoped by the sweep's identity: a retry or a resume
+                        # re-derives the same per-chunk trace ids
+                        trace_scope=checkpoint_path,
                     )
                 sp.update(run_stats)
         finally:

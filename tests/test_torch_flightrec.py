@@ -349,3 +349,24 @@ def test_the_sampler_reads_no_card_memory_without_cuda():
     # the CPU build: no card, so the heartbeat names none
     assert tflightrec.device_memory_snapshot() == [] == tobs.device_memory_snapshot()
     assert threading.current_thread() is threading.main_thread()
+
+
+def test_the_atomic_writer_replaces_whole_and_leaves_no_temp_file(tmp_path):
+    """The sampler's atomic write: the exact text, a second write replacing
+    the first whole, the JAX writer's bytes for the same payload, and no
+    temporary file left in the capture directory."""
+    path = tmp_path / "progress.json"
+    payload = {"schema": 3, "sweep": {"chunks_done": 7}, "name": "α"}
+    tflightrec._atomic_json(str(path), payload, indent=None)
+    jpath = tmp_path / "jax.json"
+    jflightrec._atomic_json(str(jpath), payload, indent=None)
+    assert path.read_bytes() == jpath.read_bytes()
+    tflightrec._atomic_json(str(path), payload)
+    jflightrec._atomic_json(str(jpath), payload)
+    assert path.read_bytes() == jpath.read_bytes()
+    tflightrec._atomic_text(str(tmp_path / "metrics.prom"), "a 1\n" * 10_000)
+    assert (tmp_path / "metrics.prom").read_text() == "a 1\n" * 10_000
+    tflightrec._atomic_text(str(tmp_path / "metrics.prom"), "b 2\n")
+    assert (tmp_path / "metrics.prom").read_text() == "b 2\n"
+    assert sorted(p.name for p in tmp_path.iterdir()) == ["jax.json", "metrics.prom",
+                                                           "progress.json"]

@@ -162,9 +162,19 @@ def test_a_backwards_wallclock_jump_cannot_negate_a_span(monkeypatch):
 def test_the_names_registry_is_the_jax_registry():
     from pta_replicator_tpu.obs import names as jnames
 
+    # the JAX registry, plus the port's own device accounting (obs/devprof.py:
+    # cuda.cost.* and cuda.roofline.*, in place of jax.cost.* and
+    # jax.roofline.*)
+    own = {"CUDA_PREFIX": "cuda.", "CUDA_COST_PREFIX": "cuda.cost.",
+           "CUDA_ROOFLINE_PREFIX": "cuda.roofline."}
     mine = {k: v for k, v in vars(tnames).items() if k.isupper()}
-    assert mine == {k: v for k, v in vars(jnames).items() if k.isupper()}
+    theirs = {k: v for k, v in vars(jnames).items() if k.isupper()}
+    assert {k: mine[k] for k in own} == own
+    assert mine["METRIC_PREFIXES"] == theirs["METRIC_PREFIXES"] + ("cuda.cost.", "cuda.roofline.")
+    assert ({k: v for k, v in mine.items() if k not in own and k != "METRIC_PREFIXES"}
+            == {k: v for k, v in theirs.items() if k != "METRIC_PREFIXES"})
     assert tnames.is_registered("cw_stream_stage", "span")
+    assert tnames.is_registered("cuda.roofline.pct_of_roofline", "metric")
 
 
 # ------------------------------------------------------ report functions
@@ -248,14 +258,22 @@ def test_finish_without_a_capture_is_a_no_op(tmp_path):
 
 
 def test_the_report_names_the_artifacts_it_does_not_render(tmp_path):
-    (tmp_path / "events.jsonl").write_text(
-        '{"type": "span", "name": "a", "path": "a", "t0": 1.0, "wall_s": 0.5, "cpu_s": 0.1, '
-        '"tid": 1, "seq": 0, "attrs": {}}\n')
-    for name in ("progress.json", "series.jsonl", "slo.json", "critpath.json"):
+    from pta_replicator_tpu_torch.obs import critpath as tcritpath
+
+    spans = [dict(type="span", name=name, path=name, t0=t0, wall_s=wall, cpu_s=0.1, tid=1,
+                  seq=k, attrs={"chunk": 0}) for k, (name, t0, wall) in
+             enumerate((("dispatch", 1.0, 0.5), ("drain", 1.5, 1.0), ("io_write", 2.5, 0.2)))]
+    (tmp_path / "events.jsonl").write_text("".join(json.dumps(r) + "\n" for r in spans))
+    for name in ("progress.json", "series.jsonl", "slo.json"):
         (tmp_path / name).write_text("{}")
+    (tmp_path / "critpath.json").write_text(json.dumps(tcritpath.analyze(spans)))
     text = treport.render_report(str(tmp_path))
-    # the live-run artifacts render now; the critical path alone does not
-    assert "not rendered by the port (ROADMAP A.16.4b): critpath.json\n" in text
+    # every artifact renders now, the critical path included: none is named
+    assert "not rendered by the port" not in text
+    # and the port loads a capture as the JAX package loads it
+    assert treport.load_telemetry(str(tmp_path)) == jreport.load_telemetry(str(tmp_path))
+    assert "critical path (attribution over the phase window):" in text
+    assert "verdict: drain holds" in text
     empty = tmp_path / "empty"
     empty.mkdir()
     assert "no telemetry data" in treport.render_report(str(empty))
@@ -263,7 +281,7 @@ def test_the_report_names_the_artifacts_it_does_not_render(tmp_path):
 
 # ------------------------------------------------------ profiling shims
 
-def test_the_profiling_shims_delegate_to_the_tracer():
+def test_the_profiling_shims_delegate_to_the_tracer(tmp_path):
     tprof.reset()
     with tprof.stage("demo"):
         with tprof.stage("sub"):
@@ -274,8 +292,18 @@ def test_the_profiling_shims_delegate_to_the_tracer():
     assert t["demo"]["calls"] == 2 and t["sub"]["calls"] == 1 and t["demo"]["total_s"] >= 0
     assert "demo/sub" in obs.TRACER.summary()
     assert tprof.vm_rss_mb() > 0
-    with pytest.raises(NotImplementedError, match=r"A\.16\.4b"):
-        tprof.device_trace("d")
+    # device_trace delegates to obs.devprof: a profile written and registered
+    from pta_replicator_tpu_torch.obs import devprof
+
+    devprof.reset()
+    logdir = str(tmp_path / "d")
+    with tprof.device_trace(logdir, device="cpu"):
+        torch.ones(8).sum()
+    assert devprof.trace_dirs() == [logdir]
+    trace = json.loads((tmp_path / "d" / devprof.trace_file_name()).read_text())
+    assert any(e.get("name") == devprof.OPEN_MARKER for e in trace["traceEvents"])
+    assert obs.TRACER.summary()["device_trace"]["calls"] == 1
+    devprof.reset()
 
 
 def test_the_injection_stages_are_the_jax_packages():

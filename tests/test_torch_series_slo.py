@@ -275,3 +275,28 @@ def test_any_breach_reads_alike():
     disarmed.sample()
     assert not disarmed.armed and disarmed.heartbeat_block() == {"objectives": {},
                                                                  "breached": []}
+
+
+def test_the_kept_statm_descriptor_reads_a_fresh_resident_size():
+    """process_rss_bytes keeps /proc/self/statm open and reads it afresh:
+    it follows the resident size as a reopened file does, and a process
+    whose descriptor another pid opened (a forked child) opens its own."""
+    import os
+
+    def reopened():
+        with open("/proc/self/statm") as fh:
+            return int(fh.read().split()[1]) * os.sysconf("SC_PAGE_SIZE")
+
+    before = tseries.process_rss_bytes()
+    blob = bytearray(64 << 20)
+    after, fresh = tseries.process_rss_bytes(), reopened()
+    assert after - before > 48 << 20
+    assert abs(after - fresh) < 4 << 20
+    del blob
+    # a forked child finds its parent's descriptor under another pid and
+    # opens its own
+    stale = tseries._STATM[1]
+    tseries._STATM[0] = -1
+    assert tseries.process_rss_bytes() > 0
+    assert tseries._STATM[0] == os.getpid() and tseries._STATM[1] != stale
+    os.close(stale)

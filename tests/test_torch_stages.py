@@ -327,3 +327,117 @@ def test_run_pipelined_drain_timeout(wedge):
                       drain_timeout_s=0.4)
     assert time.monotonic() - t0 < 10.0
     hang.set()
+
+
+# ------------------------------------------------------ trace handoff
+
+def _seen_contexts(mod_stages, current_trace, trace_scope):
+    """A three-thread chain (source, a worker, a sink) over 6 items under
+    ``trace_scope``, declared with ``mod_stages``; each stage records the
+    trace id it runs under, by item."""
+    seen, lock = {}, threading.Lock()
+
+    def record(stage):
+        def fn(i, v, sp):
+            ctx = current_trace()
+            with lock:
+                seen.setdefault(i, set()).add((stage, ctx.trace_id if ctx else None))
+            return v
+        return fn
+
+    mod_stages.StageGraph(
+        [mod_stages.Stage("src", fn=record("src")),
+         mod_stages.Stage("mid", fn=record("mid"), releases_window=True, out_maxsize=2),
+         mod_stages.Stage("sink", fn=record("sink"))],
+        window=2, drain_timeout_s=30.0, trace_scope=trace_scope).run(range(6))
+    return seen
+
+
+def test_run_carries_each_items_trace_context_through_every_edge():
+    from pta_replicator_tpu.obs import trace as jtrace
+    from pta_replicator_tpu_torch.obs import trace as ttrace
+
+    port = _seen_contexts(port_stages, ttrace.current_trace, "ck.npz")
+    jax_seen = _seen_contexts(jax_stages, jtrace.current_trace, "ck.npz")
+    assert port == jax_seen
+    for i in range(6):
+        want = jtrace.chunk_trace_context("ck.npz", i).trace_id
+        assert port[i] == {("src", want), ("mid", want), ("sink", want)}
+    # no scope: the stages run under the caller's own (here no) context
+    untraced = _seen_contexts(port_stages, ttrace.current_trace, None)
+    assert all({t for _, t in s} == {None} for s in untraced.values())
+
+
+def test_iterate_carries_the_consumers_context_onto_the_worker():
+    from pta_replicator_tpu_torch import obs
+    from pta_replicator_tpu_torch.obs import trace as ttrace
+
+    ctx = ttrace.deterministic_trace_context("consumer", 1)
+    seen = []
+
+    def head(i, raw, sp):
+        seen.append(ttrace.current_trace().trace_id)
+        return raw
+
+    obs.configure(None)
+    obs.reset_all()
+    graph = StageGraph([Stage("cw_stream_stage", fn=head, span="cw_stream_stage",
+                              index_attr="tile")], window=2, drain_timeout_s=30.0)
+    with ttrace.adopt(ctx):
+        assert list(graph.iterate(range(4))) == [0, 1, 2, 3]
+    assert seen == [ctx.trace_id] * 4
+    spans = [e for e in obs.TRACER.events() if e.get("name") == "cw_stream_stage"]
+    # four tiles and the pull that met the end of the stream
+    assert len(spans) == 5 and {e["trace_id"] for e in spans} == {ctx.trace_id}
+    assert {e["parent_id"] for e in spans} == {ctx.span_id}
+
+
+def test_prefetch_adopts_the_consumers_trace():
+    from pta_replicator_tpu_torch import obs
+    from pta_replicator_tpu_torch.obs import trace as ttrace
+    from pta_replicator_tpu_torch.parallel.prefetch import prefetch_to_device
+
+    obs.configure(None)
+    obs.reset_all()
+    tiles = [np.full((2, 3), k, dtype=np.float64) for k in range(5)]
+    ctx = ttrace.chunk_trace_context("stream", 7)
+    with ttrace.adopt(ctx):
+        got = list(prefetch_to_device(iter(tiles), depth=2, device="cpu"))
+    assert [g.numpy().tolist() for g in got] == [t.tolist() for t in tiles]
+    stages = [e for e in obs.TRACER.events() if e.get("name") == "cw_stream_stage"]
+    assert len(stages) >= 5 and {e["trace_id"] for e in stages} == {ctx.trace_id}
+    # an untraced consumer leaves the worker untraced
+    obs.reset_all()
+    list(prefetch_to_device(iter(tiles), depth=2, device="cpu"))
+    assert not any("trace_id" in e for e in obs.TRACER.events()
+                   if e.get("name") == "cw_stream_stage")
+
+
+def test_run_pipelined_scopes_chunk_traces_per_call_or_as_given():
+    from pta_replicator_tpu.obs import trace as jtrace
+    from pta_replicator_tpu_torch.obs import trace as ttrace
+
+    def traced_run(**kw):
+        seen = {}
+
+        def note(stage, i):
+            seen.setdefault(i, set()).add((stage, ttrace.current_trace().trace_id))
+
+        def dispatch(i):
+            note("dispatch", i)
+            return i
+
+        def fetch(v):
+            note("drain", v)
+            return np.asarray([v])
+
+        run_pipelined(range(4), dispatch, lambda i, b: note("io_write", i), depth=2,
+                      fetch=fetch, drain_timeout_s=30.0, **kw)
+        return {i: {t for _, t in s} for i, s in seen.items()}
+
+    given = traced_run(trace_scope="sweep.npz")
+    assert given == {i: {jtrace.chunk_trace_context("sweep.npz", i).trace_id}
+                     for i in range(4)}
+    first, second = traced_run(), traced_run()
+    assert all(len(first[i]) == 1 and len(second[i]) == 1 for i in range(4))
+    assert first[0] != second[0]  # a per-call scope by default

@@ -451,3 +451,75 @@ def test_chunk_files_and_archive_members_are_the_npy_bytes(tmp_path, arr):
         assert zf.namelist() == ["chunk0.npy", "chunk1.npy"]
         assert zf.read("chunk0.npy") == bytes(tsw._npy_bytes(arr))
     np.testing.assert_array_equal(tsw.load_checkpoint_chunk(ckpt, 0), arr)
+
+
+# ---------------------------------------------------- chunk trace contexts
+
+#: the stage spans of a chunk, by depth: the synchronous loop's chunk span
+#: and write, the pipeline's three stages
+CHUNK_SPANS = {1: {"sweep_chunk", "io_write"}, 2: {"dispatch", "drain", "io_write"},
+               4: {"dispatch", "drain", "io_write"}}
+
+
+def _chunk_traces(events, spans):
+    """chunk -> {(span name, trace id)} of the stage spans in ``events``."""
+    out = {}
+    for e in events:
+        if e.get("type") == "span" and e.get("name") in spans and "chunk" in e.get("attrs", {}):
+            out.setdefault(e["attrs"]["chunk"], set()).add((e["name"], e.get("trace_id")))
+    return out
+
+
+@pytest.mark.parametrize("depth", [1, 2, 4])
+def test_chunk_trace_ids_are_the_jax_packages_at_every_depth_and_across_a_resume(
+        tmp_path, workloads, depth):
+    from pta_replicator_tpu.obs.trace import chunk_trace_context as jax_chunk_trace_context
+    from pta_replicator_tpu_torch import obs
+
+    _, _, tb, tr = workloads
+    path = str(tmp_path / "traced.npz")
+    nreal = 3 * CHUNK
+    obs.configure(None)
+    obs.reset_all()
+    _interrupted(lambda progress: tsw.sweep(3, tb, tr, nreal, path, chunk=CHUNK, fit=True,
+                                            device="cpu", pipeline_depth=depth,
+                                            progress=progress), after=1)
+    first = _chunk_traces(obs.TRACER.events(), CHUNK_SPANS[depth])
+    obs.reset_all()
+    tsw.sweep(3, tb, tr, nreal, path, chunk=CHUNK, fit=True, device="cpu",
+              pipeline_depth=depth)
+    resumed = _chunk_traces(obs.TRACER.events(), CHUNK_SPANS[depth])
+    assert 0 in first and set(resumed) == {1, 2}
+    for traces in (first, resumed):
+        for i, seen in traces.items():
+            want = jax_chunk_trace_context(path, i).trace_id
+            assert {t for _, t in seen} == {want}, (i, seen)
+    # the resumed chunks carry every stage of their chain
+    assert all({n for n, _ in resumed[i]} == CHUNK_SPANS[depth] for i in (1, 2))
+
+
+@pytest.mark.parametrize("depth", [1, 2])
+def test_a_retried_chunk_is_one_trace_with_its_attempts(tmp_path, workloads, depth):
+    from pta_replicator_tpu.obs.trace import chunk_trace_context as jax_chunk_trace_context
+    from pta_replicator_tpu_torch import obs
+    from pta_replicator_tpu_torch.faults import inject
+
+    _, _, tb, tr = workloads
+    path = str(tmp_path / "retried.npz")
+    obs.configure(None)
+    obs.reset_all()
+    with inject.armed("drain:raise@chunk=1"):
+        tsw.sweep(3, tb, tr, 3 * CHUNK, path, chunk=CHUNK, fit=True, device="cpu",
+                  pipeline_depth=depth, chunk_retries=1, retry_policy=FAST_RETRY)
+    events = obs.TRACER.events()
+    want = jax_chunk_trace_context(path, 1).trace_id
+    retries = [e for e in events if e.get("type") == "event" and e["name"] == "faults.retry"]
+    assert len(retries) == 1 and retries[0]["attrs"]["chunk"] == 1
+    assert retries[0]["trace_id"] == want
+    first_stage = "sweep_chunk" if depth == 1 else "dispatch"
+    attempts = [e for e in events if e.get("name") == first_stage
+                and e.get("attrs", {}).get("chunk") == 1]
+    assert len(attempts) == 2 and {e["trace_id"] for e in attempts} == {want}
+    # the fault fired inside the failing attempt's drain, in the same trace
+    fired = [e for e in events if e.get("type") == "event" and e["name"] == "faults.fired"]
+    assert [e["trace_id"] for e in fired] == [want]

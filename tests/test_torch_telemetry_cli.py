@@ -33,10 +33,14 @@ from test_torch_cli import SPEC
 from test_torch_fuzz import BASE, PERTURB
 
 #: metric groups left out of the comparison: the JAX package's compile
-#: accounting (``jax.*``, which the port does not emit), and the flight
-#: recorder's per-tick metrics (``obs.overhead_s``, ``proc.rss_bytes``),
-#: which exist only once its sampler has ticked, in either package
-NOT_EMITTED = ("jax.",)
+#: accounting (``jax.*``, which the port does not emit); the port's device
+#: accounting (``cuda.cost.*`` and ``cuda.roofline.*``), which only the
+#: tuner's search records, on no CLI path; the critical path's gauges
+#: (``critpath.*``), which only the ``critpath DIR`` pass after a run sets;
+#: and the flight recorder's per-tick metrics (``obs.overhead_s``,
+#: ``proc.rss_bytes``), which exist only once its sampler has ticked, in
+#: either package
+NOT_EMITTED = ("jax.", "cuda.cost.", "cuda.roofline.", "critpath.")
 NOT_EMITTED_NAMES = ("obs.overhead_s", "proc.rss_bytes")
 #: counters whose values must be equal between the packages
 INTEGER_COUNTERS = ("io.par.files", "io.tim.files", "io.tim.toas", "batch.freezes",
@@ -136,8 +140,7 @@ def test_the_jax_schema_checker_and_loaders_read_a_port_capture(dataset, tmp_pat
         assert a["events"] == b["events"] and a["metrics"] == b["metrics"]
         assert a["meta"] == b["meta"]
         assert treport.aggregate_spans(a["events"]) == jreport.aggregate_spans(b["events"])
-    # the port's report renders the JAX capture whole (it holds no
-    # critical path, the one artifact the port would name as not rendered)
+    # the port's report renders the JAX capture whole
     text = treport.render_report(str(jax_dir))
     assert "sweep_pipeline" in text and "jax accounting:" in text
     assert "not rendered by the port" not in text
