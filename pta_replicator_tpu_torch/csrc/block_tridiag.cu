@@ -829,6 +829,288 @@ int solve(const void* ldv, const void* mv, const void* inpv, void* outv, int np,
   }
 }
 
+// ------------------------------- the factor sweep's adjoint, float64
+//
+// Two kernels that replace no TPU kernel: the JAX package differentiates
+// its factor's scan with XLA, and these are how the port differentiates
+// the factor sweep (ops/gp.py::TridiagFactor, TridiagFactorAdjoint) with no
+// Python loop over block columns on the card. Both are recurrences over the
+// block columns, one warp per pulsar with every b x b tile of a column in
+// the warp's shared memory (rows b + 1 entries apart), lanes splitting each
+// product's entries and each triangular solve's rows or columns (b <= 32,
+// so a lane per row or column), __syncwarp between dependent steps. Bound:
+// bytes (each block read or written once; 0.14 ms for kernel 1 at config
+// B's 68 x 485 x 16 on an H100) but, as the factor sweep, latency first:
+// each block column is a chain of dependent b x b steps on one warp.
+//
+// Kernel 1 (tridiag_factor_adjoint_kernel), k = nb - 1 ... 0, with
+// L = tril(Ld_k), Lp = tril(Ld_{k-1}) and the carry C (zero at first):
+//   Lbar = tril(gLd_k + C)              (written: kernel 2 reads it)
+//   G    = L^-T Phi(L^T Lbar) L^-1      (Phi: lower triangle, diagonal halved)
+//   gD_k = tril(G + G^T) - diag(G)
+//   k >= 1:  W = (gM_k - (G + G^T) M_k) Lp^-1 = gE_{k-1},  C = -W^T M_k.
+// Kernel 2 (tridiag_factor_adjoint_vjp_kernel) is kernel 1's adjoint, a
+// sweep k = 0 ... nb - 1 that recomputes column k's G, S2 = G + G^T and W
+// from Lbar_k, then, with the carries' cotangent Ch (zero at first) and the
+// pending cotangent P of Lp:
+//   k >= 1:  Wh = hE_{k-1} - M_k Ch^T;  V = Wh Lp^-T;  hgM_k = V;
+//            hLd_{k-1} = P - tril(W^T V);
+//            hM_k = -W Ch - S2 V;  Sh = hD_k - V M_k^T - M_k V^T
+//   k = 0:   hM_0 = hgM_0 = 0,  Sh = hD_0
+//   Gh = Sh's lower triangle mirrored;  Y = Gh L^-T;  Ah = Phi(L^-1 Y)
+//   P  = tril(-S2 Y + Lbar Ah^T);  Ch = hgLd_k = tril(L Ah)
+// and hLd_{nb-1} = P at the end.
+
+constexpr int kAdjointTiles = 8;      // kernel 1's tiles in shared memory
+constexpr int kAdjointVjpTiles = 12;  // kernel 2's
+
+// A b x b tile in shared memory, rows `st` entries apart
+struct Tile {
+  double* p;
+  int st;
+  __device__ __forceinline__ double& operator()(int i, int j) const { return p[i * st + j]; }
+};
+
+// f(e, i, j) for the entries e = i b + j of a b x b block, split over the
+// warp's lanes
+template <typename F>
+__device__ __forceinline__ void for_entries(int b, F f) {
+  for (int e = threadIdx.x; e < b * b; e += 32) {
+    const int i = e / b;
+    f(e, i, e - i * b);
+  }
+}
+
+__device__ __forceinline__ void adj_load(Tile t, const double* src, int b, bool lower) {
+  for_entries(b, [&](int e, int i, int j) { t(i, j) = lower && j > i ? 0.0 : src[e]; });
+}
+
+// In place: X <- L^-T X, a lane per column (backward substitution)
+__device__ __forceinline__ void adj_lt_left(Tile x, Tile l, int b) {
+  for (int c = threadIdx.x; c < b; c += 32)
+    for (int i = b - 1; i >= 0; --i) {
+      double v = x(i, c);
+      for (int r = i + 1; r < b; ++r) v -= l(r, i) * x(r, c);
+      x(i, c) = v / l(i, i);
+    }
+}
+
+// In place: X <- L^-1 X, a lane per column (forward substitution)
+__device__ __forceinline__ void adj_l_left(Tile x, Tile l, int b) {
+  for (int c = threadIdx.x; c < b; c += 32)
+    for (int i = 0; i < b; ++i) {
+      double v = x(i, c);
+      for (int r = 0; r < i; ++r) v -= l(i, r) * x(r, c);
+      x(i, c) = v / l(i, i);
+    }
+}
+
+// In place: X <- X L^-1, a lane per row
+__device__ __forceinline__ void adj_l_right(Tile x, Tile l, int b) {
+  for (int r = threadIdx.x; r < b; r += 32)
+    for (int j = b - 1; j >= 0; --j) {
+      double v = x(r, j);
+      for (int i = j + 1; i < b; ++i) v -= x(r, i) * l(i, j);
+      x(r, j) = v / l(j, j);
+    }
+}
+
+// In place: X <- X L^-T, a lane per row
+__device__ __forceinline__ void adj_lt_right(Tile x, Tile l, int b) {
+  for (int r = threadIdx.x; r < b; r += 32)
+    for (int i = 0; i < b; ++i) {
+      double v = x(r, i);
+      for (int j = 0; j < i; ++j) v -= x(r, j) * l(i, j);
+      x(r, i) = v / l(i, i);
+    }
+}
+
+// G = L^-T Phi(L^T Lbar) L^-1 into g, then s2 = G + G^T
+__device__ __forceinline__ void adj_cholesky_adjoint(Tile g, Tile s2, Tile l, Tile lbar, int b) {
+  for_entries(b, [&](int e, int i, int j) {
+    double v = 0.0;
+    if (j <= i)
+      for (int r = i; r < b; ++r) v += l(r, i) * lbar(r, j);
+    g(i, j) = i == j ? 0.5 * v : v;
+  });
+  __syncwarp();
+  adj_lt_left(g, l, b);
+  __syncwarp();
+  adj_l_right(g, l, b);
+  __syncwarp();
+  for_entries(b, [&](int e, int i, int j) { s2(i, j) = g(i, j) + g(j, i); });
+  __syncwarp();
+}
+
+// W = (gM_k - S2 M_k) Lp^-1, in place in w (which holds gM_k)
+__device__ __forceinline__ void adj_w(Tile w, Tile s2, Tile mk, Tile lp, int b) {
+  for_entries(b, [&](int e, int i, int j) {
+    double v = w(i, j);
+    for (int r = 0; r < b; ++r) v -= s2(i, r) * mk(r, j);
+    w(i, j) = v;
+  });
+  __syncwarp();
+  adj_l_right(w, lp, b);
+  __syncwarp();
+}
+
+__global__ void __launch_bounds__(32)
+tridiag_factor_adjoint_kernel(const double* __restrict__ ld, const double* __restrict__ m,
+                              const double* __restrict__ gld, const double* __restrict__ gm,
+                              double* __restrict__ gd, double* __restrict__ ge,
+                              double* __restrict__ lbar, int nb, int b) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  double* base = reinterpret_cast<double*>(smem_raw);
+  const int st = b + 1, sz = b * st;
+  const Tile lt[2] = {{base, st}, {base + sz, st}};
+  const Tile mk{base + 2 * sz, st}, lb{base + 3 * sz, st}, g{base + 4 * sz, st},
+      s2{base + 5 * sz, st}, w{base + 6 * sz, st}, carry{base + 7 * sz, st};
+  const size_t bb = static_cast<size_t>(b) * b, p = blockIdx.x;
+  ld += p * nb * bb;
+  m += p * nb * bb;
+  gld += p * nb * bb;
+  gm += p * nb * bb;
+  gd += p * nb * bb;
+  lbar += p * nb * bb;
+  ge += p * (nb - 1) * bb;
+
+  for_entries(b, [&](int e, int i, int j) { carry(i, j) = 0.0; });
+  adj_load(lt[(nb - 1) & 1], ld + (nb - 1) * bb, b, true);
+  __syncwarp();
+  for (int k = nb - 1; k >= 0; --k) {
+    const Tile l = lt[k & 1], lp = lt[(k + 1) & 1];
+    if (k) {
+      adj_load(lp, ld + (k - 1) * bb, b, true);
+      adj_load(mk, m + k * bb, b, false);
+      adj_load(w, gm + k * bb, b, false);
+    }
+    for_entries(b, [&](int e, int i, int j) {
+      const double v = j > i ? 0.0 : gld[k * bb + e] + carry(i, j);
+      lb(i, j) = v;
+      lbar[k * bb + e] = v;
+    });
+    __syncwarp();
+    adj_cholesky_adjoint(g, s2, l, lb, b);
+    for_entries(b, [&](int e, int i, int j) {
+      gd[k * bb + e] = i > j ? s2(i, j) : (i == j ? g(i, i) : 0.0);
+    });
+    if (k) {
+      adj_w(w, s2, mk, lp, b);
+      for_entries(b, [&](int e, int i, int j) {
+        double v = 0.0;
+        for (int r = 0; r < b; ++r) v -= w(r, i) * mk(r, j);
+        carry(i, j) = v;
+        ge[(k - 1) * bb + e] = w(i, j);
+      });
+      __syncwarp();
+    }
+  }
+}
+
+__global__ void __launch_bounds__(32)
+tridiag_factor_adjoint_vjp_kernel(const double* __restrict__ ld, const double* __restrict__ m,
+                                  const double* __restrict__ gm, const double* __restrict__ lbar,
+                                  const double* __restrict__ hd, const double* __restrict__ he,
+                                  double* __restrict__ hld, double* __restrict__ hm,
+                                  double* __restrict__ hgld, double* __restrict__ hgm,
+                                  int nb, int b) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  double* base = reinterpret_cast<double*>(smem_raw);
+  const int st = b + 1, sz = b * st;
+  const Tile lt[2] = {{base, st}, {base + sz, st}};
+  const Tile mk{base + 2 * sz, st}, lb{base + 3 * sz, st}, g{base + 4 * sz, st},
+      s2{base + 5 * sz, st}, w{base + 6 * sz, st}, ch{base + 7 * sz, st},
+      v{base + 8 * sz, st}, sh{base + 9 * sz, st}, y{base + 10 * sz, st},
+      pend{base + 11 * sz, st};
+  const size_t bb = static_cast<size_t>(b) * b, p = blockIdx.x;
+  ld += p * nb * bb;
+  m += p * nb * bb;
+  gm += p * nb * bb;
+  lbar += p * nb * bb;
+  hd += p * nb * bb;
+  hld += p * nb * bb;
+  hm += p * nb * bb;
+  hgld += p * nb * bb;
+  hgm += p * nb * bb;
+  he += p * (nb - 1) * bb;
+
+  for (int k = 0; k < nb; ++k) {
+    const Tile l = lt[k & 1], lp = lt[(k + 1) & 1];
+    adj_load(l, ld + k * bb, b, true);
+    adj_load(lb, lbar + k * bb, b, false);
+    adj_load(sh, hd + k * bb, b, false);
+    if (k) {
+      adj_load(mk, m + k * bb, b, false);
+      adj_load(w, gm + k * bb, b, false);
+      adj_load(v, he + (k - 1) * bb, b, false);
+    }
+    __syncwarp();
+    adj_cholesky_adjoint(g, s2, l, lb, b);
+    if (k) {
+      adj_w(w, s2, mk, lp, b);
+      for_entries(b, [&](int e, int i, int j) {  // Wh = hE_{k-1} - M_k Ch^T
+        double t = v(i, j);
+        for (int r = 0; r < b; ++r) t -= mk(i, r) * ch(j, r);
+        v(i, j) = t;
+      });
+      __syncwarp();
+      adj_lt_right(v, lp, b);
+      __syncwarp();
+      for_entries(b, [&](int e, int i, int j) {
+        double t = 0.0, u = 0.0;
+        if (j <= i)
+          for (int r = 0; r < b; ++r) t += w(r, i) * v(r, j);
+        hld[(k - 1) * bb + e] = j <= i ? pend(i, j) - t : 0.0;
+        for (int r = 0; r < b; ++r) u += w(i, r) * ch(r, j) + s2(i, r) * v(r, j);
+        hm[k * bb + e] = -u;
+        hgm[k * bb + e] = v(i, j);
+        double s = sh(i, j);
+        for (int r = 0; r < b; ++r) s -= v(i, r) * mk(j, r) + mk(i, r) * v(j, r);
+        sh(i, j) = s;
+      });
+    } else {
+      for_entries(b, [&](int e, int i, int j) { hm[e] = hgm[e] = 0.0; });
+    }
+    __syncwarp();
+    // Gh: Sh's lower triangle mirrored
+    for_entries(b, [&](int e, int i, int j) { y(i, j) = i >= j ? sh(i, j) : sh(j, i); });
+    __syncwarp();
+    adj_lt_right(y, l, b);  // Y = Gh L^-T
+    __syncwarp();
+    for_entries(b, [&](int e, int i, int j) {
+      double t = 0.0;
+      for (int r = 0; r < b; ++r) t -= s2(i, r) * y(r, j);
+      pend(i, j) = t;
+    });
+    __syncwarp();
+    adj_l_left(y, l, b);  // L^-1 Y
+    __syncwarp();
+    for_entries(b, [&](int e, int i, int j) {  // Ah = Phi(L^-1 Y)
+      y(i, j) = j > i ? 0.0 : (i == j ? 0.5 * y(i, j) : y(i, j));
+    });
+    __syncwarp();
+    for_entries(b, [&](int e, int i, int j) {
+      double t = pend(i, j), u = 0.0;
+      for (int r = 0; r < b; ++r) t += lb(i, r) * y(j, r);
+      pend(i, j) = j <= i ? t : 0.0;
+      if (j <= i)
+        for (int r = j; r <= i; ++r) u += l(i, r) * y(r, j);
+      ch(i, j) = u;
+      hgld[k * bb + e] = u;
+    });
+    __syncwarp();
+  }
+  for_entries(b, [&](int e, int i, int j) { hld[(nb - 1) * bb + e] = pend(i, j); });
+}
+
+int adjoint_launch_check(int np, int nb, int b, int threads, int smem, int tiles) {
+  if (np < 1 || np > 65535 || nb < 1 || b < 1 || b > kStagedMaxBlock)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t want = sizeof(double) * tiles * b * (b + 1);
+  if (bad_launch(threads, smem, 32, want)) return static_cast<int>(cudaErrorInvalidConfiguration);
+  return 0;
+}
+
 }  // namespace
 
 
@@ -875,6 +1157,45 @@ extern "C" int tridiag_bwd_launch(const void* ld, const void* m, const void* y,
   if (dtype == 0) return solve<float, false>(ld, m, y, z, np, nb, b, q, lanes, cols, threads, smem, s);
   if (dtype == 1) return solve<double, false>(ld, m, y, z, np, nb, b, q, lanes, cols, threads, smem, s);
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The factor sweep's adjoint (kernel 1), float64: gD, gE and Lbar from Ld,
+// M, gLd, gM (every operand (np, nb, b, b) but gE, (np, nb - 1, b, b));
+// one warp per pulsar, b <= 32, threads and shared bytes those of
+// ops/gp.py::tridiag_adjoint_plan.
+extern "C" int tridiag_factor_adjoint_launch(const void* ld, const void* m, const void* gld,
+                                             const void* gm, void* gd, void* ge, void* lbar,
+                                             int np, int nb, int b, int threads, int smem,
+                                             void* stream) {
+  const int rc = adjoint_launch_check(np, nb, b, threads, smem, kAdjointTiles);
+  if (rc) return rc;
+  cudaError_t err = allow_smem(tridiag_factor_adjoint_kernel, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  tridiag_factor_adjoint_kernel<<<np, 32, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const double*>(ld), static_cast<const double*>(m),
+      static_cast<const double*>(gld), static_cast<const double*>(gm), static_cast<double*>(gd),
+      static_cast<double*>(ge), static_cast<double*>(lbar), nb, b);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Kernel 1's adjoint (kernel 2), float64: the cotangents hLd, hM, hgLd,
+// hgM of kernel 1's inputs from Ld, M, gM, kernel 1's Lbar and the
+// cotangents hD, hE of its outputs; launched as kernel 1 is.
+extern "C" int tridiag_factor_adjoint_vjp_launch(const void* ld, const void* m, const void* gm,
+                                                 const void* lbar, const void* hd,
+                                                 const void* he, void* hld, void* hm,
+                                                 void* hgld, void* hgm, int np, int nb, int b,
+                                                 int threads, int smem, void* stream) {
+  const int rc = adjoint_launch_check(np, nb, b, threads, smem, kAdjointVjpTiles);
+  if (rc) return rc;
+  cudaError_t err = allow_smem(tridiag_factor_adjoint_vjp_kernel, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  tridiag_factor_adjoint_vjp_kernel<<<np, 32, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const double*>(ld), static_cast<const double*>(m),
+      static_cast<const double*>(gm), static_cast<const double*>(lbar),
+      static_cast<const double*>(hd), static_cast<const double*>(he), static_cast<double*>(hld),
+      static_cast<double*>(hm), static_cast<double*>(hgld), static_cast<double*>(hgm), nb, b);
+  return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" const char* block_tridiag_error_string(int code) {

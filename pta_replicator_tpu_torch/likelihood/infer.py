@@ -25,8 +25,10 @@ import numpy as np
 import torch
 
 from ..batch import PulsarBatch
+from ..covariance.structure import BandedCov
 from ..device import resolve_device
 from ..models.batched import ARRAY_FIELDS, Recipe
+from ..ops.gp import TRIDIAG_STAGED_MAX_BLOCK
 from . import gp
 
 #: Recipe fields that feed only the GP priors phi
@@ -253,6 +255,21 @@ class MapResult:
         }
 
 
+def _check_card_cov(recipe: Recipe, device: torch.device) -> None:
+    """Refuse, before any work, a banded ``noise_cov`` whose blocks the
+    card's factor-adjoint kernels do not take: without ECORR the banded rung
+    differentiates its factor with ``ops/gp.py::tridiag_factor_adjoint``,
+    which launches for blocks of at most ``TRIDIAG_STAGED_MAX_BLOCK`` only."""
+    cov = recipe.noise_cov
+    if (device.type == "cuda" and isinstance(cov, BandedCov) and recipe.log10_ecorr is None
+            and cov.block > TRIDIAG_STAGED_MAX_BLOCK):
+        raise ValueError(
+            f"a banded noise_cov of block {cov.block} has no factor-adjoint kernel on the "
+            f"card (blocks of at most {TRIDIAG_STAGED_MAX_BLOCK}); build it with a smaller "
+            "block or fit it with device='cpu'"
+        )
+
+
 def map_objective(residuals, batch: PulsarBatch, recipe: Recipe, names: Tuple[str, ...],
                   design=None, device="cuda"):
     """``(value_and_grad, hessian)`` of ``-log L`` over the Recipe fields
@@ -261,6 +278,7 @@ def map_objective(residuals, batch: PulsarBatch, recipe: Recipe, names: Tuple[st
     :func:`~.gp.loglikelihood` in float64 on ``device``."""
     f64 = torch.float64
     device = resolve_device(device)
+    _check_card_cov(recipe, device)
     batch, recipe = batch.to(device).astype(f64), recipe.to(device).astype(f64)
     residuals = torch.as_tensor(residuals).to(device=device, dtype=f64)
     design = None if design is None else torch.as_tensor(design).to(device=device, dtype=f64)
@@ -298,18 +316,18 @@ def map_fit(residuals, batch: PulsarBatch, recipe: Recipe, params: Dict[str, flo
     objective is the flat-prior log-likelihood; degenerate curvature
     reports NaN sigmas rather than raising.
 
-    On the card a recipe with a structured ``noise_cov`` raises: its C0
-    solves run the block-tridiagonal and SYRK kernels, which have no
-    backward yet (ROADMAP A.24)."""
+    A recipe with a structured ``noise_cov`` differentiates through C0's
+    solver: on the banded rung the block-tridiagonal sweeps' autograd
+    Functions (``ops/gp.py``: each substitution sweep's backward is the
+    other sweep, the factor's is the adjoint kernel and that kernel's the
+    second-order kernel of ``csrc/block_tridiag.cu``), on the dense rung
+    the blocked Cholesky with the SYRK update's Function
+    (``ops/cw.py::CovSyrkUpdate``); on the CPU the same Functions run the
+    plain versions. On the card the banded rung takes blocks of at most 32
+    and refuses a larger block with ValueError before any work."""
     names = tuple(sorted(params))
     _check_axes(names)
     device = resolve_device(device)
-    if device.type == "cuda" and recipe.noise_cov is not None:
-        raise NotImplementedError(
-            "map_fit differentiates the likelihood through C0's solver, and a "
-            "structured noise_cov runs it on the block-tridiagonal / SYRK kernels, "
-            "which have no backward yet (ROADMAP A.24); fit it with device='cpu'"
-        )
     value_and_grad, hessian = map_objective(residuals, batch, recipe, names, design, device)
     x = np.asarray([float(params[k]) for k in names], np.float64)
     lam = MAP_LAMBDA0

@@ -612,12 +612,42 @@ def cov_syrk_cuda(C, L, tile: int = 128):
     return _syrk_launch(build.load("cov_syrk", _bind_syrk), C, L.contiguous(), tile)
 
 
+class CovSyrkUpdate(torch.autograd.Function):
+    """``C - L L^T`` on the lower tiles as a new tensor: the plain version
+    on the CPU, the kernel on a copy of ``C`` on the card (C is left as it
+    is, so the graph stays right). Backward: ``gC = g`` and ``gL = -(g~ +
+    g~^T) L``, g~ being g on the updated tiles (a ``torch.matmul``, as the
+    reference's autodiff computes it outside its Pallas kernel)."""
+
+    @staticmethod
+    def forward(ctx, C, L, tile):
+        ctx.save_for_backward(L)
+        ctx.tile = tile
+        if C.device.type == "cpu":
+            return cov_syrk_plain(C, L, tile)
+        return cov_syrk_cuda(C.clone(memory_format=torch.contiguous_format), L, tile)
+
+    @staticmethod
+    def backward(ctx, g):
+        (L,) = ctx.saved_tensors
+        gL = None
+        if ctx.needs_input_grad[1]:
+            part = torch.arange(g.shape[-1], device=g.device) // ctx.tile
+            gt = torch.where(part[:, None] >= part[None, :], g, 0.0)
+            gL = -torch.matmul(gt + gt.mT, L)
+        return g, gL, None
+
+
 def cov_syrk_update(C, L, tile: int = 128):
     """SYRK trailing update ``C - L L^T`` on the lower (tile x tile) tiles
     of ``C`` (Np, m, m) for the panel ``L`` (Np, m, b); ``m`` must be a
     multiple of ``tile``. CPU tensors run the plain version and get a new
     tensor; CUDA tensors run the kernel, which updates ``C`` in place (and
-    returns it) or raises."""
+    returns it) or raises. While autograd records (an input requires grad
+    and grad mode is on) the call goes through :class:`CovSyrkUpdate`,
+    which returns a new tensor on either device."""
+    if torch.is_grad_enabled() and (C.requires_grad or L.requires_grad):
+        return CovSyrkUpdate.apply(C, L, tile)
     if C.device.type == "cpu":
         return cov_syrk_plain(C, L, tile)
     return cov_syrk_cuda(C, L, tile)

@@ -4,8 +4,11 @@ versions and CUDA kernels.
 The block-tridiagonal half (at the end of the module) is the counterpart
 of the reference's ``tridiag_factor_solve``: the forward factor sweep,
 the substitution-only forward sweep and the backward sweep, whose CUDA
-kernels are in ``csrc/block_tridiag.cu``. The rest of this docstring is
-about the Woodbury half.
+kernels are in ``csrc/block_tridiag.cu``, and the autograd Functions that
+carry them while autograd records, with the factor sweep's adjoint and
+its second-order kernel (no Pallas counterpart: the reference lets XLA
+differentiate its scans). The rest of this docstring is about the
+Woodbury half.
 
 Counterpart of the fused Woodbury half of
 ``pta_replicator_tpu/ops/pallas_gp.py``: for a stacked column basis T
@@ -604,6 +607,10 @@ def _bind_tridiag(lib):
     for fn in (lib.tridiag_solve_fwd_launch, lib.tridiag_bwd_launch):
         fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
+    for fn, pointers in ((lib.tridiag_factor_adjoint_launch, 7),
+                         (lib.tridiag_factor_adjoint_vjp_launch, 10)):
+        fn.argtypes = [ctypes.c_void_p] * pointers + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
     lib.block_tridiag_error_string.argtypes = [ctypes.c_int]
     lib.block_tridiag_error_string.restype = ctypes.c_char_p
 
@@ -743,7 +750,17 @@ def tridiag_forward(D, E, X=None):
     """The forward factor sweep ``(Ld, M, Y)`` (``Y`` None without ``X``):
     CPU tensors run the plain version, CUDA tensors the factor kernel of
     ``csrc/block_tridiag.cu`` (the route :func:`tridiag_plan` picks), which
-    launches or raises."""
+    launches or raises. The factor runs inside :class:`TridiagFactor`; a
+    given ``X`` rides the factor's launch unless autograd records (an input
+    requires grad and grad mode is on), when it goes through
+    :class:`TridiagForwardSolve` on that factor."""
+    if X is not None and not _recording(D, E, X):
+        return _tridiag_forward(D, E, X)
+    Ld, M = TridiagFactor.apply(D, E)
+    return Ld, M, (None if X is None else TridiagForwardSolve.apply(Ld, M, X))
+
+
+def _tridiag_forward(D, E, X=None):
     if D.device.type == "cpu":
         return tridiag_forward_plain(D, E, X)
     npsr, nb, b = _check_tridiag("tridiag_forward", (D, E), X)
@@ -778,7 +795,13 @@ def _tridiag_solve_launch(fn_name, launch_name, Ld, M, R):
 def tridiag_forward_solve(Ld, M, X):
     """The substitution-only forward sweep ``Y`` from a given factor: CPU
     tensors run the plain version, CUDA tensors the kernel (counted as
-    ``tridiag_solve_fwd``), which launches or raises."""
+    ``tridiag_solve_fwd``), which launches or raises; through
+    :class:`TridiagForwardSolve`, which records a graph only while autograd
+    records."""
+    return TridiagForwardSolve.apply(Ld, M, X)
+
+
+def _tridiag_forward_solve(Ld, M, X):
     if Ld.device.type == "cpu":
         return tridiag_forward_solve_plain(Ld, M, X)
     npsr, nb, b = _check_tridiag("tridiag_forward_solve", (Ld, M), X)
@@ -792,7 +815,12 @@ def tridiag_forward_solve(Ld, M, X):
 def tridiag_backward(Ld, M, Y):
     """The backward sweep ``Z``: CPU tensors run the plain version, CUDA
     tensors the kernel (counted as ``tridiag_factor_solve_bwd``), which
-    launches or raises."""
+    launches or raises; through :class:`TridiagBackwardSolve`, which
+    records a graph only while autograd records."""
+    return TridiagBackwardSolve.apply(Ld, M, Y)
+
+
+def _tridiag_backward(Ld, M, Y):
     if Ld.device.type == "cpu":
         return tridiag_backward_plain(Ld, M, Y)
     npsr, nb, b = _check_tridiag("tridiag_backward", (Ld, M), Y)
@@ -811,3 +839,245 @@ def tridiag_factor_solve(D, E, X):
     kernels."""
     Ld, M, Y = tridiag_forward(D, E, X)
     return Ld, M, tridiag_backward(Ld, M, Y)
+
+
+# ------------------------------------------ the sweeps under autograd
+#
+# The JAX package differentiates its scans with XLA; here each sweep is a
+# ``torch.autograd.Function`` whose backward runs kernels too, so that
+# ``map_fit``'s gradient and Hessian over a banded C0 reach no plain
+# version on the card. L is the block lower-bidiagonal factor: diagonal
+# blocks ``Ld`` (lower triangles read) and sub-diagonal blocks ``M``
+# (``M[:, k]`` is the (k, k-1) block; ``M[:, 0]`` is zero and never read).
+# The two substitution sweeps are each other's adjoints (gX = L^-T gY,
+# gY = L^-1 gZ), so the set is closed under differentiation; the factor's
+# adjoint is kernel 1 (:func:`tridiag_factor_adjoint`) and kernel 1's is
+# kernel 2 (:func:`tridiag_factor_adjoint_vjp`, once differentiable: no
+# third derivative is asked for). Under ``torch.no_grad`` or with no input
+# requiring grad a Function records nothing and launches as its kernel
+# alone would; only the factor's fused solve (``tridiag_forward`` with X)
+# keeps its one launch by leaving the Functions while autograd is idle.
+
+def _recording(*tensors) -> bool:
+    """True when autograd would record a call on ``tensors``."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+def _pattern_grad(A, B):
+    """The cotangent ``-A B^T`` of the bidiagonal factor restricted to its
+    pattern, for (Np, nb, b, Q) operands: ``(gLd, gM)`` with ``gLd[k] =
+    -tril(A_k B_k^T)`` and ``gM[k] = -A_k B_{k-1}^T``, ``gM[0]`` zero."""
+    gLd = -torch.einsum("pkiq,pkjq->pkij", A, B).tril()
+    gM = torch.cat([torch.zeros_like(gLd[:, :1]),
+                    -torch.einsum("pkiq,pkjq->pkij", A[:, 1:], B[:, :-1])], dim=1)
+    return gLd, gM
+
+
+class TridiagForwardSolve(torch.autograd.Function):
+    """``Y = L^-1 X`` by the substitution-only forward sweep (B.4's kernel
+    on the card). Backward: ``gX = L^-T gY`` (:class:`TridiagBackwardSolve`)
+    and the factor's cotangent ``-gX Y^T`` on L's pattern."""
+
+    @staticmethod
+    def forward(ctx, Ld, M, X):
+        Y = _tridiag_forward_solve(Ld, M, X)
+        ctx.save_for_backward(Ld, M, Y)
+        return Y
+
+    @staticmethod
+    def backward(ctx, gY):
+        Ld, M, Y = ctx.saved_tensors
+        gX = TridiagBackwardSolve.apply(Ld, M, gY)
+        gLd, gM = _pattern_grad(gX, Y) if any(ctx.needs_input_grad[:2]) else (None, None)
+        return gLd, gM, gX
+
+
+class TridiagBackwardSolve(torch.autograd.Function):
+    """``Z = L^-T Y`` by the backward sweep (B.5's kernel on the card).
+    Backward: ``gY = L^-1 gZ`` (:class:`TridiagForwardSolve`) and the
+    factor's cotangent ``-Z gY^T`` on L's pattern."""
+
+    @staticmethod
+    def forward(ctx, Ld, M, Y):
+        Z = _tridiag_backward(Ld, M, Y)
+        ctx.save_for_backward(Ld, M, Z)
+        return Z
+
+    @staticmethod
+    def backward(ctx, gZ):
+        Ld, M, Z = ctx.saved_tensors
+        gY = TridiagForwardSolve.apply(Ld, M, gZ)
+        gLd, gM = _pattern_grad(Z, gY) if any(ctx.needs_input_grad[:2]) else (None, None)
+        return gLd, gM, gY
+
+
+class TridiagFactor(torch.autograd.Function):
+    """``(Ld, M)`` of ``(D, E)`` by B.4's factor sweep. Backward: kernel 1
+    (:class:`TridiagFactorAdjoint`) on the saved factor, giving ``gD`` on
+    the lower triangles (the triangle the sweep reads) and ``gE``."""
+
+    @staticmethod
+    def forward(ctx, D, E):
+        Ld, M, _ = _tridiag_forward(D, E)
+        ctx.save_for_backward(Ld, M)
+        return Ld, M
+
+    @staticmethod
+    def backward(ctx, gLd, gM):
+        Ld, M = ctx.saved_tensors
+        return TridiagFactorAdjoint.apply(Ld, M, gLd, gM)
+
+
+class TridiagFactorAdjoint(torch.autograd.Function):
+    """Kernel 1, ``(gD, gE)`` from ``(Ld, M, gLd, gM)``: the factor sweep's
+    adjoint (:func:`tridiag_factor_adjoint`). Its backward, reached only
+    by a Hessian's second pass, is kernel 2
+    (:func:`tridiag_factor_adjoint_vjp`)."""
+
+    @staticmethod
+    def forward(ctx, Ld, M, gLd, gM):
+        gD, gE, ctx.lbar = tridiag_factor_adjoint(Ld, M, gLd, gM)
+        ctx.save_for_backward(Ld, M, gLd, gM)
+        return gD, gE
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, hD, hE):
+        Ld, M, gLd, gM = ctx.saved_tensors
+        return tridiag_factor_adjoint_vjp(Ld, M, gLd, gM, hD, hE, lbar=ctx.lbar)
+
+
+def _phi(A):
+    """Murray's Phi: the lower triangle with the diagonal halved."""
+    return A.tril() - 0.5 * torch.diag_embed(torch.diagonal(A, dim1=-2, dim2=-1))
+
+
+def tridiag_factor_adjoint_plain(Ld, M, gLd, gM):
+    """Kernel 1's plain version: the reverse sweep over block columns k =
+    nb - 1 ... 0 of the factor's adjoint, ``(gD, gE)``. Per block column,
+    with L_k's total cotangent ``Lbar = tril(gLd_k + C_k)`` (C: the carry
+    from column k + 1), the Cholesky adjoint (Murray 2016) ``G = L_k^-T
+    Phi(L_k^T Lbar) L_k^-1`` and ``gD_k = tril(G + G^T) - diag(G)``; then,
+    for k >= 1, the cotangent of ``M_k = E_{k-1} L_{k-1}^-T``: ``W =
+    (gM_k - (G + G^T) M_k) L_{k-1}^-1`` is ``gE_{k-1}``, and ``C_{k-1} =
+    -W^T M_k``. Reads only the lower triangles of ``Ld`` and ``gLd``, as
+    the forward sweep's outputs are read."""
+    npsr, nb, b = _check_tridiag("tridiag_factor_adjoint", (Ld, M))
+    L = Ld.tril()
+    carry = torch.zeros_like(L[:, 0])
+    gD, gE = [None] * nb, [None] * (nb - 1)
+    for k in reversed(range(nb)):
+        lbar = (gLd[:, k] + carry).tril()
+        X = torch.linalg.solve_triangular(L[:, k].mT, _phi(L[:, k].mT @ lbar), upper=True)
+        G = torch.linalg.solve_triangular(L[:, k], X, upper=False, left=False)
+        s2 = G + G.mT
+        gD[k] = s2.tril() - torch.diag_embed(torch.diagonal(G, dim1=-2, dim2=-1))
+        if k:
+            W = torch.linalg.solve_triangular(L[:, k - 1], gM[:, k] - s2 @ M[:, k],
+                                              upper=False, left=False)
+            gE[k - 1] = W
+            carry = -W.mT @ M[:, k]
+    gE = torch.stack(gE, 1) if nb > 1 else Ld.new_zeros((npsr, 0, b, b))
+    return torch.stack(gD, 1), gE
+
+
+def tridiag_factor_adjoint_vjp_plain(Ld, M, gLd, gM, hD, hE):
+    """Kernel 2's plain version: ``torch.autograd.grad`` through kernel 1's
+    plain loop, the cotangents of ``(Ld, M, gLd, gM)`` for cotangents
+    ``(hD, hE)`` of ``(gD, gE)``."""
+    with torch.enable_grad():
+        ins = [t.detach().requires_grad_(True) for t in (Ld, M, gLd, gM)]
+        # gE of a single block column is an empty constant
+        pairs = [(o, h) for o, h in zip(tridiag_factor_adjoint_plain(*ins), (hD, hE))
+                 if o.requires_grad]
+        outs, cots = zip(*pairs)
+        outs = torch.autograd.grad(outs, ins, cots, allow_unused=True)
+    return tuple(torch.zeros_like(i) if o is None else o for o, i in zip(outs, ins))
+
+
+def tridiag_adjoint_operations(npsr: int, nb: int, b: int, second: bool) -> int:
+    """Floating-point operations of kernel 1 (``second=False``) or kernel 2
+    per sweep, counting each b x b product as 2 b^3 and each triangular
+    solve as b^3: kernel 1 does three products and three solves a block
+    column; kernel 2 recomputes those of kernel 1's column but the last
+    product, then does eight products and three solves more."""
+    per = (9 if not second else 28) * b**3
+    return npsr * nb * per
+
+
+def tridiag_adjoint_bytes(npsr: int, nb: int, b: int, second: bool, itemsize: int) -> int:
+    """Bytes kernel 1 or 2 must move, each input read once and each output
+    written once: kernel 1's function reads Ld, M, gLd and gM and writes
+    gD and gE (the cotangents Lbar it also stores for kernel 2 are not part
+    of it); kernel 2 reads Ld, M, gM, Lbar (in place of gLd), hD and hE and
+    writes the four cotangents."""
+    blocks, sub = npsr * nb * b * b, npsr * (nb - 1) * b * b
+    return itemsize * ((9 if second else 5) * blocks + sub)
+
+
+#: kernels 1 and 2 keep this many b x b tiles in a warp's shared memory,
+#: each row b + 1 entries apart (csrc/block_tridiag.cu: kAdjointTiles,
+#: kAdjointVjpTiles); one warp per pulsar, blocks of at most 32
+TRIDIAG_ADJOINT_TILES = {False: 8, True: 12}
+
+
+def tridiag_adjoint_plan(npsr: int, b: int, second: bool) -> TridiagPlan:
+    """Kernel 1's (``second=False``) or kernel 2's launch: one warp per
+    pulsar (block x = pulsar x), its tiles in dynamic shared memory."""
+    if not 1 <= b <= TRIDIAG_STAGED_MAX_BLOCK or not 1 <= npsr <= 65535:
+        raise ValueError(
+            f"the factor's adjoint kernels take blocks of 1..{TRIDIAG_STAGED_MAX_BLOCK} and "
+            f"1..65535 pulsars, got b = {b}, Np = {npsr}"
+        )
+    smem = TRIDIAG_ADJOINT_TILES[second] * b * (b + 1) * 8
+    return TridiagPlan("warp", 32, 0, 32, (npsr, 1), smem)
+
+
+def _adjoint_launch(fn_name, launch_name, second, tensors, npsr, nb, b):
+    """One launch of kernel 1 or 2 (float64 only) with its counts recorded
+    as ``cuda.cost.*`` gauges (``obs/devprof.py``)."""
+    from ..obs import devprof
+
+    if tensors[0].dtype != torch.float64:
+        raise TypeError(f"{launch_name}: the kernel takes float64 only, got {tensors[0].dtype}")
+    plan = tridiag_adjoint_plan(npsr, b, second)
+    _tridiag_launch(fn_name, tensors[0].device, tensors,
+                    (npsr, nb, b, plan.threads, plan.shared_bytes), launch_name)
+    devprof.record_kernel_cost(launch_name, tridiag_adjoint_operations(npsr, nb, b, second),
+                               tridiag_adjoint_bytes(npsr, nb, b, second, 8))
+
+
+def tridiag_factor_adjoint(Ld, M, gLd, gM):
+    """Kernel 1: the factor sweep's adjoint ``(gD, gE, lbar)``, ``lbar``
+    the per-column cotangents of L that kernel 2 reads (None on the CPU).
+    CPU tensors run :func:`tridiag_factor_adjoint_plain`; CUDA tensors the
+    kernel of ``csrc/block_tridiag.cu`` (float64, b <= 32; counted as
+    ``tridiag_factor_adjoint``), which launches or raises."""
+    if Ld.device.type == "cpu":
+        return (*tridiag_factor_adjoint_plain(Ld, M, gLd, gM), None)
+    npsr, nb, b = _check_tridiag("tridiag_factor_adjoint", (Ld, M, gLd, gM))
+    ins = [t.contiguous() for t in (Ld, M, gLd, gM)]
+    gD, lbar = torch.empty_like(ins[0]), torch.empty_like(ins[0])
+    gE = ins[0].new_empty((npsr, nb - 1, b, b))
+    _adjoint_launch("tridiag_factor_adjoint_launch", "tridiag_factor_adjoint", False,
+                    (*ins, gD, gE, lbar), npsr, nb, b)
+    return gD, gE, lbar
+
+
+def tridiag_factor_adjoint_vjp(Ld, M, gLd, gM, hD, hE, lbar=None):
+    """Kernel 2: the cotangents ``(hLd, hM, hgLd, hgM)`` of kernel 1's
+    inputs for cotangents ``(hD, hE)`` of its outputs, a forward sweep over
+    block columns. CPU tensors run :func:`tridiag_factor_adjoint_vjp_plain`;
+    CUDA tensors the kernel (float64, b <= 32; counted as
+    ``tridiag_factor_adjoint_vjp``), which reads kernel 1's ``lbar`` in
+    place of ``gLd`` and launches or raises."""
+    if Ld.device.type == "cpu":
+        return tridiag_factor_adjoint_vjp_plain(Ld, M, gLd, gM, hD, hE)
+    if lbar is None:
+        raise ValueError("tridiag_factor_adjoint_vjp: the kernel needs kernel 1's lbar")
+    npsr, nb, b = _check_tridiag("tridiag_factor_adjoint_vjp", (Ld, M, gM, lbar, hD))
+    ins = [t.contiguous() for t in (Ld, M, gM, lbar, hD, hE)]
+    outs = [torch.empty_like(ins[0]) for _ in range(4)]
+    _adjoint_launch("tridiag_factor_adjoint_vjp_launch", "tridiag_factor_adjoint_vjp", True,
+                    (*ins, *outs), npsr, nb, b)
+    return tuple(outs)

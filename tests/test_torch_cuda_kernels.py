@@ -731,7 +731,11 @@ def test_woodbury_split_knob_on_the_card(cuda_device, tmp_path):
     assert tuner.woodbury_knob(T, "bf16", cache_path=path) == {}
 
 
-def test_map_fit_on_the_card_refuses_a_covariance_and_matches_the_cpu(cuda_device):
+def test_map_fit_on_the_card_matches_the_cpu_with_and_without_a_banded_covariance(cuda_device):
+    """The GWB fit of the flagship recipe, then the same residuals' fit
+    over a banded covariance (the block-tridiagonal Functions: kernels 1
+    and 2 in the gradient and the Hessian), each on the card against the
+    CPU's plain loops: x and sigma within 1e-6, the same iterations."""
     import dataclasses
 
     from pta_replicator_tpu_torch import flagship_workload, realize
@@ -739,17 +743,50 @@ def test_map_fit_on_the_card_refuses_a_covariance_and_matches_the_cpu(cuda_devic
     from pta_replicator_tpu_torch.covariance import banded_from_times
 
     start = {"gwb_log10_amplitude": -14.6, "gwb_gamma": 3.8}
-    fits = {}
+    cov_start = {"cov_log10_sigma": -6.2, "gwb_log10_amplitude": -14.6}
+    fits, cov_fits = {}, {}
+    launches.clear()
     for device in ("cpu", cuda_device):
         batch, recipe = flagship_workload(npsr=4, ntoa=300, ncw=5, dtype=torch.float64,
                                           device=device)
-        res = realize(torch.Generator().manual_seed(3), batch.to("cpu"), recipe.to("cpu"), 1,
-                      device="cpu")[0]
+        op = banded_from_times(batch.toas_s, batch.mask, rho=0.5, corr_s=30 * 86400.0,
+                               block=16, dtype=torch.float64, device=device)
+        cov = dataclasses.replace(recipe, log10_ecorr=None, noise_cov=op, cov_log10_sigma=-6.4)
+        if device == "cpu":  # the residuals of both fits, realized once on the CPU
+            res, cov_res = (realize(torch.Generator().manual_seed(3), batch, r, 1,
+                                    device="cpu")[0] for r in (recipe, cov))
         fits[str(device)] = lk.map_fit(res, batch, recipe, start, device=device)
-    assert fits["cuda"].converged and fits["cuda"].iterations == fits["cpu"].iterations
-    np.testing.assert_allclose(fits["cuda"].x, fits["cpu"].x, rtol=1e-6)
-    np.testing.assert_allclose(fits["cuda"].sigma, fits["cpu"].sigma, rtol=1e-6)
-    op = banded_from_times(batch.toas_s, batch.mask, rho=0.5, corr_s=30 * 86400.0, block=16,
-                           dtype=torch.float64, device=cuda_device)
-    with pytest.raises(NotImplementedError, match="A.24"):
-        lk.map_fit(res, batch, dataclasses.replace(recipe, noise_cov=op), start)
+        cov_fits[str(device)] = lk.map_fit(cov_res, batch, cov, cov_start, device=device)
+    assert launches["tridiag_factor_adjoint"] > 0 and launches["tridiag_factor_adjoint_vjp"] > 0
+    for got, ref in ((fits["cuda"], fits["cpu"]), (cov_fits["cuda"], cov_fits["cpu"])):
+        assert got.converged and got.iterations == ref.iterations
+        np.testing.assert_allclose(got.x, ref.x, rtol=1e-6)
+        np.testing.assert_allclose(got.sigma, ref.sigma, rtol=1e-6)
+
+
+@pytest.mark.parametrize("nb,b", [(7, 16), (3, 32), (1, 5)])
+def test_factor_adjoint_kernels_match_their_plain_versions(cuda_device, nb, b):
+    """Kernels 1 and 2 against their plain versions (kernel 2's: autograd
+    through kernel 1's plain loop), float64, within 1e-12 of the largest
+    |entry|; another dtype raises."""
+    rng = np.random.default_rng(nb * b)
+    A = rng.standard_normal((3, nb, b, b))
+    D = torch.as_tensor(A @ np.swapaxes(A, -1, -2) + 3 * b * np.eye(b), device=cuda_device)
+    E = torch.as_tensor(0.5 * rng.standard_normal((3, nb - 1, b, b)), device=cuda_device)
+    Ld, M, _ = tgp.tridiag_forward(D, E)
+    gLd, gM, hD = (torch.as_tensor(rng.standard_normal(Ld.shape), device=cuda_device)
+                   for _ in range(3))
+    hE = torch.as_tensor(rng.standard_normal(E.shape), device=cuda_device)
+    launches.clear()
+    gD, gE, lbar = tgp.tridiag_factor_adjoint(Ld, M, gLd, gM)
+    got = tgp.tridiag_factor_adjoint_vjp(Ld, M, gLd, gM, hD, hE, lbar=lbar)
+    torch.cuda.synchronize()
+    assert launches["tridiag_factor_adjoint"] == launches["tridiag_factor_adjoint_vjp"] == 1
+    want = tgp.tridiag_factor_adjoint_plain(Ld, M, gLd, gM)
+    for g, w in zip((gD, gE), want):
+        assert g.numel() == 0 or _rel_max(g, w) <= 1e-12
+    for g, w in zip(got, tgp.tridiag_factor_adjoint_vjp_plain(Ld, M, gLd, gM, hD, hE)):
+        # a single block column reads no gM and no M: those cotangents are zero
+        assert _rel_max(g, w) <= 1e-12 if w.any() else torch.equal(g, w)
+    with pytest.raises(TypeError, match="float64"):
+        tgp.tridiag_factor_adjoint(Ld.float(), M.float(), gLd.float(), gM.float())
