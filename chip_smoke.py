@@ -1597,7 +1597,9 @@ def phase_cov_adjoint_kernels():
     TOL_COV of its largest |entry|, two runs bitwise equal; the time by
     CUDA events beside the bound from the counts the wrappers record and
     the plain versions' one call (kernel 2's is autograd through kernel 1's
-    plain loop)."""
+    plain loop). Kernel 2 is fed kernel 1's gD, gE and Lbar, as the
+    Function feeds it. Each row has the µs per block column and the plan
+    (the input-only terms run inside the chain's block: no pre-pass)."""
     f64 = torch.float64
     batch, recipe = flagship_workload(**FLAGSHIP, dtype=f64)
     recipe = _config_b(batch, recipe, f64)
@@ -1610,12 +1612,13 @@ def phase_cov_adjoint_kernels():
                    for _ in range(3))
     hE = torch.as_tensor(rng.standard_normal((Ld.shape[0], Ld.shape[1] - 1) + Ld.shape[2:]),
                          device=Ld.device)
-    lbar = ops_gp.tridiag_factor_adjoint(Ld, M, gLd, gM)[2]
+    gD, gE, lbar = ops_gp.tridiag_factor_adjoint(Ld, M, gLd, gM)
     cases = {
         "tridiag_factor_adjoint": (lambda: ops_gp.tridiag_factor_adjoint(Ld, M, gLd, gM)[:2],
                                    lambda: ops_gp.tridiag_factor_adjoint_plain(Ld, M, gLd, gM)),
         "tridiag_factor_adjoint_vjp": (
-            lambda: ops_gp.tridiag_factor_adjoint_vjp(Ld, M, gLd, gM, hD, hE, lbar=lbar),
+            lambda: ops_gp.tridiag_factor_adjoint_vjp(Ld, M, gLd, gM, hD, hE, lbar=lbar, gD=gD,
+                                                      gE=gE),
             lambda: ops_gp.tridiag_factor_adjoint_vjp_plain(Ld, M, gLd, gM, hD, hE)),
     }
     rows = {}

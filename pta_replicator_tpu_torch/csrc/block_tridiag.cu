@@ -834,137 +834,318 @@ int solve(const void* ldv, const void* mv, const void* inpv, void* outv, int np,
 // Two kernels that replace no TPU kernel: the JAX package differentiates
 // its factor's scan with XLA, and these are how the port differentiates
 // the factor sweep (ops/gp.py::TridiagFactor, TridiagFactorAdjoint) with no
-// Python loop over block columns on the card. Both are recurrences over the
-// block columns, one warp per pulsar with every b x b tile of a column in
-// the warp's shared memory (rows b + 1 entries apart), lanes splitting each
-// product's entries and each triangular solve's rows or columns (b <= 32,
-// so a lane per row or column), __syncwarp between dependent steps. Bound:
-// bytes (each block read or written once; 0.14 ms for kernel 1 at config
-// B's 68 x 485 x 16 on an H100) but, as the factor sweep, latency first:
-// each block column is a chain of dependent b x b steps on one warp.
+// Python loop over block columns on the card. L = tril(Ld_k), Lp = L_{k-1},
+// Li = L^-1, Phi(X) = tril(X) with its diagonal halved, Sym(X) = Phi(X) +
+// Phi(X)^T (X's lower triangle mirrored).
 //
-// Kernel 1 (tridiag_factor_adjoint_kernel), k = nb - 1 ... 0, with
-// L = tril(Ld_k), Lp = tril(Ld_{k-1}) and the carry C (zero at first):
-//   Lbar = tril(gLd_k + C)              (written: kernel 2 reads it)
-//   G    = L^-T Phi(L^T Lbar) L^-1      (Phi: lower triangle, diagonal halved)
-//   gD_k = tril(G + G^T) - diag(G)
-//   k >= 1:  W = (gM_k - (G + G^T) M_k) Lp^-1 = gE_{k-1},  C = -W^T M_k.
-// Kernel 2 (tridiag_factor_adjoint_vjp_kernel) is kernel 1's adjoint, a
-// sweep k = 0 ... nb - 1 that recomputes column k's G, S2 = G + G^T and W
-// from Lbar_k, then, with the carries' cotangent Ch (zero at first) and the
-// pending cotangent P of Lp:
-//   k >= 1:  Wh = hE_{k-1} - M_k Ch^T;  V = Wh Lp^-T;  hgM_k = V;
-//            hLd_{k-1} = P - tril(W^T V);
-//            hM_k = -W Ch - S2 V;  Sh = hD_k - V M_k^T - M_k V^T
-//   k = 0:   hM_0 = hgM_0 = 0,  Sh = hD_0
-//   Gh = Sh's lower triangle mirrored;  Y = Gh L^-T;  Ah = Phi(L^-1 Y)
-//   P  = tril(-S2 Y + Lbar Ah^T);  Ch = hgLd_k = tril(L Ah)
-// and hLd_{nb-1} = P at the end.
+// Kernel 1 (tridiag_factor_adjoint_kernel) is the reverse sweep k = nb - 1
+// ... 0 with the carry C (zero at first): Lbar = tril(gLd_k + C) (written:
+// kernel 2 reads it), X = L^T Lbar, G = Li^T Phi(X) Li, S2 = G + G^T, gD_k =
+// tril(S2) - diag(G) and, for k >= 1, W = (gM_k - S2 M_k) Lp^-1 = gE_{k-1}
+// and the next carry -W^T M_k. With the input-only terms of column k
+//   A = gM_k Lp^-1, B = M_k Lp^-1, V1 = Li M_k, U1 = V1 Lp^-1, P = A^T M_k,
+// W = A - S2 B and the carry is -P + U1^T (Sym(X) V1): the chain from one
+// block column to the next is three dependent b x b products, T = Sym(X)
+// V1, C = -P + U1^T T and X = L^T tril(gLd + C).
+//
+// Kernel 2 (tridiag_factor_adjoint_vjp_kernel) is kernel 1's adjoint, the
+// forward sweep k = 0 ... nb - 1 of the cotangents hD, hE of its outputs.
+// It reads kernel 1's outputs for S2 = gD + gD^T (bit for bit kernel 1's
+// G + G^T) and W = gE_{k-1}, so it recomputes nothing of kernel 1's column.
+// With the pending cotangent Ch = tril(Lp Ah_{k-1}) of the last column,
+// Lp^-1 Ch = Ah_{k-1}, so with the input-only terms
+//   Q0 = hE_{k-1} Lp^-T, Vm = Li M_k, Q1 = Li Q0, H0 = Li Sym(hD_k) Li^T
+// the chain is two dependent products a column:
+//   X2 = Q1 - Vm Ah_{k-1}^T,  Z = H0 - X2 Vm^T - Vm X2^T,  Ah = Phi(Z)
+// (Z_0 = H0_0), and what feeds the outputs but no later column is off it:
+//   V = Q0 - M_k Ah_{k-1}^T = hgM_k,  Ch = tril(L Ah) = hgLd_k,  Y = L Sym(Z),
+//   hM_k = -W Ch_{k-1} - S2 V,  hLd_{k-1} = P_{k-1} - tril(W^T V),
+//   P_k = tril(-S2 Y + Lbar Ah^T),  hLd_{nb-1} = P_{nb-1}.
+//
+// Bound. Bytes (each input read once, each output written once: 0.121 ms
+// for kernel 1 and 0.202 for kernel 2 at config B's 68 x 485 x 16 on an
+// H100), but each sweep is a recurrence over the block columns, so the
+// chain's latency comes first: every block column waits for the last.
+//
+// Design (b' = 16 for b <= 16, else 32: a template width, whole m16n8k8
+// tiles, every loop unrolled). One block of 16 warps per pulsar, in steps
+// of one block column:
+// * the chain, 2 warps, one 16 x 8 output tile each at b' = 16: every
+//   product on DMMA (mma.sync m16n8k8 f64, the two k steps of a tile in
+//   separate accumulators), a barrier over these warps only between its
+//   products;
+// * 2 inverse warps: L^-1 by substitution, a lane per column and the
+//   diagonal's reciprocals, each inverse split over two steps on one warp
+//   (one warp starts a column while the other finishes the last), done
+//   three columns ahead of the chain in kernel 1, two in kernel 2;
+// * 12 worker warps, one 16 x 8 tile of one product a job: every
+//   input-only product one column ahead of the chain (kernel 1's A, B,
+//   V1, U1, P; kernel 2's Q0, Vm, Q1, H0) and the outputs one column
+//   behind it (kernel 1's G, gD, W; kernel 2's V, Ch, Y, P, hM, hLd), with
+//   a barrier over the workers only between their phases;
+// * each block column's input tiles arrive by cp.async (16 bytes a copy,
+//   issued by every thread) seven block columns ahead in kernel 1, six in
+//   kernel 2, into a ring of eight slots whose padding (identity on L's
+//   diagonal, zero elsewhere) is written once; two steps' copies stay in
+//   flight at a barrier.
+// One block barrier per step joins the roles. The input-only terms run in
+// the chain's block, not in a pre-pass kernel over every (pulsar, column)
+// pair: kernels/tridiag_study.py's build without them saves 0.20 ms of
+// kernel 1 and 0.19 of kernel 2 at config B on an H100, no more than a
+// pre-pass would spend writing them to device memory and reading them back
+// (6 and 5 tiles a column: 0.24 and 0.20 ms at 3.35 TB/s). The explicit
+// L^-1 products round otherwise than substitution; against the plain
+// versions they stay within 1e-12 of the largest |entry| at condition
+// numbers up to 1e12 (tests/test_torch_adjoint_redesign.py). Tiles are b'
+// x (b' + 4) doubles, a pitch that makes the fragment loads conflict-free.
+// At b' = 32 they do not fit in shared memory (kernel 2 holds 88), so
+// those blocks keep them in a device scratch the wrapper allocates (the
+// same code, L2's latency in place of shared memory's; on no path of the
+// port). Every sum runs in a fixed order and there are no atomics: every
+// run gives the same bits. A non-positive pivot upstream (a NaN L) gives
+// NaN, as the plain version does.
+//
+// What holds them back (the study on an H100 SXM at 700 W, config B's 68 x
+// 485 x 16; PERF.md): kernel 1 takes 0.96 ms (2.0 us a block column) and
+// kernel 2 1.42 ms (2.9 us), against 0.121 and 0.202 ms bounds. The chain
+// alone (a build without the loads, the inverses and the workers) takes
+// 0.25 and 0.30 ms; the workers' phases are the longest role (2,300 and
+// 2,860 cycles a step by clock64, the chain's 1,680 and 1,720), and every
+// part the partial builds skip takes its share of the one SM per pulsar
+// (68 of 132 busy): the outputs most, 0.34 and 0.56 ms.
 
-constexpr int kAdjointTiles = 8;      // kernel 1's tiles in shared memory
-constexpr int kAdjointVjpTiles = 12;  // kernel 2's
+constexpr int kAdjChainWarps = 2;
+constexpr int kAdjInverseWarps = 2;
+constexpr int kAdjWorkerWarps = 12;
+constexpr int kAdjThreads = 32 * (kAdjChainWarps + kAdjInverseWarps + kAdjWorkerWarps);
+constexpr int kAdjLoadRing = 8;        // slots of the input tiles, by block column
+constexpr int kAdjRing = 6;            // slots of the computed tiles, by block column
+constexpr int kAdjLoadWait = 2;        // load groups left in flight at a block barrier
+constexpr int kAdjSharedMaxBlock = 16; // the largest b' whose tiles sit in shared memory
+constexpr int kAdj1Loads = 4, kAdj1Slot = 8;  // kernel 1: input and computed tiles a column
+constexpr int kAdj1Tiles = kAdjLoadRing * kAdj1Loads + kAdjRing * kAdj1Slot + 3;
+constexpr int kAdj2Loads = 7, kAdj2Slot = 3;  // kernel 2: the same
+constexpr int kAdj2Pairs = 5;          // kernel 2: tiles kept for two block columns
+constexpr int kAdj2Tiles = kAdjLoadRing * kAdj2Loads + kAdjRing * kAdj2Slot + 2 * kAdj2Pairs + 4;
+constexpr int kChainBarrier = 1, kWorkerBarrier = 2;
 
-// A b x b tile in shared memory, rows `st` entries apart
-struct Tile {
-  double* p;
-  int st;
-  __device__ __forceinline__ double& operator()(int i, int j) const { return p[i * st + j]; }
+template <int BP>
+struct AdjTile {
+  static constexpr int ST = BP + 4;       // the row pitch: 4 mod 16 doubles
+  static constexpr int SIZE = BP * ST;
+  static constexpr int CT = BP / 8;       // 16 x 8 output tiles: CT a tile row,
+  static constexpr int TILES = BP / 16 * CT;  // TILES a product
 };
 
-// f(e, i, j) for the entries e = i b + j of a b x b block, split over the
-// warp's lanes
-template <typename F>
-__device__ __forceinline__ void for_entries(int b, F f) {
-  for (int e = threadIdx.x; e < b * b; e += 32) {
-    const int i = e / b;
-    f(e, i, e - i * b);
+// Views of a tile (rows ST entries apart) as a DMMA operand
+template <int ST> struct Mat {
+  const double* p;
+  __device__ __forceinline__ double operator()(int i, int j) const { return p[i * ST + j]; }
+};
+template <int ST> struct Tr {
+  const double* p;
+  __device__ __forceinline__ double operator()(int i, int j) const { return p[j * ST + i]; }
+};
+template <int ST> struct SymL {  // the lower triangle mirrored
+  const double* p;
+  __device__ __forceinline__ double operator()(int i, int j) const {
+    return i >= j ? p[i * ST + j] : p[j * ST + i];
+  }
+};
+template <int ST> struct PhiL {  // Phi
+  const double* p;
+  __device__ __forceinline__ double operator()(int i, int j) const {
+    return i > j ? p[i * ST + j] : (i == j ? 0.5 * p[i * ST + i] : 0.0);
+  }
+};
+template <int ST> struct PhiT {  // Phi transposed
+  const double* p;
+  __device__ __forceinline__ double operator()(int i, int j) const {
+    return j > i ? p[j * ST + i] : (i == j ? 0.5 * p[i * ST + i] : 0.0);
+  }
+};
+template <int ST> struct PlusT {  // G + G^T
+  const double* p;
+  __device__ __forceinline__ double operator()(int i, int j) const {
+    return p[i * ST + j] + p[j * ST + i];
+  }
+};
+template <int ST> struct S2FromGD {  // gD + gD^T, gD = tril(G + G^T) - diag(G)
+  const double* p;
+  __device__ __forceinline__ double operator()(int i, int j) const {
+    return i == j ? 2.0 * p[i * ST + i] : (i > j ? p[i * ST + j] : p[j * ST + i]);
+  }
+};
+template <class F> struct Neg {
+  F f;
+  __device__ __forceinline__ double operator()(int i, int j) const { return -f(i, j); }
+};
+template <class F> __device__ __forceinline__ Neg<F> neg(F f) { return {f}; }
+
+__device__ __forceinline__ void dmma(double (&d)[4], const double (&a)[4], const double (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f64.f64.f64.f64 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
+      "{%8, %9}, {%0, %1, %2, %3};\n"
+      : "+d"(d[0]), "+d"(d[1]), "+d"(d[2]), "+d"(d[3])
+      : "d"(a[0]), "d"(a[1]), "d"(a[2]), "d"(a[3]), "d"(b[0]), "d"(b[1]));
+}
+
+// d += A[16 ti.., :] B[:, 8 tj..], the 16 x 8 output tile (ti, tj) on DMMA
+// m16n8k8: with g = lane / 4 and t = lane % 4, d[2 h + i] is the sum at
+// (row 16 ti + g + 8 h, column 8 tj + 2 t + i). The k steps of 8 alternate
+// between two chains summed at the end, so a tile at b' = 16 is two
+// independent instructions.
+template <int BP, class FA, class FB>
+__device__ __forceinline__ void mma_tile(double (&d)[4], FA a, FB b, int ti, int tj) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int r = 16 * ti + g, c = 8 * tj + g;
+  double e[4] = {0.0, 0.0, 0.0, 0.0};
+#pragma unroll
+  for (int k = 0; k < BP; k += 8) {
+    const double af[4] = {a(r, k + t), a(r + 8, k + t), a(r, k + t + 4), a(r + 8, k + t + 4)};
+    const double bf[2] = {b(k + t, c), b(k + t + 4, c)};
+    dmma(k & 8 ? e : d, af, bf);
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) d[i] += e[i];
+}
+
+// Where a thread's fragment entries lie, and what it does with them
+__device__ __forceinline__ void frag_coord(int ti, int tj, int i, int& row, int& col) {
+  const int lane = threadIdx.x & 31;
+  row = 16 * ti + (lane >> 2) + 8 * (i >> 1);
+  col = 8 * tj + 2 * (lane & 3) + (i & 1);
+}
+template <int ST>
+__device__ __forceinline__ void frag_load(double (&d)[4], const double* t, int ti, int tj,
+                                          double s = 1.0) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    int r, c;
+    frag_coord(ti, tj, i, r, c);
+    d[i] = s * t[r * ST + c];
+  }
+}
+template <int ST>
+__device__ __forceinline__ void frag_store(double* t, const double (&d)[4], int ti, int tj) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    int r, c;
+    frag_coord(ti, tj, i, r, c);
+    t[r * ST + c] = d[i];
+  }
+}
+// Zero the fragment's entries above the diagonal
+__device__ __forceinline__ void frag_tril(double (&d)[4], int ti, int tj) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    int r, c;
+    frag_coord(ti, tj, i, r, c);
+    if (c > r) d[i] = 0.0;
+  }
+}
+// The fragment's entries inside the b x b block `g` (rows b apart)
+__device__ __forceinline__ void frag_out(double* g, const double (&d)[4], int ti, int tj, int b) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    int r, c;
+    frag_coord(ti, tj, i, r, c);
+    if (r < b && c < b) g[r * b + c] = d[i];
   }
 }
 
-__device__ __forceinline__ void adj_load(Tile t, const double* src, int b, bool lower) {
-  for_entries(b, [&](int e, int i, int j) { t(i, j) = lower && j > i ? 0.0 : src[e]; });
+__device__ __forceinline__ void named_barrier(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(threads) : "memory");
 }
 
-// In place: X <- L^-T X, a lane per column (backward substitution)
-__device__ __forceinline__ void adj_lt_left(Tile x, Tile l, int b) {
-  for (int c = threadIdx.x; c < b; c += 32)
-    for (int i = b - 1; i >= 0; --i) {
-      double v = x(i, c);
-      for (int r = i + 1; r < b; ++r) v -= l(r, i) * x(r, c);
-      x(i, c) = v / l(i, i);
+// A b x b block (rows b apart) into a tile, its lower triangle only when
+// `lower`: by cp.async into shared memory (16 bytes a copy where b = b'),
+// or copied into the scratch. `part` staggers the threads over the tiles
+// of one step.
+template <int BP, bool SCRATCH>
+__device__ __forceinline__ void adj_stage(double* dst, const double* src, int b, bool lower,
+                                          int part) {
+  constexpr int ST = AdjTile<BP>::ST;
+  int first = static_cast<int>(threadIdx.x) - part * (BP * BP / 2) % kAdjThreads;
+  if (first < 0) first += kAdjThreads;
+  if (!SCRATCH && b == BP) {
+    for (int e = first; e < BP * BP / 2; e += kAdjThreads) {
+      const int i = e / (BP / 2), j = 2 * (e % (BP / 2));
+      if (lower && j > i) continue;
+      if (lower && j == i) cp_async<8>(dst + i * ST + j, src + i * BP + j);  // j + 1 > i
+      else cp_async16(dst + i * ST + j, src + i * BP + j);
     }
+    return;
+  }
+  for (int e = first; e < b * b; e += kAdjThreads) {
+    const int i = e / b, j = e - i * b;
+    if (lower && j > i) continue;
+    if constexpr (SCRATCH) dst[i * ST + j] = src[e];
+    else cp_async<8>(dst + i * ST + j, src + e);
+  }
 }
 
-// In place: X <- L^-1 X, a lane per column (forward substitution)
-__device__ __forceinline__ void adj_l_left(Tile x, Tile l, int b) {
-  for (int c = threadIdx.x; c < b; c += 32)
-    for (int i = 0; i < b; ++i) {
-      double v = x(i, c);
-      for (int r = 0; r < i; ++r) v -= l(i, r) * x(r, c);
-      x(i, c) = v / l(i, i);
-    }
+// Every tile zero, then 1 on the padded diagonal of each load slot's L
+// (the first tile of each slot)
+template <int BP>
+__device__ void adj_init(double* base, int tiles, int loads, int b) {
+  constexpr int ST = AdjTile<BP>::ST, SIZE = AdjTile<BP>::SIZE;
+  for (int e = threadIdx.x; e < tiles * SIZE; e += kAdjThreads) base[e] = 0.0;
+  __syncthreads();
+  for (int e = threadIdx.x; e < kAdjLoadRing * (BP - b); e += kAdjThreads) {
+    const int s = e / (BP - b), i = b + e % (BP - b);
+    base[s * loads * SIZE + i * ST + i] = 1.0;
+  }
 }
 
-// In place: X <- X L^-1, a lane per row
-__device__ __forceinline__ void adj_l_right(Tile x, Tile l, int b) {
-  for (int r = threadIdx.x; r < b; r += 32)
-    for (int j = b - 1; j >= 0; --j) {
-      double v = x(r, j);
-      for (int i = j + 1; i < b; ++i) v -= x(r, i) * l(i, j);
-      x(r, j) = v / l(j, j);
-    }
+// Substitution steps J0 .. J1 - 1 of li = l^-1 for a lower-triangular
+// tile: lane c carries column c in registers, each step its own
+// diagonal's reciprocal times the running sum, starting from the identity
+// (J0 = 0) or from li's column as the last part left it (lanes past b'
+// repeat a column). One inverse takes two parts on two steps.
+template <int BP, int J0, int J1>
+__device__ __forceinline__ void adj_invert(double* li, const double* l) {
+  constexpr int ST = AdjTile<BP>::ST;
+  const int lane = threadIdx.x & 31, c = lane & (BP - 1);
+  const double rd = 1.0 / l[c * ST + c];
+  double x[BP];
+#pragma unroll
+  for (int i = 0; i < BP; ++i) x[i] = J0 == 0 ? (i == c ? 1.0 : 0.0) : li[i * ST + c];
+#pragma unroll
+  for (int j = J0; j < J1; ++j) {
+    x[j] *= __shfl_sync(0xffffffffu, rd, j);
+#pragma unroll
+    for (int i = j + 1; i < BP; ++i) x[i] = fma(-l[i * ST + j], x[j], x[i]);
+  }
+  if (lane < BP)
+#pragma unroll
+    for (int i = J0; i < BP; ++i) li[i * ST + c] = x[i];
 }
 
-// In place: X <- X L^-T, a lane per row
-__device__ __forceinline__ void adj_lt_right(Tile x, Tile l, int b) {
-  for (int r = threadIdx.x; r < b; r += 32)
-    for (int i = 0; i < b; ++i) {
-      double v = x(r, i);
-      for (int j = 0; j < i; ++j) v -= x(r, j) * l(i, j);
-      x(r, i) = v / l(i, i);
-    }
+// The inverse warps' share of step k: warp k % 2 starts L_q^-1 (q = the
+// column it is given), the other warp finishes the one it started a step
+// before (q_last)
+template <int BP>
+__device__ __forceinline__ void adj_inverse_step(int k, int iw, int q, int q_last, int nb,
+                                                 double* li_q, const double* l_q,
+                                                 double* li_last, const double* l_last) {
+  if ((k & 1) == iw) {
+    if (q >= 0 && q < nb) adj_invert<BP, 0, BP / 2>(li_q, l_q);
+  } else if (q_last >= 0 && q_last < nb) {
+    adj_invert<BP, BP / 2, BP>(li_last, l_last);
+  }
 }
 
-// G = L^-T Phi(L^T Lbar) L^-1 into g, then s2 = G + G^T
-__device__ __forceinline__ void adj_cholesky_adjoint(Tile g, Tile s2, Tile l, Tile lbar, int b) {
-  for_entries(b, [&](int e, int i, int j) {
-    double v = 0.0;
-    if (j <= i)
-      for (int r = i; r < b; ++r) v += l(r, i) * lbar(r, j);
-    g(i, j) = i == j ? 0.5 * v : v;
-  });
-  __syncwarp();
-  adj_lt_left(g, l, b);
-  __syncwarp();
-  adj_l_right(g, l, b);
-  __syncwarp();
-  for_entries(b, [&](int e, int i, int j) { s2(i, j) = g(i, j) + g(j, i); });
-  __syncwarp();
-}
-
-// W = (gM_k - S2 M_k) Lp^-1, in place in w (which holds gM_k)
-__device__ __forceinline__ void adj_w(Tile w, Tile s2, Tile mk, Tile lp, int b) {
-  for_entries(b, [&](int e, int i, int j) {
-    double v = w(i, j);
-    for (int r = 0; r < b; ++r) v -= s2(i, r) * mk(r, j);
-    w(i, j) = v;
-  });
-  __syncwarp();
-  adj_l_right(w, lp, b);
-  __syncwarp();
-}
-
-__global__ void __launch_bounds__(32)
+template <int BP, bool SCRATCH>
+__global__ void __launch_bounds__(kAdjThreads, 1)
 tridiag_factor_adjoint_kernel(const double* __restrict__ ld, const double* __restrict__ m,
                               const double* __restrict__ gld, const double* __restrict__ gm,
                               double* __restrict__ gd, double* __restrict__ ge,
-                              double* __restrict__ lbar, int nb, int b) {
+                              double* __restrict__ lbar, double* scratch, int nb, int b) {
+  using AT = AdjTile<BP>;
+  constexpr int ST = AT::ST, CT = AT::CT;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  double* base = reinterpret_cast<double*>(smem_raw);
-  const int st = b + 1, sz = b * st;
-  const Tile lt[2] = {{base, st}, {base + sz, st}};
-  const Tile mk{base + 2 * sz, st}, lb{base + 3 * sz, st}, g{base + 4 * sz, st},
-      s2{base + 5 * sz, st}, w{base + 6 * sz, st}, carry{base + 7 * sz, st};
+  double* const base = SCRATCH ? scratch + blockIdx.x * static_cast<size_t>(kAdj1Tiles) * AT::SIZE
+                               : reinterpret_cast<double*>(smem_raw);
   const size_t bb = static_cast<size_t>(b) * b, p = blockIdx.x;
   ld += p * nb * bb;
   m += p * nb * bb;
@@ -973,142 +1154,360 @@ tridiag_factor_adjoint_kernel(const double* __restrict__ ld, const double* __res
   gd += p * nb * bb;
   lbar += p * nb * bb;
   ge += p * (nb - 1) * bb;
-
-  for_entries(b, [&](int e, int i, int j) { carry(i, j) = 0.0; });
-  adj_load(lt[(nb - 1) & 1], ld + (nb - 1) * bb, b, true);
-  __syncwarp();
-  for (int k = nb - 1; k >= 0; --k) {
-    const Tile l = lt[k & 1], lp = lt[(k + 1) & 1];
-    if (k) {
-      adj_load(lp, ld + (k - 1) * bb, b, true);
-      adj_load(mk, m + k * bb, b, false);
-      adj_load(w, gm + k * bb, b, false);
+  // a column's input tiles ...
+  enum { kL, kM, kGLd, kGM };
+  const auto in = [&](int col, int which) {
+    return base + ((col % kAdjLoadRing) * kAdj1Loads + which) * AT::SIZE;
+  };
+  // ... its computed tiles (L^-1, the input-only terms, X, Lbar) ...
+  enum { kLi, kA, kB, kV1, kU1, kP, kX, kLbar };
+  double* const ring = base + kAdjLoadRing * kAdj1Loads * AT::SIZE;
+  const auto at = [&](int col, int which) {
+    return ring + ((col % kAdjRing) * kAdj1Slot + which) * AT::SIZE;
+  };
+  // ... and those of one step
+  double* const tT = ring + kAdjRing * kAdj1Slot * AT::SIZE;  // the chain's Sym(X) V1
+  double* const tF = tT + AT::SIZE;                           // Phi(X) Li
+  double* const tG = tF + AT::SIZE;                           // G
+  const int warp = threadIdx.x >> 5;
+  adj_init<BP>(base, kAdj1Tiles, kAdj1Loads, b);
+  __syncthreads();
+  // Step k: the chain runs column k, the inverse warps columns k - 4 and k
+  // - 3, the workers the input-only terms of column k - 1 and the outputs
+  // of column k + 1; column k - 7 is loaded.
+  for (int k = nb + 6; k >= -1; --k) {
+    if (k >= 7 && k - 7 < nb) {
+      const int q = k - 7;
+      adj_stage<BP, SCRATCH>(in(q, kL), ld + q * bb, b, true, 0);
+      adj_stage<BP, SCRATCH>(in(q, kGLd), gld + q * bb, b, false, 1);
+      if (q) {
+        adj_stage<BP, SCRATCH>(in(q, kM), m + q * bb, b, false, 2);
+        adj_stage<BP, SCRATCH>(in(q, kGM), gm + q * bb, b, false, 3);
+      }
     }
-    for_entries(b, [&](int e, int i, int j) {
-      const double v = j > i ? 0.0 : gld[k * bb + e] + carry(i, j);
-      lb(i, j) = v;
-      lbar[k * bb + e] = v;
-    });
-    __syncwarp();
-    adj_cholesky_adjoint(g, s2, l, lb, b);
-    for_entries(b, [&](int e, int i, int j) {
-      gd[k * bb + e] = i > j ? s2(i, j) : (i == j ? g(i, i) : 0.0);
-    });
-    if (k) {
-      adj_w(w, s2, mk, lp, b);
-      for_entries(b, [&](int e, int i, int j) {
-        double v = 0.0;
-        for (int r = 0; r < b; ++r) v -= w(r, i) * mk(r, j);
-        carry(i, j) = v;
-        ge[(k - 1) * bb + e] = w(i, j);
-      });
-      __syncwarp();
+    cp_async_commit();
+    if (warp < kAdjChainWarps) {
+      if (k >= 0 && k < nb) {
+        const bool carry = k + 1 < nb;
+        if (carry)
+          for (int t = warp; t < AT::TILES; t += kAdjChainWarps) {
+            double d[4] = {};
+            mma_tile<BP>(d, SymL<ST>{at(k + 1, kX)}, Mat<ST>{at(k + 1, kV1)}, t / CT, t % CT);
+            frag_store<ST>(tT, d, t / CT, t % CT);
+          }
+        named_barrier(kChainBarrier, 32 * kAdjChainWarps);
+        for (int t = warp; t < AT::TILES; t += kAdjChainWarps) {
+          const int ti = t / CT, tj = t % CT;
+          double c[4] = {}, g[4];
+          if (carry) {
+            frag_load<ST>(c, at(k + 1, kP), ti, tj, -1.0);
+            mma_tile<BP>(c, Tr<ST>{at(k + 1, kU1)}, Mat<ST>{tT}, ti, tj);
+          }
+          frag_load<ST>(g, in(k, kGLd), ti, tj);
+#pragma unroll
+          for (int i = 0; i < 4; ++i) g[i] += c[i];
+          frag_tril(g, ti, tj);  // Lbar = tril(gLd + C)
+          frag_store<ST>(at(k, kLbar), g, ti, tj);
+          frag_out(lbar + k * bb, g, ti, tj, b);
+        }
+        named_barrier(kChainBarrier, 32 * kAdjChainWarps);
+        for (int t = warp; t < AT::TILES; t += kAdjChainWarps) {
+          double d[4] = {};
+          mma_tile<BP>(d, Tr<ST>{in(k, kL)}, Mat<ST>{at(k, kLbar)}, t / CT, t % CT);
+          frag_store<ST>(at(k, kX), d, t / CT, t % CT);
+        }
+      }
+    } else if (warp < kAdjChainWarps + kAdjInverseWarps) {
+      const int q = k - 4, q_last = k - 3;  // L_q^-1 is done by step q + 3
+      adj_inverse_step<BP>(k, warp - kAdjChainWarps, q, q_last, nb, at(max(q, 0), kLi),
+                           in(max(q, 0), kL), at(max(q_last, 0), kLi), in(max(q_last, 0), kL));
+    } else {
+      // a worker job: one 16 x 8 tile of one product
+      const int w = warp - kAdjChainWarps - kAdjInverseWarps, pc = k - 1, oc = k + 1;
+      const bool prep = pc >= 1 && pc < nb, out = oc >= 0 && oc < nb;
+      // A = gM Lp^-1, B = M Lp^-1, V1 = Li M of column pc; Phi(X) Li of column oc
+      const int na = (prep ? 3 : 0) + (out ? 1 : 0);
+      for (int t = w; t < na * AT::TILES; t += kAdjWorkerWarps) {
+        const int job = t / AT::TILES + (prep ? 0 : 3), ti = t % AT::TILES / CT, tj = t % CT;
+        double d[4] = {};
+        if (job == 0) {
+          mma_tile<BP>(d, Mat<ST>{in(pc, kGM)}, Mat<ST>{at(pc - 1, kLi)}, ti, tj);
+          frag_store<ST>(at(pc, kA), d, ti, tj);
+        } else if (job == 1) {
+          mma_tile<BP>(d, Mat<ST>{in(pc, kM)}, Mat<ST>{at(pc - 1, kLi)}, ti, tj);
+          frag_store<ST>(at(pc, kB), d, ti, tj);
+        } else if (job == 2) {
+          mma_tile<BP>(d, Mat<ST>{at(pc, kLi)}, Mat<ST>{in(pc, kM)}, ti, tj);
+          frag_store<ST>(at(pc, kV1), d, ti, tj);
+        } else {
+          mma_tile<BP>(d, PhiL<ST>{at(oc, kX)}, Mat<ST>{at(oc, kLi)}, ti, tj);
+          frag_store<ST>(tF, d, ti, tj);
+        }
+      }
+      named_barrier(kWorkerBarrier, 32 * kAdjWorkerWarps);
+      // U1 = V1 Lp^-1, P = A^T M of column pc; G = Li^T Phi(X) Li of column oc
+      const int nbj = (prep ? 2 : 0) + (out ? 1 : 0);
+      for (int t = w; t < nbj * AT::TILES; t += kAdjWorkerWarps) {
+        const int job = t / AT::TILES + (prep ? 0 : 2), ti = t % AT::TILES / CT, tj = t % CT;
+        double d[4] = {};
+        if (job == 0) {
+          mma_tile<BP>(d, Mat<ST>{at(pc, kV1)}, Mat<ST>{at(pc - 1, kLi)}, ti, tj);
+          frag_store<ST>(at(pc, kU1), d, ti, tj);
+        } else if (job == 1) {
+          mma_tile<BP>(d, Tr<ST>{at(pc, kA)}, Mat<ST>{in(pc, kM)}, ti, tj);
+          frag_store<ST>(at(pc, kP), d, ti, tj);
+        } else {
+          mma_tile<BP>(d, Tr<ST>{at(oc, kLi)}, Mat<ST>{tF}, ti, tj);
+          frag_store<ST>(tG, d, ti, tj);
+        }
+      }
+      named_barrier(kWorkerBarrier, 32 * kAdjWorkerWarps);
+      // gD of column oc and, for oc >= 1, W = A - S2 B = gE_{oc-1}
+      if (out) {
+        for (int e = threadIdx.x - 32 * (kAdjChainWarps + kAdjInverseWarps); e < b * b;
+             e += 32 * kAdjWorkerWarps) {
+          const int i = e / b, j = e - i * b;
+          gd[oc * bb + e] = i > j ? tG[i * ST + j] + tG[j * ST + i] : (i == j ? tG[i * ST + i] : 0.0);
+        }
+        if (oc >= 1)
+          for (int t = w; t < AT::TILES; t += kAdjWorkerWarps) {
+            double d[4];
+            frag_load<ST>(d, at(oc, kA), t / CT, t % CT);
+            mma_tile<BP>(d, neg(PlusT<ST>{tG}), Mat<ST>{at(oc, kB)}, t / CT, t % CT);
+            frag_out(ge + (oc - 1) * bb, d, t / CT, t % CT, b);
+          }
+      }
     }
+    cp_async_wait<kAdjLoadWait>();
+    __syncthreads();
   }
 }
 
-__global__ void __launch_bounds__(32)
+template <int BP, bool SCRATCH>
+__global__ void __launch_bounds__(kAdjThreads, 1)
 tridiag_factor_adjoint_vjp_kernel(const double* __restrict__ ld, const double* __restrict__ m,
-                                  const double* __restrict__ gm, const double* __restrict__ lbar,
-                                  const double* __restrict__ hd, const double* __restrict__ he,
-                                  double* __restrict__ hld, double* __restrict__ hm,
-                                  double* __restrict__ hgld, double* __restrict__ hgm,
-                                  int nb, int b) {
+                                  const double* __restrict__ lbar, const double* __restrict__ gdv,
+                                  const double* __restrict__ gev, const double* __restrict__ hd,
+                                  const double* __restrict__ he, double* __restrict__ hld,
+                                  double* __restrict__ hm, double* __restrict__ hgld,
+                                  double* __restrict__ hgm, double* scratch, int nb, int b) {
+  using AT = AdjTile<BP>;
+  constexpr int ST = AT::ST, CT = AT::CT;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  double* base = reinterpret_cast<double*>(smem_raw);
-  const int st = b + 1, sz = b * st;
-  const Tile lt[2] = {{base, st}, {base + sz, st}};
-  const Tile mk{base + 2 * sz, st}, lb{base + 3 * sz, st}, g{base + 4 * sz, st},
-      s2{base + 5 * sz, st}, w{base + 6 * sz, st}, ch{base + 7 * sz, st},
-      v{base + 8 * sz, st}, sh{base + 9 * sz, st}, y{base + 10 * sz, st},
-      pend{base + 11 * sz, st};
+  double* const base = SCRATCH ? scratch + blockIdx.x * static_cast<size_t>(kAdj2Tiles) * AT::SIZE
+                               : reinterpret_cast<double*>(smem_raw);
   const size_t bb = static_cast<size_t>(b) * b, p = blockIdx.x;
   ld += p * nb * bb;
   m += p * nb * bb;
-  gm += p * nb * bb;
   lbar += p * nb * bb;
+  gdv += p * nb * bb;
   hd += p * nb * bb;
   hld += p * nb * bb;
   hm += p * nb * bb;
   hgld += p * nb * bb;
   hgm += p * nb * bb;
+  gev += p * (nb - 1) * bb;
   he += p * (nb - 1) * bb;
-
-  for (int k = 0; k < nb; ++k) {
-    const Tile l = lt[k & 1], lp = lt[(k + 1) & 1];
-    adj_load(l, ld + k * bb, b, true);
-    adj_load(lb, lbar + k * bb, b, false);
-    adj_load(sh, hd + k * bb, b, false);
-    if (k) {
-      adj_load(mk, m + k * bb, b, false);
-      adj_load(w, gm + k * bb, b, false);
-      adj_load(v, he + (k - 1) * bb, b, false);
+  // a column's input tiles (W = gE_{k-1}) ...
+  enum { kL, kM, kLbar, kGD, kW, kHD, kHE };
+  const auto in = [&](int col, int which) {
+    return base + ((col % kAdjLoadRing) * kAdj2Loads + which) * AT::SIZE;
+  };
+  // ... its computed tiles kept for up to three steps ...
+  enum { kLi, kQ0, kZ };
+  double* const ring = base + kAdjLoadRing * kAdj2Loads * AT::SIZE;
+  const auto at = [&](int col, int which) {
+    return ring + ((col % kAdjRing) * kAdj2Slot + which) * AT::SIZE;
+  };
+  // ... those kept for two block columns ...
+  enum { kVm, kQ1, kH0, kP, kCh };
+  double* const pairs = ring + kAdjRing * kAdj2Slot * AT::SIZE;
+  const auto pair = [&](int col, int which) {
+    return pairs + (2 * which + (col & 1)) * AT::SIZE;
+  };
+  // ... and those of one step
+  double* const tH1 = pairs + 2 * kAdj2Pairs * AT::SIZE;  // Sym(hD) Li^T
+  double* const tV = tH1 + AT::SIZE;
+  double* const tY = tV + AT::SIZE;
+  double* const tX2 = tY + AT::SIZE;
+  const int warp = threadIdx.x >> 5;
+  adj_init<BP>(base, kAdj2Tiles, kAdj2Loads, b);
+  __syncthreads();
+  // Step k: the chain runs column k, the inverse warps columns k + 3 and k
+  // + 2, the workers the input-only terms of column k + 1 and the outputs
+  // of column k - 1; column k + 6 is loaded.
+  for (int k = -6; k <= nb; ++k) {
+    if (k + 6 >= 0 && k + 6 < nb) {
+      const int q = k + 6;
+      adj_stage<BP, SCRATCH>(in(q, kL), ld + q * bb, b, true, 0);
+      adj_stage<BP, SCRATCH>(in(q, kLbar), lbar + q * bb, b, true, 1);
+      adj_stage<BP, SCRATCH>(in(q, kGD), gdv + q * bb, b, false, 2);
+      adj_stage<BP, SCRATCH>(in(q, kHD), hd + q * bb, b, false, 3);
+      if (q) {
+        adj_stage<BP, SCRATCH>(in(q, kM), m + q * bb, b, false, 4);
+        adj_stage<BP, SCRATCH>(in(q, kW), gev + (q - 1) * bb, b, false, 5);
+        adj_stage<BP, SCRATCH>(in(q, kHE), he + (q - 1) * bb, b, false, 6);
+      }
     }
-    __syncwarp();
-    adj_cholesky_adjoint(g, s2, l, lb, b);
-    if (k) {
-      adj_w(w, s2, mk, lp, b);
-      for_entries(b, [&](int e, int i, int j) {  // Wh = hE_{k-1} - M_k Ch^T
-        double t = v(i, j);
-        for (int r = 0; r < b; ++r) t -= mk(i, r) * ch(j, r);
-        v(i, j) = t;
-      });
-      __syncwarp();
-      adj_lt_right(v, lp, b);
-      __syncwarp();
-      for_entries(b, [&](int e, int i, int j) {
-        double t = 0.0, u = 0.0;
-        if (j <= i)
-          for (int r = 0; r < b; ++r) t += w(r, i) * v(r, j);
-        hld[(k - 1) * bb + e] = j <= i ? pend(i, j) - t : 0.0;
-        for (int r = 0; r < b; ++r) u += w(i, r) * ch(r, j) + s2(i, r) * v(r, j);
-        hm[k * bb + e] = -u;
-        hgm[k * bb + e] = v(i, j);
-        double s = sh(i, j);
-        for (int r = 0; r < b; ++r) s -= v(i, r) * mk(j, r) + mk(i, r) * v(j, r);
-        sh(i, j) = s;
-      });
+    cp_async_commit();
+    if (warp < kAdjChainWarps) {
+      if (k >= 0 && k < nb) {
+        if (k)
+          for (int t = warp; t < AT::TILES; t += kAdjChainWarps) {
+            double d[4];
+            frag_load<ST>(d, pair(k, kQ1), t / CT, t % CT);
+            mma_tile<BP>(d, neg(Mat<ST>{pair(k, kVm)}), PhiT<ST>{at(k - 1, kZ)}, t / CT, t % CT);
+            frag_store<ST>(tX2, d, t / CT, t % CT);
+          }
+        named_barrier(kChainBarrier, 32 * kAdjChainWarps);
+        for (int t = warp; t < AT::TILES; t += kAdjChainWarps) {
+          const int ti = t / CT, tj = t % CT;
+          double d[4];
+          frag_load<ST>(d, pair(k, kH0), ti, tj);
+          if (k) {  // the two products' chains side by side
+            double u[4] = {}, v[4] = {};
+            mma_tile<BP>(u, Mat<ST>{tX2}, Tr<ST>{pair(k, kVm)}, ti, tj);
+            mma_tile<BP>(v, Mat<ST>{pair(k, kVm)}, Tr<ST>{tX2}, ti, tj);
+#pragma unroll
+            for (int i = 0; i < 4; ++i) d[i] = d[i] - u[i] - v[i];
+          }
+          frag_store<ST>(at(k, kZ), d, ti, tj);
+        }
+      }
+    } else if (warp < kAdjChainWarps + kAdjInverseWarps) {
+      const int q = k + 3, q_last = k + 2;  // L_q^-1 is done by step q - 2
+      adj_inverse_step<BP>(k, warp - kAdjChainWarps, q, q_last, nb, at(max(q, 0), kLi),
+                           in(max(q, 0), kL), at(max(q_last, 0), kLi), in(max(q_last, 0), kL));
     } else {
-      for_entries(b, [&](int e, int i, int j) { hm[e] = hgm[e] = 0.0; });
+      // a worker job: one 16 x 8 tile of one product
+      const int w = warp - kAdjChainWarps - kAdjInverseWarps, pc = k + 1, oc = k - 1;
+      const bool prep = pc >= 0 && pc < nb, out = oc >= 0 && oc < nb;
+      // Sym(hD) Li^T and, for pc >= 1, Q0 = hE Lp^-T and Vm = Li M of column
+      // pc; Ch = tril(L Ah), Y = L Sym(Z) and, for oc >= 1, V = Q0 - M
+      // Ah_{oc-1}^T of column oc
+      const int npa = prep ? (pc ? 3 : 1) : 0, noa = out ? (oc ? 3 : 2) : 0;
+      for (int t = w; t < (npa + noa) * AT::TILES; t += kAdjWorkerWarps) {
+        const int j = t / AT::TILES, job = j < npa ? j : 3 + j - npa;
+        const int ti = t % AT::TILES / CT, tj = t % CT;
+        double d[4] = {};
+        if (job == 0) {
+          mma_tile<BP>(d, SymL<ST>{in(pc, kHD)}, Tr<ST>{at(pc, kLi)}, ti, tj);
+          frag_store<ST>(tH1, d, ti, tj);
+        } else if (job == 1) {
+          mma_tile<BP>(d, Mat<ST>{in(pc, kHE)}, Tr<ST>{at(pc - 1, kLi)}, ti, tj);
+          frag_store<ST>(at(pc, kQ0), d, ti, tj);
+        } else if (job == 2) {
+          mma_tile<BP>(d, Mat<ST>{at(pc, kLi)}, Mat<ST>{in(pc, kM)}, ti, tj);
+          frag_store<ST>(pair(pc, kVm), d, ti, tj);
+        } else if (job == 3) {
+          mma_tile<BP>(d, Mat<ST>{in(oc, kL)}, PhiL<ST>{at(oc, kZ)}, ti, tj);
+          frag_tril(d, ti, tj);
+          frag_store<ST>(pair(oc, kCh), d, ti, tj);
+          frag_out(hgld + oc * bb, d, ti, tj, b);
+        } else if (job == 4) {
+          mma_tile<BP>(d, Mat<ST>{in(oc, kL)}, SymL<ST>{at(oc, kZ)}, ti, tj);
+          frag_store<ST>(tY, d, ti, tj);
+        } else {
+          frag_load<ST>(d, at(oc, kQ0), ti, tj);
+          mma_tile<BP>(d, neg(Mat<ST>{in(oc, kM)}), PhiT<ST>{at(oc - 1, kZ)}, ti, tj);
+          frag_store<ST>(tV, d, ti, tj);
+          frag_out(hgm + oc * bb, d, ti, tj, b);
+        }
+      }
+      if (out && oc == 0)  // M_0 is never read: its cotangents are zero
+        for (int e = threadIdx.x - 32 * (kAdjChainWarps + kAdjInverseWarps); e < b * b;
+             e += 32 * kAdjWorkerWarps)
+          hm[e] = hgm[e] = 0.0;
+      named_barrier(kWorkerBarrier, 32 * kAdjWorkerWarps);
+      // H0 = Li Sym(hD) Li^T and, for pc >= 1, Q1 = Li Q0 of column pc;
+      // P = tril(-S2 Y + Lbar Ah^T) and, for oc >= 1, hLd_{oc-1} and hM of
+      // column oc
+      const int npb = prep ? (pc ? 2 : 1) : 0, nob = out ? (oc ? 3 : 1) : 0;
+      for (int t = w; t < (npb + nob) * AT::TILES; t += kAdjWorkerWarps) {
+        const int j = t / AT::TILES, job = j < npb ? j : 2 + j - npb;
+        const int ti = t % AT::TILES / CT, tj = t % CT;
+        double d[4] = {};
+        if (job == 0) {
+          mma_tile<BP>(d, Mat<ST>{at(pc, kLi)}, Mat<ST>{tH1}, ti, tj);
+          frag_store<ST>(pair(pc, kH0), d, ti, tj);
+        } else if (job == 1) {
+          mma_tile<BP>(d, Mat<ST>{at(pc, kLi)}, Mat<ST>{at(pc, kQ0)}, ti, tj);
+          frag_store<ST>(pair(pc, kQ1), d, ti, tj);
+        } else if (job == 2) {
+          double e[4] = {};
+          mma_tile<BP>(d, neg(S2FromGD<ST>{in(oc, kGD)}), Mat<ST>{tY}, ti, tj);
+          mma_tile<BP>(e, Mat<ST>{in(oc, kLbar)}, PhiT<ST>{at(oc, kZ)}, ti, tj);
+#pragma unroll
+          for (int i = 0; i < 4; ++i) d[i] += e[i];
+          frag_tril(d, ti, tj);
+          frag_store<ST>(pair(oc, kP), d, ti, tj);
+          if (oc == nb - 1) frag_out(hld + oc * bb, d, ti, tj, b);
+        } else if (job == 3) {
+          frag_load<ST>(d, pair(oc - 1, kP), ti, tj);
+          mma_tile<BP>(d, neg(Tr<ST>{in(oc, kW)}), Mat<ST>{tV}, ti, tj);
+          frag_tril(d, ti, tj);
+          frag_out(hld + (oc - 1) * bb, d, ti, tj, b);
+        } else {
+          double e[4] = {};
+          mma_tile<BP>(d, neg(Mat<ST>{in(oc, kW)}), Mat<ST>{pair(oc - 1, kCh)}, ti, tj);
+          mma_tile<BP>(e, neg(S2FromGD<ST>{in(oc, kGD)}), Mat<ST>{tV}, ti, tj);
+#pragma unroll
+          for (int i = 0; i < 4; ++i) d[i] += e[i];
+          frag_out(hm + oc * bb, d, ti, tj, b);
+        }
+      }
     }
-    __syncwarp();
-    // Gh: Sh's lower triangle mirrored
-    for_entries(b, [&](int e, int i, int j) { y(i, j) = i >= j ? sh(i, j) : sh(j, i); });
-    __syncwarp();
-    adj_lt_right(y, l, b);  // Y = Gh L^-T
-    __syncwarp();
-    for_entries(b, [&](int e, int i, int j) {
-      double t = 0.0;
-      for (int r = 0; r < b; ++r) t -= s2(i, r) * y(r, j);
-      pend(i, j) = t;
-    });
-    __syncwarp();
-    adj_l_left(y, l, b);  // L^-1 Y
-    __syncwarp();
-    for_entries(b, [&](int e, int i, int j) {  // Ah = Phi(L^-1 Y)
-      y(i, j) = j > i ? 0.0 : (i == j ? 0.5 * y(i, j) : y(i, j));
-    });
-    __syncwarp();
-    for_entries(b, [&](int e, int i, int j) {
-      double t = pend(i, j), u = 0.0;
-      for (int r = 0; r < b; ++r) t += lb(i, r) * y(j, r);
-      pend(i, j) = j <= i ? t : 0.0;
-      if (j <= i)
-        for (int r = j; r <= i; ++r) u += l(i, r) * y(r, j);
-      ch(i, j) = u;
-      hgld[k * bb + e] = u;
-    });
-    __syncwarp();
+    cp_async_wait<kAdjLoadWait>();
+    __syncthreads();
   }
-  for_entries(b, [&](int e, int i, int j) { hld[(nb - 1) * bb + e] = pend(i, j); });
 }
 
-int adjoint_launch_check(int np, int nb, int b, int threads, int smem, int tiles) {
+// The adjoint kernels' layout: b' and the bytes of their tiles (in shared
+// memory for b' <= 16, else in the scratch, one block's share each)
+int adjoint_width(int b) { return b <= kAdjSharedMaxBlock ? kAdjSharedMaxBlock : 32; }
+size_t adjoint_tile_bytes(int b, bool second) {
+  const int bp = adjoint_width(b);
+  return sizeof(double) * (second ? kAdj2Tiles : kAdj1Tiles) * bp * (bp + 4);
+}
+
+int adjoint_launch_check(int np, int nb, int b, int threads, int smem, bool second,
+                         const void* scratch) {
   if (np < 1 || np > 65535 || nb < 1 || b < 1 || b > kStagedMaxBlock)
     return static_cast<int>(cudaErrorInvalidValue);
-  const size_t want = sizeof(double) * tiles * b * (b + 1);
-  if (bad_launch(threads, smem, 32, want)) return static_cast<int>(cudaErrorInvalidConfiguration);
+  const bool shared = adjoint_width(b) <= kAdjSharedMaxBlock;
+  if (bad_launch(threads, smem, kAdjThreads, shared ? adjoint_tile_bytes(b, second) : 0))
+    return static_cast<int>(cudaErrorInvalidConfiguration);
+  if (!shared && scratch == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   return 0;
+}
+
+const double* in(const void* p) { return static_cast<const double*>(p); }
+double* out(void* p) { return static_cast<double*>(p); }
+
+template <int BP, bool SCRATCH>
+int factor_adjoint(const void* ld, const void* m, const void* gld, const void* gm, void* gd,
+                   void* ge, void* lbar, void* scratch, int np, int nb, int b, int smem,
+                   cudaStream_t stream) {
+  auto kernel = tridiag_factor_adjoint_kernel<BP, SCRATCH>;
+  const cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<np, kAdjThreads, smem, stream>>>(in(ld), in(m), in(gld), in(gm), out(gd), out(ge),
+                                            out(lbar), out(scratch), nb, b);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int BP, bool SCRATCH>
+int factor_adjoint_vjp(const void* ld, const void* m, const void* lbar, const void* gd,
+                       const void* ge, const void* hd, const void* he, void* hld, void* hm,
+                       void* hgld, void* hgm, void* scratch, int np, int nb, int b, int smem,
+                       cudaStream_t stream) {
+  auto kernel = tridiag_factor_adjoint_vjp_kernel<BP, SCRATCH>;
+  const cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<np, kAdjThreads, smem, stream>>>(in(ld), in(m), in(lbar), in(gd), in(ge), in(hd),
+                                            in(he), out(hld), out(hm), out(hgld), out(hgm),
+                                            out(scratch), nb, b);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -1160,42 +1559,41 @@ extern "C" int tridiag_bwd_launch(const void* ld, const void* m, const void* y,
 }
 
 // The factor sweep's adjoint (kernel 1), float64: gD, gE and Lbar from Ld,
-// M, gLd, gM (every operand (np, nb, b, b) but gE, (np, nb - 1, b, b));
-// one warp per pulsar, b <= 32, threads and shared bytes those of
-// ops/gp.py::tridiag_adjoint_plan.
+// M, gLd, gM (every operand (np, nb, b, b) but gE, (np, nb - 1, b, b)); b <=
+// 32, threads and shared bytes those of ops/gp.py::tridiag_adjoint_plan,
+// `scratch` the plan's device scratch (null where the plan has none).
 extern "C" int tridiag_factor_adjoint_launch(const void* ld, const void* m, const void* gld,
                                              const void* gm, void* gd, void* ge, void* lbar,
-                                             int np, int nb, int b, int threads, int smem,
-                                             void* stream) {
-  const int rc = adjoint_launch_check(np, nb, b, threads, smem, kAdjointTiles);
+                                             void* scratch, int np, int nb, int b, int threads,
+                                             int smem, void* stream) {
+  const int rc = adjoint_launch_check(np, nb, b, threads, smem, false, scratch);
   if (rc) return rc;
-  cudaError_t err = allow_smem(tridiag_factor_adjoint_kernel, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  tridiag_factor_adjoint_kernel<<<np, 32, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const double*>(ld), static_cast<const double*>(m),
-      static_cast<const double*>(gld), static_cast<const double*>(gm), static_cast<double*>(gd),
-      static_cast<double*>(ge), static_cast<double*>(lbar), nb, b);
-  return static_cast<int>(cudaGetLastError());
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (adjoint_width(b)) {
+    case 16: return factor_adjoint<16, false>(ld, m, gld, gm, gd, ge, lbar, scratch, np, nb, b, smem, s);
+    default: return factor_adjoint<32, true>(ld, m, gld, gm, gd, ge, lbar, scratch, np, nb, b, smem, s);
+  }
 }
 
 // Kernel 1's adjoint (kernel 2), float64: the cotangents hLd, hM, hgLd,
-// hgM of kernel 1's inputs from Ld, M, gM, kernel 1's Lbar and the
-// cotangents hD, hE of its outputs; launched as kernel 1 is.
-extern "C" int tridiag_factor_adjoint_vjp_launch(const void* ld, const void* m, const void* gm,
-                                                 const void* lbar, const void* hd,
-                                                 const void* he, void* hld, void* hm,
-                                                 void* hgld, void* hgm, int np, int nb, int b,
+// hgM of kernel 1's inputs from Ld, M, kernel 1's outputs Lbar, gD, gE and
+// the cotangents hD, hE of gD and gE; launched as kernel 1 is.
+extern "C" int tridiag_factor_adjoint_vjp_launch(const void* ld, const void* m, const void* lbar,
+                                                 const void* gd, const void* ge, const void* hd,
+                                                 const void* he, void* hld, void* hm, void* hgld,
+                                                 void* hgm, void* scratch, int np, int nb, int b,
                                                  int threads, int smem, void* stream) {
-  const int rc = adjoint_launch_check(np, nb, b, threads, smem, kAdjointVjpTiles);
+  const int rc = adjoint_launch_check(np, nb, b, threads, smem, true, scratch);
   if (rc) return rc;
-  cudaError_t err = allow_smem(tridiag_factor_adjoint_vjp_kernel, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  tridiag_factor_adjoint_vjp_kernel<<<np, 32, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const double*>(ld), static_cast<const double*>(m),
-      static_cast<const double*>(gm), static_cast<const double*>(lbar),
-      static_cast<const double*>(hd), static_cast<const double*>(he), static_cast<double*>(hld),
-      static_cast<double*>(hm), static_cast<double*>(hgld), static_cast<double*>(hgm), nb, b);
-  return static_cast<int>(cudaGetLastError());
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (adjoint_width(b)) {
+    case 16:
+      return factor_adjoint_vjp<16, false>(ld, m, lbar, gd, ge, hd, he, hld, hm, hgld, hgm,
+                                           scratch, np, nb, b, smem, s);
+    default:
+      return factor_adjoint_vjp<32, true>(ld, m, lbar, gd, ge, hd, he, hld, hm, hgld, hgm,
+                                          scratch, np, nb, b, smem, s);
+  }
 }
 
 extern "C" const char* block_tridiag_error_string(int code) {

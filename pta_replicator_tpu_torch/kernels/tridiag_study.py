@@ -33,6 +33,24 @@ substitution sweeps at Q = 1, 123 and 200) beside this version's public
 wrappers, on the same inputs in the same process, in the order parent,
 this, this, parent.
 
+The factor sweep's adjoint kernels (``--only adjoint``, or in the
+default run after the sweeps), float64 at the same shape with the factor
+of those blocks and random cotangents (seed 24): kernel 1
+(``tridiag_factor_adjoint``) and kernel 2 (``tridiag_factor_adjoint_vjp``,
+fed kernel 1's gD, gE and Lbar) through their wrappers, each against its
+plain version, two runs bitwise, with its ms, µs per block column and
+bound; then ``csrc/block_tridiag.cu`` built with one part of both
+kernels skipped or changed (``ADJOINT_VARIANTS``: the inverse, every
+input-only term, the outputs, the chain, the loads, the global stores;
+the chain alone; every step loading one block column, which then stays
+in the caches; the loads through registers; and a build whose warps of
+block 0 count clock64() cycles a step by role). With ``--parent DIR`` the
+parent's kernels 1 and 2 (PR 23's, one warp per pulsar) are built as
+they stand and with one part skipped (``PARENT_ADJOINT_VARIANTS``: the
+loads, the triangular solves, the products, kernel 2's recomputation of
+kernel 1's column) and timed on the same inputs, the whole kernels in
+the order parent, this, this, parent.
+
 One JSON line per (sweep, dtype, Q), per comparison and per variant on
 stdout, then one with the card and the ptxas report.
 """
@@ -129,6 +147,8 @@ def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--parent", type=Path, default=None,
                         help="a checkout of an earlier version to time beside this one")
+    parser.add_argument("--only", choices=("sweeps", "adjoint"), default=None,
+                        help="time only the sweeps, or only the factor's adjoint kernels")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         sys.exit("tridiag_study: no CUDA device is available")
@@ -139,6 +159,22 @@ def main():
     build_s = time.perf_counter() - t0
     npsr, nb, b = SHAPE
     D64, E64 = _operands(npsr, nb, b, device)
+    if args.only != "adjoint":
+        _sweeps(args, device, sms, D64, E64)
+    if args.only != "sweeps":
+        _adjoint(args.parent, D64, E64)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True).stdout.strip()
+    ptxas = [l.strip() for l in build.ptxas_reports.get("block_tridiag", "").splitlines()
+             if "entry function" in l or "Used" in l or "spill" in l]
+    print(json.dumps({"device": torch.cuda.get_device_name(0), "nvidia_smi": smi, "build_s": build_s,
+                      "ptxas": _adjoint_ptxas(ptxas) if args.only == "adjoint" else ptxas}), flush=True)
+
+
+def _sweeps(args, device, sms, D64, E64):
+    """The sweeps: the comparison with the parent, every launch shape in
+    float64 and float32, and the partial builds."""
+    npsr, nb, b = SHAPE
     if args.parent is not None:
         _parent(args.parent, D64, E64)
     for dtype in (torch.float64, torch.float32):
@@ -177,11 +213,6 @@ def main():
                            best=min(times, key=times.get), rel_err_max=worst, lanes_x_columns_ms=times)
                 print(json.dumps(row), flush=True)
     _variants(device, D64, E64)
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True).stdout.strip()
-    print(json.dumps({"device": torch.cuda.get_device_name(0), "nvidia_smi": smi, "build_s": build_s,
-                      "ptxas": [l.strip() for l in build.ptxas_reports.get("block_tridiag", "").splitlines()
-                                if "entry function" in l or "Used" in l or "spill" in l]}), flush=True)
 
 
 def _parent(root, D, E):
@@ -262,6 +293,211 @@ def _variants(device, D, E):
                     1, stream)), 10)
         row["ptxas"] = ptxas if name == "kernel" else None
         print(json.dumps(row), flush=True)
+
+
+
+# ------------------------------------------------ the factor sweep's adjoint
+
+#: builds of the parent's kernels 1 and 2 (PR 23's: one warp per pulsar,
+#: every tile in shared memory) with one part skipped
+PARENT_ADJOINT_VARIANTS = {
+    "kernel": (),
+    "no_loads": (("t(i, j) = lower && j > i ? 0.0 : src[e];",
+                  "t(i, j) = lower && j > i ? 0.0 : 1.0;"),),
+    "no_solves": tuple((f"__device__ __forceinline__ void {fn}(Tile x, Tile l, int b) {{\n",
+                        f"__device__ __forceinline__ void {fn}(Tile x, Tile l, int b) {{\n  return;\n")
+                       for fn in ("adj_lt_left", "adj_l_left", "adj_l_right", "adj_lt_right")),
+    "no_products": (("for (int r = 0; r < b; ++r)", "for (int r = 0; r < 0; ++r)"),
+                    ("for (int r = i; r < b; ++r)", "for (int r = i; r < 0; ++r)"),
+                    ("for (int r = j; r <= i; ++r)", "for (int r = j; r < 0; ++r)")),
+    "no_recompute": (("    adj_cholesky_adjoint(g, s2, l, lb, b);\n    if (k) {\n"
+                      "      adj_w(w, s2, mk, lp, b);\n", "    if (k) {\n"),),
+}
+
+_NO_INVERSE = (("                                                 double* li_last, const double* l_last) {\n",
+                "                                                 double* li_last, const double* l_last) {\n"
+                "  return;\n"),)
+_NO_PREP = _NO_INVERSE + (("const bool prep = pc >= 1 && pc < nb,", "const bool prep = false,"),
+                          ("const bool prep = pc >= 0 && pc < nb,", "const bool prep = false,"))
+_NO_OUTPUTS = (("out = oc >= 0 && oc < nb;", "out = false;"),)
+_NO_LOADS = (("    if (k >= 7 && k - 7 < nb) {", "    if (k < -9) {"),
+             ("    if (k + 6 >= 0 && k + 6 < nb) {", "    if (k < -9) {"))
+#: builds of this version's kernels 1 and 2 with one part skipped or
+#: changed: the inverse, the input-only terms (what a pre-pass kernel would
+#: take off the block), the outputs, the chain, the loads, all but the
+#: chain, the global stores, the loads' source and route, and the clock
+ADJOINT_VARIANTS = {
+    "kernel": (),
+    "no_inverse": _NO_INVERSE,
+    "no_prep": _NO_PREP,
+    "no_outputs": _NO_OUTPUTS,
+    "no_chain": (("    if (warp < kAdjChainWarps) {\n      if (k >= 0 && k < nb) {",
+                  "    if (warp < kAdjChainWarps) {\n      if (k < 0 && k >= nb) {"),),
+    "no_loads": _NO_LOADS,
+    "chain_only": _NO_PREP + _NO_OUTPUTS + _NO_LOADS,
+    "no_stores": (("    if (r < b && c < b) g[r * b + c] = d[i];", "    if (r < 0) g[r * b + c] = d[i];"),
+                  ("          gd[oc * bb + e] = i > j", "          if (i < 0) gd[oc * bb + e] = i > j")),
+    # every step loads block column 0 (its tiles stay in the caches)
+    "loads_cached": ((" + q * bb, b, ", ", b, "), (" + (q - 1) * bb, b, ", ", b, ")),
+    # the loads through registers, in place of cp.async
+    "loads_sync": (("      if (lower && j == i) cp_async<8>(dst + i * ST + j, src + i * BP + j);  // j + 1 > i\n"
+                    "      else cp_async16(dst + i * ST + j, src + i * BP + j);\n",
+                    "      dst[i * ST + j] = src[i * BP + j];\n"
+                    "      if (!lower || j < i) dst[i * ST + j + 1] = src[i * BP + j + 1];\n"),),
+    # the kernel as it is, each warp of block 0 counting clock64() cycles
+    # a step in its loads, its role and its wait at the block barrier
+    "timed": (("  for (int k = nb + 6; k >= -1; --k) {\n",
+               "  long long tl = 0, tr = 0, tw = 0;\n  for (int k = nb + 6; k >= -1; --k) {\n"
+               "    const long long c0 = clock64();\n"),
+              ("  for (int k = -6; k <= nb; ++k) {\n",
+               "  long long tl = 0, tr = 0, tw = 0;\n  for (int k = -6; k <= nb; ++k) {\n"
+               "    const long long c0 = clock64();\n"),
+              ("    cp_async_commit();\n    if (warp < kAdjChainWarps) {\n",
+               "    cp_async_commit();\n    const long long c1 = clock64();\n"
+               "    if (warp < kAdjChainWarps) {\n"),
+              ("    cp_async_wait<kAdjLoadWait>();\n    __syncthreads();\n  }\n}\n",
+               "    const long long c2 = clock64();\n    cp_async_wait<kAdjLoadWait>();\n"
+               "    __syncthreads();\n    tl += c1 - c0;\n    tr += c2 - c1;\n    tw += clock64() - c2;\n"
+               "  }\n  if (!SCRATCH && scratch != nullptr && blockIdx.x == 0 && (threadIdx.x & 31) == 0) {\n"
+               "    scratch[3 * warp] = tl;\n    scratch[3 * warp + 1] = tr;\n"
+               "    scratch[3 * warp + 2] = tw;\n  }\n}\n")),
+}
+#: the roles of the block's warps, in order (csrc/block_tridiag.cu)
+ADJOINT_ROLES = ["chain"] * 2 + ["inverse"] * 2 + ["worker"] * 12
+
+
+def _adjoint_operands(D, E):
+    """Config B's shape: the factor of (D, E) and random cotangents."""
+    Ld, M, _ = gp.tridiag_forward(D, E)
+    rng = np.random.default_rng(24)
+    gLd, gM, hD = (torch.as_tensor(rng.standard_normal(Ld.shape), device=Ld.device)
+                   for _ in range(3))
+    hE = torch.as_tensor(rng.standard_normal(E.shape), device=Ld.device)
+    return Ld, M, gLd, gM, hD, hE
+
+
+def _parent_adjoint(root, ins):
+    """The parent's kernels 1 and 2, built as they stand and with one part
+    skipped (PARENT_ADJOINT_VARIANTS), each as ``(kernel 1, kernel 2,
+    outputs)``: two callables launching on ``ins`` and the tensors they
+    write ((gD, gE, lbar), then kernel 2's four)."""
+    out_dir = build.BUILD_DIR / "study"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    source = root / "pta_replicator_tpu_torch/csrc/block_tridiag.cu"
+    with ThreadPoolExecutor(len(PARENT_ADJOINT_VARIANTS)) as pool:
+        built = list(pool.map(lambda kv: (kv[0], build.build_variant(
+            "block_tridiag", "parent_adjoint_" + kv[0], kv[1], out_dir, source_path=source)[0]),
+            PARENT_ADJOINT_VARIANTS.items()))
+    Ld, M, gLd, gM, hD, hE = ins
+    npsr, nb, b, _ = Ld.shape
+    gD, lbar = torch.empty_like(Ld), torch.empty_like(Ld)
+    gE = torch.empty_like(hE)
+    outs = [torch.empty_like(Ld) for _ in range(4)]
+    stream = torch.cuda.current_stream().cuda_stream
+    ptr = lambda ts: [t.data_ptr() for t in ts]
+    runs = {}
+    for name, path in built:
+        lib = ctypes.CDLL(str(path))
+        lib.tridiag_factor_adjoint_launch.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        lib.tridiag_factor_adjoint_vjp_launch.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        lib.block_tridiag_error_string.argtypes = [ctypes.c_int]
+        lib.block_tridiag_error_string.restype = ctypes.c_char_p
+        k1 = lambda lib=lib: _ok(lib, lib.tridiag_factor_adjoint_launch(
+            *ptr((Ld, M, gLd, gM, gD, gE, lbar)), npsr, nb, b, 32, 8 * b * (b + 1) * 8, stream))
+        k2 = lambda lib=lib: _ok(lib, lib.tridiag_factor_adjoint_vjp_launch(
+            *ptr((Ld, M, gM, lbar, hD, hE, *outs)), npsr, nb, b, 32, 12 * b * (b + 1) * 8, stream))
+        runs[name] = (k1, k2, ((gD, gE, lbar), outs))
+    return runs
+
+
+def _adjoint(parent, D, E):
+    """Kernels 1 and 2 through their wrappers against their plain versions,
+    beside the parent's (``parent``: a checkout, or None), then the partial
+    builds of both versions, float64 at SHAPE."""
+    ins = _adjoint_operands(D, E)
+    Ld, M, gLd, gM, hD, hE = ins
+    npsr, nb, b, _ = Ld.shape
+    gD, gE, lbar = gp.tridiag_factor_adjoint(Ld, M, gLd, gM)
+    this = (lambda: gp.tridiag_factor_adjoint(Ld, M, gLd, gM),
+            lambda: gp.tridiag_factor_adjoint_vjp(Ld, M, gLd, gM, hD, hE, lbar=lbar, gD=gD, gE=gE))
+    want = (gp.tridiag_factor_adjoint_plain(Ld, M, gLd, gM),
+            gp.tridiag_factor_adjoint_vjp_plain(Ld, M, gLd, gM, hD, hE))
+    parent_runs = _parent_adjoint(parent, ins) if parent is not None else {}
+    for second, name in enumerate(("tridiag_factor_adjoint", "tridiag_factor_adjoint_vjp")):
+        run = this[second]
+        got, again = run(), run()
+        rel = max(_rel(g, w) for g, w in zip(got, want[second]) if w.any())
+        ms = _ms(run, 10)
+        row = {"adjoint": name, "dtype": "torch.float64", "shape": [npsr, nb, b], "ms": ms,
+               "us_per_block_column": ms * 1e3 / nb,
+               "bound_ms": max(gp.tridiag_adjoint_operations(npsr, nb, b, bool(second)) / 67e12,
+                               gp.tridiag_adjoint_bytes(npsr, nb, b, bool(second), 8) / 3.35e12) * 1e3,
+               "rel_err": rel, "same_bits": all(torch.equal(x, y) for x, y in zip(got, again)),
+               "plan": gp.tridiag_adjoint_plan(npsr, b, bool(second))._asdict()}
+        print(json.dumps(row), flush=True)
+        if parent_runs:
+            prun, outs = parent_runs["kernel"][second], parent_runs["kernel"][2]
+            times = [_ms(f, 10) for f in (prun, run, run, prun)]
+            prun()
+            perr = max(_rel(g, w) for g, w in zip(outs[second], want[second]) if w.any())
+            print(json.dumps({"compare": name, "dtype": "torch.float64", "shape": [npsr, nb, b],
+                              "parent_ms": [times[0], times[3]], "change_ms": times[1:3],
+                              "speedup": (times[0] + times[3]) / (times[1] + times[2]),
+                              "parent_rel_err": perr}), flush=True)
+    for name, (k1, k2, _) in parent_runs.items():
+        print(json.dumps({"adjoint_variant": name, "version": "parent", "kernel_1_ms": _ms(k1, 5),
+                          "kernel_2_ms": _ms(k2, 5)}), flush=True)
+    _adjoint_variants(ins, gD, gE, lbar)
+
+
+def _adjoint_variants(ins, gD, gE, lbar):
+    """Each build of ADJOINT_VARIANTS, kernels 1 and 2 timed with the
+    plan's launch on ``ins`` (kernel 2 fed kernel 1's gD, gE, Lbar)."""
+    out_dir = build.BUILD_DIR / "study"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    with ThreadPoolExecutor(len(ADJOINT_VARIANTS)) as pool:
+        built = list(pool.map(lambda kv: (kv[0], *build.build_variant(
+            "block_tridiag", "adjoint_" + kv[0], kv[1], out_dir)), ADJOINT_VARIANTS.items()))
+    Ld, M, gLd, gM, hD, hE = ins
+    npsr, nb, b, _ = Ld.shape
+    o1 = (torch.empty_like(gD), torch.empty_like(gE), torch.empty_like(lbar))
+    o2 = [torch.empty_like(Ld) for _ in range(4)]
+    stream = torch.cuda.current_stream().cuda_stream
+    for name, path, ptxas in built:
+        lib = ctypes.CDLL(str(path))
+        gp._bind_tridiag(lib)
+        row = {"adjoint_variant": name, "version": "this"}
+        for second, args in ((False, (Ld, M, gLd, gM, *o1)),
+                             (True, (Ld, M, lbar, gD, gE, hD, hE, *o2))):
+            plan = gp.tridiag_adjoint_plan(npsr, b, second)
+            scratch = Ld.new_empty(plan.scratch_bytes // 8) if plan.scratch_bytes else None
+            if name == "timed":  # the counts' buffer
+                scratch = Ld.new_zeros(3 * len(ADJOINT_ROLES))
+            fn = lib.tridiag_factor_adjoint_vjp_launch if second else lib.tridiag_factor_adjoint_launch
+            ptrs = [t.data_ptr() for t in args] + [None if scratch is None else scratch.data_ptr()]
+            key = f"kernel_{int(second) + 1}"
+            row[key + "_ms"] = _ms(lambda: _ok(lib, fn(
+                *ptrs, npsr, nb, b, plan.threads, plan.shared_bytes, stream)), 5)
+            if name == "timed":  # cycles a step, by role: loads, role, barrier wait
+                counts = scratch.view(-1, 3).cpu().numpy() / (nb + 8 - second)  # steps
+                row[key + "_cycles_a_step"] = {
+                    role: [round(float(v), 1) for v in counts[[i for i, r in enumerate(ADJOINT_ROLES)
+                                                               if r == role]].mean(axis=0)]
+                    for role in dict.fromkeys(ADJOINT_ROLES)}
+        row["ptxas"] = _adjoint_ptxas(ptxas) if name == "kernel" else None
+        print(json.dumps(row), flush=True)
+
+
+def _adjoint_ptxas(lines):
+    """ptxas's lines of the adjoint kernels' instances: each entry and the
+    lines up to the next."""
+    keep, out = False, []
+    for line in lines:
+        if "entry function" in line:
+            keep = "tridiag_factor_adjoint" in line
+        if keep:
+            out.append(line)
+    return out
 
 
 if __name__ == "__main__":

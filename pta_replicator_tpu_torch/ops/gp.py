@@ -607,8 +607,8 @@ def _bind_tridiag(lib):
     for fn in (lib.tridiag_solve_fwd_launch, lib.tridiag_bwd_launch):
         fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
-    for fn, pointers in ((lib.tridiag_factor_adjoint_launch, 7),
-                         (lib.tridiag_factor_adjoint_vjp_launch, 10)):
+    for fn, pointers in ((lib.tridiag_factor_adjoint_launch, 8),
+                         (lib.tridiag_factor_adjoint_vjp_launch, 12)):
         fn.argtypes = [ctypes.c_void_p] * pointers + [ctypes.c_int] * 5 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     lib.block_tridiag_error_string.argtypes = [ctypes.c_int]
@@ -932,19 +932,20 @@ class TridiagFactorAdjoint(torch.autograd.Function):
     """Kernel 1, ``(gD, gE)`` from ``(Ld, M, gLd, gM)``: the factor sweep's
     adjoint (:func:`tridiag_factor_adjoint`). Its backward, reached only
     by a Hessian's second pass, is kernel 2
-    (:func:`tridiag_factor_adjoint_vjp`)."""
+    (:func:`tridiag_factor_adjoint_vjp`), which reads the saved outputs
+    and kernel 1's Lbar instead of recomputing kernel 1's columns."""
 
     @staticmethod
     def forward(ctx, Ld, M, gLd, gM):
         gD, gE, ctx.lbar = tridiag_factor_adjoint(Ld, M, gLd, gM)
-        ctx.save_for_backward(Ld, M, gLd, gM)
+        ctx.save_for_backward(Ld, M, gLd, gM, gD, gE)
         return gD, gE
 
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, hD, hE):
-        Ld, M, gLd, gM = ctx.saved_tensors
-        return tridiag_factor_adjoint_vjp(Ld, M, gLd, gM, hD, hE, lbar=ctx.lbar)
+        Ld, M, gLd, gM, gD, gE = ctx.saved_tensors
+        return tridiag_factor_adjoint_vjp(Ld, M, gLd, gM, hD, hE, lbar=ctx.lbar, gD=gD, gE=gE)
 
 
 def _phi(A):
@@ -996,52 +997,80 @@ def tridiag_factor_adjoint_vjp_plain(Ld, M, gLd, gM, hD, hE):
 
 
 def tridiag_adjoint_operations(npsr: int, nb: int, b: int, second: bool) -> int:
-    """Floating-point operations of kernel 1 (``second=False``) or kernel 2
-    per sweep, counting each b x b product as 2 b^3 and each triangular
-    solve as b^3: kernel 1 does three products and three solves a block
-    column; kernel 2 recomputes those of kernel 1's column but the last
-    product, then does eight products and three solves more."""
+    """Floating-point operations of the function kernel 1 (``second=False``)
+    or kernel 2 computes, per sweep, as the plain loop does it (each b x b
+    product 2 b^3, each triangular solve b^3): kernel 1 three products and
+    three solves a block column; kernel 2 those of kernel 1's column but
+    the last product, then eight products and three solves more. The
+    kernels' own counts differ (they trade each solve for a product with
+    an explicit L^-1); the bound is the function's."""
     per = (9 if not second else 28) * b**3
     return npsr * nb * per
 
 
 def tridiag_adjoint_bytes(npsr: int, nb: int, b: int, second: bool, itemsize: int) -> int:
-    """Bytes kernel 1 or 2 must move, each input read once and each output
-    written once: kernel 1's function reads Ld, M, gLd and gM and writes
-    gD and gE (the cotangents Lbar it also stores for kernel 2 are not part
-    of it); kernel 2 reads Ld, M, gM, Lbar (in place of gLd), hD and hE and
-    writes the four cotangents."""
+    """Bytes kernel 1 or 2 must move, each input of its function read once
+    and each output written once: kernel 1's function reads Ld, M, gLd and
+    gM and writes gD and gE (the Lbar it also stores for kernel 2 is not
+    part of it); kernel 2's reads Ld, M, gLd (as Lbar), gM, hD and hE and
+    writes the four cotangents (the kernel itself reads kernel 1's Lbar, gD
+    and gE in place of gLd and gM)."""
     blocks, sub = npsr * nb * b * b, npsr * (nb - 1) * b * b
     return itemsize * ((9 if second else 5) * blocks + sub)
 
 
-#: kernels 1 and 2 keep this many b x b tiles in a warp's shared memory,
-#: each row b + 1 entries apart (csrc/block_tridiag.cu: kAdjointTiles,
-#: kAdjointVjpTiles); one warp per pulsar, blocks of at most 32
-TRIDIAG_ADJOINT_TILES = {False: 8, True: 12}
+class AdjointPlan(NamedTuple):
+    """Kernel 1's or 2's launch, as ``csrc/block_tridiag.cu`` runs it (the
+    kernel refuses any other): one block of ``threads`` per pulsar (grid
+    ``(npsr, 1)``) at the template width ``width`` (b' = 16 for b <= 16,
+    else 32: whole m16n8k8 DMMA tiles), its b' x (b' + 4) tiles in
+    ``shared_bytes`` of dynamic shared memory (``route`` ``"shared"``, b' =
+    16) or in a device scratch of ``scratch_bytes`` (``"scratch"``, b' =
+    32)."""
+    route: str
+    width: int
+    threads: int
+    grid: tuple
+    shared_bytes: int
+    scratch_bytes: int
 
 
-def tridiag_adjoint_plan(npsr: int, b: int, second: bool) -> TridiagPlan:
-    """Kernel 1's (``second=False``) or kernel 2's launch: one warp per
-    pulsar (block x = pulsar x), its tiles in dynamic shared memory."""
+#: kernels 1 and 2's tiles a pulsar (csrc/block_tridiag.cu: kAdj1Tiles,
+#: kAdj2Tiles: eight block columns' input tiles, six columns' computed
+#: tiles, and the tiles of one or two steps), their block (two chain
+#: warps, two inverse warps, twelve workers: kAdjThreads) and the widest
+#: b' whose tiles sit in shared memory
+TRIDIAG_ADJOINT_TILES = {False: 83, True: 88}
+TRIDIAG_ADJOINT_THREADS = 32 * 16
+TRIDIAG_ADJOINT_SHARED_MAX_WIDTH = 16
+
+
+def tridiag_adjoint_plan(npsr: int, b: int, second: bool) -> AdjointPlan:
+    """Kernel 1's (``second=False``) or kernel 2's launch for ``npsr``
+    pulsars of blocks of ``b`` (1..32)."""
     if not 1 <= b <= TRIDIAG_STAGED_MAX_BLOCK or not 1 <= npsr <= 65535:
         raise ValueError(
             f"the factor's adjoint kernels take blocks of 1..{TRIDIAG_STAGED_MAX_BLOCK} and "
             f"1..65535 pulsars, got b = {b}, Np = {npsr}"
         )
-    smem = TRIDIAG_ADJOINT_TILES[second] * b * (b + 1) * 8
-    return TridiagPlan("warp", 32, 0, 32, (npsr, 1), smem)
+    shared = b <= TRIDIAG_ADJOINT_SHARED_MAX_WIDTH
+    width = 16 if shared else 32
+    tiles = TRIDIAG_ADJOINT_TILES[second] * width * (width + 4) * 8
+    return AdjointPlan("shared" if shared else "scratch", width, TRIDIAG_ADJOINT_THREADS,
+                       (npsr, 1), tiles if shared else 0, 0 if shared else npsr * tiles)
 
 
 def _adjoint_launch(fn_name, launch_name, second, tensors, npsr, nb, b):
-    """One launch of kernel 1 or 2 (float64 only) with its counts recorded
-    as ``cuda.cost.*`` gauges (``obs/devprof.py``)."""
+    """One launch of kernel 1 or 2 (float64 only), its scratch (if the
+    plan has one) allocated here, with its counts recorded as
+    ``cuda.cost.*`` gauges (``obs/devprof.py``)."""
     from ..obs import devprof
 
     if tensors[0].dtype != torch.float64:
         raise TypeError(f"{launch_name}: the kernel takes float64 only, got {tensors[0].dtype}")
     plan = tridiag_adjoint_plan(npsr, b, second)
-    _tridiag_launch(fn_name, tensors[0].device, tensors,
+    scratch = tensors[0].new_empty(plan.scratch_bytes // 8) if plan.scratch_bytes else None
+    _tridiag_launch(fn_name, tensors[0].device, (*tensors, scratch),
                     (npsr, nb, b, plan.threads, plan.shared_bytes), launch_name)
     devprof.record_kernel_cost(launch_name, tridiag_adjoint_operations(npsr, nb, b, second),
                                tridiag_adjoint_bytes(npsr, nb, b, second, 8))
@@ -1064,19 +1093,24 @@ def tridiag_factor_adjoint(Ld, M, gLd, gM):
     return gD, gE, lbar
 
 
-def tridiag_factor_adjoint_vjp(Ld, M, gLd, gM, hD, hE, lbar=None):
+def tridiag_factor_adjoint_vjp(Ld, M, gLd, gM, hD, hE, lbar=None, gD=None, gE=None):
     """Kernel 2: the cotangents ``(hLd, hM, hgLd, hgM)`` of kernel 1's
     inputs for cotangents ``(hD, hE)`` of its outputs, a forward sweep over
     block columns. CPU tensors run :func:`tridiag_factor_adjoint_vjp_plain`;
     CUDA tensors the kernel (float64, b <= 32; counted as
-    ``tridiag_factor_adjoint_vjp``), which reads kernel 1's ``lbar`` in
-    place of ``gLd`` and launches or raises."""
+    ``tridiag_factor_adjoint_vjp``), which reads kernel 1's ``lbar``,
+    ``gD`` and ``gE`` (for ``Ld, M, gLd, gM``: ``gLd`` and ``gM`` are not
+    read) and launches or raises."""
     if Ld.device.type == "cpu":
         return tridiag_factor_adjoint_vjp_plain(Ld, M, gLd, gM, hD, hE)
-    if lbar is None:
-        raise ValueError("tridiag_factor_adjoint_vjp: the kernel needs kernel 1's lbar")
-    npsr, nb, b = _check_tridiag("tridiag_factor_adjoint_vjp", (Ld, M, gM, lbar, hD))
-    ins = [t.contiguous() for t in (Ld, M, gM, lbar, hD, hE)]
+    if lbar is None or gD is None or gE is None:
+        raise ValueError("tridiag_factor_adjoint_vjp: the kernel needs kernel 1's lbar, gD and gE")
+    npsr, nb, b = _check_tridiag("tridiag_factor_adjoint_vjp", (Ld, M, lbar, gD, hD, gE, hE))
+    for name, t in (("lbar", lbar), ("gD", gD), ("hD", hD), ("gE", gE), ("hE", hE)):
+        want = (npsr, nb - (name in ("gE", "hE")), b, b)
+        if tuple(t.shape) != want:
+            raise ValueError(f"tridiag_factor_adjoint_vjp: {name} {tuple(t.shape)} is not {want}")
+    ins = [t.contiguous() for t in (Ld, M, lbar, gD, gE, hD, hE)]
     outs = [torch.empty_like(ins[0]) for _ in range(4)]
     _adjoint_launch("tridiag_factor_adjoint_vjp_launch", "tridiag_factor_adjoint_vjp", True,
                     (*ins, *outs), npsr, nb, b)

@@ -38,13 +38,16 @@ NPSR, NB, B = 2, 4, 3
 
 @pytest.fixture(autouse=True, scope="module")
 def _one_thread():
-    """One intra-op thread while this file runs: its tensors are tiny, and
-    the idle threads of several test workers at once oversubscribe the
-    cores (the gradgradchecks then took minutes instead of seconds)."""
-    threads = torch.get_num_threads()
+    """One intra-op thread from this file on: its tensors are tiny, and the
+    idle threads of several test workers at once oversubscribe the cores
+    (the gradgradchecks then took minutes instead of seconds).
+
+    The count is not raised again when the file ends: with MKL,
+    ``torch.set_num_threads(n)`` for any n > 1 also turns MKL's dynamic
+    threading off, after which the batched LU of a later file in the same
+    process (``models/batched.py::_lu``) spun for minutes without
+    returning. One thread is safe for whatever runs after."""
     torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _rel(got, want):
@@ -269,12 +272,23 @@ def test_padded_rows_get_zero_gradient():
     assert _rel(got, want) <= TOL_GRAD
 
 
-def test_adjoint_plan_and_counts():
-    """The launch kernels 1 and 2 take (the C side refuses any other) and
-    the counts their wrappers record, at config B's 68 x 485 x 16."""
-    for second, tiles in ((False, 8), (True, 12)):
-        plan = tgp.tridiag_adjoint_plan(68, 16, second)
-        assert (plan.threads, plan.grid, plan.shared_bytes) == (32, (68, 1), tiles * 16 * 17 * 8)
+@pytest.mark.parametrize("b, width, route", [
+    (1, 16, "shared"), (5, 16, "shared"), (16, 16, "shared"), (17, 32, "scratch"), (32, 32, "scratch"),
+])
+def test_adjoint_plan_and_counts(b, width, route):
+    """The launch kernels 1 and 2 take (the C side refuses any other): one
+    block of 16 warps per pulsar at the template width b' (16 up to b = 16,
+    else 32), its b' x (b' + 4) tiles (83 for kernel 1, 88 for kernel 2) in
+    shared memory at b' = 16 and in a device scratch at 32; and the counts
+    their wrappers record, at config B's 68 x 485 x 16, which the redesign
+    left as the function's."""
+    for second, tiles in ((False, 83), (True, 88)):
+        plan = tgp.tridiag_adjoint_plan(68, b, second)
+        nbytes = tiles * width * (width + 4) * 8
+        assert (plan.route, plan.width, plan.threads, plan.grid) == (route, width, 512, (68, 1))
+        assert (plan.shared_bytes, plan.scratch_bytes) == (
+            (nbytes, 0) if route == "shared" else (0, 68 * nbytes))
+        assert plan.shared_bytes <= 227 * 1024
     with pytest.raises(ValueError, match="blocks of 1..32"):
         tgp.tridiag_adjoint_plan(68, 33, False)
     blocks, sub = 68 * 485 * 256, 68 * 484 * 256

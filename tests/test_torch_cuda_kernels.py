@@ -764,11 +764,13 @@ def test_map_fit_on_the_card_matches_the_cpu_with_and_without_a_banded_covarianc
         np.testing.assert_allclose(got.sigma, ref.sigma, rtol=1e-6)
 
 
-@pytest.mark.parametrize("nb,b", [(7, 16), (3, 32), (1, 5)])
+@pytest.mark.parametrize("nb,b", [(1, 5), (2, 8), (7, 16), (3, 17), (3, 32)])
 def test_factor_adjoint_kernels_match_their_plain_versions(cuda_device, nb, b):
     """Kernels 1 and 2 against their plain versions (kernel 2's: autograd
     through kernel 1's plain loop), float64, within 1e-12 of the largest
-    |entry|; another dtype raises."""
+    |entry|, at both template widths (b' = 16 for b <= 16, 32 with its
+    tiles in the scratch past it) and their edges; two runs bitwise equal;
+    kernel 2 without kernel 1's gD and gE raises, as does another dtype."""
     rng = np.random.default_rng(nb * b)
     A = rng.standard_normal((3, nb, b, b))
     D = torch.as_tensor(A @ np.swapaxes(A, -1, -2) + 3 * b * np.eye(b), device=cuda_device)
@@ -779,7 +781,7 @@ def test_factor_adjoint_kernels_match_their_plain_versions(cuda_device, nb, b):
     hE = torch.as_tensor(rng.standard_normal(E.shape), device=cuda_device)
     launches.clear()
     gD, gE, lbar = tgp.tridiag_factor_adjoint(Ld, M, gLd, gM)
-    got = tgp.tridiag_factor_adjoint_vjp(Ld, M, gLd, gM, hD, hE, lbar=lbar)
+    got = tgp.tridiag_factor_adjoint_vjp(Ld, M, gLd, gM, hD, hE, lbar=lbar, gD=gD, gE=gE)
     torch.cuda.synchronize()
     assert launches["tridiag_factor_adjoint"] == launches["tridiag_factor_adjoint_vjp"] == 1
     want = tgp.tridiag_factor_adjoint_plain(Ld, M, gLd, gM)
@@ -788,5 +790,11 @@ def test_factor_adjoint_kernels_match_their_plain_versions(cuda_device, nb, b):
     for g, w in zip(got, tgp.tridiag_factor_adjoint_vjp_plain(Ld, M, gLd, gM, hD, hE)):
         # a single block column reads no gM and no M: those cotangents are zero
         assert _rel_max(g, w) <= 1e-12 if w.any() else torch.equal(g, w)
+    again = tgp.tridiag_factor_adjoint(Ld, M, gLd, gM)
+    assert all(torch.equal(x, y) for x, y in zip((gD, gE, lbar), again))
+    assert all(torch.equal(x, y) for x, y in zip(got, tgp.tridiag_factor_adjoint_vjp(
+        Ld, M, gLd, gM, hD, hE, lbar=lbar, gD=gD, gE=gE)))
+    with pytest.raises(ValueError, match="lbar, gD and gE"):
+        tgp.tridiag_factor_adjoint_vjp(Ld, M, gLd, gM, hD, hE, lbar=lbar)
     with pytest.raises(TypeError, match="float64"):
         tgp.tridiag_factor_adjoint(Ld.float(), M.float(), gLd.float(), gM.float())
