@@ -106,7 +106,14 @@ central differences, with no plain version called (`map_fit_covariance`);
 the fit at 2 x 128 on both rungs, card against CPU
 (`map_fit_covariance_card_vs_cpu`); and the JAX package's covariance round
 trip at config B's width, each amplitude within 3 Fisher sigma
-(`covariance_round_trip`). It prints one JSON line per phase. The
+(`covariance_round_trip`). The device mesh (A.17a) shards the flagship
+sweep at 1 x 1, 2 x 1, 1 x 2 and 2 x 2 on card 0 repeated (on distinct
+cards where there are that many): the elementwise recipe bitwise, the
+flagship recipe within its tolerance and anchored to the float64 engine,
+a resume across mesh shapes, a sharded archive, each shard's dispatch,
+config B's GLS refit on 1 x 2 with B.4/B.5 on each shard, `realize
+--sharded` in a fresh process and two processes of a gloo group
+(`mesh_sweep`). It prints one JSON line per phase. The
 line before the last is the kernels line, the last the result line.
 Without a CUDA device, or without the port beside it, it exits non-zero
 and prints no result; any failed check raises.
@@ -144,6 +151,9 @@ from pta_replicator_tpu_torch.scenarios import compile_spec, load_spec, sample_s
 from pta_replicator_tpu_torch.scenarios import spec_families
 from pta_replicator_tpu_torch.scenarios import compile as scenario_compile
 from pta_replicator_tpu_torch.scenarios.compile import deterministic_families
+from pta_replicator_tpu_torch.parallel import distributed, rehearsal
+from pta_replicator_tpu_torch.parallel import mesh as pmesh
+from pta_replicator_tpu_torch.parallel.stages import fan_out
 from pta_replicator_tpu_torch.utils import sweep as sweep_mod
 from pta_replicator_tpu_torch.utils.sweep import chunk_seed, sweep
 
@@ -241,6 +251,25 @@ SWEEP_MODES = {"depth1": dict(pipeline_depth=1), "depth2": dict(pipeline_depth=2
 SWEEP_ABORT_AFTER = 4
 CUBE_NREAL = 400
 TOL_BANK = 1e-12
+#: the mesh sweep (A.17a): the mesh shapes, on as many cards as a shape
+#: has shards where there are that many and on card 0 repeated where the
+#: card is alone; the sweeps' realizations (10 chunks of CHUNK), seed,
+#: and the warm-up sweep's; the elementwise recipe (per-backend EFAC and
+#: EQUAD, no fit) held bitwise; the flagship recipe (fit) and config B's
+#: GLS refit held to MESH_TOL: the RMS of the difference from the
+#: unsharded result over its RMS, and, against the float64 engine on the
+#: same draws, a worst entry no more than MESH_F64_RATIO times the
+#: unsharded float32 result's (on the H100 the float32 engine's own worst
+#: entry moves by 1.0e-5 of the RMS when only its chunk changes from 200
+#: to 100 realizations: a mesh cannot be held closer than that); the
+#: chunk after which the 2 x 2 resume arm stops; the dispatch reps; the
+#: CLI arm's realizations (on DATASET, through a 2 x 2 mesh); the gloo
+#: arm's processes (one card shared)
+MESH_SHAPES = ((1, 1), (2, 1), (1, 2), (2, 2))
+MESH_NREAL, MESH_SEED, MESH_ABORT_AFTER, MESH_DISPATCH_REPS = 2000, 13, 2, 3
+MESH_TOL, MESH_F64_RATIO = 1e-5, 2.0
+MESH_CLI_NREAL = 8
+MESH_PROCESSES = 2
 #: the streamed catalog: sources per plane tile, calls timed per mode, and
 #: the large catalog (the reference's CW ladder runs to 1e5 sources)
 SOURCES_PER_TILE, CW_STREAM_REPS, CW_STREAM_LARGE = 1024, 5, 100_000
@@ -1889,7 +1918,6 @@ def phase_sweep(batch, recipe, batch64, recipe64, workdir):
     bank from (c)'s checkpoint priced in float64 against the in-memory
     array. The launch counts are cleared just before (a) and read just
     after."""
-    msum = batch.mask.sum(-1)
     runs, rates, pipeline_rates, raw = {}, {}, {}, {}
     launches.clear()
     for rep in range(SWEEP_REPS):
@@ -1907,7 +1935,8 @@ def phase_sweep(batch, recipe, batch64, recipe64, workdir):
         for i in range(SWEEP_NREAL // SWEEP_CHUNK):
             gen = torch.Generator(device=batch.device).manual_seed(chunk_seed(SWEEP_SEED, i))
             res = realize(gen, batch, recipe, SWEEP_CHUNK, fit=True, static=static)
-            rows.append(torch.sqrt((res**2 * batch.mask).sum(-1) / msum).cpu())
+            # the sweep's own reduction (a card's sums laid out by row_sums)
+            rows.append(sweep_mod._default_reduce(res, batch).cpu())
         return torch.cat(rows).numpy()
 
     static = deterministic_delays(batch, recipe)
@@ -2007,6 +2036,388 @@ def phase_sweep(batch, recipe, batch64, recipe64, workdir):
             f"the bank from the checkpoint prices differently: {row}")
     del bank, cube
     torch.cuda.empty_cache()
+
+
+def _mesh_devices(k):
+    """k devices: k distinct cards where there are that many, else card 0
+    repeated (the counterpart of the JAX package's forced device count)."""
+    n = torch.cuda.device_count()
+    return [f"cuda:{i}" for i in range(k)] if n >= k else ["cuda:0"] * k
+
+
+def _mesh(shape):
+    return pmesh.make_mesh(*shape, devices=_mesh_devices(shape[0] * shape[1]))
+
+
+def _white(batch):
+    """The elementwise recipe: per-backend EFAC and EQUAD, nothing that a
+    product or a window could re-tile."""
+    nb = len(batch.backend_names)
+    full = lambda v: torch.full((batch.npsr, nb), v, dtype=batch.dtype, device=batch.device)
+    return B.Recipe(efac=full(1.1), log10_equad=full(-6.5))
+
+
+def _errors(got, want):
+    """The RMS of ``got - want`` and its largest entry, each over
+    ``want``'s RMS (float64)."""
+    got, want = torch.as_tensor(got).double(), torch.as_tensor(want).double()
+    rms, diff = torch.sqrt(torch.mean(want**2)), (got - want).abs()
+    return dict(rel_rms=float(torch.sqrt(torch.mean(diff**2)) / rms),
+                max_over_rms=float(diff.max() / rms))
+
+
+def _f64_anchor(batch, recipe, batch64, recipe64, mesh, reduce_fn):
+    """One chunk on one set of draws: the unsharded float32 engine, the
+    mesh and the float64 engine (the draws cast), each through
+    ``reduce_fn``: the mesh against the unsharded result and both against
+    float64."""
+    draws = B.draw_noise(torch.Generator(device=batch.device).manual_seed(MESH_SEED), batch,
+                         recipe, CHUNK)
+    ref = reduce_fn(realize(None, batch, recipe, CHUNK, fit=True, noise=draws,
+                            device=batch.device), batch)
+    got = reduce_fn(pmesh.sharded_realize(0, batch, recipe, CHUNK, mesh=mesh, fit=True,
+                                          noise=draws).assemble(), batch)
+    f64 = reduce_fn(realize(None, batch64, recipe64, CHUNK, fit=True, noise={
+        k: v.double() for k, v in draws.items()}, device=batch.device), batch64)
+    return dict(mesh_vs_unsharded=_errors(got, ref), unsharded_vs_f64=_errors(ref, f64),
+                mesh_vs_f64=_errors(got, f64))
+
+
+def _anchored(row):
+    return (row["mesh_vs_unsharded"]["rel_rms"] <= MESH_TOL
+            and row["mesh_vs_f64"]["max_over_rms"]
+            <= MESH_F64_RATIO * row["unsharded_vs_f64"]["max_over_rms"])
+
+
+def _threaded_dispatch(batch, recipe, mesh, static, inputs, stats):
+    """One chunk of the flagship recipe (fit) on ``mesh``, each shard
+    dispatched by a thread of its own that enters its device and the
+    calling thread's current stream there (the engine dispatches every
+    shard from the calling thread): a ShardedArray, and each shard's host
+    dispatch milliseconds and its thread's CPU milliseconds in ``stats``
+    (``shard_dispatch_ms``, ``shard_thread_cpu_ms``)."""
+    plan = pmesh.shard_plan(mesh, CHUNK, batch.npsr)
+    systems = (pmesh.shard_fit_systems(inputs, plan) if recipe.fit_design is not None
+               else None)
+    streams = {d: torch.cuda.current_stream(d) for d in mesh.distinct_devices()}
+    ms, cpu_ms = [0.0] * len(plan), [0.0] * len(plan)
+
+    def task(k):
+        def run():
+            shard = plan[k]
+            t0, c0 = time.perf_counter(), time.thread_time()
+            with torch.cuda.device(shard.device), torch.cuda.stream(streams[shard.device]):
+                out = pmesh._realize_shard(shard, MESH_SEED, inputs, CHUNK, True, static,
+                                           systems, None)
+            ms[k] = (time.perf_counter() - t0) * 1e3
+            cpu_ms[k] = (time.thread_time() - c0) * 1e3
+            return out
+        return run
+
+    outs = fan_out([task(k) for k in range(len(plan))], name="shard-dispatch")
+    stats["shard_dispatch_ms"], stats["shard_thread_cpu_ms"] = ms, cpu_ms
+    shape = (CHUNK, batch.npsr, batch.ntoa_max)
+    return pmesh.ShardedArray(shape, outs[0].dtype, [
+        ((s.rows, s.pulsars, (0, batch.ntoa_max)), out) for s, out in zip(plan, outs)])
+
+
+def _mesh_cli(workdir, device_type, extra_runs=0):
+    """``realize`` of the elementwise recipe on DATASET in fresh processes:
+    unsharded, through ``--mesh-shape 2x2 --mesh-devices`` (four cards where
+    there are four, else card 0 four times), and, where there are two cards
+    or more, ``--sharded`` (every visible card on 'real'); each sharded
+    output against the unsharded, with the mesh its summary names and, where
+    they differ, the realizations and pulsars that do. ``extra_runs`` more
+    rounds of the sharded processes (a probe's repeats)."""
+    from pta_replicator_tpu_torch.utils.fabricate import ng15_like_pulsars, write_dataset
+
+    pardir, timdir = workdir / "par", workdir / "tim"
+    if not pardir.exists():
+        write_dataset(ng15_like_pulsars(**DATASET, seed=DATASET_SEED), pardir, timdir)
+        (workdir / "recipe.json").write_text(json.dumps({"efac": 1.1, "log10_equad": -6.5}))
+    argv = ["realize", "--pardir", str(pardir), "--timdir", str(timdir), "--recipe",
+            str(workdir / "recipe.json"), "--nreal", str(MESH_CLI_NREAL), "--device", device_type]
+    arms = {"mesh_2x2": (["--mesh-shape", "2x2", "--mesh-devices", ",".join(_mesh_devices(4))],
+                         "2x2")}
+    if torch.cuda.device_count() > 1:
+        arms["sharded"] = (["--sharded"], f"{torch.cuda.device_count()}x1")
+    runs = [(None, "ref")] + [(name, f"{name}_{k}") for k in range(1 + extra_runs)
+                              for name in arms]
+
+    def one(run):
+        name, tag = run
+        return _module_cli(*argv, "--out", str(workdir / f"cli_{tag}.npz"),
+                           *(arms[name][0] if name else []))
+
+    with ThreadPoolExecutor(len(runs)) as pool:
+        results = list(pool.map(one, runs))
+    for code, _out, err, _s in results:
+        require(code == 0, f"mesh_sweep: realize CLI exit {code}: {err[-2000:]}")
+    ref = np.load(workdir / "cli_ref.npz")["residuals"]
+    row = dict(shape=list(ref.shape), unsharded_s=results[0][3], runs=[])
+    for (name, tag), (_code, out, _err, secs) in zip(runs[1:], results[1:]):
+        got = np.load(workdir / f"cli_{tag}.npz")["residuals"]
+        arm = dict(arm=name, seconds=secs, mesh=json.loads(out.strip().splitlines()[-1]).get("mesh"),
+                   want_mesh=arms[name][1], equal=bool(np.array_equal(got, ref)))
+        if not arm["equal"] and got.shape == ref.shape:
+            differ = got != ref
+            arm["differing_realizations"] = np.flatnonzero(differ.any(axis=(1, 2))).tolist()
+            arm["differing_pulsars"] = np.flatnonzero(differ.any(axis=(0, 2))).tolist()
+            arm["differing_entries"] = int(differ.sum())
+            arm["max_abs_diff"] = float(np.abs(got.astype(np.float64) - ref).max())
+        row["runs"].append(arm)
+    row["equal"] = all(a["equal"] and a["mesh"] == a["want_mesh"] for a in row["runs"])
+    return row
+
+
+def _mesh_sweeps(batch, recipe, workdir, tag, **kw):
+    """A warm-up sweep, then the unsharded sweep and the mesh sweep at every
+    shape, each synchronised, with its rate, peak memory (the largest of
+    its cards') and B.1 launches: {None or shape: (row, result, archive
+    bytes)}."""
+    # the warm-up touches every card of the largest mesh (a card's first use
+    # sets up its context, handles and modules)
+    for k, mesh in enumerate((None, _mesh((2, 2)))):
+        sweep(MESH_SEED + 1, batch, recipe, 4 * CHUNK, str(workdir / f"{tag}_warm{k}.npz"),
+              chunk=CHUNK, device=batch.device, mesh=mesh, **kw)
+    out = {}
+    for shape in (None,) + MESH_SHAPES:
+        path = workdir / f"{tag}_{'x'.join(map(str, shape or ('none',)))}.npz"
+        mesh = None if shape is None else _mesh(shape)
+        cards = [batch.device] if mesh is None else mesh.distinct_devices()
+        for d in cards:
+            torch.cuda.reset_peak_memory_stats(d)
+        launches.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = sweep(MESH_SEED, batch, recipe, MESH_NREAL, str(path), chunk=CHUNK, mesh=mesh,
+                    device=batch.device, **kw)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        row = dict(realizations_per_s=MESH_NREAL / wall_s, wall_s=wall_s,
+                   peak_gib=max(torch.cuda.max_memory_allocated(d) for d in cards) / 2**30,
+                   b1_launches=launches["cw_catalog_response"])
+        out[shape] = (row, res, _file_bytes(path))
+        path.unlink()
+    return out
+
+
+def phase_mesh_sweep(batch, recipe, batch64, recipe64, workdir):
+    """The mesh sweep (A.17a) at the flagship width, float32, chunk 200,
+    through its entry points: the elementwise recipe bitwise and the
+    flagship recipe (fit) within MESH_TOL of the RMS against the unsharded
+    sweep at every shape, with realizations/s and peak memory per shape
+    (and the elementwise recipe bitwise on odd and small pulsar windows),
+    and one chunk on 2 x 2 anchored to the float64 engine;
+    a 2 x 2 sweep of the elementwise recipe stopped after two chunks and
+    resumed at 1 x 2, byte for byte the unsharded archive; a full-cube
+    chunk's sharded archive written (MB/s); each shard's dispatch
+    milliseconds with one dispatching thread and with a thread per shard
+    (equal bits); config B's GLS refit on 1 x 2 with B.4/B.5's launches
+    counted on each shard (and on the profiler's trace); ``realize`` on a
+    2 x 2 mesh (and, on several cards, ``--sharded``) at DATASET width in
+    fresh processes byte-equal to ``realize``, each naming its mesh; two
+    processes of a gloo group on the card byte-equal to one process's 2 x 1
+    mesh. Returns the launch counts of B.1 and of B.4/B.5 on this path."""
+    white = _white(batch)
+    rows = {}
+    ref_rows = _mesh_sweeps(batch, white, workdir, "white", fit=False)
+    (base_row, base, base_bytes) = ref_rows.pop(None)
+    for shape, (row, res, data) in ref_rows.items():
+        row["equal"] = bool(np.array_equal(res, base)) and data == base_bytes
+        rows[f"white_{shape[0]}x{shape[1]}"] = row
+    rows["white_unsharded"] = base_row
+    # a full-cube chunk, unfetched, against realize's on the same seed
+    cube = pmesh.sharded_realize(MESH_SEED, batch, white, CHUNK, mesh=_mesh((2, 2))).assemble()
+    rows["white_cube_2x2"] = dict(equal=bool(torch.equal(cube, realize(
+        torch.Generator(device=batch.device).manual_seed(MESH_SEED), batch, white, CHUNK,
+        device=batch.device))))
+    # windows the flagship's even halves do not reach, each against realize:
+    # a 1 x 4 full cube (17-pulsar windows at odd offsets: rows that start
+    # 8 bytes off a 16-byte boundary) and, on 8 pulsars x 1,000 TOAs, 2 x 2
+    # (4-pulsar windows) and 8 x 1 (one realization a shard): a card's sums
+    # over fewer than 16 rows, or over rows aligned otherwise, round
+    # otherwise unless models/batched.py::row_sums lays them out
+    cube = pmesh.sharded_realize(MESH_SEED, batch, white, CHUNK, mesh=_mesh((1, 4))).assemble()
+    rows["white_cube_1x4"] = dict(equal=bool(torch.equal(cube, realize(
+        torch.Generator(device=batch.device).manual_seed(MESH_SEED), batch, white, CHUNK,
+        device=batch.device))))
+    del cube
+    small_b, small_r = rehearsal.workload("white", 8, 1000, batch.dtype, batch.device)
+    small = realize(torch.Generator(device=batch.device).manual_seed(MESH_SEED), small_b, small_r,
+                    8, device=batch.device)
+    for shape in ((2, 2), (8, 1)):
+        rows[f"white_small_{shape[0]}x{shape[1]}"] = dict(equal=bool(torch.equal(
+            pmesh.sharded_realize(MESH_SEED, small_b, small_r, 8, mesh=_mesh(shape)).assemble(),
+            small)))
+    flag = _mesh_sweeps(batch, recipe, workdir, "flagship", fit=True)
+    (fbase_row, fbase, _) = flag.pop(None)
+    for shape, (row, res, _data) in flag.items():
+        row["vs_unsharded"] = _errors(res, fbase)
+        rows[f"flagship_{shape[0]}x{shape[1]}"] = row
+    rows["flagship_unsharded"] = fbase_row
+    anchor = _f64_anchor(batch, recipe, batch64, recipe64, _mesh((2, 2)),
+                         sweep_mod._default_reduce)
+    b1 = sum(r["b1_launches"] for k, r in rows.items() if k.startswith("flagship_")
+             and k != "flagship_unsharded")
+
+    # stopped at 2 x 2 after two chunks, resumed at 1 x 2
+    path = workdir / "resume.npz"
+
+    class Stop(Exception):
+        pass
+
+    def stop(done, total):
+        if done == MESH_ABORT_AFTER:
+            raise Stop
+
+    try:
+        sweep(MESH_SEED, batch, white, MESH_NREAL, str(path), chunk=CHUNK, mesh=_mesh((2, 2)),
+              progress=stop, device=batch.device)
+        raise RuntimeError("chip_smoke: the resume arm's sweep did not stop")
+    except Stop:
+        pass
+    archives = sorted(p.name for p in workdir.glob("resume.npz.chunk*"))
+    resumed = sweep(MESH_SEED, batch, white, MESH_NREAL, str(path), chunk=CHUNK,
+                    mesh=_mesh((1, 2)), device=batch.device)
+    resume = dict(stopped_archives=archives, equal=bool(np.array_equal(resumed, base))
+                  and _file_bytes(path) == base_bytes)
+    path.unlink()
+
+    # one full-cube chunk of the flagship recipe on 2 x 2: its shards' readback
+    # and their sharded archive (non-durable), then the dispatch readings
+    mesh22 = _mesh((2, 2))
+    inputs = pmesh.shard_batch(batch, mesh22, recipe)
+    static22 = pmesh.static_delays(batch, recipe, mesh22)
+
+    def run(threads, stats=None):
+        if threads:
+            return _threaded_dispatch(batch, recipe, mesh22, static22, inputs, stats)
+        return pmesh.sharded_realize(MESH_SEED, batch, recipe, CHUNK, mesh=mesh22, fit=True,
+                                     static=static22, inputs=inputs, stats=stats)
+
+    block = pmesh.fetch_shard_blocks(run(False))
+    t0 = time.perf_counter()
+    sweep_mod.write_shard_archive(str(workdir / "cube.npz"), block)
+    archive_s = time.perf_counter() - t0
+    archive_mb = block.nbytes / 1e6
+    (workdir / "cube.npz").unlink()
+    # beside each call's wall time, the CPU time of the whole process over
+    # it, and each dispatching thread's own CPU time: a thread that waits
+    # (for the GIL, a lock) spends wall time without CPU time
+    dispatch = {}
+    for threads in (False, True):
+        runs, calls, thread_cpu = [], [], []
+        for _ in range(MESH_DISPATCH_REPS):
+            st = {}
+            c0, w0 = time.process_time(), time.perf_counter()
+            out = run(threads, st)
+            calls.append(((time.perf_counter() - w0) * 1e3, (time.process_time() - c0) * 1e3))
+            for d in mesh22.distinct_devices():
+                torch.cuda.synchronize(d)
+            runs.append(st["shard_dispatch_ms"])
+            thread_cpu.append(st.get("shard_thread_cpu_ms"))
+        row = dispatch["thread_per_shard" if threads else "one_thread"] = {
+            "shard_dispatch_ms": [float(np.median(col)) for col in zip(*runs)],
+            "call_wall_ms": float(np.median([c[0] for c in calls])),
+            "call_process_cpu_ms": float(np.median([c[1] for c in calls]))}
+        if threads:
+            row["shard_thread_cpu_ms"] = [float(np.median(col)) for col in zip(*thread_cpu)]
+        row["equal_bits"] = bool(
+            np.array_equal(pmesh.fetch_shard_blocks(out).assemble(), block.assemble()))
+    del block, out
+
+    # config B's GLS refit on 1 x 2: the assembly and a chunk's solves per shard
+    gls = dataclasses.replace(_config_b(batch, recipe, torch.float32),
+                              fit_design=_fit_design(batch), fit_gls=True)
+    mesh12 = _mesh((1, 2))
+    gin = pmesh.shard_batch(batch, mesh12, gls)
+    plan = pmesh.shard_plan(mesh12, CHUNK, batch.npsr)
+    systems, assembly = {}, []
+    for shard in plan:
+        launches.clear()
+        systems.update(pmesh.shard_fit_systems(gin, [shard]))
+        torch.cuda.synchronize()
+        assembly.append({k: launches[k] for k in COV_KERNELS if launches[k]})
+    gstatic = pmesh.static_delays(batch, gls, mesh12)
+    st = {}
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        # a profiler session can lose its first records on a card
+        # (device_trace warms up for the same reason): tiny kernels first
+        for d in mesh12.distinct_devices():
+            pad = torch.zeros(1, device=d)
+            for _ in range(128):
+                pad.add_(1.0)
+        gres = pmesh.sharded_realize(MESH_SEED, batch, gls, CHUNK, mesh=mesh12, fit=True,
+                                     static=gstatic, inputs=gin, systems=systems, stats=st)
+        torch.cuda.synchronize()
+    by_device = collections.Counter(
+        f"cuda:{e.device_index}" for e in prof.events()
+        if e.device_type == torch.autograd.DeviceType.CUDA and "tridiag" in e.name)
+    profiled = sum(by_device.values())
+    del gres, gin, systems, gstatic
+    gls64 = dataclasses.replace(_config_b(batch64, recipe64, torch.float64),
+                                fit_design=_fit_design(batch).double(), fit_gls=True)
+    gls_row = dict(assembly_launches=assembly, chunk_launches=st["shard_launches"],
+                   profiled_tridiag_kernels=int(profiled),
+                   profiled_tridiag_by_device=dict(by_device),
+                   **_f64_anchor(batch, gls, batch64, gls64, mesh12, lambda res, _b: res))
+    del gls, gls64
+    torch.cuda.empty_cache()
+
+    # realize on a mesh in fresh processes against realize in another, and,
+    # beside them, two processes on the card, a gloo group, against one
+    # process's 2 x 1 (the fresh interpreters start together)
+    def gloo_arm():
+        t0 = time.perf_counter()
+        ranks = rehearsal.launch(MESH_PROCESSES, str(workdir), mesh="1x1",
+                                 device=batch.device.type, workload="white", npsr=batch.npsr,
+                                 ntoa=batch.ntoa_max, nreal=CHUNK, chunk=CHUNK, seed=MESH_SEED,
+                                 float32=True, timeout_s=300.0)
+        return ranks, time.perf_counter() - t0
+
+    with ThreadPoolExecutor(1) as pool:
+        gloo = pool.submit(gloo_arm)
+        cli_row = _mesh_cli(workdir, batch.device.type)
+        ranks, procs_s = gloo.result()
+    white_b, white_r = rehearsal.workload("white", batch.npsr, batch.ntoa_max, batch.dtype,
+                                          batch.device)
+    one = distributed.local_realizations(pmesh.sharded_realize(
+        chunk_seed(MESH_SEED, 0), white_b, white_r, CHUNK, mesh=_mesh((MESH_PROCESSES, 1))))
+    stitched = np.concatenate([r["local"][0] for r in ranks], axis=0)
+    gloo_row = dict(seconds=procs_s, equal=bool(np.array_equal(stitched, one)),
+                    topology=[{k: int(r[k]) for k in rehearsal.TOPOLOGY_KEYS} for r in ranks])
+
+    row = dict(shape=FLAGSHIP, chunk=CHUNK, nreal=MESH_NREAL, devices=_mesh_devices(4),
+               shapes=rows, tol=MESH_TOL, f64_ratio=MESH_F64_RATIO, f64_anchor_2x2=anchor,
+               resume=resume,
+               archive=dict(mb=archive_mb, seconds=archive_s, mb_per_s=archive_mb / archive_s,
+                            shards=4),
+               dispatch=dispatch, gls_1x2=gls_row, cli=cli_row, gloo=gloo_row)
+    emit("mesh_sweep", **row)
+    require(all(r["equal"] for k, r in rows.items() if k.startswith("white_") and "equal" in r),
+            f"mesh_sweep: the elementwise recipe's mesh sweep differs from the unsharded: {rows}")
+    require(all(r["vs_unsharded"]["rel_rms"] <= MESH_TOL for k, r in rows.items()
+                if "vs_unsharded" in r) and _anchored(anchor),
+            f"mesh_sweep: the flagship mesh sweep: {rows}, {anchor}")
+    require(all(r["b1_launches"] > 0 for k, r in rows.items() if k.startswith("flagship_")),
+            f"mesh_sweep: a flagship sweep never launched B.1: {rows}")
+    require(resume["equal"] and len(resume["stopped_archives"]) == MESH_ABORT_AFTER,
+            f"mesh_sweep: the resume across shapes: {resume}")
+    require(all(d["equal_bits"] for d in dispatch.values()),
+            f"mesh_sweep: a thread per shard changed the bits: {dispatch}")
+    require(all(a.get("tridiag_factor_solve_fwd") for a in assembly)
+            and all(c.get("tridiag_solve_fwd") == 1 and c.get("tridiag_factor_solve_bwd") == 1
+                    for c in st["shard_launches"])
+            and profiled >= sum(sum(c.values()) for c in st["shard_launches"])
+            and _anchored(gls_row), f"mesh_sweep: config B's GLS refit on 1 x 2: {gls_row}")
+    require(cli_row["equal"], f"mesh_sweep: realize on a mesh differs from realize, or its "
+            f"summary names another mesh: {cli_row}")
+    require(gloo_row["equal"], f"mesh_sweep: two processes differ from one: {gloo_row}")
+    counts = {k: sum(a.get(k, 0) for a in assembly) + sum(c.get(k, 0) for c in st["shard_launches"])
+              for k in COV_KERNELS}
+    return b1, counts
 
 
 def _union_us(intervals):
@@ -3313,12 +3724,13 @@ def phase_telemetry(workdir, smi):
     return b1["with"]
 
 
-#: the chaos phase: the flagship sweep's full cubes (4 chunks of 200, a
-#: ~1.7 GB checkpoint), the drain deadline, the stall past it, the two
+#: the chaos phase: the flagship sweep's full cubes (3 chunks of 200, a
+#: ~1.3 GB checkpoint; cut from 4 chunks for the script's time when the
+#: mesh phase came), the drain deadline, the stall past it, the two
 #: seeded arms' seeds, the retry budget (one more than the arms' three
 #: faults could take from one chunk) and a fast backoff (the default's
 #: 0.5 s and more would only add sleep to the overhead it reports)
-CHAOS_NREAL, CHAOS_CHUNK = 800, 200
+CHAOS_NREAL, CHAOS_CHUNK = 600, 200
 CHAOS_DEADLINE_S, CHAOS_STALL_S = 3.0, 4.0
 CHAOS_ARM_SEEDS = (11, 12)
 CHAOS_RETRIES = 3
@@ -5586,6 +5998,12 @@ def main():
         phase_sweep(batch, recipe, batch64, recipe64, workdir)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
+    workdir = Path(tempfile.mkdtemp(prefix="chip_smoke_mesh_"))
+    try:
+        mesh_b1, mesh_gls = phase_mesh_sweep(batch, recipe, batch64, recipe64, workdir)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    torch.cuda.empty_cache()
     design = B.quadratic_design(batch64)
     woodbury_row = phase_woodbury_kernel(batch64, recipe64, design, "flagship")
     bf16_rows = phase_woodbury_bf16(batch64, recipe64, design, "flagship",
@@ -5659,6 +6077,7 @@ def main():
         "fuzz_launches": fuzz_counts.get("cw_catalog_response", 0),
         "fuzz_fold_launches": fuzz_counts.get("cw_fold_planes", 0),
         "fuzz_accumulate_launches": fuzz_counts.get("cw_catalog_accumulate", 0),
+        "mesh_sweep_launches": mesh_b1,
     }, {
         "name": "fused_woodbury_update", "route": "cuda",
         "source": "pta_replicator_tpu_torch/csrc/fused_woodbury.cu",
@@ -5704,6 +6123,7 @@ def main():
                              fuzz_counts.get("tridiag_factor_solve_fwd", 0)),
          "gls_fit_launches": fit_tridiag_counts["tridiag_factor_solve_fwd"],
          "oracle_gls_launches": oracle_gls_counts["banded"]["tridiag_factor_solve_fwd"],
+         "mesh_gls_launches": mesh_gls["tridiag_factor_solve_fwd"],
          "numerics_launches": numerics_counts.get("tridiag_factor_solve_fwd", 0)},
         {**_cov_kernel_entry("tridiag_solve_fwd", "pta_replicator_tpu_torch/csrc/block_tridiag.cu",
                              "pta_replicator_tpu/ops/pallas_gp.py:428",
@@ -5711,6 +6131,7 @@ def main():
                              fuzz_counts.get("tridiag_solve_fwd", 0)),
          "gls_fit_launches": fit_tridiag_counts["tridiag_solve_fwd"],
          "oracle_gls_launches": oracle_gls_counts["banded"]["tridiag_solve_fwd"],
+         "mesh_gls_launches": mesh_gls["tridiag_solve_fwd"],
          "fit_widths": {str(q): _width_row(cov_rows["solve", f64, q]) for q in FIT_WIDTHS}},
         {**_cov_kernel_entry("tridiag_factor_solve_bwd", "pta_replicator_tpu_torch/csrc/block_tridiag.cu",
                              "pta_replicator_tpu/ops/pallas_gp.py:458",
@@ -5718,6 +6139,7 @@ def main():
                              fuzz_counts.get("tridiag_factor_solve_bwd", 0)),
          "gls_fit_launches": fit_tridiag_counts["tridiag_factor_solve_bwd"],
          "oracle_gls_launches": oracle_gls_counts["banded"]["tridiag_factor_solve_bwd"],
+         "mesh_gls_launches": mesh_gls["tridiag_factor_solve_bwd"],
          "fit_widths": {str(q): _width_row(cov_rows["backward", f64, q]) for q in FIT_WIDTHS}},
         *({**_cov_kernel_entry(name, "pta_replicator_tpu_torch/csrc/block_tridiag.cu",
                                "none: the backward of pta_replicator_tpu/ops/pallas_gp.py:428's "

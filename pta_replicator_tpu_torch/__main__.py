@@ -5,6 +5,7 @@ realization bank, and the declarative scenario path.
     python -m pta_replicator_tpu_torch realize --pardir PAR --timdir TIM \
         --recipe R.json --out R.npz [--nreal 100] [--seed 0] \
         [--fit | --full-fit | --gls-fit] [--checkpoint CK.npz --chunk 256] \
+        [--sharded | --mesh-shape RxP] [--mesh-devices cuda:0,cuda:1,...] \
         [--write-partim DIR --write-max 16] [--device cuda]
     python -m pta_replicator_tpu_torch likelihood --bank CK.npz --recipe R.json \
         (--pardir PAR --timdir TIM | --synthetic 10x512) \
@@ -96,8 +97,17 @@ the parser's message before any work. ``numerics report DIR`` renders a
 capture's ``numerics.json`` (either package's; ``PTA_NUMERICS=1`` arms
 the observatory for a ``--telemetry`` capture).
 
-Flags of modules not ported yet exit non-zero before any work:
-``--sharded`` and ``--mesh-shape`` (ROADMAP A.17).
+``realize --sharded`` shards the realizations over every visible device
+(``--device cpu``: the host, one device), ``--mesh-shape RxP`` over an
+explicit ('real', 'psr') mesh (``parallel/mesh.py``): without
+``--checkpoint`` through ``sharded_realize``, with it through the mesh
+sweep, whose chunks land as sharded archives. ``--mesh-devices`` lists the
+mesh's devices in row-major order instead of every visible one, and may
+repeat one: ``--mesh-shape 2x2 --mesh-devices cuda:0,cuda:0,cuda:0,cuda:0``
+runs a 2 x 2 mesh on one card. The summary line names the mesh
+(``"mesh": "2x2"``). A shape larger than the devices, a malformed shape,
+devices of another type than ``--device`` and ``--fused-stream`` with a
+mesh (not ported yet, ROADMAP A.17b) exit non-zero before any work.
 """
 from __future__ import annotations
 
@@ -140,9 +150,16 @@ def _parser() -> argparse.ArgumentParser:
                    help="weight the full-model refit by the recipe's own noise model "
                         "(GLS); implies --full-fit")
     p.add_argument("--sharded", action="store_true",
-                   help="not ported (ROADMAP A.17, multi-GPU): exits non-zero")
+                   help="shard realizations over every visible device")
     p.add_argument("--mesh-shape", default=None, metavar="RxP",
-                   help="not ported (ROADMAP A.17, multi-GPU): exits non-zero")
+                   help="explicit ('real','psr') mesh shape for the sharded path, e.g. 4x2 "
+                        "(the pulsar count must divide by P); default: every device on the "
+                        "realization axis. Implies --sharded. A checkpointed sweep on a "
+                        "multi-device mesh writes per-shard chunk archives")
+    p.add_argument("--mesh-devices", default=None, metavar="DEV,DEV,...",
+                   help="the mesh's devices in row-major order, of --device's type; one "
+                        "may repeat (cuda:0,cuda:0 puts two shards on one card). Default: "
+                        "every visible device. Implies --sharded")
     p.add_argument("--checkpoint", default=None,
                    help="resumable sweep checkpoint path (chunked)")
     p.add_argument("--chunk", type=int, default=256)
@@ -342,13 +359,49 @@ def _device(name: str, cmd: str = "scenario"):
 
 
 def _refuse_unported(args):
-    """Exit before any work when a flag of a module not ported yet is set."""
-    for attr, flag, item in UNPORTED_FLAGS:
-        if getattr(args, attr, None):
-            raise SystemExit(
-                f"{args.cmd} {flag}: not ported yet (ROADMAP {item}); the JAX package's "
-                f"`python -m pta_replicator_tpu {args.cmd}` has it"
-            )
+    """Exit before any work when the flags ask for a path not ported yet:
+    the fused stage graph on a mesh."""
+    if getattr(args, "fused_stream", False) and (getattr(args, "sharded", False)
+                                                 or getattr(args, "mesh_shape", None)
+                                                 or getattr(args, "mesh_devices", None)):
+        raise SystemExit(
+            f"{args.cmd} --fused-stream with a mesh (--sharded / --mesh-shape / "
+            "--mesh-devices): not ported yet (ROADMAP A.17b); the JAX package's "
+            "`python -m pta_replicator_tpu realize` has it"
+        )
+
+
+def _make_mesh_arg(mesh_shape, device, mesh_devices=None):
+    """A ('real','psr') mesh from the --mesh-shape argument ("RxP"), or
+    every device on 'real' when it is None, over the --mesh-devices list
+    ("cuda:0,cuda:0,...") or else the visible devices of ``device``'s type;
+    exits on a malformed or too large shape and on devices of another
+    type."""
+    import torch
+
+    from .parallel.mesh import make_mesh, visible_devices
+
+    shape = ()
+    if mesh_shape:
+        try:
+            shape = tuple(int(x) for x in mesh_shape.lower().split("x"))
+        except ValueError:
+            shape = ()
+        if len(shape) != 2:
+            raise SystemExit(f"--mesh-shape must look like 4x2 (got {mesh_shape!r})")
+    devices = visible_devices(device.type)
+    if mesh_devices:
+        try:
+            devices = [torch.device(d.strip()) for d in mesh_devices.split(",")]
+        except RuntimeError as exc:
+            raise SystemExit(f"--mesh-devices {mesh_devices!r}: {exc}")
+        if any(d.type != device.type for d in devices):
+            raise SystemExit(f"--mesh-devices {mesh_devices!r}: every device must be a "
+                             f"{device.type} device (--device {device.type})")
+    try:
+        return make_mesh(*shape, devices=devices)
+    except ValueError as exc:
+        raise SystemExit(f"--mesh-shape {mesh_shape or '(default)'}: {exc}")
 
 
 def _run_scenario(args):
@@ -473,13 +526,6 @@ def _run_scenario(args):
     print(json.dumps(summary, sort_keys=True))
 
 
-#: flags of modules not ported yet: (attribute, flag, ROADMAP item)
-UNPORTED_FLAGS = (
-    ("sharded", "--sharded", "A.17 (multi-GPU)"),
-    ("mesh_shape", "--mesh-shape", "A.17 (multi-GPU)"),
-)
-
-
 def _build_recipe(spec: dict, psrs, locs=None):
     """JSON recipe spec -> Recipe (on the host; the caller moves it). The
     ORF's sky locations come from ``psrs`` (the par-file path) or an
@@ -555,6 +601,13 @@ def _run_dataset(args):
         if args.checkpoint and args.nreal % chunk:
             raise SystemExit(f"--nreal {args.nreal} must be a multiple of --chunk {chunk}")
     device = _device(args.device, args.cmd)
+    mesh = None
+    if args.cmd == "realize" and (args.sharded or args.mesh_shape or args.mesh_devices):
+        mesh = _make_mesh_arg(args.mesh_shape, device, args.mesh_devices)
+        per_call = chunk if args.checkpoint else args.nreal
+        if per_call % mesh.shape["real"]:
+            raise SystemExit(f"{'--chunk' if args.checkpoint else '--nreal'} {per_call} is not "
+                             f"divisible by the mesh's 'real' axis ({mesh.label})")
     with span(names.SPAN_INGEST, pardir=args.pardir):
         psrs = load_from_directories(args.pardir, args.timdir, num_psrs=args.num_psrs)
         for psr in psrs:
@@ -602,7 +655,16 @@ def _run_dataset(args):
                         drain_timeout_s=args.drain_timeout if args.drain_timeout > 0 else None,
                         chunk_retries=args.chunk_retries, fused_stream=args.fused_stream,
                         progress=lambda d, n: print(f"chunk {d}/{n}", file=sys.stderr),
-                        device=device)
+                        device=device, mesh=mesh)
+        elif mesh is not None:
+            from .parallel.mesh import fetch_shard_blocks, sharded_realize
+            from .utils.sweep import ShardedBlock
+
+            # realize's draws (one generator seeded with --seed), sharded
+            res = sharded_realize(args.seed, batch, recipe, args.nreal, mesh=mesh, fit=args.fit,
+                                  static=static)
+            out = fetch_shard_blocks(res)
+            out = out.assemble() if isinstance(out, ShardedBlock) else out
         else:
             generator = torch.Generator(device=device).manual_seed(args.seed)
             out = realize(generator, batch, recipe, args.nreal, fit=args.fit, static=static,
@@ -619,6 +681,8 @@ def _run_dataset(args):
         "fit": mode,
         "design_columns": design_columns,
     }
+    if mesh is not None:
+        summary["mesh"] = mesh.label
     if args.write_partim:
         from .utils.export import materialize_realizations
 

@@ -95,6 +95,15 @@ class PulsarBatch:
         """Move every tensor to ``device``."""
         return _map_tensors(self, lambda x: x.to(device))
 
+    def window(self, start: int, stop: int) -> "PulsarBatch":
+        """Pulsars ``start:stop`` (views of every tensor, the names with
+        them). The array-wide metadata stays the whole array's: the span
+        ``start_s``/``stop_s`` that sets the GWB grid, the backends and
+        ``tref_mjd``, so a window's draws and delays are the whole
+        array's rows."""
+        out = _map_tensors(self, lambda x: x[start:stop])
+        return dataclasses.replace(out, names=tuple(self.names[start:stop]))
+
 
 def synthetic_batch(npsr: int = 68, ntoa: int = 7758, nbackend: int = 4,
                     span_days: float = 365.25 * 16, toaerr_s: float = 0.5e-6,

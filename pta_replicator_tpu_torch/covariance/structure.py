@@ -126,6 +126,12 @@ class CovOp:
         """Cast the floating tensors (a nested op's too) to ``dtype``."""
         return _map_op(self, lambda x: x.to(dtype) if x.is_floating_point() else x)
 
+    def window(self, start: int, stop: int):
+        """The op of pulsars ``start:stop``: every structure is per pulsar
+        (each tensor's leading axis, a nested op's too), so the window is
+        a slice of each."""
+        return _map_op(self, lambda x: x[start:stop])
+
     def draw_shapes(self) -> dict:
         """Shape of one realization's standard normals, by family name."""
         return {"cov": (self.npsr, self.ntoa)}

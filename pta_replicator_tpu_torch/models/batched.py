@@ -849,6 +849,60 @@ def draw_noise(generator, batch: PulsarBatch, recipe: Recipe, nreal: int,
     return draws
 
 
+#: Recipe fields whose leading axis is the pulsar axis when they have one
+#: (the JAX package's ``parallel/mesh.py::_PSR_MAJOR_RECIPE_FIELDS``, with
+#: the port's ``cov_log10_sigma``): a pulsar window slices them. By name,
+#: not by shape: an unrelated leaf whose leading size happens to equal
+#: the pulsar count (``rn_modes``, the (8, Ns) catalog) is not sliced
+PSR_MAJOR_RECIPE_FIELDS = frozenset({
+    "efac", "log10_equad", "log10_ecorr", "rn_log10_amplitude", "rn_gamma", "rn_fmin",
+    "rn_fmax", "rn_tspan_s", "chrom_log10_amplitude", "chrom_gamma", "chrom_index",
+    "orf_cholesky", "fit_design", "cov_log10_sigma",
+})
+#: per pulsar only in their (Np, Ns) form; (Ns,) and scalars are common
+PSR_MAJOR_IF_2D_FIELDS = frozenset({"cgw_pdist", "cgw_pphase"})
+
+
+def recipe_window(recipe: Recipe, batch: PulsarBatch, start: int, stop: int) -> Recipe:
+    """The recipe of pulsars ``start:stop`` of ``batch`` (the whole
+    array's), beside :meth:`PulsarBatch.window`: per-pulsar fields sliced,
+    the ``noise_cov`` op windowed, the ORF factor cut to its rows (all of
+    its columns stay: the GWB mix of a window is the window's rows of the
+    whole draw's mix). An uncorrelated GWB gets the whole array's
+    ``sqrt(2) I`` factor first, so that a window mixes its own columns.
+    Raises on a per-pulsar field whose leading size is not the pulsar
+    count."""
+    npsr = batch.npsr
+    changes = {}
+    for name in PSR_MAJOR_RECIPE_FIELDS | PSR_MAJOR_IF_2D_FIELDS:
+        value = getattr(recipe, name)
+        if value is None or value.ndim == 0 or (name in PSR_MAJOR_IF_2D_FIELDS and value.ndim != 2):
+            continue
+        if value.shape[0] != npsr:
+            raise ValueError(f"Recipe.{name} has leading dim {value.shape[0]}, expected "
+                             f"npsr={npsr} for a pulsar window")
+        changes[name] = value[start:stop]
+    if _gwb_enabled(recipe) and recipe.orf_cholesky is None:
+        eye = torch.eye(npsr, dtype=batch.dtype, device=batch.device)
+        changes["orf_cholesky"] = (math.sqrt(2.0) * eye)[start:stop]
+    if recipe.noise_cov is not None:
+        if recipe.noise_cov.npsr != npsr:
+            raise ValueError(f"noise_cov covers {recipe.noise_cov.npsr} pulsars, expected "
+                             f"npsr={npsr} for a pulsar window")
+        changes["noise_cov"] = recipe.noise_cov.window(start, stop)
+    return dataclasses.replace(recipe, **changes)
+
+
+def draws_window(draws: dict, real: tuple, psr: tuple) -> dict:
+    """Realizations ``real`` = (start, stop) and pulsars ``psr`` of a
+    chunk's draws (:func:`draw_noise`), as views: every family is per
+    pulsar on axis 1 except the GWB's ``(R, 2, Ncol, nf)`` spectra, which
+    a pulsar window keeps whole (its mix takes the window's rows of the
+    ORF factor, :func:`recipe_window`)."""
+    (r0, r1), (p0, p1) = real, psr
+    return {name: x[r0:r1] if name == "gwb" else x[r0:r1, p0:p1] for name, x in draws.items()}
+
+
 def realization_delays(batch: PulsarBatch, recipe: Recipe, draws: dict):
     """(..., Np, Nt) summed stochastic delays of the enabled families,
     from explicit ``draws`` (:func:`draw_noise`), whose leading axes are
@@ -907,11 +961,45 @@ def realization_delays(batch: PulsarBatch, recipe: Recipe, draws: dict):
     return total
 
 
+#: a card's last-axis sums (:func:`row_sums`): the fewest rows, and the
+#: row stride's multiple in elements (16 bytes of float32)
+SUM_MIN_ROWS, SUM_ROW_ALIGN = 16, 4
+
+
+def row_sums(x, weight=None):
+    """``(x * weight).sum(-1, keepdim=True)`` (``weight`` broadcast; None:
+    ``x.sum``), each row summed in an order fixed by the row's length alone.
+
+    On a card PyTorch's reduction lays its lanes out by the row count below
+    16 rows and shifts each row by its start's 16-byte alignment, so a
+    window of pulsars or realizations (a mesh shard) would round its sums
+    unlike the whole array's. There the rows are written into a buffer of
+    at least ``SUM_MIN_ROWS`` rows, each starting 16-byte aligned, and
+    summed from it; the order then holds for rows shorter than 32,768
+    entries (longer rows split across blocks by the row count). On the CPU
+    it is the plain sum."""
+    shape = x.shape if weight is None else torch.broadcast_shapes(x.shape, weight.shape)
+    if x.device.type != "cuda":
+        return (x if weight is None else x * weight).sum(-1, keepdim=True)
+    n, rows = shape[-1], math.prod(shape[:-1])
+    buf = torch.empty((max(rows, SUM_MIN_ROWS), -(-n // SUM_ROW_ALIGN) * SUM_ROW_ALIGN),
+                      dtype=torch.result_type(x, weight) if weight is not None else x.dtype,
+                      device=x.device)[:, :n]
+    body = buf[:rows].view(shape)
+    if weight is None:
+        body.copy_(x)
+    else:
+        torch.mul(x, weight, out=body)
+    buf[rows:].zero_()
+    return buf.sum(-1)[:rows].view(shape[:-1] + (1,))
+
+
 def residualize(delays, batch: PulsarBatch):
     """Delays -> residuals: subtract the per-pulsar error-weighted mean
-    over valid TOAs."""
+    over valid TOAs (:func:`row_sums`, so a mesh shard's means are the
+    whole array's, bit for bit)."""
     w = batch.mask / batch.errors_s**2
-    mean = torch.sum(w * delays, dim=-1, keepdim=True) / torch.sum(w, dim=-1, keepdim=True)
+    mean = row_sums(delays, w) / row_sums(w)
     return (delays - mean) * batch.mask
 
 

@@ -49,7 +49,7 @@ What has no counterpart: ``note_trace``, ``capture_pending`` and
 ``jaxhooks`` (compile and retrace counters, ``instrumented_jit``), since
 the port does not jit; the device-memory snapshot is the allocator's
 counters (``obs/flightrec.py::device_memory_snapshot``); ``record_transfer``
-belongs to the multi-device mesh (ROADMAP A.17).
+belongs to the multi-device mesh (ROADMAP A.17b).
 """
 from __future__ import annotations
 

@@ -17,9 +17,12 @@ Counterpart of ``pta_replicator_tpu/obs/numerics.py``.
   ``models/batched.py::realize`` while armed): :func:`probe_realizations`
   keeps each family's leading :data:`PROBE_SAMPLE_CAP_COLLECT`-element
   slab of every realization on the device and reads nothing. When the
-  block ends, the slabs are reduced together and the sites' scalars
-  copied into pinned host memory behind a CUDA event and queued
-  (:func:`stash_step_stats`); the sweep's drain
+  block ends, its slabs are stacked; on the card up to
+  :data:`_GROUP_BLOCKS` blocks are reduced together and the sites'
+  scalars copied into pinned host memory behind one CUDA event and
+  queued (:func:`stash_step_stats`; :func:`snapshot` and :func:`flush`
+  reduce a partial group), so an armed sweep launches the reductions
+  once in that many chunks, not once a chunk; the sweep's drain
   folds the queued entries whose event has completed
   (``torch.cuda.Event.query``, which does not wait) and :func:`flush`
   folds the rest. One call a site a block, ``elements`` = slab x
@@ -43,6 +46,7 @@ and without ``site=``), the ``numerics.headroom_bits`` and
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 import json
 import math
@@ -91,9 +95,19 @@ _DRIFT_SEED = 0
 _SITES: Dict[str, dict] = {}
 #: per-family worst relative drift against the f64 oracle
 _DRIFT: Dict[str, dict] = {}
-#: queued collector blocks: (sites, host stats (n, 3), event or None,
-#: element counts, (max_log2, dtype) per site)
+#: queued collector stats: ([(sites, element counts, (max_log2, dtype)
+#: per site)] of the blocks in order, their host stats (n, 3), event or
+#: None)
 _PENDING: List[tuple] = []
+#: collector blocks staged, not yet reduced: (device, stream,
+#: row size, dtype), the stream, the block's (sites, counts, meta) and
+#: its rows
+_GROUP: List[tuple] = []
+#: a group's most blocks on the card and on the host (where a block is
+#: reduced when it ends), and its most bytes of rows (the memory it holds)
+_GROUP_BLOCKS = 8
+_GROUP_BLOCKS_HOST = 1
+_GROUP_BYTES = 64 << 20
 #: the active collector of this thread
 _TLS = threading.local()
 #: pinned host buffers of folded blocks, by (shape, dtype), reused by
@@ -151,6 +165,7 @@ def reset() -> None:
         _SITES.clear()
         _DRIFT.clear()
         _PENDING.clear()
+        _GROUP.clear()
 
 
 # ----------------------------------------------------------------- probes
@@ -335,23 +350,80 @@ def probe_realizations(name: str, x):
 
 def stash_step_stats(col: Collector, nreal: int) -> None:
     """Queue a collector's stats without reading them: the slabs are
-    reduced on their device (one stacked reduction when they share a size
-    and dtype, as the families' outputs do) and, on the card, copied into
-    pinned host memory on the current stream behind a CUDA event (no
-    synchronisation); the drain folds them once the event has completed."""
+    stacked into one (sites, elements) block of rows on their device (one
+    copy when they share a size and dtype, as the families' outputs do)
+    and reduced there. Blocks of one device, stream, row size and dtype
+    are staged (on the card :data:`_GROUP_BLOCKS` of them, on the host
+    :data:`_GROUP_BLOCKS_HOST`, at most :data:`_GROUP_BYTES`) and reduced
+    together, on the card their stats copied into pinned host memory
+    behind one CUDA event (no synchronisation): one set of launches for
+    the group, not one a block, each block's rows still its own records;
+    the drain folds them once the event has completed."""
     if not col.slabs:
         return
     import torch
 
     sites = [name for name, _ in col.slabs]
     slabs = [s for _, s in col.slabs]
+    counts = {s: col.meta[s][0] * max(1, int(nreal)) for s in col.meta}
+    block = (sites, counts, {s: col.meta[s][1:] for s in col.meta})
     if len({(s.shape, s.dtype) for s in slabs}) == 1:
         # the views stacked: one copy of each, the only copy of the slabs
-        dev = _row_stats(torch.stack(slabs).reshape(len(slabs), -1))
+        rows = torch.stack(slabs).reshape(len(slabs), -1)
     elif len({(s.numel(), s.dtype) for s in slabs}) == 1:
-        dev = _row_stats(torch.stack([s.reshape(-1) for s in slabs]))
+        rows = torch.stack([s.reshape(-1) for s in slabs])
     else:
-        dev = torch.cat([_row_stats(s.reshape(1, -1)) for s in slabs])
+        _flush_group()  # keep the queue in block order
+        _queue([block], torch.cat([_row_stats(s.reshape(1, -1)) for s in slabs]))
+        return
+    cuda = rows.device.type == "cuda"
+    stream = torch.cuda.current_stream(rows.device) if cuda else None
+    key = (rows.device, stream.cuda_stream if cuda else None, rows.shape[1], rows.dtype)
+    with _LOCK:
+        group = _take_group() if _GROUP and _GROUP[0][0] != key else None
+    if group:
+        _reduce_group(group)
+    with _LOCK:
+        _GROUP.append((key, stream, block, rows))
+        full = (len(_GROUP) >= (_GROUP_BLOCKS if cuda else _GROUP_BLOCKS_HOST)
+                or sum(g[3].numel() * g[3].element_size() for g in _GROUP) >= _GROUP_BYTES)
+        group = _take_group() if full else None
+    if group:
+        _reduce_group(group)
+
+
+def _take_group() -> list:
+    """The staged blocks, taken out of the group (call under ``_LOCK``)."""
+    group = list(_GROUP)
+    _GROUP.clear()
+    return group
+
+
+def _reduce_group(group: list) -> None:
+    """Reduce a group of staged blocks on the stream that made them and
+    queue their stats behind one event."""
+    import torch
+
+    _key, stream, _block, rows = group[0]
+    with torch.cuda.stream(stream) if stream is not None else contextlib.nullcontext():
+        rows = rows if len(group) == 1 else torch.cat([g[3] for g in group])
+        _queue([g[2] for g in group], _row_stats(rows))
+
+
+def _flush_group() -> None:
+    """Reduce the blocks still staged, without waiting for them."""
+    with _LOCK:
+        group = _take_group()
+    if group:
+        _reduce_group(group)
+
+
+def _queue(blocks: list, dev) -> None:
+    """Queue the stats ``dev`` (one row a site of each of ``blocks``, in
+    order) for the drain: on the card copied into pinned host memory on
+    the current stream behind a CUDA event, on the host as they are."""
+    import torch
+
     ev = None
     if dev.device.type == "cuda":
         with _LOCK:
@@ -364,10 +436,8 @@ def stash_step_stats(col: Collector, nreal: int) -> None:
         ev.record(torch.cuda.current_stream(dev.device))
     else:
         host = dev
-    counts = {s: col.meta[s][0] * max(1, int(nreal)) for s in col.meta}
-    item = (sites, host, ev, counts, {s: col.meta[s][1:] for s in col.meta})
     with _LOCK:
-        _PENDING.append(item)
+        _PENDING.append((blocks, host, ev))
         overflow = len(_PENDING) - _PENDING_MAX
         oldest = _PENDING[:overflow] if overflow > 0 else []
         if overflow > 0:
@@ -377,29 +447,31 @@ def stash_step_stats(col: Collector, nreal: int) -> None:
 
 
 def _fold_pending(item) -> None:
-    """Record one queued block: a site probed twice in it is merged into
-    one call (the counts summed, the extremes kept), as the reference
-    merges it in the graph."""
-    sites, host, ev, counts, meta = item
+    """Record one queued item, block by block: a site probed twice in a
+    block is merged into one call (the counts summed, the extremes kept),
+    as the reference merges it in the graph."""
+    blocks, host, ev = item
     if ev is not None and not ev.query():
         ev.synchronize()
-    merged: Dict[str, list] = {}
-    for site, (nf, amax, amin) in zip(sites, host.tolist()):
-        m = merged.get(site)
-        if m is None:
-            merged[site] = [nf, amax, amin]
-        else:
-            m[0] += nf
-            m[1] = max(m[1], amax)
-            m[2] = min(m[2], amin)
+    rows = iter(host.tolist())
     if ev is not None:
         with _LOCK:
             free = _PINNED.setdefault((tuple(host.shape), host.dtype), [])
             if len(free) < _PENDING_MAX:
                 free.append(host)
-    for site, (nf, amax, amin) in merged.items():
-        max_log2, dtype = meta[site]
-        _record(site, counts[site], max_log2, dtype, int(nf), amax, amin)
+    for sites, counts, meta in blocks:
+        merged: Dict[str, list] = {}
+        for site, (nf, amax, amin) in zip(sites, rows):
+            m = merged.get(site)
+            if m is None:
+                merged[site] = [nf, amax, amin]
+            else:
+                m[0] += nf
+                m[1] = max(m[1], amax)
+                m[2] = min(m[2], amin)
+        for site, (nf, amax, amin) in merged.items():
+            max_log2, dtype = meta[site]
+            _record(site, counts[site], max_log2, dtype, int(nf), amax, amin)
 
 
 def _drain_pending(only_ready: bool = False) -> None:
@@ -418,10 +490,11 @@ def _drain_pending(only_ready: bool = False) -> None:
 
 
 def flush() -> None:
-    """Fold every queued collector block, waiting for those still in
-    flight (the end of a sweep; tests)."""
+    """Reduce the staged blocks and fold every queued collector block,
+    waiting for those still in flight (the end of a sweep; tests)."""
     if not _ARMED:
         return
+    _flush_group()
     _drain_pending()
 
 
@@ -486,12 +559,17 @@ def scan_block(site: str, block) -> int:
     arr = np.asarray(block)
     if not np.issubdtype(arr.dtype, np.floating):
         return 0
-    finite = np.isfinite(arr)
-    nf = int(arr.size - np.count_nonzero(finite))
     ax = np.abs(arr)
+    amax = float(np.max(ax, initial=0.0))
     # masked reductions: no boolean-indexed copy of a full cube
-    amax = float(np.max(ax, where=finite, initial=0.0))
-    amin = float(np.min(ax, where=finite & (ax > 0), initial=np.inf))
+    if math.isfinite(amax):  # no NaN and no inf: nothing to mask but zeros
+        nf = 0
+        amin = float(np.min(ax, where=ax > 0, initial=np.inf))
+    else:
+        finite = np.isfinite(arr)
+        nf = int(arr.size - np.count_nonzero(finite))
+        amax = float(np.max(ax, where=finite, initial=0.0))
+        amin = float(np.min(ax, where=finite & (ax > 0), initial=np.inf))
     _record(site, int(arr.size), float(math.log2(float(np.finfo(arr.dtype).max))),
             str(arr.dtype), nf, amax, amin)
     return nf
@@ -595,7 +673,9 @@ def on_drain(chunk_index: int, block=None, *, batch=None, recipe=None, seed=None
 # ------------------------------------------------------------ persistence
 
 def snapshot() -> dict:
-    """The ledger as a JSON-ready document (the ``numerics.json`` shape)."""
+    """The ledger as a JSON-ready document (the ``numerics.json`` shape):
+    the staged blocks are reduced, and what has completed is folded."""
+    _flush_group()
     _drain_pending(only_ready=True)
     with _LOCK:
         sites = {}

@@ -135,6 +135,11 @@ class PinnedReadback:
         buffer on the copy stream, after the compute stream's event, and
         wait for the copy alone. Returns a numpy view of the buffer, valid
         until :meth:`release`."""
+        return self.wait(self.issue(pending))
+
+    def issue(self, pending):
+        """The first half of :meth:`fetch`: the copy, issued and not waited
+        for (a sharded chunk issues every shard's copy first)."""
         out, event = pending
         nbytes = out.numel() * out.element_size()
         buf = self._buffer(nbytes)
@@ -146,6 +151,11 @@ class PinnedReadback:
             host.copy_(out, non_blocking=True)
             end.record(self.copy_stream)
         out.record_stream(self.copy_stream)
+        return host, buf, start, end
+
+    def wait(self, issued) -> np.ndarray:
+        """The second half of :meth:`fetch`: wait for the copy alone."""
+        host, buf, start, end = issued
         end.synchronize()
         self.d2h_ms.append(start.elapsed_time(end))
         arr = host.numpy()

@@ -42,7 +42,7 @@ tile, i.e. how far the host build (not the card) holds the stream back.
 The fault site ``cw_stream_stage`` (``faults/inject.py``) fires inside each
 staging attempt, so an injected transient fault on a tile is absorbed by
 the in-place retry. Not ported here: ``prefetch_to_mesh`` (ROADMAP.md
-item A.17).
+item A.17b).
 """
 from __future__ import annotations
 

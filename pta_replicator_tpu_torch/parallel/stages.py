@@ -59,8 +59,10 @@ the caller consumes the results in order).
 a chaos schedule's fault is attributed to the stage it perturbs
 (``faults/inject.py``; one ``None`` check while disarmed).
 
-Not ported here: the per-device ``replicas`` fan-out stage and
-``fan_out`` (A.17, multi-device).
+:func:`fan_out` runs an in-stage parallel part (the sharded-archive
+writer's per-shard writes) on a bounded worker set with the same thread
+boundary guarantees. Not ported here: the per-device ``replicas`` fan-out
+stage (ROADMAP A.17b).
 """
 from __future__ import annotations
 
@@ -656,3 +658,77 @@ class StageGraph:
         stats["occupancy"] = occupancy.overlap_stats(busy, wall_s)
         self.stats = stats
         return stats
+
+
+def fan_out(tasks: Sequence[Callable[[], Any]], *, workers: Optional[int] = None,
+            name: str = "fan-out", busy_gauge: Optional[str] = None) -> list:
+    """Run ``tasks`` (zero-argument callables) on at most ``workers``
+    threads (default: one a task) and return their results in task order.
+
+    The in-stage fan-out primitive: a stage whose one operation is itself
+    parallel (the sharded-archive writer's per-shard writes,
+    ``utils/sweep.py::write_shard_archive``, which stay inside the
+    ``io_write`` stage so that the atomic-write and fault-site contract
+    holds per archive) runs its parallel part here. Each worker takes the
+    caller's span ancestry and live trace context (``TRACER.inherit``,
+    ``carry``/``adopt``), so its spans nest under the enclosing stage span
+    and keep the item's trace id. The first task exception re-raises on
+    the caller only after every worker is quiet (a failed shard never
+    races its peers' writes). ``busy_gauge`` mirrors the count of busy
+    workers. With one task or ``workers=1`` everything runs on the
+    caller's thread: the same results, exceptions and gauge movements."""
+    tasks = list(tasks)
+    if not tasks:
+        return []
+    n = max(1, min(len(tasks), workers) if workers is not None else len(tasks))
+    lock = threading.Lock()
+    busy = [0]
+
+    def track(delta: int) -> None:
+        if busy_gauge:
+            with lock:
+                busy[0] += delta
+                gauge(busy_gauge).set(busy[0])
+
+    if n == 1:
+        results = []
+        for task in tasks:
+            track(+1)
+            try:
+                results.append(task())
+            finally:
+                track(-1)
+        return results
+
+    results: list = [None] * len(tasks)
+    errors: list = []  # the first entry is the one re-raised
+    next_idx = [0]
+    stack = TRACER.current_stack()
+    ctx = carry()
+
+    def worker() -> None:
+        with TRACER.inherit(stack), adopt(ctx):
+            while True:
+                with lock:
+                    if errors or next_idx[0] >= len(tasks):
+                        return
+                    j = next_idx[0]
+                    next_idx[0] += 1
+                track(+1)
+                try:
+                    results[j] = tasks[j]()
+                except BaseException as exc:  # noqa: BLE001 — re-raised on the caller
+                    with lock:
+                        errors.append(exc)
+                    return
+                finally:
+                    track(-1)
+
+    pool = [threading.Thread(target=worker, name=f"{name}-{w}", daemon=True) for w in range(n)]
+    for t in pool:
+        t.start()
+    for t in pool:
+        t.join()
+    if errors:
+        raise errors[0]
+    return results

@@ -15,9 +15,11 @@ On-disk format, byte for byte the reference's: one ``.npy`` per
 completed chunk plus a ``.meta.json`` sidecar with the sweep's
 fingerprint and the count of completed chunks; at the end the chunks
 consolidate into the single ``checkpoint_path`` npz (members ``chunk0``,
-``chunk1``, ...) and the chunk files are removed. The loaders also read a
-reference sweep's sharded per-chunk archives (``.chunkNNNNNN.npz``), so a
-checkpoint of either package loads through either package's loaders.
+``chunk1``, ...) and the chunk files are removed. A mesh sweep writes each
+chunk as a sharded archive (``.chunkNNNNNN.npz``: a member per shard and
+a manifest, :func:`write_shard_archive`, the reference's bytes), so a
+checkpoint of either package, from any mesh shape, loads through either
+package's loaders and resumes under any other shape.
 
 The sidecar records this package's stream id (:func:`stream_id`): the
 package, the generator's device type and torch's major.minor version
@@ -64,8 +66,12 @@ on_drain``: the queued probe stats, the host non-finite scan, the sampled
 drift replay) on the one reader thread, in chunk order, before a block
 reaches ``io_write``; the sweep's end folds the probe stats still queued.
 
-Not ported here: the multi-device ``mesh`` and the sharded-archive writer
-(ROADMAP.md item A.17).
+On a mesh (``parallel/mesh.py``) the sweep adds a ``multichip_sweep``
+phase span, the engine's ``sharded_realize`` span per chunk, the
+``sweep.shards_inflight`` gauge of the per-shard readback and the archive
+writers' ``shard_write`` spans, ``sweep.shard_writers_busy`` gauge and
+``sweep.shard_fsyncs`` counter. Not ported here: the fused graph on a
+multi-device mesh (ROADMAP A.17b).
 """
 from __future__ import annotations
 
@@ -75,9 +81,11 @@ import hashlib
 import io
 import json
 import os
+import struct
 import tempfile
 import time
 import zipfile
+import zlib
 from typing import Callable, Optional
 
 import numpy as np
@@ -88,7 +96,11 @@ from ..faults import inject as faults
 
 
 def _default_reduce(res, batch):
-    return torch.sqrt(torch.sum(res**2 * batch.mask, dim=-1) / torch.sum(batch.mask, dim=-1))
+    """Each realization's per-pulsar RMS over valid TOAs (``row_sums``: a
+    mesh shard's are the whole chunk's, bit for bit)."""
+    from ..models.batched import row_sums
+
+    return torch.sqrt(row_sums(res**2, batch.mask) / row_sums(batch.mask))[..., 0]
 
 
 def stream_id(device) -> str:
@@ -183,8 +195,8 @@ def _chunk_path(checkpoint_path: str, i: int) -> str:
 
 
 def _shard_chunk_path(checkpoint_path: str, i: int) -> str:
-    """A reference mesh sweep's per-chunk sharded archive (same index
-    space as :func:`_chunk_path`)."""
+    """A mesh sweep's per-chunk sharded archive (same index space as
+    :func:`_chunk_path`)."""
     return f"{checkpoint_path}.chunk{i:06d}.npz"
 
 
@@ -276,17 +288,183 @@ def _consolidate(checkpoint_path: str, blocks, durable: bool) -> None:
     _durable_replace(tmp, checkpoint_path, durable)
 
 
-#: a sharded archive's layout member, written last by the reference
+# ------------------------------------------------- sharded chunk blocks
+
+#: a sharded archive's layout member, written last: the completeness
+#: marker (a torn archive has no manifest, and the loader refuses it)
 _SHARD_MANIFEST_MEMBER = "manifest"
 
 
+class ShardedBlock:
+    """One sweep chunk as per-shard host pieces (the mesh sweep's readback
+    unit, ``parallel/mesh.py::fetch_shard_blocks``).
+
+    ``shards`` is ``[(index, array), ...]``, ``index`` a tuple of ``(start,
+    stop)`` per dimension of the whole ``shape``: independent of any mesh,
+    so a checkpoint written at one mesh shape reassembles under any other
+    or none. Plain numpy: the writer thread and the loaders need no
+    device."""
+
+    __slots__ = ("shape", "dtype", "shards")
+
+    def __init__(self, shape, dtype, shards):
+        self.shape = tuple(int(n) for n in shape)
+        self.dtype = np.dtype(dtype)
+        self.shards = list(shards)
+
+    @property
+    def nbytes(self) -> int:
+        return sum(arr.nbytes for _, arr in self.shards)
+
+    def assemble(self) -> np.ndarray:
+        """The whole block, each shard written at its index. Refuses a
+        partial cover (a process of a multi-process mesh holds only its own
+        shards), which would leave rows uninitialized."""
+        volume = sum(arr.size for _, arr in self.shards)
+        expected = int(np.prod(self.shape)) if self.shape else 1
+        if volume != expected:
+            raise ValueError(
+                f"sharded block covers {volume} of {expected} elements — a partial shard "
+                "set cannot be assembled"
+            )
+        out = np.empty(self.shape, self.dtype)
+        for index, arr in self.shards:
+            out[tuple(slice(a, b) for a, b in index)] = arr
+        return out
+
+
+#: the parallel archive writer's pool width; the bytes do not depend on it
+_DEFAULT_SHARD_WRITERS = 8
+
+# classic (non-zip64) ZIP records, packed by hand so that the whole layout
+# is known before one byte lands and the shard writers can pwrite at
+# absolute offsets concurrently: ZIP_STORED, flags 0 (sizes and CRC in the
+# local header), the fixed 1980-01-01 DOS time, so the archive's bytes are
+# a function of the block alone. The reference's layout, byte for byte
+_ZIP_LOCAL = struct.Struct("<4s5H3L2H")      # local file header (30 B)
+_ZIP_CENTRAL = struct.Struct("<4s6H3L5H2L")  # central directory entry (46 B)
+_ZIP_EOCD = struct.Struct("<4s4H2LH")        # end of central directory (22 B)
+_ZIP_DOSDATE = (1 << 5) | 1
+_ZIP_LIMIT = 0xFFFFFFFF - 1  # past this the classic headers cannot speak
+
+
+def _zip_local_header(mname: bytes, buf, crc: int) -> bytes:
+    return _ZIP_LOCAL.pack(b"PK\x03\x04", 20, 0, 0, 0, _ZIP_DOSDATE,
+                           crc, len(buf), len(buf), len(mname), 0) + mname
+
+
+def _shard_manifest(block: ShardedBlock) -> dict:
+    return {
+        "shape": list(block.shape),
+        "dtype": block.dtype.str,
+        "shards": [{"member": f"shard{k:06d}", "index": [[int(a), int(b)] for a, b in index]}
+                   for k, (index, _arr) in enumerate(block.shards)],
+    }
+
+
+def write_shard_archive(path: str, block: ShardedBlock, *, durable: bool = False,
+                        writers: Optional[int] = None) -> None:
+    """Serialize ``block`` as an ``np.load``-compatible archive: one
+    ``shard{k}.npy`` member per shard (``np.save``'s bytes) and a JSON
+    ``manifest`` member, written last, with the shape, the dtype and each
+    member's index window, so :func:`load_shard_archive` reassembles it
+    under any mesh shape or none. The reference's format, byte for byte.
+
+    The layout (member order, offsets, sizes, CRCs) is computed first, so
+    the shard writers (``parallel/stages.py::fan_out``, each under a
+    ``shard_write{shard=}`` span, the pool's occupancy on
+    ``sweep.shard_writers_busy``) ``pwrite`` their members at absolute
+    offsets concurrently; with ``durable`` each issues its own
+    ``fdatasync`` (``sweep.shard_fsyncs``). The bytes are the same for
+    every writer count. The manifest, the central directory and the end
+    record land only after every shard writer returned: a torn archive
+    has no directory and is refused. Each writer fires
+    ``checkpoint_write`` (and ``checkpoint_fsync`` when durable) after its
+    member, where a ``torn`` fault truncates the archive mid-shard.
+    Callers wrap this in :func:`atomic_write`. Past the classic ZIP limits
+    the serial zip64 writer takes over (the same members in the same
+    order)."""
+    from ..obs import counter, names, span
+    from ..parallel.stages import fan_out
+
+    if writers is None:
+        writers = _DEFAULT_SHARD_WRITERS
+    manifest = _shard_manifest(block)
+
+    def serialize(arr):
+        def task():
+            buf = bytes(_npy_bytes(np.asarray(arr)))
+            return buf, zlib.crc32(buf)
+        return task
+
+    # the serialization and checksums in parallel (crc32 releases the GIL)
+    payloads = fan_out([serialize(arr) for _index, arr in block.shards], workers=writers,
+                       name="shard-crc")
+    mbuf = bytes(_npy_bytes(np.array(json.dumps(manifest))))
+    members = [(f"shard{k:06d}.npy".encode(), buf, crc) for k, (buf, crc) in enumerate(payloads)]
+    members.append((f"{_SHARD_MANIFEST_MEMBER}.npy".encode(), mbuf, zlib.crc32(mbuf)))
+
+    offsets, pos = [], 0
+    for mname, buf, _crc in members:
+        offsets.append(pos)
+        pos += _ZIP_LOCAL.size + len(mname) + len(buf)
+    cd_offset = pos
+    cd = b"".join(
+        _ZIP_CENTRAL.pack(b"PK\x01\x02", 20 | (3 << 8), 20, 0, 0, 0, _ZIP_DOSDATE,
+                          crc, len(buf), len(buf), len(mname), 0, 0, 0, 0, 0, off) + mname
+        for (mname, buf, crc), off in zip(members, offsets)
+    )
+    end = cd_offset + len(cd) + _ZIP_EOCD.size
+    if (end >= _ZIP_LIMIT or len(members) >= 0xFFFF
+            or any(len(buf) >= _ZIP_LIMIT for _m, buf, _c in members)):
+        _write_shard_archive_zip64(path, block, manifest)
+        return
+
+    fd = os.open(path, os.O_WRONLY | os.O_CREAT | os.O_TRUNC, 0o666)
+    try:
+        def shard_writer(k):
+            mname, buf, crc = members[k]
+
+            def task():
+                with span(names.SPAN_SHARD_WRITE, shard=k, nbytes=len(buf)):
+                    header = _zip_local_header(mname, buf, crc)
+                    os.pwrite(fd, header, offsets[k])
+                    os.pwrite(fd, buf, offsets[k] + len(header))
+                    faults.fire(faults.SITE_CHECKPOINT_WRITE, path=path, shard=k)
+                    if durable:
+                        faults.fire(faults.SITE_CHECKPOINT_FSYNC, path=path, shard=k)
+                        os.fdatasync(fd)
+                        counter(names.SWEEP_SHARD_FSYNCS).inc()
+            return task
+
+        fan_out([shard_writer(k) for k in range(len(members) - 1)], workers=writers,
+                name="shard-write", busy_gauge=names.SWEEP_SHARD_WRITERS_BUSY)
+        # the commit tail, strictly last: manifest, directory, end record
+        mname, buf, crc = members[-1]
+        os.pwrite(fd, _zip_local_header(mname, buf, crc) + buf, offsets[-1])
+        os.pwrite(fd, cd + _ZIP_EOCD.pack(b"PK\x05\x06", 0, 0, len(members), len(members),
+                                          len(cd), cd_offset, 0), cd_offset)
+    finally:
+        os.close(fd)
+
+
+def _write_shard_archive_zip64(path: str, block: ShardedBlock, manifest: dict) -> None:
+    """The serial zip64 writer for archives past the classic ZIP limits (a
+    member or offset past 4 GiB, or 64k shards): the same members in the
+    same order, the manifest last."""
+    with zipfile.ZipFile(path, "w", zipfile.ZIP_STORED, allowZip64=True) as zf:
+        for k, (_index, arr) in enumerate(block.shards):
+            with zf.open(f"shard{k:06d}.npy", "w", force_zip64=True) as fh:
+                fh.write(_npy_bytes(np.asarray(arr)))
+        with zf.open(_SHARD_MANIFEST_MEMBER + ".npy", "w") as fh:
+            fh.write(_npy_bytes(np.array(json.dumps(manifest))))
+
+
 def load_shard_archive(path: str) -> np.ndarray:
-    """Reassemble a reference mesh sweep's sharded chunk archive (a
-    ``shard{k}`` member per device shard and a JSON ``manifest`` member
-    with each shard's index window) into the whole block. Refuses an
-    archive without its manifest (torn) and a partial cover. This package
-    reads sharded archives but does not write them (ROADMAP.md item
-    A.17)."""
+    """Reassemble a sharded chunk archive (this package's or the
+    reference's, :func:`write_shard_archive`) into the whole block under
+    its manifest. Refuses an archive without its manifest (torn) and a
+    partial cover."""
     with np.load(path) as z:
         if _SHARD_MANIFEST_MEMBER not in z.files:
             raise ValueError(
@@ -294,19 +472,10 @@ def load_shard_archive(path: str) -> np.ndarray:
                 "sharded chunk archive"
             )
         manifest = json.loads(str(z[_SHARD_MANIFEST_MEMBER]))
-        shape = tuple(int(n) for n in manifest["shape"])
-        shards = [(rec["index"], z[rec["member"]]) for rec in manifest["shards"]]
-    volume = sum(arr.size for _, arr in shards)
-    expected = int(np.prod(shape)) if shape else 1
-    if volume != expected:
-        raise ValueError(
-            f"sharded block covers {volume} of {expected} elements — a partial shard "
-            "set cannot be assembled"
-        )
-    out = np.empty(shape, np.dtype(manifest["dtype"]))
-    for index, arr in shards:
-        out[tuple(slice(a, b) for a, b in index)] = arr
-    return out
+        block = ShardedBlock(manifest["shape"], manifest["dtype"],
+                             [(tuple((a, b) for a, b in rec["index"]), z[rec["member"]])
+                              for rec in manifest["shards"]])
+    return block.assemble()
 
 
 def _load_chunk(checkpoint_path: str, i: int) -> np.ndarray:
@@ -392,12 +561,14 @@ def iter_checkpoint_chunks(checkpoint_path: str):
 
 def _drain_seam(fetch: Callable, release: Optional[Callable], start: int, **inputs) -> Callable:
     """The reader's fetch with the drain site's data hooks: the ``nan``
-    poison (``faults.poison``: one element of a copy of the block) and the
-    numerics drain hook (``numerics.on_drain``, given the sweep's
-    ``inputs`` for the drift replay). The drain stage runs on one reader
-    thread in chunk order, so a counter gives each block's chunk index.
-    A poisoned copy replaces a readback buffer, which goes back to its
-    ring at once. Disarmed, both hooks are one check each."""
+    poison (``faults.poison``: one element of a copy of the block; of a
+    mesh chunk's first shard) and the numerics drain hook
+    (``numerics.on_drain``, given the sweep's ``inputs`` for the drift
+    replay; a mesh chunk is assembled for it only while the observatory is
+    armed). The drain stage runs on one reader thread in chunk order, so a
+    counter gives each block's chunk index. A poisoned copy replaces a
+    readback buffer, which goes back to its ring at once. Disarmed, both
+    hooks are one check each."""
     from ..obs import numerics
 
     nxt = [int(start)]
@@ -406,6 +577,16 @@ def _drain_seam(fetch: Callable, release: Optional[Callable], start: int, **inpu
         i = nxt[0]
         nxt[0] = i + 1
         block = fetch(out)
+        if isinstance(block, ShardedBlock):
+            index, piece = block.shards[0]
+            poisoned = faults.poison(faults.SITE_DRAIN, piece, chunk=i)
+            if poisoned is not piece:
+                if release is not None:
+                    release(piece)
+                block.shards[0] = (index, poisoned)
+            if numerics.is_armed():
+                numerics.on_drain(i, block.assemble(), **inputs)
+            return block
         poisoned = faults.poison(faults.SITE_DRAIN, block, chunk=i)
         if poisoned is not block and release is not None:
             release(block)
@@ -432,7 +613,8 @@ def sweep(seed: int, batch, recipe, nreal: int, checkpoint_path: str, chunk: int
           drain_timeout_s: Optional[float] = 900.0, durable: bool = False,
           chunk_retries: int = 2, retry_policy=None, provenance: Optional[dict] = None,
           fused_stream: bool = False, noise: Optional[Callable] = None, device="cuda",
-          stats: Optional[dict] = None) -> np.ndarray:
+          stats: Optional[dict] = None, mesh=None,
+          shard_checkpoint: Optional[bool] = None) -> np.ndarray:
     """Run ``nreal`` realizations in resumable chunks of ``chunk``; return
     the stacked reduced results, (nreal, ...), as a numpy array on the
     host.
@@ -441,9 +623,9 @@ def sweep(seed: int, batch, recipe, nreal: int, checkpoint_path: str, chunk: int
     chunk; a finished sweep returns from the consolidated checkpoint;
     different arguments (seed, sizes, ``fit``, stream, batch or recipe
     content, ``reduce_fn``, ``noise``, ``provenance``) raise
-    ``ValueError``. ``device`` and ``pipeline_depth`` are not part of the
-    fingerprint beyond the stream id: a sweep may resume at another
-    depth.
+    ``ValueError``. ``device``, ``pipeline_depth`` and ``mesh`` are not
+    part of the fingerprint beyond the stream id: a sweep may resume at
+    another depth or on another mesh shape, or none.
 
     ``noise`` (a callable ``i -> draws``, the draws of chunk ``i`` as
     ``realize(..., noise=)`` takes them) replaces chunk ``i``'s generator
@@ -467,18 +649,36 @@ def sweep(seed: int, batch, recipe, nreal: int, checkpoint_path: str, chunk: int
     catalog's tile build and staging, with ``cgw_stream_chunk``) while a
     dispatch thread, on the same compute stream, launches earlier chunks,
     so host precompute overlaps the card. Bitwise the same static each
-    chunk, so the same checkpoint bytes.
+    chunk, so the same checkpoint bytes. Not on a multi-device mesh yet
+    (ROADMAP A.17b).
+
+    **A mesh** (``mesh``, ``parallel/mesh.py``; its device type replaces
+    ``device``): each chunk runs through ``sharded_realize`` (the whole
+    chunk's draws from chunk ``i``'s seed on every shard, each shard its
+    window), ``reduce_fn`` runs on each shard's block (on a pulsar-sharded
+    mesh it must keep the pulsar axis second), the reader drains the
+    shards with every copy issued before the first wait
+    (``fetch_shard_blocks``), and with ``shard_checkpoint`` (default: on
+    a multi-device mesh) each chunk lands as a sharded archive
+    (:func:`write_shard_archive`: a member per shard, written by parallel
+    writers, the manifest last) instead of one ``.npy``. The consolidated
+    archive and the result take the assembled blocks, so they are the
+    unsharded sweep's: bytewise for elementwise recipes, to the float order
+    of the windowed products otherwise. The whole run is under a
+    ``multichip_sweep`` span on a multi-device mesh.
 
     ``stats``, when given, receives the pipeline's stats (depth >= 2) and,
-    on the card, ``d2h_ms``: each chunk's readback copy time.
+    on the card, ``d2h_ms``: each chunk's (each shard's) readback copy
+    time.
 
     With ``fit`` and a ``recipe.fit_design`` the design refit's assembly
     (``models.batched.fit_system``: A, its norms, and C^-1 with C0's
-    factor) is built once per sweep and handed to every chunk, at every
-    depth, as the deterministic delays are; its bits are a rebuild's. The
-    sidecar's fingerprint hashes the design's bytes with the recipe's."""
+    factor) is built once per sweep (once per mesh device and pulsar
+    window) and handed to every chunk, at every depth, as the
+    deterministic delays are; its bits are a rebuild's. The sidecar's
+    fingerprint hashes the design's bytes with the recipe's."""
     from ..faults.retry import DEFAULT_POLICY, backoff_delay, is_transient, retry_event
-    from ..obs import counter, names
+    from ..obs import counter, names, span
     from ..obs.trace import adopt, chunk_trace_context
     from ..parallel.pipeline import failed_chunk
 
@@ -487,46 +687,79 @@ def sweep(seed: int, batch, recipe, nreal: int, checkpoint_path: str, chunk: int
             "fused_stream=True needs pipeline_depth >= 2 — at depth 1 there is no "
             "concurrency for the static build to overlap with"
         )
+    phase = contextlib.nullcontext()
+    if mesh is not None and mesh.size > 1:
+        phase = span(names.SPAN_MULTICHIP_SWEEP, mesh=mesh.label, devices=mesh.size)
     policy = retry_policy if retry_policy is not None else DEFAULT_POLICY
     meta_path = checkpoint_path + ".meta.json"
     attempts = 0  # consecutive failures of the current chunk
     last_done = -1
-    while True:
-        try:
-            return _sweep_impl(
-                seed, batch, recipe, nreal, checkpoint_path, chunk=chunk,
-                reduce_fn=reduce_fn, fit=fit, progress=progress,
-                pipeline_depth=pipeline_depth, drain_timeout_s=drain_timeout_s,
-                durable=durable, provenance=provenance, fused_stream=fused_stream,
-                noise=noise, device=device, stats=stats,
-            )
-        except BaseException as exc:  # noqa: BLE001 — classified, then re-raised
-            if chunk_retries <= 0 or not is_transient(exc):
-                raise
-            done = _read_done_marker(meta_path)
-            if done > last_done:
-                attempts = 0  # progress since the last failure: a fresh budget
-                last_done = done
-            attempts += 1
-            if attempts > chunk_retries:
-                raise
-            counter(names.SWEEP_CHUNK_RETRIES).inc()
-            # the stage that failed named its chunk; the sidecar's done
-            # marker (a depth-N failure may out-race the previous chunk's
-            # sidecar write) names it only for failures outside a stage.
-            # The event joins that chunk's trace, between its attempts
-            fail_chunk = failed_chunk(exc)
-            fail_chunk = done if fail_chunk is None else fail_chunk
-            with adopt(chunk_trace_context(checkpoint_path, fail_chunk)):
-                retry_event("sweep", exc, attempt=attempts, done=done, chunk=fail_chunk)
-            time.sleep(backoff_delay(attempts, policy))
+    with phase:
+        while True:
+            try:
+                return _sweep_impl(
+                    seed, batch, recipe, nreal, checkpoint_path, chunk=chunk,
+                    reduce_fn=reduce_fn, fit=fit, progress=progress,
+                    pipeline_depth=pipeline_depth, drain_timeout_s=drain_timeout_s,
+                    durable=durable, provenance=provenance, fused_stream=fused_stream,
+                    noise=noise, device=device, stats=stats, mesh=mesh,
+                    shard_checkpoint=shard_checkpoint,
+                )
+            except BaseException as exc:  # noqa: BLE001 — classified, then re-raised
+                if chunk_retries <= 0 or not is_transient(exc):
+                    raise
+                done = _read_done_marker(meta_path)
+                if done > last_done:
+                    attempts = 0  # progress since the last failure: a fresh budget
+                    last_done = done
+                attempts += 1
+                if attempts > chunk_retries:
+                    raise
+                counter(names.SWEEP_CHUNK_RETRIES).inc()
+                # the stage that failed named its chunk; the sidecar's done
+                # marker (a depth-N failure may out-race the previous chunk's
+                # sidecar write) names it only for failures outside a stage.
+                # The event joins that chunk's trace, between its attempts
+                fail_chunk = failed_chunk(exc)
+                fail_chunk = done if fail_chunk is None else fail_chunk
+                with adopt(chunk_trace_context(checkpoint_path, fail_chunk)):
+                    retry_event("sweep", exc, attempt=attempts, done=done, chunk=fail_chunk)
+                time.sleep(backoff_delay(attempts, policy))
+
+
+def _mesh_device(mesh, device, shard_checkpoint, fused_stream):
+    """The sweep's device on ``mesh`` (its first) and whether chunks land
+    as sharded archives (default: on a multi-device mesh); refuses what a
+    mesh sweep cannot do."""
+    multi = mesh is not None and mesh.size > 1
+    if shard_checkpoint and not multi:
+        raise ValueError("shard_checkpoint=True needs a multi-device mesh — a "
+                         "single-device sweep has exactly one shard per chunk")
+    if mesh is None:
+        return resolve_device(device), False
+    if mesh.process_count > 1:
+        raise ValueError(
+            "a sweep runs in one process: on a multi-process mesh each process holds "
+            "only its own shards, which no checkpoint can assemble; run sharded_realize "
+            "and distributed.local_realizations there"
+        )
+    if torch.device(device).type != mesh.device_type:
+        raise ValueError(f"the sweep's device {device!r} is not the mesh's "
+                         f"({mesh.device_type})")
+    if fused_stream and multi:
+        raise ValueError("fused_stream on a multi-device mesh is not ported yet "
+                         "(ROADMAP A.17b)")
+    sharded = multi if shard_checkpoint is None else bool(shard_checkpoint)
+    return resolve_device(mesh.devices.flat[0]), sharded
 
 
 def _sweep_impl(seed, batch, recipe, nreal: int, checkpoint_path: str, chunk: int,
                 reduce_fn, fit: bool, progress, pipeline_depth: int, drain_timeout_s,
-                durable: bool, provenance, fused_stream: bool, noise, device, stats):
+                durable: bool, provenance, fused_stream: bool, noise, device, stats,
+                mesh=None, shard_checkpoint=None):
     from ..models.batched import deterministic_delays, fit_system, realize
     from ..obs import counter, gauge, names, numerics, span
+    from ..parallel import mesh as pmesh
     from ..parallel.pipeline import (
         PinnedReadback, _mark_chunk, dispatch_on_done, drain_stage, host_copy, io_write_stage,
         pipeline_stats, run_pipelined,
@@ -536,8 +769,9 @@ def _sweep_impl(seed, batch, recipe, nreal: int, checkpoint_path: str, chunk: in
     if nreal % chunk:
         raise ValueError(f"nreal={nreal} must be a multiple of chunk={chunk}")
     nchunks = nreal // chunk
-    device = resolve_device(device)
+    device, shard_checkpoint = _mesh_device(mesh, device, shard_checkpoint, fused_stream)
     batch, recipe = batch.to(device), recipe.to(device)
+    plan = None if mesh is None else pmesh.shard_plan(mesh, chunk, batch.npsr)
 
     meta = {
         "seed": int(seed),
@@ -575,9 +809,17 @@ def _sweep_impl(seed, batch, recipe, nreal: int, checkpoint_path: str, chunk: in
         with np.load(checkpoint_path) as z:
             return np.concatenate([z[f"chunk{i}"] for i in range(nchunks)], axis=0)
 
+    # completed chunks reload under any topology: the .npy, or a sharded
+    # archive reassembled through its manifest
     blocks = [_load_chunk(checkpoint_path, i) for i in range(done)]
 
+    inputs = None
+    if mesh is not None and done < nchunks:
+        inputs = pmesh.shard_batch(batch, mesh, recipe)
+
     def static_delays():
+        if mesh is not None:
+            return pmesh.static_delays(batch, recipe, mesh)
         with span(names.SPAN_STATIC_DELAYS, npsr=batch.npsr):
             return deterministic_delays(batch, recipe, device=device)
 
@@ -587,10 +829,11 @@ def _sweep_impl(seed, batch, recipe, nreal: int, checkpoint_path: str, chunk: in
     if done < nchunks and not fused_stream:
         static = static_delays()
     # so does the design refit's assembly (with C0's factor inside it):
-    # once per sweep, at every depth
+    # once per sweep, at every depth (on a mesh, once per pulsar window)
     system = None
     if done < nchunks and fit and recipe.fit_design is not None:
-        system = fit_system(batch, recipe)
+        system = (fit_system(batch, recipe) if mesh is None
+                  else pmesh.shard_fit_systems(inputs, plan))
 
     # chunk progress, seeded with a resumed sweep's completed chunks
     gauge(names.SWEEP_CHUNKS_TOTAL).set(nchunks)
@@ -610,18 +853,29 @@ def _sweep_impl(seed, batch, recipe, nreal: int, checkpoint_path: str, chunk: in
             yield
 
     def realize_chunk(i: int, static_i):
+        draws = None if noise is None else noise(i)
+        if mesh is not None:
+            res = pmesh.sharded_realize(chunk_seed(seed, i), batch, recipe, chunk, mesh=mesh,
+                                        fit=fit, static=static_i, noise=draws, inputs=inputs,
+                                        systems=system)
+            return res if reduce_fn is None else pmesh.reduce_shards(res, reduce_fn, inputs)
         generator = torch.Generator(device=device).manual_seed(chunk_seed(seed, i))
         res = realize(generator, batch, recipe, chunk, fit=fit, static=static_i,
-                      noise=None if noise is None else noise(i), device=device,
-                      system=system)
+                      noise=draws, device=device, system=system)
         return reduce_fn(res, batch) if reduce_fn is not None else res
 
     def write_chunk(i: int, block) -> None:
         """Chunk file first, sidecar last: a crash between the two only
         recomputes this chunk. In chunk order, on the caller's thread at
-        depth 1 and on the writer thread otherwise."""
-        _atomic_write(lambda p: _write_npy(p, block),
-                      _chunk_path(checkpoint_path, i), ".npy", durable=durable)
+        depth 1 and on the writer thread otherwise. A sharded block lands
+        as a sharded archive (its writers fsync their own members when
+        durable), an array as the ``.npy``."""
+        if isinstance(block, ShardedBlock):
+            _atomic_write(lambda p: write_shard_archive(p, block, durable=durable),
+                          _shard_chunk_path(checkpoint_path, i), ".npz", durable=durable)
+        else:
+            _atomic_write(lambda p: _write_npy(p, block),
+                          _chunk_path(checkpoint_path, i), ".npy", durable=durable)
         payload = json.dumps({**meta, "done": i + 1})
 
         def write_meta(p, payload=payload):
@@ -634,15 +888,30 @@ def _sweep_impl(seed, batch, recipe, nreal: int, checkpoint_path: str, chunk: in
         if progress is not None:
             progress(i + 1, nchunks)
 
+    def write_block(i: int, block, copy: bool) -> None:
+        """Write chunk ``i`` and keep its host block for the archive: a
+        sharded block lands as its archive (or, without
+        ``shard_checkpoint``, assembled as the ``.npy``) and is kept
+        assembled; ``copy`` keeps a copy of a readback buffer, which
+        returns to its ring."""
+        if isinstance(block, ShardedBlock):
+            host = block.assemble()
+            write_chunk(i, block if shard_checkpoint else host)
+        else:
+            write_chunk(i, block)
+            host = np.array(block) if copy else block
+        blocks.append(host)
+
     # what the drain hook's drift replay needs to redraw a chunk's row 0
     drain_inputs = dict(batch=batch, recipe=recipe, seed=seed, nreal=chunk, noise=noise)
+    plain_fetch = pmesh.fetch_shard_blocks if mesh is not None else host_copy
 
     if pipeline_depth <= 1:
         # the synchronous loop: dispatch, read back, write. It is the same
         # stage graph as the pipelined path, run inline on the caller's
         # thread, with the same fault sites and drain hooks: failing
         # chunks are marked for the supervised retry
-        fetch_sync = _drain_seam(host_copy, None, done, **drain_inputs)
+        fetch_sync = _drain_seam(plain_fetch, None, done, **drain_inputs)
 
         def compute_sync(i, _payload, _sp):
             with span(names.SPAN_SWEEP_CHUNK, chunk=i, nreal=chunk):
@@ -653,12 +922,9 @@ def _sweep_impl(seed, batch, recipe, nreal: int, checkpoint_path: str, chunk: in
                     faults.fire(faults.SITE_DRAIN, chunk=i)
                     return fetch_sync(out)
 
-        def write_sync(i, block, _sp):
-            write_chunk(i, block)
-            blocks.append(block)
-
         StageGraph([Stage("sweep_chunk", fn=compute_sync, placement="inline", heartbeat=False),
-                    Stage("io_write", fn=write_sync, span=names.SPAN_IO_WRITE,
+                    Stage("io_write", fn=lambda i, block, _sp: write_block(i, block, False),
+                          span=names.SPAN_IO_WRITE,
                           span_attrs=lambda i, block: {"nbytes": int(block.nbytes)},
                           fault_site=faults.SITE_IO_WRITE, placement="inline",
                           heartbeat=False)],
@@ -667,18 +933,32 @@ def _sweep_impl(seed, batch, recipe, nreal: int, checkpoint_path: str, chunk: in
     elif done < nchunks:
         # the writer thread writes each chunk file and keeps the block; the
         # archive and the result are assembled once, after the last chunk,
-        # as the synchronous loop does
-        readback = (PinnedReadback(device, pipeline_depth + 1)
-                    if device.type == "cuda" else None)
-        mark = readback.mark if readback is not None else (lambda out: out)
-        release = readback.release if readback is not None else None
-        fetch = _drain_seam(readback.fetch if readback is not None else host_copy, release,
-                            done, **drain_inputs)
+        # as the synchronous loop does. On the card each device has a ring
+        # of pinned readback buffers (a slot per shard on it and chunk in
+        # flight), read off the compute stream
+        readbacks = {}
+        if device.type == "cuda":
+            devices = [device] if mesh is None else [s.device for s in plan]
+            for d in dict.fromkeys(devices):
+                readbacks[d] = PinnedReadback(d, (pipeline_depth + 1) * devices.count(d))
+        if mesh is not None:
+            mark = pmesh.mark_shards if readbacks else (lambda out: out)
+            fetch_base = lambda out: pmesh.fetch_shard_blocks(out, readbacks)
+        elif readbacks:
+            mark, fetch_base = readbacks[device].mark, readbacks[device].fetch
+        else:
+            mark, fetch_base = (lambda out: out), host_copy
 
-        def write_and_keep(i: int, block) -> None:
-            write_chunk(i, block)
-            # a copy of a readback buffer, which returns to its ring
-            blocks.append(np.array(block) if readback is not None else block)
+        def release(block) -> None:
+            pieces = ([a for _, a in block.shards] if isinstance(block, ShardedBlock)
+                      else [block])
+            for rb in readbacks.values():
+                for piece in pieces:
+                    rb.release(piece)
+
+        release = release if readbacks else None
+        fetch = _drain_seam(fetch_base, release, done, **drain_inputs)
+        write_and_keep = lambda i, block: write_block(i, block, bool(readbacks))
 
         try:
             with span(names.SPAN_SWEEP_PIPELINE, depth=pipeline_depth, chunks=nchunks - done,
@@ -714,12 +994,12 @@ def _sweep_impl(seed, batch, recipe, nreal: int, checkpoint_path: str, chunk: in
                     )
                 sp.update(run_stats)
         finally:
-            if readback is not None:
-                readback.close()
+            for rb in readbacks.values():
+                rb.close()
         if stats is not None:
             stats.update(run_stats)
-            if readback is not None:
-                stats["d2h_ms"] = list(readback.d2h_ms)
+            if readbacks:
+                stats["d2h_ms"] = [ms for rb in readbacks.values() for ms in rb.d2h_ms]
 
     # the probe stats still queued (the last chunks'), folded before the
     # sweep returns
@@ -728,4 +1008,3 @@ def _sweep_impl(seed, batch, recipe, nreal: int, checkpoint_path: str, chunk: in
     _consolidate(checkpoint_path, blocks, durable)
     _cleanup_chunks(checkpoint_path, nchunks)
     return np.concatenate(blocks, axis=0)
-

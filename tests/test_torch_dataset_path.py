@@ -233,7 +233,8 @@ def test_checkpointed_write_partim_datasets_carry_their_cube_rows(dirs, tmp_path
 
 
 @pytest.mark.parametrize("flag,item", [
-    (["--sharded"], "A.17"), (["--mesh-shape", "2x2"], "A.17"),
+    (["--sharded", "--fused-stream", "--checkpoint", "ck.npz"], "A.17"),
+    (["--mesh-shape", "2x2", "--fused-stream", "--checkpoint", "ck.npz"], "A.17"),
     (["--device-trace"], "requires --telemetry"),
 ])
 def test_flags_of_unported_modules_exit_before_ingest(tmp_path, flag, item):
